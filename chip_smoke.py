@@ -2,14 +2,21 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Builds the port's CUDA kernels from rnnt_inference_tpu_torch/csrc, holds
-each against its plain PyTorch twin on the card at full model width, then
-drives the bucketed Offline int8 pipeline (waveform -> log-mel -> int8
-encoder (kernel A) -> greedy decode (kernel B) -> tokens) through
-OfflineRunner once on the kernels and once on the twins, and compares the
-tokens.  Each phase prints one JSON line; the last line is
-{"ok": true, "device": {...}}.  Any failure raises (exit code != 0); with no
-CUDA device it exits with code 2 before printing any result.
+Builds the port's four CUDA kernels from rnnt_inference_tpu_torch/csrc
+(one nvcc per source, started together), holds each against its plain
+PyTorch twin on the card at full model width, then drives each path with
+the kernel launch counts set to 0 just before it and read just after:
+  - end_to_end: the bucketed Offline int8 pipeline (waveform -> log-mel ->
+    int8 encoder (kernel A) -> greedy decode (kernel B)) through
+    OfflineRunner, once on the kernels and once on the twins;
+  - features_fused: the fused featurizer entry point (kernel D);
+  - cli_bf16 / cli_f32: the CLI, ``main --run_mode bf16|f32 --benchmark
+    --scenario Offline --synthetic N`` (float encoder on kernel C, decode on
+    kernel B), then the same store through run_offline on the twins.
+Token edit rates kernels vs twins are held to 1e-3.  Each phase prints one
+JSON line; the last line is {"ok": true, "device": {...}}.  Any failure
+raises (exit code != 0); with no CUDA device it exits with code 2 before
+printing any result.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import torch
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_INT8_OPS = 1979e12  # dense int8 tensor-core rate
 PEAK_BF16_FLOPS = 989e12  # dense bf16 tensor-core rate
+PEAK_F32_FLOPS = 67e12  # f32 FMA on the CUDA cores (no tensor cores)
 
 
 def emit(obj) -> None:
@@ -83,11 +91,20 @@ def phase_device() -> dict:
     return dev
 
 
+def bound(bytes_moved: float, ops: float, peak_ops: float):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the peak rate of their type."""
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S, ops / peak_ops
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+
+
 def phase_build() -> None:
-    from rnnt_inference_tpu_torch.ops import cuda_build, decode_cuda, lstm_cuda
+    from rnnt_inference_tpu_torch.ops import (
+        cuda_build, decode_cuda, features_cuda, lstm_cuda, lstm_scan_cuda,
+    )
 
     t0 = time.time()
-    names = [lstm_cuda.NAME, decode_cuda.NAME]
+    names = [lstm_cuda.NAME, decode_cuda.NAME, lstm_scan_cuda.NAME, features_cuda.NAME]
     info = cuda_build.build(names)  # one nvcc per source, in parallel
     for name in names:
         cuda_build.load(name)
@@ -147,8 +164,7 @@ def phase_kernel_a(qweights, dev) -> dict:
     KP = w_t.shape[1]
     bytes_moved = (IC + H) * 4 * H + T * N * IC + N * H * (1 + 4) + T * N * H + N * H * (1 + 4)
     ops = 2 * T * N * (IC + H) * 4 * H
-    bound_ms = max(bytes_moved / PEAK_BYTES_PER_S, ops / PEAK_INT8_OPS) * 1e3
-    bound_by = "bytes" if bytes_moved / PEAK_BYTES_PER_S > ops / PEAK_INT8_OPS else "operations"
+    bound_ms, bound_by = bound(bytes_moved, ops, PEAK_INT8_OPS)
     # yardstick: torch._int_mm of cat(x_t, h)·W_cat for all T steps in one
     # call (the layer's int8 GEMM work without its recurrence)
     xh = torch.zeros((T * N, KP), dtype=torch.int8, device=dev)
@@ -167,11 +183,13 @@ def phase_kernel_a(qweights, dev) -> dict:
     }
 
 
-def phase_kernel_b(qweights, params, dev) -> dict:
-    """Kernel B against its twin at full width, N=64 lanes in random states."""
+def phase_kernel_b(weights, params, dev, phase: str) -> dict:
+    """Kernel B against its twin at full width, N=64 lanes in random states,
+    with the weights' type (bf16 from the int8 model, or f32)."""
     from rnnt_inference_tpu_torch.ops import decode_cuda as dc
 
-    dw = dc.decode_weights(qweights)
+    dw = dc.decode_weights(weights)
+    wdt = dw.embed.dtype
     N, T2, L, P, J, V, R = 64, 40, params.pred_num_layers, params.pred_hidden_size, \
         params.joint_hidden_size, params.num_labels, params.max_res_len
     rng = np.random.RandomState(7)
@@ -183,16 +201,20 @@ def phase_kernel_b(qweights, params, dev) -> dict:
         f_lens, eos, np.zeros(N),
     ]).astype(np.int32)
     fproj = torch.from_numpy(rng.randn(T2, N, J).astype(np.float32)).to(dev)
-    hg0 = torch.from_numpy(rng.randn(L, N, P).astype(np.float32) * 0.5).to(dev, torch.bfloat16)
+    hg0 = torch.from_numpy(rng.randn(L, N, P).astype(np.float32) * 0.5).to(dev, wdt)
     cg0 = torch.from_numpy(rng.randn(L, N, P).astype(np.float32) * 0.5).to(dev)
     res0 = torch.full((N, R), -1, dtype=torch.int8, device=dev)
     fresh = lambda: [torch.from_numpy(lanes0).to(dev), hg0.clone(), cg0.clone(), res0.clone()]
     # Kernel and twin both sum in f32, in different orders.  So each step
     # starts both from the twin's state, and the states they reach are held
-    # to: lanes, symbols and tokens equal; hg within 2**-8, one bf16 step
-    # below 1 (|h| < 1); cg within 1e-3 (a layer-0 h that rounds to the
-    # other bf16 neighbour moves the layer-1 gates by up to
-    # 2**-8 * max|W_ih| ~ 2e-4 for each such element).
+    # to: lanes, symbols and tokens equal; with bf16 weights hg within 2**-8,
+    # one bf16 step below 1 (|h| < 1), and cg within 1e-3 (a layer-0 h that
+    # rounds to the other bf16 neighbour moves the layer-1 gates by up to
+    # 2**-8 * max|W_ih| ~ 2e-4 for each such element); with f32 weights,
+    # where nothing is rounded to bf16, hg and cg within 1e-5.
+    hg_tol, cg_tol, tol = (
+        (2 ** -8, 1e-3, "hg <= 2**-8 (one bf16 step below 1), cg <= 1e-3")
+        if wdt == torch.bfloat16 else (1e-5, 1e-5, "hg and cg <= 1e-5"))
     b = fresh()
     steps, lanes_equal, res_equal = 16, True, True
     hg_diff = hg_share = cg_diff = 0.0
@@ -207,35 +229,237 @@ def phase_kernel_b(qweights, params, dev) -> dict:
         hg_share = max(hg_share, float((dh != 0).float().mean()))
         cg_diff = max(cg_diff, float((a[2] - b[2]).abs().max()))
     torch.cuda.synchronize()
-    row = {"N": N, "steps": steps, "lanes_and_symbols_equal": lanes_equal,
+    row = {"N": N, "steps": steps, "weights": str(wdt), "lanes_and_symbols_equal": lanes_equal,
            "tokens_equal": res_equal, "hg_max_abs_diff": hg_diff,
            "hg_share_diff": hg_share, "cg_max_abs_diff": cg_diff,
            "emitted": int((b[0][dc.SYMBOL] != params.BLANK).sum())}
-    if not (lanes_equal and res_equal and hg_diff <= 2 ** -8 and cg_diff <= 1e-3):
+    if not (lanes_equal and res_equal and hg_diff <= hg_tol and cg_diff <= cg_tol):
         raise AssertionError(f"kernel B off: {row}")
     a = fresh()
     ms = cuda_ms(lambda: dc.decode_step_cuda(fproj, *a, dw, params), 200, 5)
     a = fresh()
     plain_ms = cuda_ms(lambda: dc.decode_step_reference(fproj, *a, dw, params), 20, 2)
     row.update(ms_per_step=ms, plain_ms_per_step=plain_ms)
-    emit({"phase": "kernel_b", "tolerance": "per step from the same state: lanes/symbols/tokens "
-          "equal, hg <= 2**-8 (one bf16 step below 1), cg <= 1e-3", **row})
+    emit({"phase": phase, "tolerance": "per step from the same state: lanes/symbols/tokens "
+          f"equal, {tol}", **row})
 
+    wsize = dw.embed.element_size()
     wbytes = sum(t.numel() * t.element_size() for t in (
         dw.embed, dw.w_ih, dw.w_hh, dw.b, dw.w1p, dw.b1, dw.w2, dw.b2))
-    state_bytes = N * (8 * 4 + L * P * (2 + 4) + J * 4)  # lanes, hg, cg, one fproj row
+    state_bytes = N * (8 * 4 + L * P * (wsize + 4) + J * 4)  # lanes, hg, cg, one fproj row
     bytes_moved = wbytes + 2 * state_bytes - N * J * 4 + N  # state in+out, fproj in, token out
     flops = 2 * N * (L * 2 * P * 4 * P + P * J + J * V)
-    t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+    bound_ms, bound_by = bound(
+        bytes_moved, flops, PEAK_BF16_FLOPS if wdt == torch.bfloat16 else PEAK_F32_FLOPS)
     return {
         "name": "decode_step", "route": "cuda",
         "source": "rnnt_inference_tpu_torch/csrc/decode_step.cu",
         "replaces": "rnnt_inference_tpu/ops/decode_pallas.py:112",
-        "shape": f"N={N} P={P} J={J} L={L} bf16 weights, one call = 1 launch",
+        "shape": f"N={N} P={P} J={J} L={L} {wdt} weights, one call = 1 launch",
         "max_abs_err": max(hg_diff, cg_diff),
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
-        "bound_by": "bytes" if t_bytes > t_ops else "operations", "library_ms": None,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None,
     }
+
+
+def phase_kernel_c(weights, dev) -> dict:
+    """Kernel C against its twin at H=1024 (the middle encoder layer's
+    shape, IC=1024), T=48, N in {16, 128}, bf16 and f32 weights; cuDNN's
+    LSTM layer of the same shape and type as the yardstick."""
+    from rnnt_inference_tpu_torch.models.weights import map_tensors
+    from rnnt_inference_tpu_torch.ops import lstm as tl
+    from rnnt_inference_tpu_torch.ops import lstm_scan_cuda
+
+    T = 48
+    g = torch.Generator().manual_seed(321)
+    rows, entries = [], {}
+    for dt in (torch.bfloat16, torch.float32):
+        layer = map_tensors(weights.post_rnn[1], lambda t: t.to(dt))
+        IC, H = layer.w_ih.shape[0], layer.w_hh.shape[0]
+        # y/h: one bf16 step below 1 (an h that rounds to the other bf16
+        # neighbour), c: 1e-3; f32: summation order only, 1e-5
+        tol_h, tol_c = (2 ** -8, 1e-3) if dt == torch.bfloat16 else (1e-5, 1e-5)
+        for N in (16, 128):
+            x = torch.randn((T, N, IC), generator=g).to(dev)
+            h0 = (torch.randn((N, H), generator=g) * 0.5).to(dev)
+            c0 = (torch.randn((N, H), generator=g) * 0.5).to(dev)
+            got = tl.lstm_layer(layer, x, h0, c0)
+            want = tl.lstm_layer(layer, x, h0, c0, impl="reference")
+            torch.cuda.synchronize()
+            row = {"dtype": str(dt), "IC": IC, "H": H, "N": N, "T": T}
+            for name, a, b, tol in zip(("y", "h", "c"), got, want, (tol_h, tol_h, tol_c)):
+                d = (a.float() - b.float()).abs()
+                row[f"{name}_max_abs_diff"] = float(d.max())
+                row[f"{name}_share_diff"] = float((d != 0).float().mean())
+                if not row[f"{name}_max_abs_diff"] <= tol:
+                    raise AssertionError(f"kernel C {name} off: {row}")
+            # the kernel alone (recurrence over T steps) against its twin
+            # on the same xw, and the whole layer (projection + kernel)
+            # against cuDNN's LSTM layer
+            xw = (tl.dot_f32(x.to(dt), layer.w_ih) + layer.b.float()).to(dt)
+            hc, cc = h0.to(dt), c0
+            ms = cuda_ms(lambda: lstm_scan_cuda.lstm_recurrence_cuda(layer, xw, hc, cc), 10)
+            plain_ms = cuda_ms(lambda: tl.lstm_recurrence(xw, layer.w_hh, hc, cc), 3, 1)
+            layer_ms = cuda_ms(lambda: tl.lstm_layer(layer, x, h0, c0), 10)
+            cudnn = torch.nn.LSTM(IC, H).to(dev, dt)
+            cudnn.flatten_parameters()
+            xl, hl, cl = x.to(dt), h0.to(dt)[None], c0.to(dt)[None]
+            with torch.no_grad():
+                library_ms = cuda_ms(lambda: cudnn(xl, (hl, cl)), 10)
+            es = layer.w_hh.element_size()
+            bytes_moved = (T * N * 4 * H * es + H * 4 * H * es + N * H * (es + 4)
+                           + T * N * H * es + N * H * (es + 4))
+            ops = 2 * T * N * H * 4 * H
+            bound_ms, bound_by = bound(
+                bytes_moved, ops, PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_F32_FLOPS)
+            row.update(ms=ms, ms_per_step=ms / T, plain_ms=plain_ms, layer_ms=layer_ms,
+                       library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+            rows.append(row)
+            entries[(dt, N)] = row
+    emit({"phase": "kernel_c", "tolerance": "bf16: y/h <= 2**-8, c <= 1e-3; f32: y/h/c <= 1e-5",
+          "library": "torch.nn.LSTM (cuDNN) layer, same shape and type, TF32 off; compare "
+                     "with layer_ms (projection + kernel C)", "rows": rows})
+    e = entries[(torch.bfloat16, 128)]
+    return {
+        "name": "lstm_recurrence", "route": "cuda",
+        "source": "rnnt_inference_tpu_torch/csrc/lstm_scan.cu",
+        "replaces": "rnnt_inference_tpu/ops/lstm_pallas.py:41",
+        "shape": f"IC={e['IC']} H={e['H']} N=128 T={T} bf16, one call = {T} launches; "
+                 "library_ms is cuDNN's whole layer (compare layer_ms)",
+        "max_abs_err": max(max(r["y_max_abs_diff"], r["h_max_abs_diff"], r["c_max_abs_diff"])
+                           for r in rows),
+        "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+        "bound_by": e["bound_by"], "library_ms": e["library_ms"], "layer_ms": e["layer_ms"],
+        "f32": {k: entries[(torch.float32, 128)][k]
+                for k in ("ms", "plain_ms", "layer_ms", "library_ms", "bound_ms", "bound_by")},
+    }
+
+
+def phase_kernel_d(dev) -> dict:
+    """The fused featurizer path (log_mel_features_fused, kernel D) on 16
+    utterances of up to 15 s, with the launch count set to 0 just before it
+    and read just after; then kernel D against its twin on the same input."""
+    from rnnt_inference_tpu_torch.config import FeaturizerConfig
+    from rnnt_inference_tpu_torch.data.dataset import SampleStore
+    from rnnt_inference_tpu_torch.ops import features as tf
+    from rnnt_inference_tpu_torch.ops import features_cuda
+
+    cfg = FeaturizerConfig()
+    store = SampleStore.synthetic(n=16, seed=11, min_seconds=14.0, max_seconds=15.0)
+    S = 15 * cfg.sample_rate
+    wav = np.zeros((16, S), np.float32)
+    for i, s in enumerate(store.samples):
+        wav[i, : len(s)] = s
+    wav, lens = torch.from_numpy(wav).to(dev), torch.from_numpy(store.lengths).to(dev)
+
+    features_cuda.log_mel_cuda.launches = 0
+    got, got_lens = tf.log_mel_features_fused(wav, lens, cfg)
+    torch.cuda.synchronize()
+    launches = features_cuda.log_mel_cuda.launches
+    if launches == 0:
+        raise AssertionError("log_mel_features_fused never launched kernel D")
+    want, want_lens = tf.log_mel_features_fused(wav, lens, cfg, impl="reference")
+    feat_diff = float((got - want).abs().max())
+    if not (torch.equal(got_lens, want_lens) and feat_diff <= 5e-4):
+        raise AssertionError(f"fused features off: {feat_diff}")
+
+    # the kernel alone, on the padded, preemphasized waveform the entry
+    # point hands it
+    x = tf.pad_both(tf.preemphasis(wav, lens.long(), cfg.preemph), cfg.n_fft // 2,
+                    cfg.pad_mode)[:, tf._frontend_constants(cfg)[3][0]:].contiguous()
+    T = S // cfg.hop_length + 1
+    a, b = tf.fused_mel(x, T, cfg), tf.fused_mel(x, T, cfg, impl="reference")
+    torch.cuda.synchronize()
+    mel_diff = float((a - b).abs().max())
+    if not mel_diff <= 1e-4:
+        raise AssertionError(f"kernel D off: {mel_diff}")
+    ms = cuda_ms(lambda: tf.fused_mel(x, T, cfg), 20)
+    plain_ms = cuda_ms(lambda: tf.fused_mel(x, T, cfg, impl="reference"), 10)
+    entry_ms = cuda_ms(lambda: tf.log_mel_features_fused(wav, lens, cfg), 10)
+    plain_entry_ms = cuda_ms(lambda: tf.log_mel_features(wav, lens, cfg), 10)
+    N, K, M, flen = x.shape[0], 257, cfg.n_mels, 2 * cfg.hop_length
+    bytes_moved = x.numel() * 4 + N * T * M * 4 + (2 * flen * K + K * M) * 4
+    ops = N * T * (2 * 2 * flen * K + 3 * K + 2 * K * M + 2 * M)
+    bound_ms, bound_by = bound(bytes_moved, ops, PEAK_F32_FLOPS)
+    emit({"phase": "kernel_d", "utterances": N, "frames": T, "launches": launches,
+          "tolerance": "normalized features <= 5e-4 (tests/test_features.py's bound), "
+                       "raw log-mel <= 1e-4",
+          "features_max_abs_diff": feat_diff, "log_mel_max_abs_diff": mel_diff, "ms": ms,
+          "plain_ms": plain_ms, "entry_ms": entry_ms, "log_mel_features_ms": plain_entry_ms,
+          "bound_ms": bound_ms, "bound_by": bound_by})
+    return {
+        "name": "log_mel", "route": "cuda",
+        "source": "rnnt_inference_tpu_torch/csrc/mel.cu",
+        "replaces": "rnnt_inference_tpu/ops/features_pallas.py:47",
+        "shape": f"N={N} T={T} frames of 320 samples, 257 bins, {M} mels; one call = 1 launch",
+        "launches": launches, "max_abs_err": mel_diff, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "library_note": "no single PyTorch call computes frames -> windowed DFT -> "
+                        "power -> mel -> log (torch.stft + matmul + log is several calls)",
+    }
+
+
+def phase_cli(mode: str, n: int, dev, card: str) -> dict:
+    """The CLI's float run mode end to end: main --run_mode <mode>
+    --benchmark --scenario Offline --synthetic n (device-resident bucketed
+    Offline; kernel C for the encoder, kernel B for decode), with the launch
+    counts set to 0 just before it and read just after; then the same
+    weights and store through run_offline with an impl="reference" runner,
+    which must launch no kernel, and the token edit rate between the two."""
+    import contextlib
+    import tempfile
+
+    from rnnt_inference_tpu_torch import main as cli
+    from rnnt_inference_tpu_torch.config import FeaturizerConfig, RNNTParams
+    from rnnt_inference_tpu_torch.ops import decode_cuda, lstm_cuda, lstm_scan_cuda
+    from rnnt_inference_tpu_torch.runtime.harness import run_offline
+    from rnnt_inference_tpu_torch.runtime.offline import OfflineRunner
+
+    counters = {"lstm_recurrence": lstm_scan_cuda.lstm_recurrence_cuda,
+                "decode_step": decode_cuda.decode_step_cuda,
+                "quant_lstm_layer": lstm_cuda.quant_lstm_layer_cuda}
+    with tempfile.TemporaryDirectory() as out:
+        argv = ["--run_mode", mode, "--benchmark", "--scenario", "Offline",
+                "--synthetic", str(n), "--output_dir", out]
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.time()
+        with contextlib.redirect_stdout(sys.stderr):  # main prints its summary
+            rk = cli.main(argv)
+        seconds = time.time() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        if launches["lstm_recurrence"] == 0 or launches["decode_step"] == 0:
+            raise AssertionError(f"the {mode} CLI run never launched kernel C or B: {launches}")
+
+        args = cli.parse_args(argv)
+        params, cfg = RNNTParams(), FeaturizerConfig()
+        weights, _ = cli.load_model_weights(args, params, dev)
+        store = cli.load_store(args, None)
+        ref = OfflineRunner(weights, params, cfg, args.batch_size, device=dev, impl="reference")
+        rr = run_offline(weights, store, params, cfg, batch_size=args.batch_size,
+                         runner=ref, device_resident=True, warmup=False, device=dev)
+        if any(c.launches != launches[k] for k, c in counters.items()):
+            raise AssertionError("impl='reference' launched a kernel")
+
+    seq = lambda h: np.frombuffer(h.encode(), np.uint8)  # one character per token
+    n_tok = sum(len(h) for h in rr.hypotheses)
+    edits = [edit_distance(seq(a), seq(b)) for a, b in zip(rk.hypotheses, rr.hypotheses)]
+    edit_rate = sum(edits) / max(n_tok, 1)
+    if n_tok == 0 or edit_rate > 1e-3:
+        raise AssertionError(f"{mode} kernels vs reference token edit rate {edit_rate} "
+                             f"({n_tok} tokens)")
+    ms = lambda r: {k: v * 1e3 for k, v in r.phase_seconds.items()}
+    emit({
+        "phase": f"cli_{mode}", "card": card, "argv": argv[:-2], "utterances": len(store),
+        "audio_seconds": store.audio_seconds, "batch_size": args.batch_size,
+        "batches": rk.extra["batches"], "main_seconds": seconds, "tokens": n_tok,
+        "utterances_differing": [i for i, e in enumerate(edits) if e],
+        "token_edit_rate": edit_rate, "launches": launches,
+        "kernels": {"summary": rk.summary(), "ms": ms(rk)},
+        "reference": {"wall_seconds": rr.wall_seconds,
+                      "audio_seconds_per_second": rr.audio_seconds_per_second, "ms": ms(rr)},
+    })
+    return launches
 
 
 def phase_end_to_end(qweights, params, dev, seed: int, card: str) -> dict:
@@ -328,14 +552,31 @@ def main() -> int:
     emit({"phase": "model", "params": "RNNTParams() defaults", "seed": args.seed,
           "pre_amax": calib.pre_amax.tolist(), "post_amax": calib.post_amax.tolist()})
 
-    entries = [phase_kernel_a(qweights, dev), phase_kernel_b(qweights, params, dev)]
-    launches = phase_end_to_end(qweights, params, dev, args.seed, device["nvidia_smi"])
-    for e in entries:
-        e["launches"] = launches[e["name"]]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
-    emit({"phase": "summary", "card": device["nvidia_smi"], "seconds": time.time() - t_start})
-    emit({"kernels": [{k: e[k] for k in keys} for e in entries]})
+    card = device["nvidia_smi"]
+    a = phase_kernel_a(qweights, dev)
+    b = phase_kernel_b(qweights, params, dev, "kernel_b")
+    b32 = phase_kernel_b(weights, params, dev, "kernel_b_f32")
+    c = phase_kernel_c(weights, dev)
+    d = phase_kernel_d(dev)
+    # each path driven with the launch counts set to 0 just before it
+    paths = {
+        "int8": phase_end_to_end(qweights, params, dev, args.seed, card),
+        "bf16": phase_cli("bf16", 32, dev, card),
+        "f32": phase_cli("f32", 8, dev, card),
+    }
+    # launches: A from the int8 Offline path; B and C from the CLI's default
+    # run mode (bf16), this slice's main path; D from its own entry point
+    a["launches"] = paths["int8"]["quant_lstm_layer"]
+    b["launches"] = paths["bf16"]["decode_step"]
+    c["launches"] = paths["bf16"]["lstm_recurrence"]
+    a["launches_by_path"] = {"int8": a["launches"]}
+    b["launches_by_path"] = {k: v["decode_step"] for k, v in paths.items()}
+    c["launches_by_path"] = {k: paths[k]["lstm_recurrence"] for k in ("bf16", "f32")}
+    d["launches_by_path"] = {"features_fused": d["launches"]}
+    b["f32"] = {k: b32[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+    b["max_abs_err"] = max(b["max_abs_err"], b32["max_abs_err"])
+    emit({"phase": "summary", "card": card, "seconds": time.time() - t_start})
+    emit({"kernels": [a, b, c, d]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

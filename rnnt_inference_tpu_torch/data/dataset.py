@@ -1,8 +1,12 @@
 """Sample store: the RAM-resident utterance set the QSL serves
-(the parts of rnnt_inference_tpu/data/dataset.py the Offline runner needs)."""
+(the parts of rnnt_inference_tpu/data/dataset.py the runners and the CLI
+need).  ``save``/``load`` use the JAX package's npz container, so a store
+written by either package loads in the other."""
 
 from __future__ import annotations
 
+import json
+import os
 from dataclasses import dataclass, field
 from typing import List
 
@@ -43,6 +47,44 @@ class SampleStore:
             return float(sum(s.shape[0] for s in self.samples)) / 16000.0
         # features: frames * splicing * hop / sr = frames * 0.03 s
         return float(sum(s.shape[0] for s in self.samples)) * 0.03
+
+    def save(self, path: str) -> None:
+        """npz: s0..s{n-1} and __meta__ (json: kind, n, transcripts, names)."""
+        meta = {"kind": self.kind, "n": len(self.samples),
+                "transcripts": self.transcripts, "names": self.names}
+        np.savez_compressed(
+            path,
+            __meta__=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8),
+            **{f"s{i}": s for i, s in enumerate(self.samples)},
+        )
+
+    @classmethod
+    def load(cls, path: str) -> "SampleStore":
+        with np.load(path) as z:
+            meta = json.loads(bytes(z["__meta__"]).decode())
+            samples = [z[f"s{i}"] for i in range(meta["n"])]
+        return cls(kind=meta["kind"], samples=samples, transcripts=meta["transcripts"],
+                   names=meta.get("names", []))
+
+    def select(self, indices) -> "SampleStore":
+        """Subset view (copying lists, sharing arrays)."""
+        return SampleStore(
+            kind=self.kind,
+            samples=[self.samples[i] for i in indices],
+            transcripts=[self.transcripts[i] for i in indices] if self.transcripts else [],
+            names=[self.names[i] for i in indices] if self.names else [],
+        )
+
+    def filter_by_list(self, list_path: str) -> "SampleStore":
+        """Keep the utterances whose file name appears in a calibration file
+        list (one relative wav path per line; matched by basename)."""
+        with open(list_path) as f:
+            wanted = {os.path.basename(line.strip()) for line in f if line.strip()}
+        if not self.names:
+            raise ValueError("store has no utterance names to match a file list against")
+        return self.select(
+            [i for i, n in enumerate(self.names) if os.path.basename(n) in wanted]
+        )
 
     @classmethod
     def synthetic(

@@ -1,0 +1,237 @@
+"""CLI entry point: calibrate -> quantize -> benchmark/accuracy
+(counterpart of rnnt_inference_tpu/main.py, same flags and staged flow):
+
+  python -m rnnt_inference_tpu_torch.main --model rnnt_weights.npz --calibration \
+      --calib_file train.npz --calib_out rnnt_calib.npz
+  python -m rnnt_inference_tpu_torch.main --model rnnt_weights.npz --save_quant \
+      --calib_in rnnt_calib.npz --quant_out rnnt_quant.npz
+  python -m rnnt_inference_tpu_torch.main --quant_in rnnt_quant.npz --benchmark \
+      --scenario Offline --sample_file dev-clean.npz --accuracy
+  python -m rnnt_inference_tpu_torch.main --benchmark --scenario Offline --synthetic 64
+
+Weights, calibration, quantized models and sample stores are the JAX
+package's npz files, so either package reads what the other wrote.  Run
+modes: bf16 (the default: every weight cast to bf16), f32, quant (int8
+encoder from --quant_in).  Everything runs on the card unless --device cpu
+is given, where the plain PyTorch twins of the kernels run.  Options whose
+code is not ported yet exit with an error that names the ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+import numpy as np
+import torch
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser("rnnt_inference_tpu_torch")
+    # model artifacts
+    p.add_argument("--model", type=str, default=None,
+                   help="f32 weights .npz (the JAX package's container)")
+    p.add_argument("--calib_in", type=str, default=None)
+    p.add_argument("--calib_out", type=str, default="rnnt_calib.npz")
+    p.add_argument("--quant_in", type=str, default=None)
+    p.add_argument("--quant_out", type=str, default="rnnt_quant.npz")
+    p.add_argument("--run_mode", type=str, default="bf16",
+                   choices=["f32", "bf16", "quant", "fake_quant"])
+    # stages
+    p.add_argument("--calibration", action="store_true")
+    p.add_argument("--save_quant", action="store_true")
+    p.add_argument("--benchmark", action="store_true")
+    p.add_argument("--accuracy", action="store_true")
+    # data
+    p.add_argument("--sample_file", type=str, default=None,
+                   help="SampleStore .npz (waveforms or features)")
+    p.add_argument("--calib_file", type=str, default=None)
+    p.add_argument("--calib_list", type=str, default=None,
+                   help="calibration file list: restricts the calibration stage "
+                        "to the listed utterances")
+    p.add_argument("--manifest", type=str, default=None,
+                   help="manifest JSON for WER scoring")
+    p.add_argument("--synthetic", type=int, default=0,
+                   help="use N synthetic utterances instead of sample_file")
+    # scenario
+    p.add_argument("--scenario", type=str, default="Offline",
+                   choices=["Offline", "Server", "SingleStream"])
+    p.add_argument("--batch_size", type=int, default=128)
+    p.add_argument("--split_len", type=int, default=-1)
+    p.add_argument("--packed", dest="packed", action="store_true", default=None,
+                   help="force the sequence-packed Offline path")
+    p.add_argument("--no_packed", dest="packed", action="store_false",
+                   help="force the bucketed Offline path")
+    p.add_argument("--pack_chunk", type=int, default=16)
+    p.add_argument("--pack_decode_chunk", type=int, default=128)
+    p.add_argument("--server_slots", type=int, default=128)
+    p.add_argument("--response_size", type=int, default=9)
+    p.add_argument("--native_loadgen", action="store_true")
+    p.add_argument("--mlperf_conf", type=str, default=None)
+    p.add_argument("--user_conf", type=str, default=None)
+    p.add_argument("--output_dir", type=str, default="output")
+    p.add_argument("--profiler_dir", type=str, default=None)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
+                   help="cuda runs the CUDA kernels; cpu their plain PyTorch twins")
+    return p.parse_args(argv)
+
+
+def _not_ported(what: str, item: str):
+    raise SystemExit(f"{what} is not yet ported to rnnt_inference_tpu_torch (ROADMAP queue {item})")
+
+
+def _refuse_unported(args) -> None:
+    if args.run_mode == "fake_quant":
+        _not_ported("--run_mode fake_quant", "1.3")
+    if args.scenario == "Server":
+        _not_ported("the Server scenario", "1.2")
+    if args.packed:
+        _not_ported("--packed (the sequence-packed Offline runner)", "1.1")
+    if args.native_loadgen:
+        _not_ported("--native_loadgen", "1.6")
+    if args.profiler_dir:
+        _not_ported("--profiler_dir", "1.7")
+    if args.manifest:
+        _not_ported("--manifest", "1.7")
+    if args.model is not None and not args.model.endswith(".npz"):
+        _not_ported("a .pt checkpoint (the rnnt.pt importer)", "1.4")
+
+
+def load_model_weights(args, params, device):
+    """(weights, kind) from the CLI flags, on ``device``."""
+    from rnnt_inference_tpu_torch.models import checkpoint as ckpt
+    from rnnt_inference_tpu_torch.models.weights import init_weights
+
+    if args.quant_in:
+        return ckpt.load_quant_weights(args.quant_in, params, device), "quant"
+    if args.model is None:
+        w = init_weights(params, torch.Generator().manual_seed(args.seed), device=device)
+    else:
+        w = ckpt.load_weights(args.model, params, device)
+    if args.run_mode == "bf16":
+        w = w.to(dtype=torch.bfloat16)
+    return w, args.run_mode
+
+
+def load_store(args, path):
+    from rnnt_inference_tpu_torch.data.dataset import SampleStore
+
+    if args.synthetic:
+        return SampleStore.synthetic(n=args.synthetic, seed=args.seed)
+    if path is None:
+        raise SystemExit("need --sample_file/--calib_file or --synthetic N")
+    return SampleStore.load(path)
+
+
+def main(argv=None):
+    """Run the stages the flags ask for; returns the scenario's RunReport
+    (None without --benchmark/--accuracy)."""
+    args = parse_args(argv)
+    _refuse_unported(args)
+    from rnnt_inference_tpu_torch.config import FeaturizerConfig, RNNTParams
+
+    params = RNNTParams()
+    cfg = FeaturizerConfig()
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise SystemExit("--device cuda, but no CUDA device is available (use --device cpu)")
+        # true f32 matmuls (the featurizer's contract) and convolutions
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    weights, _ = load_model_weights(args, params, device)
+
+    # -- stage: calibration -------------------------------------------------
+    if args.calibration:
+        from rnnt_inference_tpu_torch.models import checkpoint as ckpt
+        from rnnt_inference_tpu_torch.models.quant import calibrate
+        from rnnt_inference_tpu_torch.ops.features import log_mel_features
+        from rnnt_inference_tpu_torch.runtime.qsl import QuerySampleLibrary
+
+        store = load_store(args, args.calib_file)
+        if args.calib_list:
+            store = store.filter_by_list(args.calib_list)
+            print(f"calibration subset: {len(store)} utterances from {args.calib_list}")
+        qsl = QuerySampleLibrary(store, cfg)
+        order = qsl.sort_desc(np.arange(len(store)))
+        B = min(args.batch_size, 32)
+        batches = []
+        for s in range(0, len(order), B):
+            wav, lens, _ = qsl.assemble_waveforms(order[s : s + B], pad_n=B)
+            batches.append(log_mel_features(
+                torch.from_numpy(wav).to(device), torch.from_numpy(lens).to(device), cfg
+            ))
+        calib = calibrate(weights.to(dtype=torch.float32), batches, params)
+        ckpt.save_calib(args.calib_out, calib)
+        print(f"calibration saved to {args.calib_out}: "
+              f"pre_amax={calib.pre_amax.cpu().numpy()} "
+              f"post_amax={calib.post_amax.cpu().numpy()}")
+
+    # -- stage: quantize + save ---------------------------------------------
+    if args.save_quant:
+        from rnnt_inference_tpu_torch.models import checkpoint as ckpt
+        from rnnt_inference_tpu_torch.models.quant import quantize_weights
+
+        calib = ckpt.load_calib(args.calib_in or args.calib_out, device)
+        qw = quantize_weights(weights.to(dtype=torch.float32), calib, params)
+        ckpt.save_quant_weights(args.quant_out, qw)
+        print(f"quantized model saved to {args.quant_out}")
+
+    # -- stage: benchmark / accuracy ----------------------------------------
+    if args.benchmark or args.accuracy:
+        store = load_store(args, args.sample_file)
+        return _run_scenario(args, weights, store, params, cfg, device)
+    return None
+
+
+def _write_summary(args, summary):
+    print(json.dumps(summary, indent=2))
+    os.makedirs(args.output_dir, exist_ok=True)
+    with open(os.path.join(args.output_dir, "summary.json"), "w") as f:
+        json.dump(summary, f, indent=2)
+
+
+def _run_scenario(args, weights, store, params, cfg, device):
+    from rnnt_inference_tpu_torch.runtime.config import TestSettings, validate_report
+
+    settings = TestSettings.from_conf(args.mlperf_conf, args.user_conf, "rnnt", args.scenario)
+    # performance runs under an MLPerf conf load exactly
+    # performance_sample_count samples; accuracy runs cover the whole set
+    if (
+        not args.accuracy
+        and (args.mlperf_conf or args.user_conf)
+        and len(store) > settings.performance_sample_count
+    ):
+        store = store.select(np.arange(settings.performance_sample_count))
+
+    if args.scenario == "Offline":
+        from rnnt_inference_tpu_torch.runtime.harness import run_offline
+
+        # the JAX CLI's auto rule picks the packed path only at symbol cap 1
+        if args.packed is None and store.kind == "waveform" and params.max_symbols_per_step == 1:
+            _not_ported("the sequence-packed Offline runner", "1.1")
+        report = run_offline(
+            weights, store, params, cfg,
+            batch_size=args.batch_size,
+            split_len=args.split_len,
+            accuracy=args.accuracy,
+            output_dir=args.output_dir,
+            device_resident=not args.accuracy,
+            device=device,
+        )
+        print(json.dumps(report.summary(), indent=2))
+    else:  # SingleStream
+        from rnnt_inference_tpu_torch.runtime.harness import run_single_stream
+
+        report = run_single_stream(
+            weights, store, params, cfg, split_len=args.split_len, device=device
+        )
+        _write_summary(args, validate_report(settings, report.summary()))
+    return report
+
+
+if __name__ == "__main__":
+    main()

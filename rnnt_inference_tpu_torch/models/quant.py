@@ -15,7 +15,7 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -111,9 +111,11 @@ def calibrate_batch(
     x_lens: torch.Tensor,
     calib: CalibState,
     params: RNNTParams = RNNTParams(),
+    impl: Optional[str] = None,
 ) -> CalibState:
     """One calibration step: float encoder forward over whole utterances with
-    zero initial state, recording the activation amax of every layer."""
+    zero initial state, recording the activation amax of every layer
+    (kernel C on CUDA tensors; impl="reference" takes its plain twin)."""
     N = x.shape[1]
     H = params.trans_hidden_size
     dev = x.device
@@ -124,7 +126,7 @@ def calibrate_batch(
     y = x
     for l, layer in enumerate(weights.pre_rnn):
         h0 = torch.zeros((N, H), device=dev)
-        ys, _, _ = lstm_layer(layer, y, h0, torch.zeros((N, H), device=dev))
+        ys, _, _ = lstm_layer(layer, y, h0, torch.zeros((N, H), device=dev), impl)
         pre_amax[l] = torch.maximum(calib.pre_amax[l], _layer_amax(y, x_lens, h0, ys))
         y = ys
 
@@ -132,7 +134,7 @@ def calibrate_batch(
     y_lens = -(-x_lens // params.stack_time_factor)
     for l, layer in enumerate(weights.post_rnn):
         h0 = torch.zeros((N, H), device=dev)
-        ys, _, _ = lstm_layer(layer, y, h0, torch.zeros((N, H), device=dev))
+        ys, _, _ = lstm_layer(layer, y, h0, torch.zeros((N, H), device=dev), impl)
         post_amax[l] = torch.maximum(calib.post_amax[l], _layer_amax(y, y_lens, h0, ys))
         y = ys
     return CalibState(pre_amax=torch.stack(pre_amax), post_amax=torch.stack(post_amax))
@@ -142,6 +144,7 @@ def calibrate(
     weights: RNNTWeights,
     batches: Sequence[Tuple[torch.Tensor, torch.Tensor]],
     params: RNNTParams = RNNTParams(),
+    impl: Optional[str] = None,
 ) -> CalibState:
     """Run the whole calibration set: a list of (x {T,N,C}, x_lens {N})."""
     device = weights.embed.device
@@ -150,7 +153,7 @@ def calibrate(
         for x, x_lens in batches:
             calib = calibrate_batch(
                 weights, torch.as_tensor(x, device=device).float(),
-                torch.as_tensor(x_lens, device=device), calib, params,
+                torch.as_tensor(x_lens, device=device), calib, params, impl,
             )
     return calib
 

@@ -49,8 +49,8 @@ def transcription(
 
     x: {T, N, 240}, x_lens: {N} valid frames within this chunk.  Returns
     f {ceil(T/2), N, 1024} and the carried state.  QuantRNNTWeights run the
-    int8 path (kernel A on CUDA tensors; impl="reference" takes its plain
-    twin); float weights run the float scan.
+    int8 path (kernel A on CUDA tensors), float weights the float path
+    (kernel C on CUDA tensors); impl="reference" takes the plain twins.
     """
     if isinstance(weights, QuantRNNTWeights):
         y, pre_h, pre_c = quant_lstm_stack(
@@ -61,9 +61,9 @@ def transcription(
             weights.post_rnn, y, state.post_h, state.post_c, skip_quant_y=True, impl=impl
         )
     else:
-        y, pre_h, pre_c = lstm_stack(weights.pre_rnn, x, state.pre_h, state.pre_c)
+        y, pre_h, pre_c = lstm_stack(weights.pre_rnn, x, state.pre_h, state.pre_c, impl)
         y = stack_time(y, x_lens, params.stack_time_factor)
-        f, post_h, post_c = lstm_stack(weights.post_rnn, y, state.post_h, state.post_c)
+        f, post_h, post_c = lstm_stack(weights.post_rnn, y, state.post_h, state.post_c, impl)
     return f, EncoderState(pre_h=pre_h, pre_c=pre_c, post_h=post_h, post_c=post_c)
 
 

@@ -218,13 +218,22 @@ def numpy_leaves(weights) -> List[np.ndarray]:
     return out
 
 
-def load_jax_npz(path: str, params: RNNTParams = RNNTParams(), device="cuda"):
-    """Read a container written by rnnt_inference_tpu's checkpoint.save_pytree
-    (``rnnt_weights`` or ``rnnt_quant_weights``) without JAX."""
+def read_npz(path: str):
+    """(meta, leaves) of a container in the format of rnnt_inference_tpu's
+    checkpoint.save_pytree: keys a0..a{n-1} in ``jax.tree.flatten`` order and
+    __meta__ (json: kind, n, dtypes).  bf16 leaves come back as uint16 bit
+    patterns."""
     with np.load(path) as z:
         meta = json.loads(bytes(z["__meta__"]).decode())
         leaves = [z[f"a{i}"] for i in range(meta["n"])]
     for i, dt in enumerate(meta["dtypes"]):
         if dt == "bfloat16":
             leaves[i] = leaves[i].view(np.uint16)
+    return meta, leaves
+
+
+def load_jax_npz(path: str, params: RNNTParams = RNNTParams(), device="cuda"):
+    """Read a container written by rnnt_inference_tpu's checkpoint.save_pytree
+    (``rnnt_weights`` or ``rnnt_quant_weights``) without JAX."""
+    meta, leaves = read_npz(path)
     return weights_from_numpy_leaves(leaves, meta["kind"], params, device)

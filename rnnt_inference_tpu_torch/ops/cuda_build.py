@@ -17,8 +17,9 @@ import os
 import shutil
 import subprocess
 import time
+import weakref
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Callable, Dict, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -94,3 +95,44 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.rnnt_cuda_error_string(err).decode()
         raise RuntimeError(f"{what} failed: CUDA error {err}: {msg}")
+
+
+def require(t, name: str, dtype, shape) -> None:
+    """Raise unless t is a contiguous CUDA tensor of this dtype and shape."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor")
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: want contiguous {dtype} {tuple(shape)}, "
+            f"got {t.dtype} {tuple(t.shape)}"
+        )
+
+
+# (name, id(owner)) ->(weakref to the owner, stamp of its tensors, operands)
+_OPERANDS: Dict[tuple, tuple] = {}
+
+
+def _stamp(tensors: Sequence) -> tuple:
+    """Which tensors these are and how often each was changed in place
+    (inference-mode tensors keep no such count)."""
+    return tuple((weakref.ref(t), None if t.is_inference() else t._version) for t in tensors)
+
+
+def cached_operands(owner, name: str, tensors: Sequence, build: Callable[[], object]):
+    """``build()``, the kernel-layout operands made from ``owner``'s
+    ``tensors``: made on the first call and kept until ``owner`` is freed;
+    made again if one of the tensors is replaced or changed in place."""
+    key, stamp = (name, id(owner)), _stamp(tensors)
+    hit = _OPERANDS.get(key)
+    if hit is not None and hit[0]() is owner and all(
+        ra() is rb() and va == vb for (ra, va), (rb, vb) in zip(hit[1], stamp)
+    ):
+        return hit[2]
+    operands = build()
+
+    def forget(ref, k=key):
+        if _OPERANDS.get(k, (None,))[0] is ref:
+            del _OPERANDS[k]
+
+    _OPERANDS[key] = (weakref.ref(owner, forget), stamp, operands)
+    return operands

@@ -13,19 +13,26 @@ The DFT and mel products are true f32 matmuls, as in the JAX package, which
 computes them outside any kernel.  TF32 would break the f32 contract (the
 drift gate of tests/test_features.py), so a CUDA call with
 ``torch.backends.cuda.matmul.allow_tf32`` set raises.
+
+``log_mel_features_fused`` (counterpart of
+rnnt_inference_tpu/ops/features_pallas.py log_mel_features_pallas) runs
+steps 2-4 as one kernel (kernel D, ops/features_cuda.py) on CUDA tensors;
+its plain twin ``fused_mel_reference`` is the composition of the functions
+below.  Like the JAX package, no runner calls it.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from rnnt_inference_tpu_torch.config import FeaturizerConfig
+from rnnt_inference_tpu_torch.ops import features_cuda
 
 
 def _hz_to_mel(f: np.ndarray) -> np.ndarray:
@@ -110,6 +117,26 @@ def preemphasis(x: torch.Tensor, x_lens: torch.Tensor, coeff: float = 0.97) -> t
     return y.masked_fill(t >= x_lens[:, None], 0.0)
 
 
+def pad_both(x: torch.Tensor, pad: int, pad_mode: str) -> torch.Tensor:
+    """(N, S) -> (N, S + 2 pad), as jnp.pad(mode="constant" | "reflect").
+
+    "reflect" mirrors about the edge samples and, where pad > S - 1,
+    repeats the reflection (jnp.pad's rule; torch's own reflect padding
+    raises there): sample i of the padded row is x[r(i - pad)], where r
+    folds an index onto [0, S) with period 2 (S - 1)."""
+    if pad_mode == "zeros":
+        return F.pad(x, (pad, pad))
+    if pad_mode != "reflect":
+        raise ValueError(f"unknown pad_mode {pad_mode!r}")
+    S = x.shape[1]
+    i = torch.arange(-pad, S + pad, device=x.device)
+    if S == 1:
+        return x[:, torch.zeros_like(i)]
+    period = 2 * (S - 1)
+    j = torch.remainder(i, period)
+    return x[:, torch.where(j < S, j, period - j)]
+
+
 def frame_signal(
     x: torch.Tensor, n_fft: int, hop: int, pad_mode: str = "zeros",
     support: Tuple[int, int] = None,
@@ -117,21 +144,18 @@ def frame_signal(
     """Pad n_fft//2 on both sides and slice frames: (N, S) -> (N, T, flen)
     with T = S//hop + 1.  support=(start, flen) keeps samples
     [start, start+flen) of each n_fft-sample frame (default: all of it)."""
-    N, S = x.shape
-    pad = n_fft // 2
-    T = S // hop + 1
     start, flen = support if support is not None else (0, n_fft)
-    if pad_mode == "zeros":
-        x = F.pad(x, (pad, pad))
-    elif pad_mode == "reflect":
-        x = F.pad(x[:, None, :], (pad, pad), mode="reflect")[:, 0]
-    else:
-        raise ValueError(f"unknown pad_mode {pad_mode!r}")
-    x = x[:, start:]
-    need = (T - 1) * hop + flen
+    x_padded = pad_both(x, n_fft // 2, pad_mode)[:, start:]
+    return frames_at(x_padded, x.shape[1] // hop + 1, hop, flen)
+
+
+def frames_at(x: torch.Tensor, n_frames: int, hop: int, flen: int) -> torch.Tensor:
+    """(N, S) -> (N, n_frames, flen): frame t is x[:, t*hop : t*hop + flen],
+    zeros past S."""
+    need = (n_frames - 1) * hop + flen
     if x.shape[1] < need:
         x = F.pad(x, (0, need - x.shape[1]))
-    return x.unfold(1, flen, hop)[:, :T]
+    return x.unfold(1, flen, hop)[:, :n_frames]
 
 
 def power_spectrum(frames: torch.Tensor, cos_m: torch.Tensor, sin_m: torch.Tensor) -> torch.Tensor:
@@ -165,6 +189,23 @@ def normalize_per_feature(
     return (x - mean[:, None, :]) / std[:, None, :]
 
 
+def _check_f32_matmuls(x: torch.Tensor) -> None:
+    if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "the featurizer needs true f32 matmuls: "
+            "torch.backends.cuda.matmul.allow_tf32 is set"
+        )
+
+
+@functools.lru_cache(maxsize=8)
+def device_constants(cfg: FeaturizerConfig, device: str):
+    """(cos (flen, K), sin (flen, K), fbT (K, n_mels)) as contiguous f32
+    tensors on ``device``, K = n_fft//2 + 1."""
+    cos_m, sin_m, fb, _ = _frontend_constants(cfg)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return t(cos_m), t(sin_m), t(fb.T)
+
+
 def log_mel_features(
     x: torch.Tensor,
     x_lens: torch.Tensor,
@@ -172,27 +213,82 @@ def log_mel_features(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Waveforms {N, S} f32 -> features {T_out, N, 240} f32 (time-major, as
     the encoder takes them) and lengths {N} int32."""
-    if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError(
-            "log_mel_features needs true f32 matmuls: "
-            "torch.backends.cuda.matmul.allow_tf32 is set"
-        )
+    _check_f32_matmuls(x)
     dev = x.device
-    cos_m, sin_m, fb, support = _frontend_constants(cfg)
+    cos_m, sin_m, fbt = device_constants(cfg, str(dev))
     x_lens = x_lens.to(device=dev, dtype=torch.int64)
 
     x = preemphasis(x.float(), x_lens, cfg.preemph)
-    frames = frame_signal(x, cfg.n_fft, cfg.hop_length, cfg.pad_mode, support=support)
-    spec = power_spectrum(
-        frames, torch.from_numpy(cos_m).to(dev), torch.from_numpy(sin_m).to(dev)
+    frames = frame_signal(
+        x, cfg.n_fft, cfg.hop_length, cfg.pad_mode, support=_frontend_constants(cfg)[3]
     )
-    frame_lens = x_lens // cfg.hop_length + 1
+    spec = power_spectrum(frames, cos_m, sin_m)
     if cfg.dither > 0:
         spec = spec + cfg.dither**2
-    mel = torch.matmul(spec, torch.from_numpy(np.ascontiguousarray(fb.T)).to(dev)) + 1e-20
+    mel = torch.matmul(spec, fbt) + 1e-20
     if cfg.log:
         mel = torch.log(mel)
+    return _finish(mel, x_lens // cfg.hop_length + 1, cfg)
 
+
+def fused_mel_reference(x: torch.Tensor, n_frames: int, cfg: FeaturizerConfig) -> torch.Tensor:
+    """Kernel D's plain twin: x {N, S'} (preemphasized, padded, trimmed to
+    the window support) -> log(|DFT(frame t)|^2 + dither^2) . fb + 1e-20)
+    {N, n_frames, n_mels}, frame t = x[:, t*hop : t*hop + flen]."""
+    cos_m, sin_m, fbt = device_constants(cfg, str(x.device))
+    frames = frames_at(x, n_frames, cfg.hop_length, cos_m.shape[0])
+    spec = power_spectrum(frames, cos_m, sin_m) + float(cfg.dither) ** 2
+    return torch.log(torch.matmul(spec, fbt) + 1e-20)
+
+
+def fused_mel(
+    x: torch.Tensor, n_frames: int, cfg: FeaturizerConfig, impl: Optional[str] = None
+) -> torch.Tensor:
+    """Kernel D's wrapper: the CUDA kernel for CUDA tensors, the plain twin
+    for CPU tensors or when impl="reference"."""
+    if impl not in (None, "reference"):
+        raise ValueError(f"unknown impl {impl!r}")
+    if impl == "reference" or not x.is_cuda:
+        return fused_mel_reference(x, n_frames, cfg)
+    cos_m, sin_m, fbt = device_constants(cfg, str(x.device))
+    return features_cuda.log_mel_cuda(
+        x, n_frames, cos_m, sin_m, fbt, cfg.hop_length, float(cfg.dither) ** 2
+    )
+
+
+def log_mel_features_fused(
+    x: torch.Tensor,
+    x_lens: torch.Tensor,
+    cfg: FeaturizerConfig = FeaturizerConfig(),
+    impl: Optional[str] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """log_mel_features with frames -> DFT -> power -> mel -> log fused into
+    kernel D (counterpart of features_pallas.log_mel_features_pallas).
+    Preemphasis and padding run before the kernel, masking, splicing and
+    normalization after it, as in log_mel_features.  As in the JAX
+    function, the log is always taken.  Needs win_length == 2 * hop."""
+    _, _, _, (start, flen) = _frontend_constants(cfg)
+    if flen != 2 * cfg.hop_length:
+        raise ValueError(
+            f"the fused featurizer needs win_length == 2*hop_length (got {flen}, "
+            f"hop {cfg.hop_length})"
+        )
+    _check_f32_matmuls(x)
+    dev = x.device
+    x_lens = x_lens.to(device=dev, dtype=torch.int64)
+    T = x.shape[1] // cfg.hop_length + 1
+    x = preemphasis(x.float(), x_lens, cfg.preemph)
+    x = pad_both(x, cfg.n_fft // 2, cfg.pad_mode)[:, start:]
+    mel = fused_mel(x.contiguous(), T, cfg, impl)
+    return _finish(mel, x_lens // cfg.hop_length + 1, cfg)
+
+
+def _finish(
+    mel: torch.Tensor, frame_lens: torch.Tensor, cfg: FeaturizerConfig
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Frame masking, splicing, normalization: (N, T, n_mels) log-mel ->
+    ({T_out, N, C}, lengths {N} int32)."""
+    dev = mel.device
     # zero frames past each utterance's frame count before splicing, so the
     # result does not depend on batch padding
     t_idx = torch.arange(mel.shape[1], device=dev)[None, :, None]

@@ -5,18 +5,22 @@ of the recurrence into one matmul; only ``h @ W_hh`` and the gate math run
 per step.  Matmuls take their operands in the weights' dtype and accumulate
 in f32 (bf16 operands are upcast, which is exact); the cell state is f32.
 
-This scan is the counterpart of the JAX package's default XLA scan.  It
-serves calibration and the f32 run mode; the int8 serving path runs
-ops/lstm_int8.py.
+The recurrence runs kernel C (ops/lstm_scan_cuda.py, the counterpart of
+the JAX package's Pallas _lstm_scan_kernel) on CUDA tensors; its plain twin
+``lstm_recurrence`` is the counterpart of the default XLA scan, and runs on
+CPU tensors or when impl="reference" is asked for.  The float encoder (run
+modes f32 and bf16) and calibration go through here; the int8 serving path
+runs ops/lstm_int8.py.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from rnnt_inference_tpu_torch.models.weights import LSTMLayerWeights
+from rnnt_inference_tpu_torch.ops import lstm_scan_cuda
 from rnnt_inference_tpu_torch.ops.activations import gate_fns
 
 
@@ -50,23 +54,44 @@ def lstm_cell(
     return h_new, c_new
 
 
-def lstm_layer(
-    layer: LSTMLayerWeights, x: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor
+def lstm_recurrence(
+    xw: torch.Tensor, w_hh: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One LSTM layer over a (T, N, IC) chunk.
+    """The recurrence in plain PyTorch (kernel C's twin): xw {T, N, 4H} and
+    h0 {N, H} in the compute dtype (w_hh's), c0 {N, H} f32.
+    Returns (y {T,N,H}, hT, cT f32)."""
+    compute_dtype = w_hh.dtype
+    h, c = h0, c0
+    ys = []
+    for t in range(xw.shape[0]):
+        h_new, c = lstm_cell(xw[t], h, c, w_hh)
+        h = h_new.to(compute_dtype)
+        ys.append(h)
+    y = torch.stack(ys) if ys else xw.new_zeros((0,) + h.shape, dtype=compute_dtype)
+    return y, h, c
+
+
+def lstm_layer(
+    layer: LSTMLayerWeights,
+    x: torch.Tensor,
+    h0: torch.Tensor,
+    c0: torch.Tensor,
+    impl: Optional[str] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One LSTM layer over a (T, N, IC) chunk: the hoisted projection as one
+    plain product, then the recurrence (kernel C on CUDA tensors, its plain
+    twin on CPU tensors or when impl="reference").
     Returns (y {T,N,H} in the weights' dtype, h {N,H}, c {N,H} f32)."""
+    if impl not in (None, "reference"):
+        raise ValueError(f"unknown impl {impl!r}")
     compute_dtype = layer.w_ih.dtype
     x = x.to(compute_dtype)
     xw = (dot_f32(x, layer.w_ih) + layer.b.float()).to(xw_dtype(compute_dtype))
     h = h0.to(compute_dtype)
     c = c0.float()
-    ys = []
-    for t in range(x.shape[0]):
-        h_new, c = lstm_cell(xw[t], h, c, layer.w_hh)
-        h = h_new.to(compute_dtype)
-        ys.append(h)
-    y = torch.stack(ys) if ys else x.new_zeros((0,) + h.shape, dtype=compute_dtype)
-    return y, h, c
+    if impl == "reference" or not xw.is_cuda:
+        return lstm_recurrence(xw, layer.w_hh, h, c)
+    return lstm_scan_cuda.lstm_recurrence_cuda(layer, xw, h, c)
 
 
 def lstm_stack(
@@ -74,12 +99,13 @@ def lstm_stack(
     x: torch.Tensor,
     hs: torch.Tensor,
     cs: torch.Tensor,
+    impl: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Multi-layer LSTM over a chunk; hs/cs are stacked (L, N, H)."""
     new_h, new_c = [], []
     y = x
     for l, layer in enumerate(layers):
-        y, h, c = lstm_layer(layer, y, hs[l], cs[l])
+        y, h, c = lstm_layer(layer, y, hs[l], cs[l], impl)
         new_h.append(h)
         new_c.append(c)
     return y, torch.stack(new_h), torch.stack(new_c)

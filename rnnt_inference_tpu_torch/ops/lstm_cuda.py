@@ -11,8 +11,7 @@ chooses between them by device.
 from __future__ import annotations
 
 import ctypes
-import weakref
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 
@@ -30,57 +29,29 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-# id(layer) -> (weakref to the layer, stamp of its tensors, operands)
-_OPERANDS: Dict[int, tuple] = {}
-
-
-def _stamp(layer) -> tuple:
-    """Which tensors the layer holds and how often each was changed in place
-    (inference-mode tensors keep no such count)."""
-    ts = (layer.w_ih, layer.w_hh, layer.b, layer.in_scale, layer.w_scale, layer.out_scale)
-    return tuple((weakref.ref(t), None if t.is_inference() else t._version) for t in ts)
-
-
-def _same(a: tuple, b: tuple) -> bool:
-    return all(ra() is rb() and va == vb for (ra, va), (rb, vb) in zip(a, b))
-
-
 def kernel_operands(layer) -> tuple:
     """(w_cat_t (4H, KP) int8, bias f32, rb, in_scale, out_scale) of a
     QuantLSTMLayerWeights: row r of w_cat_t is [W_ih[:, r]; W_hh[:, r]]
     zero-padded to KP = roundup(IC+H, 16), so K is contiguous for the
     kernel's loads.  The scales travel as the f32 values of the layer's 0-d
-    tensors.  Built on the layer's first call and kept here until the layer
-    is freed; rebuilt if one of its tensors is replaced or changed in place."""
-    key, stamp = id(layer), _stamp(layer)
-    hit = _OPERANDS.get(key)
-    if hit is not None and hit[0]() is layer and _same(hit[1], stamp):
-        return hit[2]
-    w_cat = torch.cat([layer.w_ih, layer.w_hh], dim=0)  # (K, 4H)
-    K, G = w_cat.shape
-    KP = -(-K // 16) * 16
-    w_t = torch.zeros((G, KP), dtype=torch.int8, device=w_cat.device)
-    w_t[:, :K] = w_cat.t()
-    operands = (
-        w_t,
-        layer.b.float().contiguous(),
-        float(layer.rb_scale),
-        float(layer.in_scale),
-        float(layer.out_scale),
-    )
-    ref = weakref.ref(layer, lambda _, k=key: _OPERANDS.pop(k, None))
-    _OPERANDS[key] = (ref, stamp, operands)
-    return operands
+    tensors.  Built on the layer's first call and kept until the layer is
+    freed; rebuilt if one of its tensors is replaced or changed in place."""
 
-
-def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
-    if not t.is_cuda:
-        raise ValueError(f"{name} must be a CUDA tensor")
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
-        raise ValueError(
-            f"{name}: want contiguous {dtype} {tuple(shape)}, "
-            f"got {t.dtype} {tuple(t.shape)}"
+    def build():
+        w_cat = torch.cat([layer.w_ih, layer.w_hh], dim=0)  # (K, 4H)
+        K, G = w_cat.shape
+        w_t = torch.zeros((G, -(-K // 16) * 16), dtype=torch.int8, device=w_cat.device)
+        w_t[:, :K] = w_cat.t()
+        return (
+            w_t,
+            layer.b.float().contiguous(),
+            float(layer.rb_scale),
+            float(layer.in_scale),
+            float(layer.out_scale),
         )
+
+    tensors = (layer.w_ih, layer.w_hh, layer.b, layer.in_scale, layer.w_scale, layer.out_scale)
+    return cuda_build.cached_operands(layer, NAME, tensors, build)
 
 
 def quant_lstm_layer_cuda(
@@ -97,10 +68,10 @@ def quant_lstm_layer_cuda(
     x_i8 = x_i8.contiguous()
     h_i8 = h_i8.contiguous()
     c = c.contiguous()
-    _check(x_i8, "x", torch.int8, (T, N, IC))
-    _check(h_i8, "h", torch.int8, (N, H))
-    _check(c, "c", torch.float32, (N, H))
-    _check(w_t, "w_cat_t", torch.int8, (4 * H, KP))
+    cuda_build.require(x_i8, "x", torch.int8, (T, N, IC))
+    cuda_build.require(h_i8, "h", torch.int8, (N, H))
+    cuda_build.require(c, "c", torch.float32, (N, H))
+    cuda_build.require(w_t, "w_cat_t", torch.int8, (4 * H, KP))
     if any(t.data_ptr() % 16 for t in (w_t, x_i8, h_i8)):
         raise ValueError("kernel A needs 16-byte aligned weights, x and h")
     dev = x_i8.device

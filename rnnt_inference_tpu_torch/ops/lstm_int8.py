@@ -46,10 +46,11 @@ def quant_lstm_layer(
     """
     rb = layer.rb_scale
     xw = int_dot(x_i8, layer.w_ih)  # hoisted input projection, exact
+    w_hh = layer.w_hh.double()  # int_dot's operand, converted once per chunk
     h, c = h_i8, c.float()
     ys = []
     for t in range(x_i8.shape[0]):
-        acc = (xw[t] + int_dot(h, layer.w_hh)).float()
+        acc = (xw[t] + torch.matmul(h.double(), w_hh)).float()
         gates = acc * rb + layer.b
         i, f, g, o = gates.chunk(4, dim=-1)
         i = torch.sigmoid(i)

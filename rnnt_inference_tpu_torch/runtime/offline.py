@@ -1,21 +1,26 @@
 """Offline scenario runner: sort -> bucket-batch -> featurize + encode +
 decode on the card (counterpart of rnnt_inference_tpu/runtime/offline.py,
-bucketed path, one device)."""
+bucketed path, one device).
+
+``run`` assembles batches on the host from a waveform or features store;
+``run_device`` serves a DeviceQSL staged in device memory and reads every
+batch's tokens back in one packed transfer, timed apart from the serve loop.
+"""
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from rnnt_inference_tpu_torch.config import FeaturizerConfig, RNNTParams
 from rnnt_inference_tpu_torch.models.decoder import greedy_decode
-from rnnt_inference_tpu_torch.ops import cuda_build, decode_cuda, lstm_cuda
+from rnnt_inference_tpu_torch.ops import cuda_build, decode_cuda, lstm_cuda, lstm_scan_cuda
 from rnnt_inference_tpu_torch.ops.features import log_mel_features
-from rnnt_inference_tpu_torch.runtime.qsl import QuerySampleLibrary
+from rnnt_inference_tpu_torch.runtime.qsl import DeviceQSL, QuerySampleLibrary
 
 
 @dataclass
@@ -26,6 +31,8 @@ class OfflineResult:
     # seconds per phase ("features", "encoder", "decode"), summed over
     # batches: CUDA-event time on the card, host-clock time on the CPU
     phase_seconds: Dict[str, float] = field(default_factory=dict)
+    # run_device: the packed token readback, outside wall_seconds
+    readback_seconds: float = 0.0
 
 
 class _PhaseClock:
@@ -77,36 +84,123 @@ class OfflineRunner:
         self.impl = impl
         self.weights = weights.to(self.device)
 
+    def _decode(self, feats: torch.Tensor, lens: torch.Tensor, clock: _PhaseClock):
+        return greedy_decode(
+            self.weights, feats, lens, self.params, self.split_len, self.impl, mark=clock.mark
+        )
+
     def _pipeline(self, wav: torch.Tensor, lens: torch.Tensor, clock: _PhaseClock):
         clock.mark("start")
         feats, feat_lens = log_mel_features(wav, lens, self.cfg)
         clock.mark("features")
-        return greedy_decode(
-            self.weights, feats, feat_lens, self.params, self.split_len,
-            self.impl, mark=clock.mark,
-        )
+        return self._decode(feats, feat_lens, clock)
 
-    def warmup(self, qsl: QuerySampleLibrary) -> float:
-        """Build the CUDA kernels and run one silent batch of the shortest
-        bucket (untimed set-up).  Returns its seconds."""
-        t0 = time.time()
-        if self.device.type == "cuda" and self.impl is None:
-            cuda_build.build([lstm_cuda.NAME, decode_cuda.NAME])
-        S = qsl.wav_buckets[0]
-        wav = torch.zeros((self.batch_size, S), device=self.device)
-        lens = torch.full((self.batch_size,), S, dtype=torch.int32, device=self.device)
+    def _pipeline_i16(
+        self, wav_i16: torch.Tensor, lens: torch.Tensor, clock: _PhaseClock
+    ) -> torch.Tensor:
+        """int16 PCM in, one int8 buffer out: each row is the tokens
+        followed by the token count as two bytes (low, high)."""
+        res, res_lens = self._pipeline(wav_i16.float() * (1.0 / 32768.0), lens, clock)
+        lo = (res_lens & 0xFF).to(torch.int8)
+        hi = (res_lens >> 8).to(torch.int8)
+        return torch.cat([res, lo[:, None], hi[:, None]], dim=1)
+
+    def transcribe(self, wav: torch.Tensor, lens: torch.Tensor):
+        """One batch of waveforms {N, S} f32 -> (res {N, max_res_len} int8,
+        res_lens {N} int32) on the runner's device."""
         with torch.inference_mode():
-            _, rl = self._pipeline(wav, lens, _PhaseClock(self.device))
-            rl.cpu()
+            return self._pipeline(
+                wav.to(self.device), lens.to(self.device), _PhaseClock(self.device)
+            )
+
+    @staticmethod
+    def _unpack(packed: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """(N, cap+2) int8 -> (res {N, cap} int8, res_lens {N} int32)."""
+        res = packed[:, :-2]
+        lens = packed[:, -2].astype(np.uint8).astype(np.int32) + (
+            packed[:, -1].astype(np.int32) << 8
+        )
+        return res, lens
+
+    def _build_kernels(self) -> None:
+        if self.device.type == "cuda" and self.impl is None:
+            cuda_build.build([lstm_cuda.NAME, lstm_scan_cuda.NAME, decode_cuda.NAME])
+
+    def warmup(self, qsl: QuerySampleLibrary, waveform_mode: bool = True) -> float:
+        """Build every kernel the runner can launch and run one silent batch
+        of the shortest bucket (untimed set-up): the waveform pipeline, or
+        the decode alone for a features store.  Returns its seconds."""
+        t0 = time.time()
+        self._build_kernels()
+        B, dev = self.batch_size, self.device
+        with torch.inference_mode():
+            clock = _PhaseClock(dev)
+            if not waveform_mode:
+                T = qsl.feat_buckets[0]
+                feats = torch.zeros((T, B, self.cfg.out_feat), device=dev)
+                self._decode(feats, torch.full((B,), T, device=dev), clock)[1].cpu()
+            else:
+                S = qsl.wav_buckets[0]
+                lens = torch.full((B,), S, dtype=torch.int32, device=dev)
+                self._pipeline(torch.zeros((B, S), device=dev), lens, clock)[1].cpu()
         return time.time() - t0
+
+    def warmup_device(self, dqsl: DeviceQSL) -> float:
+        """Build the kernels and run one batch of each shape in a DeviceQSL
+        (untimed).  Returns its seconds."""
+        t0 = time.time()
+        self._build_kernels()
+        seen = set()
+        with torch.inference_mode():
+            for wav, lens, _ in dqsl.batches():
+                if tuple(wav.shape) in seen:
+                    continue
+                seen.add(tuple(wav.shape))
+                self._pipeline_i16(wav, lens, _PhaseClock(self.device))[:1, -2:].cpu()
+        return time.time() - t0
+
+    def run_device(self, dqsl: DeviceQSL) -> OfflineResult:
+        """The timed Offline loop over a device-resident QSL.  wall_seconds
+        covers dispatch and all device work of every batch (ended by a
+        synchronize); the one packed token readback of the whole run is
+        timed apart as readback_seconds."""
+        clock = _PhaseClock(self.device)
+        pending, row_indices = [], []
+        t0 = time.time()
+        with torch.inference_mode():
+            for wav, lens, row_index in dqsl.batches():
+                pending.append(self._pipeline_i16(wav, lens, clock))
+                row_indices.append(row_index)
+            packed = torch.cat(pending, dim=0)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        wall = time.time() - t0
+
+        t1 = time.time()
+        packed_all = packed.cpu().numpy()
+        readback = time.time() - t1
+
+        results: dict = {}
+        res_all, lens_all = self._unpack(packed_all)
+        for r, i in enumerate(np.concatenate(row_indices)):
+            if i >= 0:
+                results[int(i)] = res_all[r, : lens_all[r]].astype(np.int32)
+        return OfflineResult(
+            tokens=[results[i] for i in sorted(results)],
+            wall_seconds=wall,
+            batches=len(pending),
+            phase_seconds=clock.totals(),
+            readback_seconds=readback,
+        )
 
     def run(
         self, qsl: QuerySampleLibrary, indices: Optional[Sequence[int]] = None
     ) -> OfflineResult:
-        if qsl.store.kind != "waveform":
-            raise ValueError("OfflineRunner.run takes a waveform store")
+        """Host-assembled batches from a waveform store (the whole pipeline)
+        or a features store (encoder and decode)."""
         if indices is None:
             indices = np.arange(len(qsl))
+        waveform_mode = qsl.store.kind == "waveform"
         order = qsl.sort_desc(indices)
         clock = _PhaseClock(self.device)
         results: dict = {}
@@ -115,12 +209,21 @@ class OfflineRunner:
         with torch.inference_mode():
             for start in range(0, len(order), self.batch_size):
                 batch_idx = order[start : start + self.batch_size]
-                wav, lens, _ = qsl.assemble_waveforms(batch_idx, pad_n=self.batch_size)
-                res, res_lens = self._pipeline(
-                    torch.from_numpy(wav).to(self.device),
-                    torch.from_numpy(lens).to(self.device),
-                    clock,
-                )
+                if waveform_mode:
+                    wav, lens, _ = qsl.assemble_waveforms(batch_idx, pad_n=self.batch_size)
+                    res, res_lens = self._pipeline(
+                        torch.from_numpy(wav).to(self.device),
+                        torch.from_numpy(lens).to(self.device),
+                        clock,
+                    )
+                else:
+                    feats, lens, _ = qsl.assemble_features(batch_idx, pad_n=self.batch_size)
+                    clock.mark("start")
+                    res, res_lens = self._decode(
+                        torch.from_numpy(feats).to(self.device),
+                        torch.from_numpy(lens).to(self.device),
+                        clock,
+                    )
                 res = res.cpu().numpy()
                 res_lens = res_lens.cpu().numpy()
                 for r, i in enumerate(batch_idx):

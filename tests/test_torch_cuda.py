@@ -100,3 +100,69 @@ def test_pipeline_kernels_match_twins(dev, qweights):
     want = greedy_decode(qweights, x, lens, P, impl="reference")
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("N", [5, 40])
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+def test_lstm_scan_kernel_matches_twin(dev, wdtype, N):
+    """Kernel C over T=7 steps, N lanes not a multiple of the block's 16:
+    f32 y/h/c within 1e-5; bf16 y/h within 2**-8 (one bf16 step below 1)
+    and c within 1e-3.  Launch count = T."""
+    from rnnt_inference_tpu_torch.ops import lstm as tl
+    from rnnt_inference_tpu_torch.ops import lstm_scan_cuda
+
+    w = init_weights(P, torch.Generator().manual_seed(6), dtype=wdtype, device=dev)
+    layer = w.post_rnn[0]
+    IC, H = layer.w_ih.shape[0], layer.w_hh.shape[0]
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn((7, N, IC), generator=g).to(dev)
+    h0 = (torch.randn((N, H), generator=g) * 0.5).to(dev)
+    c0 = (torch.randn((N, H), generator=g) * 0.5).to(dev)
+    before = lstm_scan_cuda.lstm_recurrence_cuda.launches
+    got = tl.lstm_layer(layer, x, h0, c0)
+    assert lstm_scan_cuda.lstm_recurrence_cuda.launches == before + 7
+    want = tl.lstm_layer(layer, x, h0, c0, impl="reference")
+    torch.cuda.synchronize()
+    bf16 = wdtype == torch.bfloat16
+    for name, a, b in zip(("y", "h", "c"), got, want):
+        tol = (1e-3 if name == "c" else 2 ** -8) if bf16 else 1e-5
+        assert a.dtype == b.dtype
+        assert float((a.float() - b.float()).abs().max()) <= tol, name
+
+
+def test_log_mel_kernel_matches_twin(dev):
+    """Kernel D, and the fused entry point, against their twins: raw log-mel
+    within 1e-4, normalized features within 5e-4, lengths equal."""
+    from rnnt_inference_tpu_torch.config import FeaturizerConfig
+    from rnnt_inference_tpu_torch.ops import features as tf
+    from rnnt_inference_tpu_torch.ops import features_cuda
+
+    cfg = FeaturizerConfig()
+    rng = np.random.RandomState(8)
+    x = torch.from_numpy(rng.randn(3, 5000).astype(np.float32)).to(dev)
+    for T in (1, 31, 33):
+        a, b = tf.fused_mel(x, T, cfg), tf.fused_mel(x, T, cfg, impl="reference")
+        torch.cuda.synchronize()
+        assert a.shape == b.shape == (3, T, cfg.n_mels)
+        assert float((a - b).abs().max()) <= 1e-4
+    wav = torch.from_numpy((rng.randn(4, 24000) * 0.1).astype(np.float32)).to(dev)
+    lens = torch.tensor([24000, 17000, 300, 0], device=dev)
+    before = features_cuda.log_mel_cuda.launches
+    got, gl = tf.log_mel_features_fused(wav, lens, cfg)
+    assert features_cuda.log_mel_cuda.launches == before + 1
+    want, wl = tf.log_mel_features_fused(wav, lens, cfg, impl="reference")
+    assert torch.equal(gl, wl) and float((got - want).abs().max()) <= 5e-4
+
+
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+def test_float_pipeline_kernels_match_twins(dev, wdtype):
+    """The float encoder (kernel C) + decode (kernel B) give the twins'
+    tokens at this size."""
+    w = init_weights(P, torch.Generator().manual_seed(9), dtype=wdtype, device=dev)
+    g = torch.Generator().manual_seed(10)
+    x = torch.randn((30, 6, 240), generator=g).to(dev)
+    lens = torch.tensor([30, 28, 20, 11, 3, 0], device=dev)
+    got = greedy_decode(w, x, lens, P)
+    want = greedy_decode(w, x, lens, P, impl="reference")
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
