@@ -4,8 +4,12 @@
 
 Builds the port's four CUDA kernels from rnnt_inference_tpu_torch/csrc
 (one nvcc per source, started together), holds each against its plain
-PyTorch twin on the card at full model width, then drives each path with
-the kernel launch counts set to 0 just before it and read just after:
+PyTorch twin on the card at full model width (kernel B per step and over
+one launch of K iterations, at N = 16, 64, 128 lanes, with its time per
+iteration at one and at K iterations per launch, its early exit, and the
+symbol loop's time by K; kernel C at N = 16, 128 beside cuDNN's layer),
+then drives each path with the kernel launch counts set to 0 just before
+it and read just after:
   - end_to_end: the bucketed Offline int8 pipeline (waveform -> log-mel ->
     int8 encoder (kernel A) -> greedy decode (kernel B)) through
     OfflineRunner, once on the kernels and once on the twins;
@@ -13,8 +17,9 @@ the kernel launch counts set to 0 just before it and read just after:
   - cli_bf16 / cli_f32: the CLI, ``main --run_mode bf16|f32 --benchmark
     --scenario Offline --synthetic N`` (float encoder on kernel C, decode on
     kernel B), then the same store through run_offline on the twins.
-Token edit rates kernels vs twins are held to 1e-3.  Each phase prints one
-JSON line; the last line is {"ok": true, "device": {...}}.  Any failure
+Token edit rates kernels vs twins are held to 1e-3.  Launches are counted
+per main call and per timed pass.  Each phase prints one JSON line; the
+last line is {"ok": true, "device": {...}}.  Any failure
 raises (exit code != 0); with no CUDA device it exits with code 2 before
 printing any result.
 """
@@ -183,82 +188,185 @@ def phase_kernel_a(qweights, dev) -> dict:
     }
 
 
-def phase_kernel_b(weights, params, dev, phase: str) -> dict:
-    """Kernel B against its twin at full width, N=64 lanes in random states,
-    with the weights' type (bf16 from the int8 model, or f32)."""
-    from rnnt_inference_tpu_torch.ops import decode_cuda as dc
-
-    dw = dc.decode_weights(weights)
-    wdt = dw.embed.dtype
-    N, T2, L, P, J, V, R = 64, 40, params.pred_num_layers, params.pred_hidden_size, \
-        params.joint_hidden_size, params.num_labels, params.max_res_len
-    rng = np.random.RandomState(7)
+def _decode_lanes(rng, N, T2, V, R, long=False):
+    """Lane state (8, N): random mid-utterance states, or (long) every lane
+    at frame 0 of a T2-frame utterance, so none can finish in < T2
+    iterations."""
+    if long:
+        z = np.zeros(N, np.int64)
+        return np.stack([z - 1, z, z, z - 1, z, z + T2, z + T2 - 1, z]).astype(np.int32)
     f_lens = rng.randint(0, T2 + 1, N)
     eos = np.maximum(f_lens - 1, 0)
-    lanes0 = np.stack([
+    return np.stack([
         rng.randint(-1, V - 1, N), np.minimum(rng.randint(0, T2, N), eos),
         rng.choice([0, 1, 2, 29, 30], N), rng.randint(-1, R, N), f_lens == 0,
         f_lens, eos, np.zeros(N),
     ]).astype(np.int32)
-    fproj = torch.from_numpy(rng.randn(T2, N, J).astype(np.float32)).to(dev)
-    hg0 = torch.from_numpy(rng.randn(L, N, P).astype(np.float32) * 0.5).to(dev, wdt)
-    cg0 = torch.from_numpy(rng.randn(L, N, P).astype(np.float32) * 0.5).to(dev)
-    res0 = torch.full((N, R), -1, dtype=torch.int8, device=dev)
-    fresh = lambda: [torch.from_numpy(lanes0).to(dev), hg0.clone(), cg0.clone(), res0.clone()]
-    # Kernel and twin both sum in f32, in different orders.  So each step
-    # starts both from the twin's state, and the states they reach are held
-    # to: lanes, symbols and tokens equal; with bf16 weights hg within 2**-8,
-    # one bf16 step below 1 (|h| < 1), and cg within 1e-3 (a layer-0 h that
-    # rounds to the other bf16 neighbour moves the layer-1 gates by up to
-    # 2**-8 * max|W_ih| ~ 2e-4 for each such element); with f32 weights,
-    # where nothing is rounded to bf16, hg and cg within 1e-5.
+
+
+def phase_kernel_b(weights, params, dev, phase: str) -> dict:
+    """Kernel B against its twin at full width with the weights' type (bf16
+    from the int8 model, or f32), N in {16, 64, 128} lanes in random states:
+    per step from the same state, and one launch of K iterations from a
+    fresh state against K twin steps; then its time per iteration with one
+    iteration per launch and with K per launch (lanes that cannot finish
+    during the timing), its early exit, and the symbol loop's time by K."""
+    from rnnt_inference_tpu_torch.models import decoder
+    from rnnt_inference_tpu_torch.ops import decode_cuda as dc
+
+    dw = dc.decode_weights(weights)
+    wdt = dw.embed.dtype
+    K = decoder.DEFAULT_STEPS_PER_CHECK
+    T2, L, P, J, V, R = 40, params.pred_num_layers, params.pred_hidden_size, \
+        params.joint_hidden_size, params.num_labels, params.max_res_len
+    rng = np.random.RandomState(7)
+    # Kernel and twin both sum in f32, in different orders.  So the states
+    # they reach are held to: lanes, symbols and tokens equal; with bf16
+    # weights hg within 2**-8, one bf16 step below 1 (|h| < 1), and cg
+    # within 1e-3 (a layer-0 h that rounds to the other bf16 neighbour
+    # moves the layer-1 gates by up to 2**-8 * max|W_ih| ~ 2e-4 for each
+    # such element); with f32 weights, where nothing is rounded to bf16, hg
+    # and cg within 1e-5.
     hg_tol, cg_tol, tol = (
         (2 ** -8, 1e-3, "hg <= 2**-8 (one bf16 step below 1), cg <= 1e-3")
         if wdt == torch.bfloat16 else (1e-5, 1e-5, "hg and cg <= 1e-5"))
-    b = fresh()
-    steps, lanes_equal, res_equal = 16, True, True
-    hg_diff = hg_share = cg_diff = 0.0
-    for _ in range(steps):
-        a = [t.clone() for t in b]
-        dc.decode_step_cuda(fproj, *a, dw, params)
-        dc.decode_step_reference(fproj, *b, dw, params)
-        lanes_equal &= torch.equal(a[0], b[0])
-        res_equal &= torch.equal(a[3], b[3])
-        dh = (a[1].float() - b[1].float()).abs()
-        hg_diff = max(hg_diff, float(dh.max()))
-        hg_share = max(hg_share, float((dh != 0).float().mean()))
-        cg_diff = max(cg_diff, float((a[2] - b[2]).abs().max()))
-    torch.cuda.synchronize()
-    row = {"N": N, "steps": steps, "weights": str(wdt), "lanes_and_symbols_equal": lanes_equal,
-           "tokens_equal": res_equal, "hg_max_abs_diff": hg_diff,
-           "hg_share_diff": hg_share, "cg_max_abs_diff": cg_diff,
-           "emitted": int((b[0][dc.SYMBOL] != params.BLANK).sum())}
-    if not (lanes_equal and res_equal and hg_diff <= hg_tol and cg_diff <= cg_tol):
-        raise AssertionError(f"kernel B off: {row}")
-    a = fresh()
-    ms = cuda_ms(lambda: dc.decode_step_cuda(fproj, *a, dw, params), 200, 5)
-    a = fresh()
-    plain_ms = cuda_ms(lambda: dc.decode_step_reference(fproj, *a, dw, params), 20, 2)
-    row.update(ms_per_step=ms, plain_ms_per_step=plain_ms)
-    emit({"phase": phase, "tolerance": "per step from the same state: lanes/symbols/tokens "
-          f"equal, {tol}", **row})
 
+    def compare(a, b, row, what):
+        dh = (a[1].float() - b[1].float()).abs()
+        got = {"lanes_and_symbols_equal": torch.equal(a[0], b[0]),
+               "tokens_equal": torch.equal(a[3], b[3]), "hg_max_abs_diff": float(dh.max()),
+               "hg_share_diff": float((dh != 0).float().mean()),
+               "cg_max_abs_diff": float((a[2] - b[2]).abs().max())}
+        for k, v in got.items():
+            key = f"{what}_{k}"
+            row[key] = (row.get(key, True) and v) if isinstance(v, bool) else max(row.get(key, 0.0), v)
+        if not (got["lanes_and_symbols_equal"] and got["tokens_equal"]
+                and got["hg_max_abs_diff"] <= hg_tol and got["cg_max_abs_diff"] <= cg_tol):
+            raise AssertionError(f"kernel B off ({what}, N={row['N']}): {got}")
+
+    rows = []
+    for N in (16, 64, 128):
+        fproj = torch.from_numpy(rng.randn(T2, N, J).astype(np.float32)).to(dev)
+        lanes0 = _decode_lanes(rng, N, T2, V, R)
+        hg0 = torch.from_numpy(rng.randn(L, N, P).astype(np.float32) * 0.5).to(dev, wdt)
+        cg0 = torch.from_numpy(rng.randn(L, N, P).astype(np.float32) * 0.5).to(dev)
+        res0 = torch.full((N, R), -1, dtype=torch.int8, device=dev)
+        fresh = lambda: [torch.from_numpy(lanes0).to(dev), hg0.clone(), cg0.clone(), res0.clone()]
+        row = {"N": N, "weights": str(wdt), "K": K}
+        b = fresh()
+        for _ in range(8):  # per step from the twin's state
+            a = [t.clone() for t in b]
+            dc.decode_step_cuda(fproj, *a, dw, params)
+            dc.decode_step_reference(fproj, *b, dw, params)
+            compare(a, b, row, "step")
+        a, b = fresh(), fresh()  # one launch of K iterations against K twin steps
+        dc.decode_step_cuda(fproj, *a, dw, params, K)
+        for _ in range(K):
+            dc.decode_step_reference(fproj, *b, dw, params)
+        compare(a, b, row, "k_launch")
+        row["emitted"] = int((b[0][dc.SYMBOL] != params.BLANK).sum())
+
+        # timing on lanes that cannot finish within the timed iterations
+        TL = 1024
+        fl = torch.from_numpy(rng.randn(TL, N, J).astype(np.float32)).to(dev)
+        lanes_l = torch.from_numpy(_decode_lanes(rng, N, TL, V, R, long=True)).to(dev)
+        st = [lanes_l, hg0.clone(), cg0.clone(), res0.clone()]
+        ms1 = cuda_ms(lambda: dc.decode_step_cuda(fl, *st, dw, params, 1), 100, 5)
+        st = [lanes_l.clone(), hg0.clone(), cg0.clone(), res0.clone()]
+        reps = max(1, TL // K - 2)  # (reps + 1) K < TL iterations in all
+        msk = cuda_ms(lambda: dc.decode_step_cuda(fl, *st, dw, params, K), reps, 1) / K
+        if bool(st[0][dc.FINISH].any()) or (reps + 1) * K >= TL:
+            raise AssertionError("kernel B timing: a lane finished, so iterations were skipped")
+        st = [lanes_l.clone(), hg0.clone(), cg0.clone(), res0.clone()]
+        plain_ms = cuda_ms(lambda: dc.decode_step_reference(fl, *st, dw, params), 20, 2)
+        row.update(ms_per_iteration_one_per_launch=ms1, ms_per_iteration_k_per_launch=msk,
+                   plain_ms_per_step=plain_ms)
+        rows.append(row)
+    by_n = {r["N"]: r for r in rows}
+
+    # early exit: every lane at its last frame (f_lens 1) finishes within
+    # max_symbols_per_step + 1 iterations; a launch asked for 4096 must end
+    # then, so it takes about as long as that many, not 4096
+    N = 64
+    fproj = torch.from_numpy(rng.randn(T2, N, J).astype(np.float32)).to(dev)
+    lanes_e = _decode_lanes(rng, N, 1, V, R, long=True)
+    hg0 = torch.from_numpy(rng.randn(L, N, P).astype(np.float32) * 0.5).to(dev, wdt)
+    cg0 = torch.from_numpy(rng.randn(L, N, P).astype(np.float32) * 0.5).to(dev)
+    res0 = torch.full((N, R), -1, dtype=torch.int8, device=dev)
+    fresh = lambda: [torch.from_numpy(lanes_e).to(dev), hg0.clone(), cg0.clone(), res0.clone()]
+    cap = params.max_symbols_per_step + 1
+    a, b = fresh(), fresh()
+    dc.decode_step_cuda(fproj, *a, dw, params, 4096)
+    for _ in range(cap):
+        dc.decode_step_reference(fproj, *b, dw, params)
+    compare(a, b, {"N": N}, "early_exit")
+    if not bool(a[0][dc.FINISH].all()):
+        raise AssertionError("kernel B early exit: a lane did not finish")
+    ms_4096 = cuda_ms(lambda: dc.decode_step_cuda(fproj, *fresh(), dw, params, 4096), 10, 1)
+    ms_cap = cuda_ms(lambda: dc.decode_step_cuda(fproj, *fresh(), dw, params, cap), 10, 1)
+    if not ms_4096 < 2 * ms_cap:
+        raise AssertionError(f"kernel B did not leave early: {ms_4096} ms vs {ms_cap} ms")
+    early = {"N": N, "iterations_needed_at_most": cap, "ms_asked_4096": ms_4096,
+             f"ms_asked_{cap}": ms_cap}
+
+    # the symbol loop (greedy_decode_chunk: host loop of launches of K
+    # iterations, one finish.all() read per launch) by K, N=64, 40 frames
+    from rnnt_inference_tpu_torch.models.decoder import greedy_decode_chunk, init_decode_state
+
+    N = 64
+    f = torch.from_numpy(rng.randn(T2, N, 1024).astype(np.float32)).to(dev)
+    f_lens = torch.full((N,), T2, dtype=torch.int32, device=dev)
+    max_iters = T2 * (params.max_symbols_per_step + 1) + 1
+    loop = {}
+    for k in (1, 16, 64, 256, max_iters):
+        state = init_decode_state(N, params, torch.float32, wdt, dev)
+        greedy_decode_chunk(weights, state, f, f_lens, params, steps_per_check=k, dw=dw)
+        torch.cuda.synchronize()
+        dc.decode_step_cuda.launches = 0
+        t0 = time.perf_counter()
+        out = greedy_decode_chunk(weights, state, f, f_lens, params, steps_per_check=k, dw=dw)
+        torch.cuda.synchronize()
+        loop[str(k)] = {"ms": (time.perf_counter() - t0) * 1e3,
+                        "launches": dc.decode_step_cuda.launches,
+                        "tokens": int((out.res_idx + 1).clamp(max=R).sum())}
+    emit({"phase": phase, "tolerance": "per step from the same state, and one launch of K "
+          f"iterations against K twin steps: lanes/symbols/tokens equal, {tol}",
+          "rows": rows, "early_exit": early,
+          "symbol_loop_by_k": {"N": N, "frames": T2, "max_iters": max_iters, "by_k": loop}})
+
+    # the bound of one launch of K iterations, per iteration: the weights
+    # and the state (lanes, hg, cg) are read and written once per launch,
+    # each iteration reads one fproj row per lane and writes one token; the
+    # bound of one iteration per launch beside it (the weights every time)
     wsize = dw.embed.element_size()
     wbytes = sum(t.numel() * t.element_size() for t in (
         dw.embed, dw.w_ih, dw.w_hh, dw.b, dw.w1p, dw.b1, dw.w2, dw.b2))
-    state_bytes = N * (8 * 4 + L * P * (wsize + 4) + J * 4)  # lanes, hg, cg, one fproj row
-    bytes_moved = wbytes + 2 * state_bytes - N * J * 4 + N  # state in+out, fproj in, token out
+    N = 64
+    state_bytes = N * (8 * 4 + L * P * (wsize + 4))  # lanes, hg, cg
+    per_iter_bytes = N * J * 4 + N  # one fproj row in, one token out
     flops = 2 * N * (L * 2 * P * 4 * P + P * J + J * V)
-    bound_ms, bound_by = bound(
-        bytes_moved, flops, PEAK_BF16_FLOPS if wdt == torch.bfloat16 else PEAK_F32_FLOPS)
+    peak = PEAK_BF16_FLOPS if wdt == torch.bfloat16 else PEAK_F32_FLOPS
+    bound_ms, bound_by = bound((wbytes + 2 * state_bytes) / K + per_iter_bytes, flops, peak)
+    bound1_ms, bound1_by = bound(wbytes + 2 * state_bytes + per_iter_bytes, flops, peak)
+    r = by_n[64]
     return {
         "name": "decode_step", "route": "cuda",
         "source": "rnnt_inference_tpu_torch/csrc/decode_step.cu",
         "replaces": "rnnt_inference_tpu/ops/decode_pallas.py:112",
-        "shape": f"N={N} P={P} J={J} L={L} {wdt} weights, one call = 1 launch",
-        "max_abs_err": max(hg_diff, cg_diff),
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None,
+        "shape": f"N=64 P={P} J={J} L={L} {wdt} weights; ms, plain_ms and bound_ms per "
+                 f"iteration, one launch = up to K={K} iterations (weights read once "
+                 "per launch)",
+        "max_abs_err": max(max(x["step_hg_max_abs_diff"], x["step_cg_max_abs_diff"],
+                               x["k_launch_hg_max_abs_diff"], x["k_launch_cg_max_abs_diff"])
+                           for x in rows),
+        "ms": r["ms_per_iteration_k_per_launch"],
+        "ms_one_iteration_per_launch": r["ms_per_iteration_one_per_launch"],
+        "ms_by_n": {n: {"k_per_launch": x["ms_per_iteration_k_per_launch"],
+                        "one_per_launch": x["ms_per_iteration_one_per_launch"]}
+                    for n, x in by_n.items()},
+        "plain_ms": r["plain_ms_per_step"], "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_ms_one_iteration_per_launch": bound1_ms,
+        "bound_by_one_iteration_per_launch": bound1_by, "library_ms": None,
     }
 
 
@@ -298,6 +406,9 @@ def phase_kernel_c(weights, dev) -> dict:
             # against cuDNN's LSTM layer
             xw = (tl.dot_f32(x.to(dt), layer.w_ih) + layer.b.float()).to(dt)
             hc, cc = h0.to(dt), c0
+            before = lstm_scan_cuda.lstm_recurrence_cuda.launches
+            lstm_scan_cuda.lstm_recurrence_cuda(layer, xw, hc, cc)
+            launches_per_call = lstm_scan_cuda.lstm_recurrence_cuda.launches - before
             ms = cuda_ms(lambda: lstm_scan_cuda.lstm_recurrence_cuda(layer, xw, hc, cc), 10)
             plain_ms = cuda_ms(lambda: tl.lstm_recurrence(xw, layer.w_hh, hc, cc), 3, 1)
             layer_ms = cuda_ms(lambda: tl.lstm_layer(layer, x, h0, c0), 10)
@@ -312,26 +423,33 @@ def phase_kernel_c(weights, dev) -> dict:
             ops = 2 * T * N * H * 4 * H
             bound_ms, bound_by = bound(
                 bytes_moved, ops, PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_F32_FLOPS)
-            row.update(ms=ms, ms_per_step=ms / T, plain_ms=plain_ms, layer_ms=layer_ms,
+            row.update(ms=ms, ms_per_step=ms / T, launches_per_call=launches_per_call,
+                       plain_ms=plain_ms, layer_ms=layer_ms, projection_ms=layer_ms - ms,
                        library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
             rows.append(row)
             entries[(dt, N)] = row
     emit({"phase": "kernel_c", "tolerance": "bf16: y/h <= 2**-8, c <= 1e-3; f32: y/h/c <= 1e-5",
           "library": "torch.nn.LSTM (cuDNN) layer, same shape and type, TF32 off; compare "
-                     "with layer_ms (projection + kernel C)", "rows": rows})
+                     "with layer_ms (projection + kernel C); projection_ms = layer_ms - ms",
+          "rows": rows})
     e = entries[(torch.bfloat16, 128)]
     return {
         "name": "lstm_recurrence", "route": "cuda",
         "source": "rnnt_inference_tpu_torch/csrc/lstm_scan.cu",
         "replaces": "rnnt_inference_tpu/ops/lstm_pallas.py:41",
-        "shape": f"IC={e['IC']} H={e['H']} N=128 T={T} bf16, one call = {T} launches; "
-                 "library_ms is cuDNN's whole layer (compare layer_ms)",
+        "shape": f"IC={e['IC']} H={e['H']} N=128 T={T} bf16, one call = "
+                 f"{e['launches_per_call']} launch; library_ms is cuDNN's whole layer "
+                 "(compare layer_ms)",
         "max_abs_err": max(max(r["y_max_abs_diff"], r["h_max_abs_diff"], r["c_max_abs_diff"])
                            for r in rows),
         "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
         "bound_by": e["bound_by"], "library_ms": e["library_ms"], "layer_ms": e["layer_ms"],
+        "projection_ms": e["projection_ms"],
         "f32": {k: entries[(torch.float32, 128)][k]
-                for k in ("ms", "plain_ms", "layer_ms", "library_ms", "bound_ms", "bound_by")},
+                for k in ("ms", "plain_ms", "layer_ms", "projection_ms", "library_ms",
+                          "bound_ms", "bound_by")},
+        "n16": {str(d): {k: entries[(d, 16)][k] for k in ("ms", "layer_ms", "library_ms")}
+                for d in (torch.bfloat16, torch.float32)},
     }
 
 
@@ -405,7 +523,9 @@ def phase_cli(mode: str, n: int, dev, card: str) -> dict:
     Offline; kernel C for the encoder, kernel B for decode), with the launch
     counts set to 0 just before it and read just after; then the same
     weights and store through run_offline with an impl="reference" runner,
-    which must launch no kernel, and the token edit rate between the two."""
+    which must launch no kernel, and the token edit rate between the two.
+    The launches of main's timed pass are the runner's own count
+    (RunReport.launches)."""
     import contextlib
     import tempfile
 
@@ -428,8 +548,11 @@ def phase_cli(mode: str, n: int, dev, card: str) -> dict:
             rk = cli.main(argv)
         seconds = time.time() - t0
         launches = {k: c.launches for k, c in counters.items()}
+        per_pass = rk.launches
         if launches["lstm_recurrence"] == 0 or launches["decode_step"] == 0:
             raise AssertionError(f"the {mode} CLI run never launched kernel C or B: {launches}")
+        if per_pass["lstm_recurrence"] == 0 or per_pass["decode_step"] == 0:
+            raise AssertionError(f"main's timed pass launched no kernel C or B: {per_pass}")
 
         args = cli.parse_args(argv)
         params, cfg = RNNTParams(), FeaturizerConfig()
@@ -438,8 +561,8 @@ def phase_cli(mode: str, n: int, dev, card: str) -> dict:
         ref = OfflineRunner(weights, params, cfg, args.batch_size, device=dev, impl="reference")
         rr = run_offline(weights, store, params, cfg, batch_size=args.batch_size,
                          runner=ref, device_resident=True, warmup=False, device=dev)
-        if any(c.launches != launches[k] for k, c in counters.items()):
-            raise AssertionError("impl='reference' launched a kernel")
+        if any(rr.launches.values()):
+            raise AssertionError(f"impl='reference' launched a kernel: {rr.launches}")
 
     seq = lambda h: np.frombuffer(h.encode(), np.uint8)  # one character per token
     n_tok = sum(len(h) for h in rr.hypotheses)
@@ -455,11 +578,12 @@ def phase_cli(mode: str, n: int, dev, card: str) -> dict:
         "batches": rk.extra["batches"], "main_seconds": seconds, "tokens": n_tok,
         "utterances_differing": [i for i, e in enumerate(edits) if e],
         "token_edit_rate": edit_rate, "launches": launches,
+        "launches_per_timed_pass": per_pass,
         "kernels": {"summary": rk.summary(), "ms": ms(rk)},
         "reference": {"wall_seconds": rr.wall_seconds,
                       "audio_seconds_per_second": rr.audio_seconds_per_second, "ms": ms(rr)},
     })
-    return launches
+    return {"main": launches, "timed_pass": per_pass}
 
 
 def phase_end_to_end(qweights, params, dev, seed: int, card: str) -> dict:
@@ -484,9 +608,10 @@ def phase_end_to_end(qweights, params, dev, seed: int, card: str) -> dict:
     rr = ref.run(qsl)
     if any(v == 0 for v in launches.values()):
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
-    if decode_cuda.decode_step_cuda.launches != launches["decode_step"] or \
-            lstm_cuda.quant_lstm_layer_cuda.launches != launches["quant_lstm_layer"]:
-        raise AssertionError("impl='reference' launched a kernel")
+    if any(rk.launches[k] != v for k, v in launches.items()):
+        raise AssertionError(f"the runner counted {rk.launches}, the wrappers {launches}")
+    if any(rr.launches.values()):
+        raise AssertionError(f"impl='reference' launched a kernel: {rr.launches}")
 
     n_tok = sum(len(t) for t in rr.tokens)
     edits = [edit_distance(a, b) for a, b in zip(rk.tokens, rr.tokens)]
@@ -502,6 +627,7 @@ def phase_end_to_end(qweights, params, dev, seed: int, card: str) -> dict:
         "batches": rk.batches, "audio_seconds": store.audio_seconds,
         "warmup_seconds": warm, "tokens": n_tok, "utterances_differing": differ,
         "token_edit_rate": edit_rate, "launches": launches,
+        "launches_per_timed_pass": rk.launches,
         "kernels": {
             "wall_seconds": rk.wall_seconds,
             "audio_seconds_per_second": store.audio_seconds / rk.wall_seconds,
@@ -514,7 +640,7 @@ def phase_end_to_end(qweights, params, dev, seed: int, card: str) -> dict:
         },
     }
     emit(out)
-    return launches
+    return {"main": launches, "timed_pass": rk.launches}
 
 
 def main() -> int:
@@ -564,16 +690,22 @@ def main() -> int:
         "bf16": phase_cli("bf16", 32, dev, card),
         "f32": phase_cli("f32", 8, dev, card),
     }
-    # launches: A from the int8 Offline path; B and C from the CLI's default
-    # run mode (bf16), this slice's main path; D from its own entry point
-    a["launches"] = paths["int8"]["quant_lstm_layer"]
-    b["launches"] = paths["bf16"]["decode_step"]
-    c["launches"] = paths["bf16"]["lstm_recurrence"]
-    a["launches_by_path"] = {"int8": a["launches"]}
-    b["launches_by_path"] = {k: v["decode_step"] for k, v in paths.items()}
-    c["launches_by_path"] = {k: paths[k]["lstm_recurrence"] for k in ("bf16", "f32")}
+    # launches: A from the int8 Offline path (one pass); B and C from one
+    # main call of the CLI's default run mode (bf16), this slice's main
+    # path; D from its own entry point; per timed pass beside them
+    a["launches"] = paths["int8"]["main"]["quant_lstm_layer"]
+    b["launches"] = paths["bf16"]["main"]["decode_step"]
+    c["launches"] = paths["bf16"]["main"]["lstm_recurrence"]
+    d["launches_per_timed_pass"] = d["launches"]
+    for e, name, ks in ((a, "quant_lstm_layer", ("int8",)), (b, "decode_step", tuple(paths)),
+                        (c, "lstm_recurrence", ("bf16", "f32"))):
+        e["launches_per_timed_pass"] = paths["bf16" if e is not a else "int8"]["timed_pass"][name]
+        e["launches_by_path"] = {k: paths[k]["main"][name] for k in ks}
+        e["launches_per_timed_pass_by_path"] = {k: paths[k]["timed_pass"][name] for k in ks}
     d["launches_by_path"] = {"features_fused": d["launches"]}
-    b["f32"] = {k: b32[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+    b["f32"] = {k: b32[k] for k in ("ms", "ms_one_iteration_per_launch", "ms_by_n", "plain_ms",
+                                    "bound_ms", "bound_by", "bound_ms_one_iteration_per_launch",
+                                    "bound_by_one_iteration_per_launch", "max_abs_err")}
     b["max_abs_err"] = max(b["max_abs_err"], b32["max_abs_err"])
     emit({"phase": "summary", "card": card, "seconds": time.time() - t_start})
     emit({"kernels": [a, b, c, d]})

@@ -1,12 +1,13 @@
-// Kernel B: one iteration of the greedy transducer symbol loop, for Hopper
-// (sm_90a).
+// Kernel B: the greedy transducer symbol loop, up to `steps` iterations in
+// one persistent cooperative launch, for Hopper (sm_90a).
 //
 // Replaces rnnt_inference_tpu/ops/decode_pallas.py::_decode_step_kernel
 // (reached through decode_step_pallas) and folds in the two ops the JAX
 // package runs around it: the per-lane gather of the hoisted joint
 // projection fproj[time_idx] and the token write res[lane, write_idx]
-// (writes at write_idx >= R are dropped).  Per lane:
-//   y      = embed[pre_g]                 (SOS = -1 embeds to zeros)
+// (writes at write_idx >= R are dropped).  One iteration, per lane:
+//   y      = embed[pre_g]                 (SOS, or any index outside the
+//                                          table, embeds to zeros)
 //   layer l of the prediction LSTM:
 //     gates = (y.W_ih[l] + b[l]) + h[l].W_hh[l];  i,f,g,o;  f32 cell
 //     y     = h' rounded to the weight type
@@ -18,312 +19,545 @@
 //   0 pre_g, 1 time_idx, 2 symbols_added, 3 res_idx, 4 finish,
 //   5 f_lens, 6 eos_idx (both read only), 7 symbol (output).
 //
-// What bounds it on an H100: every step reads the whole prediction net and
-// joint (about 3.6 MB in bf16 at P=320, J=512) for a few lanes, so it is
-// bound by moving weights into the SMs.  This first version gives each
-// lane its own block (weights come from L2, once per lane) and does the
-// products on CUDA cores: a thread owns 8 consecutive columns (one 16-byte
-// load per weight row) and the input axis is split over thread groups
-// (3 for the 1280 gate columns, 8 for the 512 joint columns at 512
-// threads), so enough loads are in flight to cover L2 latency.
+// What bounds it on an H100: the weights are small (3.6 MB in bf16 at
+// P = 320, J = 512; 7.2 MB in f32) and the work per iteration is a few
+// MFLOP, but the iterations are serial and each is a chain of dependent
+// products.  So an iteration costs (1) its grid barriers (one after each
+// phase, four, about 1.1 us each measured), (2) every working block
+// reading the phase's lane inputs from L2 right after a barrier (all N
+// lanes' h: N P WT bytes, 40 KB in bf16 at N = 64), and (3) the latency of
+// each phase's products and epilogue; the host's check of finish.all()
+// comes once per launch.
 //
-// Numerics, as in the TPU kernel: products of the weight type (bf16 or f32)
-// accumulate in f32, in the order (y.W_ih + b) + h.W_hh.  Each dot product
-// is summed in a fixed order that does not depend on scheduling: thread
-// group s sums inputs k = s, s + kg, ... one after another (fmaf), and the
-// kg partial sums are added in the order s = 0, 1, ...  The plain twin
-// (ops/decode_cuda.py decode_step_reference) sums in cuBLAS's order, so the
-// two differ by f32 rounding; chip_smoke.py states the tolerance.  The f32
-// epilogue uses the _rn intrinsics and the file is built with --fmad=false.
+// Design (two prediction layers): the prediction net's gate columns and
+// the joint's W1p columns are split over the grid, and each block keeps its
+// slices in shared memory for every iteration of the launch: block b owns
+// UP units of each prediction layer with all four gates of each (so the
+// cell update stays in the block) and UJ = 8 columns of W1p; at P = 320,
+// UP = 4: 80 blocks.  The products are arranged so that no phase waits for
+// a product it could have done earlier:
+//   - layer 0's y is an embedding row, so y.W_ih[0] + b[0] is a row of a
+//     table the host computes once (V x 4P, f32, kept in shared memory);
+//   - h.W_hh of a layer is computed when h is made, where its h' is staged
+//     anyway (layer 0's in layer 1's pass, layer 1's in the joint's pass),
+//     into `spec`; the next iteration takes spec where the lane emitted
+//     and the `keep` of the committed h (the launch's first h.W_hh comes
+//     from one pass over hg at its start) where it did not.
+// One iteration is four phases with a grid barrier after each:
+//   1. layer 0: gates = table[pre_g] + h.W_hh[0] and the cell, no product;
+//   2. layer 1: a pass over y = layer 0's h' against [W_ih[1] | W_hh[0]]:
+//      layer 1's gates and cell, and spec of layer 0;
+//   3. joint: a pass over y = layer 1's h' against [W1p | W_hh[1]]: z for
+//      the block's 8 columns and spec of layer 1;
+//   4. per lane tile (16 bf16 / 32 f32 lanes, tiles over the blocks):
+//      z.W2 + b2, the first argmax (one warp per lane, one label per
+//      thread), the lane algebra, the token write, update_g, and a count
+//      that stays 0 once every lane has finished.
+// A pass (csrc/hopper.cuh pass_products) covers up to 128 (bf16) or 64
+// (f32) lanes: the lanes' inputs copied with cp.async in chunks as wide as
+// the shared memory left over allows, the warps spread over the lanes or
+// over K, the cell updates on the sums in registers.  W2 stays in shared
+// memory in bf16; in f32 it is read from L2.
+// New h/c are not committed in place: h' of iteration i goes to hn[i % 2]
+// (the next phase's input), and the committed h of its start to hc[i % 2];
+// the committed h of the next iteration is update_g ? hn : hc, which only
+// the unit's owner reads; c and c' never leave the owner's shared memory.
+// After the last barrier of an iteration every block reads the count of
+// unfinished lanes and all leave together when it is 0; then each owner
+// commits h/c of its units to hg/cg.  Every update is finish-gated, so the
+// tokens are the same whether the launch stops early or runs all its
+// iterations.  Data written by another block is read through L2 only
+// (cp.async.cg, __ldcg), never from a stale L1 line.
+//
+// Products: bf16 on the tensor cores (mma.sync m16n8k16, lanes as M padded
+// to 16, f32 sums; bf16 products are exact in f32), f32 as FMA on the CUDA
+// cores (no TF32), four lane rows per thread.  Where warps split a
+// product's input axis, their partial sums are added in a fixed order, so
+// the sums do not depend on scheduling; the plain twin (ops/decode_cuda.py
+// decode_step_reference) sums in the matmul library's order, so the two
+// differ by f32 rounding (chip_smoke.py states the tolerance).  The f32 epilogues use the _rn
+// intrinsics and the file is built with --fmad=false.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <cooperative_groups.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int THREADS = 512;
+using namespace hopper;
+
+constexpr int UJ = 8;   // joint columns per block
+constexpr int VP = 32;  // labels, padded: W2's columns in the operand
 enum { PRE_G = 0, TIME, SYMADD, RES_IDX, FINISH, F_LENS, EOS, SYMBOL };
 
-// a matvec over M columns: 8 consecutive columns per thread, and the K
-// inputs split over nks(M) groups of threads (partial sums reduced after)
-__host__ __device__ __forceinline__ int nks(int M) {
-  const int ncg = M / 8;
-  return ncg >= THREADS ? 1 : THREADS / ncg;
-}
+struct Args {
+  const float* fproj;  // (T2, N, J)
+  int* lanes;          // (8, N)
+  void* hg;            // (2, N, P) WT
+  float* cg;           // (2, N, P)
+  int8_t* res;         // (N, R)
+  const void* whh;     // per block < P / UP: (2, P, 4UP) W_hh columns per layer
+  const void* w1;      // per block < P / UP: (P, 8UP) y.[W_ih[1] | W_hh[0]] columns
+  const void* w2;      // per block: (P, UJ + 4UP) y.[W1p | W_hh[1]] columns
+  const float* b;      // (2, 4P)
+  const float* b1;     // (J)
+  const void* wout;    // W2 (J, VP), kernel order
+  const float* b2;     // (V)
+  const float* eproj;  // per block < P / UP: (V, UP, 4) embed.W_ih[0] + b[0], row V-1 = b[0]
+  float* keep;         // per block: (2, N, UP, 4) h.W_hh of the committed h
+  float* spec;         // per block: (2, N, UP, 4) h'.W_hh of an iteration's new h
+  void* hn;            // (2, 2, N, P) WT: h' of an iteration
+  void* hc;            // (2, 2, N, P) WT: committed h at an iteration's start
+  void* z;             // (N, J) WT
+  int* upd;            // (2, N) update_g of an iteration
+  int* alive;          // (2) nonzero while a lane is unfinished after an iteration
+  int steps, N, P, J, V, R, blank, sos, max_sym;
+  int ring_cap;  // elements of the staging ring
+};
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename WT, int UP>
+__global__ void __launch_bounds__(THREADS, 1) decode_loop(Args a) {
+  constexpr int MT = Rows<WT>::MT, RMAX = Rows<WT>::RMAX, SLOTS = UP / 4;
+  constexpr int NC1 = 8 * UP, NC2 = UJ + 4 * UP;  // layer 1's and the joint's columns
+  constexpr bool BF16 = sizeof(WT) == 2;
+  constexpr int RPT = MT / 8;  // lane rows a thread finishes in a pass: m-tile rows g8 + 8 r
+  const int N = a.N, P = a.P, J = a.J, V = a.V;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, b = blockIdx.x;
+  const int nbp = P / UP, nbj = J / UJ;
+  const size_t LNP = (size_t)2 * N * P;
+  const WT* hg = static_cast<const WT*>(a.hg);
+  WT* hn = static_cast<WT*>(a.hn);
+  WT* hc = static_cast<WT*>(a.hc);
+  WT* z = static_cast<WT*>(a.z);
+  float* keep = a.keep + (size_t)b * 2 * N * UP * 4;
+  float* spec = a.spec + (size_t)b * 2 * N * UP * 4;
 
-template <typename WT>
-__device__ __forceinline__ float round_to(float v);
-template <>
-__device__ __forceinline__ float round_to<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
+  extern __shared__ __align__(16) unsigned char smem[];
+  const size_t w1_bytes = (size_t)P * NC1 * sizeof(WT), w2_bytes = (size_t)P * NC2 * sizeof(WT);
+  WT* w1_s = reinterpret_cast<WT*>(smem);
+  WT* w2_s = reinterpret_cast<WT*>(smem + w1_bytes);
+  // bf16: W2 (fragments, J VP 2 bytes) in shared memory too; f32 reads it
+  // from L2 (its 64 KB would not leave room for the ring at N = 1024)
+  const size_t wo_bytes = BF16 ? (size_t)J * VP * sizeof(WT) : 0;
+  WT* wo_s = reinterpret_cast<WT*>(smem + w1_bytes + w2_bytes);
+  const void* wout = BF16 ? static_cast<const void*>(wo_s) : a.wout;
+  float* lg = reinterpret_cast<float*>(smem + w1_bytes + w2_bytes + wo_bytes);  // (MT, VP)
+  float* e_s = lg + MT * VP;                            // (V, UP, 4) layer 0's input gates
+  float* c_s = e_s + V * UP * 4;                        // (2, N, UP) committed
+  float* cn_s = c_s + 2 * N * UP;                       // (2, N, UP) candidate
+  const int Np = (N + 3) & ~3;                          // 16-byte rows
+  int* pre_s = reinterpret_cast<int*>(cn_s + 2 * N * UP);  // (N) pre_g
+  int* time_s = pre_s + Np;                             // (N) time_idx
+  int* updp_s = time_s + Np;                            // (N) previous update_g
+  WT* ring = reinterpret_cast<WT*>(updp_s + Np);        // a.ring_cap elements
 
-template <typename WT>
-__device__ __forceinline__ WT store_as(float v);
-template <>
-__device__ __forceinline__ float store_as<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 store_as<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// 8 consecutive weights (16-byte aligned) as floats
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
-  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-  const unsigned w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    v[2 * i] = __uint_as_float(w[i] << 16);
-    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-__device__ __forceinline__ void load8(const float* p, float* v) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-// acc[c] += sum over k = k0, k0 + kstep, ... < K of a[k] * W[k, col0 + c]
-template <typename WT>
-__device__ __forceinline__ void dot8(const float* __restrict__ a, const WT* __restrict__ W,
-                                     int M, int col0, int k0, int K, int kstep,
-                                     float* acc) {
-#pragma unroll 4
-  for (int k = k0; k < K; k += kstep) {
-    float w[8];
-    load8(W + (size_t)k * M + col0, w);
-    const float ak = a[k];
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[c] = __fmaf_rn(ak, w[c], acc[c]);
-  }
-}
-
-// torch.sigmoid's formula: 1 / (1 + exp(-x))
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));
-}
-
-template <typename WT>
-__global__ void __launch_bounds__(THREADS)
-decode_step(const float* __restrict__ fproj,  // (T2, N, J)
-            int* __restrict__ lanes,          // (8, N)
-            WT* __restrict__ hg,              // (L, N, P)
-            float* __restrict__ cg,           // (L, N, P)
-            int8_t* __restrict__ res,         // (N, R)
-            const WT* __restrict__ embed,     // (V-1, P)
-            const WT* __restrict__ w_ih,      // (L, P, 4P)
-            const WT* __restrict__ w_hh,      // (L, P, 4P)
-            const float* __restrict__ b,      // (L, 4P)
-            const WT* __restrict__ w1p,       // (P, J)
-            const float* __restrict__ b1,     // (J)
-            const WT* __restrict__ w2,        // (J, V)
-            const float* __restrict__ b2,     // (V)
-            int N, int L, int P, int J, int V, int R, int blank, int sos,
-            int max_sym) {
-  const int G = 4 * P;
-  const int kg = nks(G), kj = nks(J);
-  extern __shared__ float sm[];
-  float* y_s = sm;                   // (P) layer input
-  float* h_s = y_s + P;              // (P) layer's previous h
-  float* z_s = h_s + P;              // (J) joint hidden
-  float* part = z_s + J;             // partial sums: max(2 kg G, kj J)
-  float* g_s = part + max(2 * kg * G, kj * J);  // (4P) gates
-  float* hn_s = g_s + G;             // (L, P) new h, already rounded to WT
-  float* cn_s = hn_s + L * P;        // (L, P) new c
-  float* lg_s = cn_s + L * P;        // (V) logits
-  __shared__ int s_update_g;
-
-  const int n = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int pre_g = lanes[PRE_G * N + n];
-  const int time_idx = lanes[TIME * N + n];
-
-  // 1. embedding (SOS, or any index outside the table, embeds to zeros)
-  const bool emb_zero = pre_g == sos || pre_g < 0 || pre_g >= V - 1;
-  for (int k = tid; k < P; k += THREADS)
-    y_s[k] = emb_zero ? 0.0f : to_f(embed[(size_t)pre_g * P + k]);
-
-  // 2. the prediction LSTM, one step: gates = (y.W_ih + b) + h.W_hh
-  {
-    const int ncg = G / 8, cgi = tid % ncg, ks = tid / ncg;
-    for (int l = 0; l < L; ++l) {
-      const size_t so = ((size_t)l * N + n) * P;
-      for (int k = tid; k < P; k += THREADS) h_s[k] = to_f(hg[so + k]);
-      __syncthreads();
-      const float* bl = b + (size_t)l * G;
-      if (ks < kg) {
-        float ax[8] = {0, 0, 0, 0, 0, 0, 0, 0}, ah[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-        dot8(y_s, w_ih + (size_t)l * P * G, G, cgi * 8, ks, P, kg, ax);
-        dot8(h_s, w_hh + (size_t)l * P * G, G, cgi * 8, ks, P, kg, ah);
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          const int col = cgi * 8 + c;
-          if (kg == 1) {
-            g_s[col] = __fadd_rn(__fadd_rn(ax[c], bl[col]), ah[c]);
-          } else {
-            part[(2 * ks) * G + col] = ax[c];
-            part[(2 * ks + 1) * G + col] = ah[c];
-          }
-        }
-      }
-      if (kg > 1) {
-        __syncthreads();
-        for (int col = tid; col < G; col += THREADS) {
-          float sx = 0.0f, sh = 0.0f;
-          for (int s = 0; s < kg; ++s) {
-            sx = __fadd_rn(sx, part[(2 * s) * G + col]);
-            sh = __fadd_rn(sh, part[(2 * s + 1) * G + col]);
-          }
-          g_s[col] = __fadd_rn(__fadd_rn(sx, bl[col]), sh);
-        }
-      }
-      __syncthreads();
-      for (int u = tid; u < P; u += THREADS) {
-        const float ig = sigmoid_f(g_s[u]);
-        const float fg = sigmoid_f(g_s[P + u]);
-        const float gg = tanhf(g_s[2 * P + u]);
-        const float og = sigmoid_f(g_s[3 * P + u]);
-        const float c = __fadd_rn(__fmul_rn(fg, cg[so + u]), __fmul_rn(ig, gg));
-        const float h = round_to<WT>(__fmul_rn(og, tanhf(c)));
-        hn_s[l * P + u] = h;
-        cn_s[l * P + u] = c;
-        y_s[u] = h;
-      }
-      __syncthreads();
+  // the block's weight slices and c, for the whole launch
+  if (b < nbp) {
+    const uint4* src =
+        reinterpret_cast<const uint4*>(static_cast<const char*>(a.w1) + b * w1_bytes);
+    for (int i = tid; i < (int)(w1_bytes / 16); i += THREADS)
+      reinterpret_cast<uint4*>(w1_s)[i] = src[i];
+    for (int i = tid; i < 2 * N * UP; i += THREADS) {
+      const int u = i % UP, ln = i / UP;  // ln = l N + n
+      c_s[i] = a.cg[(size_t)ln * P + b * UP + u];
     }
+    for (int i = tid; i < V * UP * 4; i += THREADS) e_s[i] = a.eproj[(size_t)b * V * UP * 4 + i];
+  }
+  {
+    const uint4* src =
+        reinterpret_cast<const uint4*>(static_cast<const char*>(a.w2) + b * w2_bytes);
+    for (int i = tid; i < (int)(w2_bytes / 16); i += THREADS)
+      reinterpret_cast<uint4*>(w2_s)[i] = src[i];
+    for (int i = tid; i < (int)(wo_bytes / 16); i += THREADS)
+      reinterpret_cast<uint4*>(wo_s)[i] = static_cast<const uint4*>(a.wout)[i];
   }
 
-  // 3. joint: z = relu(fproj[time] + y.W1p + b1), rounded to WT
-  {
-    const float* fi = fproj + ((size_t)time_idx * N + n) * J;
-    const int ncg = J / 8, cgi = tid % ncg, ks = tid / ncg;
-    if (ks < kj) {
-      float a[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-      dot8(y_s, w1p, J, cgi * 8, ks, P, kj, a);
+  // a thread's share of a pass's epilogue: lane rows row(r) of its m-tile;
+  // its units: bf16 4 i + q4 (n-tiles 2i, 2i + 1), f32 q4 SLOTS + i
+  const int g8 = lane >> 2, q4 = lane & 3;
+  auto row = [&](int mt, int r) { return mt * MT + g8 + 8 * r; };
+
+  // h.W_hh of the launch's starting state, once: the first iteration's keep
+  if (b < nbp) {
+    for (int l = 0; l < 2; ++l)
+      for (int p0 = 0; p0 < N; p0 += RMAX) {
+        const int rows = min(RMAX, N - p0);
+        const int WM = pass_wm(rows, MT), mt = warp % WM, kg = warp / WM;
+        PassAcc<WT, 4 * UP> acc;
+        pass_products<WT, 4 * UP>(
+            static_cast<const WT*>(a.whh) + (size_t)(b * 2 + l) * P * 4 * UP, P, rows,
+            ring, a.ring_cap, a.lanes, [&](int r) { return hg + ((size_t)l * N + p0 + r) * P; },
+            acc);
+        if (kg != 0) continue;
 #pragma unroll
-      for (int c = 0; c < 8; ++c) part[ks * J + cgi * 8 + c] = a[c];
+        for (int r = 0; r < RPT; ++r) {
+          const int n = p0 + row(mt, r);
+          if (n >= N) continue;
+#pragma unroll
+          for (int i = 0; i < SLOTS; ++i) {
+            const int u = BF16 ? 4 * i + q4 : q4 * SLOTS + i;
+            float* kp = keep + (((size_t)l * N + n) * UP + u) * 4;
+#pragma unroll
+            for (int g = 0; g < 4; ++g)
+              kp[g] = BF16 ? (&acc.v[0][0])[(2 * i + g / 2) * 4 + 2 * r + g % 2]
+                           : (&acc.v[0][0])[r * UP + 4 * i + g];
+          }
+        }
+      }
+  }
+  __syncthreads();
+
+  // the gates' h.W_hh of (layer l, lane n, unit u) at the iteration's start:
+  // spec (h' of the last iteration) where it emitted, else keep; hh_keep
+  // makes it the new keep
+  auto hh_load = [&](int l, int n, int u, int it, float (&hh)[4]) {
+    const size_t o = (((size_t)l * N + n) * UP + u) * 4;
+    const float4 v = __ldcg(reinterpret_cast<const float4*>((it > 0 && updp_s[n] ? spec : keep) + o));
+    hh[0] = v.x; hh[1] = v.y; hh[2] = v.z; hh[3] = v.w;
+  };
+  auto hh_keep = [&](int l, int n, int u, int it, const float (&hh)[4]) {
+    if (it > 0 && updp_s[n])
+      *reinterpret_cast<float4*>(keep + (((size_t)l * N + n) * UP + u) * 4) =
+          make_float4(hh[0], hh[1], hh[2], hh[3]);
+  };
+  // the cell of (layer l, lane n, unit u): commits c' where the last
+  // iteration emitted, writes h' and the committed h it started from
+  auto cell = [&](int l, int n, int u, int it, const float (&gate)[4], WT hold, WT* hn_cur,
+                  WT* hc_cur) {
+    const size_t off = ((size_t)l * N + n) * P + b * UP + u;
+    hc_cur[off] = hold;
+    const int ci = (l * N + n) * UP + u;
+    const float cprev = it > 0 && updp_s[n] ? cn_s[ci] : c_s[ci];
+    c_s[ci] = cprev;
+    const float ig = sigmoid_f(gate[0]);
+    const float fg = sigmoid_f(gate[1]);
+    const float gg = tanhf(gate[2]);
+    const float og = sigmoid_f(gate[3]);
+    const float cn = __fadd_rn(__fmul_rn(fg, cprev), __fmul_rn(ig, gg));
+    cn_s[ci] = cn;
+    hn_cur[off] = store_as<WT>(__fmul_rn(og, tanhf(cn)));
+  };
+
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  int it = 0;
+  for (;; ++it) {
+    const int p = it & 1;
+    const WT* hn_prev = hn + (size_t)(p ^ 1) * LNP;
+    const WT* hc_prev = hc + (size_t)(p ^ 1) * LNP;
+    WT* hn_cur = hn + (size_t)p * LNP;
+    WT* hc_cur = hc + (size_t)p * LNP;
+    // the committed h of (layer l, lane n, unit u) at the iteration's start
+    auto h_at = [&](int l, int n, int u) {
+      const size_t off = ((size_t)l * N + n) * P + b * UP + u;
+      return it == 0 ? hg[off] : updp_s[n] ? hn_prev[off] : hc_prev[off];
+    };
+    if (b == 0 && tid == 0) a.alive[p] = 0;  // last read two barriers ago
+    for (int n = tid; n < N; n += THREADS) {
+      pre_s[n] = __ldcg(a.lanes + PRE_G * N + n);
+      time_s[n] = __ldcg(a.lanes + TIME * N + n);
+      updp_s[n] = it > 0 ? __ldcg(a.upd + (p ^ 1) * N + n) : 0;
     }
     __syncthreads();
-    for (int col = tid; col < J; col += THREADS) {
-      float s = 0.0f;
-      for (int k = 0; k < kj; ++k) s = __fadd_rn(s, part[k * J + col]);
-      const float v = __fadd_rn(__fadd_rn(fi[col], s), b1[col]);
-      z_s[col] = round_to<WT>(fmaxf(v, 0.0f));
-    }
-  }
-  __syncthreads();
-  // logits = z.W2 + b2: 16 partial sums per label (V <= 32)
-  {
-    const int v = tid >> 4, p16 = tid & 15;
-    float a = 0.0f;
-    if (v < V) {
-#pragma unroll 4
-      for (int k = p16; k < J; k += 16) a = __fmaf_rn(z_s[k], to_f(w2[(size_t)k * V + v]), a);
-    }
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1) a = __fadd_rn(a, __shfl_xor_sync(0xffffffffu, a, o));
-    if (v < V && p16 == 0) lg_s[v] = __fadd_rn(a, b2[v]);
-  }
-  __syncthreads();
-  // 4. first-max argmax and the update_g / update_f lane algebra
-  if (tid == 0) {
-    int sym = 0;
-    float best = lg_s[0];
-    for (int v = 1; v < V; ++v)
-      if (lg_s[v] > best) {
-        best = lg_s[v];
-        sym = v;
-      }
-    const bool finish = lanes[FINISH * N + n] != 0;
-    int symadd = lanes[SYMADD * N + n];
-    int res_idx = lanes[RES_IDX * N + n];
-    const bool update_g = sym != blank && symadd != max_sym && !finish;
-    res_idx += update_g;
-    const int write_idx = update_g ? res_idx : R;
-    symadd += update_g;
-    const int new_pre_g = update_g ? sym : pre_g;
-    const bool update_f = !update_g && !finish;
-    int t = time_idx + update_f;
-    const bool new_finish = finish || t >= lanes[F_LENS * N + n];
-    t = min(t, lanes[EOS * N + n]);
-    if (update_f) symadd = 0;
-    lanes[PRE_G * N + n] = new_pre_g;
-    lanes[TIME * N + n] = t;
-    lanes[SYMADD * N + n] = symadd;
-    lanes[RES_IDX * N + n] = res_idx;
-    lanes[FINISH * N + n] = new_finish;
-    lanes[SYMBOL * N + n] = sym;
-    if (write_idx >= 0 && write_idx < R) res[(size_t)n * R + write_idx] = (int8_t)sym;
-    s_update_g = update_g;
-  }
-  __syncthreads();
 
-  // 5. commit the prediction state where a symbol was emitted
-  if (s_update_g) {
-    for (int i = tid; i < L * P; i += THREADS) {
-      const int l = i / P, u = i - l * P;
-      const size_t o = ((size_t)l * N + n) * P + u;
-      hg[o] = store_as<WT>(hn_s[i]);
-      cg[o] = cn_s[i];
+    // phase 1: layer 0.  Its y is an embedding row, so y.W_ih[0] + b[0] is a
+    // row of the table e_s, and h.W_hh[0] was computed when h was (keep /
+    // spec): no product here.
+    if (b < nbp) {
+      for (int i = tid; i < N * UP; i += THREADS) {
+        const int n = i / UP, u = i - n * UP;
+        float hh[4];
+        hh_load(0, n, u, it, hh);
+        hh_keep(0, n, u, it, hh);
+        const int pg = pre_s[n];
+        const float* e = e_s + ((pg != a.sos && pg >= 0 && pg < V - 1 ? pg : V - 1) * UP + u) * 4;
+        float gate[4];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) gate[g] = __fadd_rn(e[g], hh[g]);
+        cell(0, n, u, it, gate, h_at(0, n, u), hn_cur, hc_cur);
+      }
+    }
+    grid.sync();
+
+    // phase 2: layer 1 on y = layer 0's h', and y.W_hh[0] for the next
+    // iteration (spec of layer 0), in passes over [W_ih[1] | W_hh[0]]
+    if (b < nbp) {
+      const float* bl = a.b + 4 * P;
+      for (int p0 = 0; p0 < N; p0 += RMAX) {
+        const int rows = min(RMAX, N - p0);
+        const int WM = pass_wm(rows, MT), mt = warp % WM, kg = warp / WM;
+        // the thread's units of [layer 1 | layer 0]: v < UP is layer 1's
+        auto unit1 = [&](int i) { return BF16 ? 4 * i + q4 : q4 * 2 * SLOTS + i; };
+        float bias[2 * SLOTS][4], hh[RPT][2 * SLOTS][4];  // layer 1's, loaded ahead
+        WT hold[RPT][2 * SLOTS];
+        if (kg == 0) {
+#pragma unroll
+          for (int i = 0; i < 2 * SLOTS; ++i) {
+            const int v = unit1(i);
+            if (v >= UP) continue;
+#pragma unroll
+            for (int g = 0; g < 4; ++g) bias[i][g] = __ldg(bl + g * P + b * UP + v);
+#pragma unroll
+            for (int r = 0; r < RPT; ++r) {
+              const int n = min(p0 + row(mt, r), N - 1);
+              hh_load(1, n, v, it, hh[r][i]);
+              hold[r][i] = h_at(1, n, v);
+            }
+          }
+        }
+        PassAcc<WT, NC1> acc;
+        pass_products<WT, NC1>(
+            w1_s, P, rows, ring, a.ring_cap, a.lanes,
+            [&](int r) { return hn_cur + ((size_t)p0 + r) * P; }, acc);
+        if (kg != 0) continue;
+        const float* flat = &acc.v[0][0];
+#pragma unroll
+        for (int r = 0; r < RPT; ++r) {
+          const int n = p0 + row(mt, r);
+          if (n >= N) continue;
+#pragma unroll
+          for (int i = 0; i < 2 * SLOTS; ++i) {
+            const int v = unit1(i);
+            float s[4];
+#pragma unroll
+            for (int g = 0; g < 4; ++g)
+              s[g] = BF16 ? flat[(2 * i + g / 2) * 4 + 2 * r + g % 2]
+                          : flat[r * NC1 / 4 + 4 * i + g];
+            if (v < UP) {
+              float gate[4];
+              hh_keep(1, n, v, it, hh[r][i]);
+#pragma unroll
+              for (int g = 0; g < 4; ++g)
+                gate[g] = __fadd_rn(__fadd_rn(s[g], bias[i][g]), hh[r][i][g]);
+              cell(1, n, v, it, gate, hold[r][i], hn_cur, hc_cur);
+            } else {
+              float* sp = spec + ((size_t)n * UP + v - UP) * 4;  // layer 0
+              *reinterpret_cast<float4*>(sp) = make_float4(s[0], s[1], s[2], s[3]);
+            }
+          }
+        }
+      }
+    }
+    grid.sync();
+
+    // phase 3: the joint's hidden layer, UJ columns per block, and y.W_hh[1]
+    // for the next iteration (spec of layer 1), y = layer 1's h'
+    {
+      const WT* y = hn_cur + (size_t)N * P;
+      const int jc0 = b * UJ;
+      for (int p0 = 0; p0 < N; p0 += RMAX) {
+        const int rows = min(RMAX, N - p0);
+        const int WM = pass_wm(rows, MT), mt = warp % WM, kg = warp / WM;
+        float fb[RPT][2];  // fproj[time], loaded ahead
+        if (kg == 0 && b < nbj) {
+#pragma unroll
+          for (int r = 0; r < RPT; ++r) {
+            const int n = min(p0 + row(mt, r), N - 1);
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              fb[r][e] = __ldg(a.fproj + ((size_t)time_s[n] * N + n) * J + jc0 + 2 * q4 + e);
+          }
+        }
+        PassAcc<WT, NC2> acc;
+        pass_products<WT, NC2>(
+            w2_s, P, rows, ring, a.ring_cap, a.lanes,
+            [&](int r) { return y + ((size_t)p0 + r) * P; }, acc);
+        if (kg != 0) continue;
+        const float* flat = &acc.v[0][0];
+#pragma unroll
+        for (int r = 0; r < RPT; ++r) {
+          const int n = p0 + row(mt, r);
+          if (n >= N) continue;
+          if (b < nbj) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float sum = BF16 ? flat[2 * r + e] : flat[r * NC2 / 4 + e];
+              const int jc = jc0 + 2 * q4 + e;
+              const float v = __fadd_rn(__fadd_rn(fb[r][e], sum), __ldg(a.b1 + jc));
+              z[(size_t)n * J + jc] = store_as<WT>(fmaxf(v, 0.0f));
+            }
+          }
+          if (b < nbp) {
+#pragma unroll
+            for (int i = 0; i < SLOTS; ++i) {
+              const int u = BF16 ? 4 * i + q4 : q4 * SLOTS + i;
+              float s[4];
+#pragma unroll
+              for (int g = 0; g < 4; ++g)
+                s[g] = BF16 ? flat[(1 + 2 * i + g / 2) * 4 + 2 * r + g % 2]
+                            : flat[r * NC2 / 4 + 2 + 4 * i + g];
+              float* sp = spec + (((size_t)N + n) * UP + u) * 4;  // layer 1
+              *reinterpret_cast<float4*>(sp) = make_float4(s[0], s[1], s[2], s[3]);
+            }
+          }
+        }
+      }
+    }
+    grid.sync();
+
+    // phase 4: z.W2 + b2, first argmax and the lane algebra; lane tiles
+    // of MT over the blocks, one pass each (all warps split K = J); then
+    // warp w takes the tile's rows w, w + 8, ..., one label per lane
+    for (int n0 = b * MT; n0 < N; n0 += gridDim.x * MT) {
+      const int rows = min(MT, N - n0);
+      int fin[RPT], sad[RPT], rix[RPT], fl[RPT], eo[RPT];
+      if (lane == 0) {  // the rows' fields, ahead of the products
+#pragma unroll
+        for (int r = 0; r < RPT; ++r) {
+          const int* ln = a.lanes + min(n0 + warp + 8 * r, N - 1);
+          fin[r] = __ldcg(ln + FINISH * N);
+          sad[r] = __ldcg(ln + SYMADD * N);
+          rix[r] = __ldcg(ln + RES_IDX * N);
+          fl[r] = __ldcg(ln + F_LENS * N);
+          eo[r] = __ldcg(ln + EOS * N);
+        }
+      }
+      PassAcc<WT, VP> acc;
+      pass_products<WT, VP>(
+          wout, J, rows, ring, a.ring_cap, a.lanes,
+          [&](int r) { return z + (size_t)(n0 + r) * J; }, acc);
+      if (warp == 0) {  // the one m-tile's sums: logits to shared memory
+#pragma unroll
+        for (int r = 0; r < RPT; ++r) {
+          const int m = g8 + 8 * r;
+          if constexpr (BF16) {
+#pragma unroll
+            for (int j = 0; j < VP / 8; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int v = 8 * j + 2 * q4 + e;
+                if (v < V) lg[m * VP + v] = __fadd_rn(acc.v[j][2 * r + e], a.b2[v]);
+              }
+          } else {
+#pragma unroll
+            for (int c = 0; c < VP / 4; ++c) {
+              const int v = q4 * (VP / 4) + c;
+              if (v < V) lg[m * VP + v] = __fadd_rn(acc.v[r][c], a.b2[v]);
+            }
+          }
+        }
+      }
+      __syncthreads();
+      int unfinished = 0;
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) {
+        const int m = warp + 8 * r, n = n0 + m;
+        if (m >= rows) break;
+        float best = lane < V ? lg[m * VP + lane] : -INFINITY;
+        int sym = lane;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {  // the first maximum
+          const float ob = __shfl_xor_sync(0xffffffffu, best, o);
+          const int os = __shfl_xor_sync(0xffffffffu, sym, o);
+          if (ob > best || (ob == best && os < sym)) {
+            best = ob;
+            sym = os;
+          }
+        }
+        if (lane == 0) {
+          const bool finish = fin[r] != 0;
+          int symadd = sad[r], res_idx = rix[r];
+          const bool update_g = sym != a.blank && symadd != a.max_sym && !finish;
+          res_idx += update_g;
+          const int write_idx = update_g ? res_idx : a.R;
+          symadd += update_g;
+          const bool update_f = !update_g && !finish;
+          int t = time_s[n] + update_f;
+          const bool new_finish = finish || t >= fl[r];
+          t = min(t, eo[r]);
+          if (update_f) symadd = 0;
+          int* ln = a.lanes + n;
+          ln[PRE_G * N] = update_g ? sym : pre_s[n];
+          ln[TIME * N] = t;
+          ln[SYMADD * N] = symadd;
+          ln[RES_IDX * N] = res_idx;
+          ln[FINISH * N] = new_finish;
+          ln[SYMBOL * N] = sym;
+          if (write_idx >= 0 && write_idx < a.R) a.res[(size_t)n * a.R + write_idx] = (int8_t)sym;
+          a.upd[p * N + n] = update_g;
+          unfinished += !new_finish;
+        }
+      }
+      const int count = __syncthreads_count(unfinished);  // lg is free again, too
+      if (tid == 0 && count) atomicAdd(a.alive + p, count);
+    }
+    grid.sync();
+    if (it + 1 >= a.steps || __ldcg(a.alive + p) == 0) break;  // the same for every block
+  }
+
+  // commit h/c of the block's units: h' and c' where the last iteration
+  // emitted, else the state it started from
+  if (b < nbp) {
+    const int p = it & 1;
+    WT* hgw = static_cast<WT*>(a.hg);
+    for (int i = tid; i < 2 * N * UP; i += THREADS) {
+      const int u = i % UP, ln = i / UP, n = ln % N;
+      const size_t off = (size_t)ln * P + b * UP + u;
+      const bool upd = __ldcg(a.upd + p * N + n) != 0;
+      hgw[off] = ((upd ? hn : hc) + (size_t)p * LNP)[off];  // the block's own writes
+      a.cg[off] = upd ? cn_s[i] : c_s[i];
     }
   }
 }
 
-template <typename WT>
-cudaError_t run_steps(int steps, const void* fproj, void* lanes, void* hg, void* cg,
-                      void* res, const void* embed, const void* w_ih, const void* w_hh,
-                      const void* b, const void* w1p, const void* b1, const void* w2,
-                      const void* b2, int N, int L, int P, int J, int V, int R, int blank,
-                      int sos, int max_sym, cudaStream_t stream) {
-  const int G = 4 * P;
-  const size_t part = (size_t)(2 * nks(G) * G > nks(J) * J ? 2 * nks(G) * G : nks(J) * J);
-  const size_t smem = sizeof(float) * ((size_t)2 * P + J + part + G + (size_t)2 * L * P + V);
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_step<WT>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+template <typename WT, int UP>
+cudaError_t launch(Args a, cudaStream_t stream) {
+  // the staging ring takes what the block's other arrays leave
+  int dev = 0, limit = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  for (int s = 0; s < steps; ++s) {
-    decode_step<WT><<<N, THREADS, smem, stream>>>(
-        static_cast<const float*>(fproj), static_cast<int*>(lanes), static_cast<WT*>(hg),
-        static_cast<float*>(cg), static_cast<int8_t*>(res), static_cast<const WT*>(embed),
-        static_cast<const WT*>(w_ih), static_cast<const WT*>(w_hh),
-        static_cast<const float*>(b), static_cast<const WT*>(w1p),
-        static_cast<const float*>(b1), static_cast<const WT*>(w2),
-        static_cast<const float*>(b2), N, L, P, J, V, R, blank, sos, max_sym);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
+  const size_t es = sizeof(WT);
+  const size_t fixed = (size_t)a.P * (8 * UP + UJ + 4 * UP) * es +
+                       (es == 2 ? (size_t)a.J * VP * es : 0) +
+                       (size_t)(Rows<WT>::MT * VP + a.V * UP * 4) * 4 +
+                       (size_t)4 * a.N * UP * 4 + (size_t)3 * ((a.N + 3) & ~3) * 4;
+  if (fixed + (size_t)ring_min<WT>() * es > (size_t)limit) return cudaErrorInvalidValue;
+  a.ring_cap = (int)(((size_t)limit - fixed) / es) & ~7;
+  const size_t smem = fixed + (size_t)a.ring_cap * es;
+  auto kern = decode_loop<WT, UP>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int nbp = a.P / UP, nbj = a.J / UJ;
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kern),
+                                    dim3(nbp > nbj ? nbp : nbj), dim3(THREADS), args, smem,
+                                    stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// `steps` back-to-back iterations on `stream`; weight_bf16 selects the
-// weight type (1: bf16, 0: f32).  Returns 0 or the first CUDA error.
-int rnnt_decode_steps(int weight_bf16, int steps, const void* fproj, void* lanes,
-                      void* hg, void* cg, void* res, const void* embed, const void* w_ih,
-                      const void* w_hh, const void* b, const void* w1p, const void* b1,
-                      const void* w2, const void* b2, int N, int L, int P, int J, int V,
+// Up to `steps` iterations in one cooperative launch on `stream`, leaving
+// early once every lane has finished; two prediction layers.  weight_bf16
+// selects the weight type (1: bf16, 0: f32); whh, w1, w2, wout, eproj are
+// the layouts of ops/decode_cuda.py kernel_operands for UP = 4 (the only
+// unit count built); keep, spec, hn, hc, z, upd and alive (two ints, each
+// zeroed by the kernel before it counts into it) are scratch.  Returns 0, or
+// the CUDA error of a refused launch (a grid that cannot be co-resident:
+// cudaErrorCooperativeLaunchTooLarge).
+int rnnt_decode_steps(int weight_bf16, int UP, int steps, const void* fproj, void* lanes,
+                      void* hg, void* cg, void* res, const void* whh, const void* w1,
+                      const void* w2, const void* b, const void* b1, const void* wout,
+                      const void* b2, const void* eproj, void* keep, void* spec, void* hn,
+                      void* hc, void* z, void* upd, void* alive, int N, int P, int J, int V,
                       int R, int blank, int sos, int max_sym, void* stream) {
-  // 8 columns per thread: 4P and J multiples of 8, at most 8 * THREADS
-  if (steps < 0 || N <= 0 || L <= 0 || P <= 0 || (4 * P) % 8 != 0 || J % 8 != 0 ||
-      J <= 0 || 4 * P > 8 * THREADS || J > 8 * THREADS || V < 1 || V > 32)
+  if (steps <= 0 || N <= 0 || P <= 0 || P % 64 != 0 || J <= 0 || J % 64 != 0 || V < 1 ||
+      V > VP || UP != 4)
     return static_cast<int>(cudaErrorInvalidValue);
+  Args a{static_cast<const float*>(fproj), static_cast<int*>(lanes), hg,
+         static_cast<float*>(cg), static_cast<int8_t*>(res), whh, w1, w2,
+         static_cast<const float*>(b), static_cast<const float*>(b1), wout,
+         static_cast<const float*>(b2), static_cast<const float*>(eproj),
+         static_cast<float*>(keep), static_cast<float*>(spec), hn, hc, z,
+         static_cast<int*>(upd), static_cast<int*>(alive), steps, N, P, J, V, R, blank, sos,
+         max_sym, 0};
   auto* s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      weight_bf16
-          ? run_steps<__nv_bfloat16>(steps, fproj, lanes, hg, cg, res, embed, w_ih, w_hh, b,
-                                     w1p, b1, w2, b2, N, L, P, J, V, R, blank, sos, max_sym, s)
-          : run_steps<float>(steps, fproj, lanes, hg, cg, res, embed, w_ih, w_hh, b, w1p, b1,
-                             w2, b2, N, L, P, J, V, R, blank, sos, max_sym, s);
+      weight_bf16 ? launch<__nv_bfloat16, 4>(a, s) : launch<float, 4>(a, s);
   return static_cast<int>(err);
 }
 

@@ -1,0 +1,300 @@
+// Device helpers shared by the persistent kernels B (decode_step.cu) and C
+// (lstm_scan.cu), for Hopper (sm_90a): 16-byte cp.async copies into shared
+// memory, the bf16 tensor-core product mma.sync m16n8k16 (f32 sums), the
+// f32 FMA product on the CUDA cores, and the rounding helpers.
+//
+// pass_products (below) runs one product for up to 128 lane rows with
+// every warp busy; the two product routines under it compute a warp's
+// partial sums over a share of the input axis K for one tile of lane rows.
+//
+// bf16 operand B is laid out on the host in mma fragment order
+// (ops/cuda_build.py b_fragments): for k-step s (16 inputs) and n-tile j
+// (8 columns), lane l = 4 g + t holds the bf16 values
+// B[16 s + 2 t + {0, 1, 8, 9}, 8 j + g] as one uint2, so a warp reads its
+// fragment as 256 contiguous bytes.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hopper {
+
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename WT>
+__device__ __forceinline__ WT store_as(float v);
+template <>
+__device__ __forceinline__ float store_as<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 store_as<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// torch.sigmoid's formula: 1 / (1 + exp(-x))
+__device__ __forceinline__ float sigmoid_f(float x) {
+  return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));
+}
+
+// 16 bytes global -> shared through L2 only (.cg: never a stale L1 line of
+// data another block wrote before a grid barrier); !valid fills zeros
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&a)[4], const __nv_bfloat16* p) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void mma_16816(float (&c)[4], const unsigned (&a)[4], uint2 b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+// Partial sums of a 16-row bf16 tile A (shared memory, row stride lda
+// elements, lda * 2 an odd multiple of 16 bytes so ldmatrix is free of bank
+// conflicts) times B over the k-steps s = s0, s0 + ds, ... < s1.
+// Bf: fragments [k-step][NT][32] (shared or global memory).
+// acc[j] is the warp's C fragment of n-tile j: rows g and g + 8, columns
+// 8 j + 2 t and + 1 (lane = 4 g + t).
+template <int NT>
+__device__ __forceinline__ void mma_rows16(const __nv_bfloat16* A, int lda, const uint2* Bf,
+                                           int s0, int s1, int ds, float (&acc)[NT][4]) {
+  const int lane = threadIdx.x & 31;
+  const int mat = lane >> 3, r = lane & 7;
+  const __nv_bfloat16* arow = A + (r + 8 * (mat & 1)) * lda + 8 * (mat >> 1);
+  int s = s0;
+  for (; s + 3 * ds < s1; s += 4 * ds) {  // four k-steps: every load before the products
+    unsigned a[4][4];
+    uint2 b[4][NT];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      ldmatrix_x4(a[u], arow + 16 * (s + u * ds));
+#pragma unroll
+      for (int j = 0; j < NT; ++j) b[u][j] = Bf[((s + u * ds) * NT + j) * 32 + lane];
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mma_16816(acc[j], a[u], b[u][j]);
+  }
+  for (; s < s1; s += ds) {
+    unsigned a[4];
+    ldmatrix_x4(a, arow + 16 * s);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mma_16816(acc[j], a, Bf[(s * NT + j) * 32 + lane]);
+  }
+}
+
+// Partial sums of a 32-row f32 tile A (shared memory, row stride lda
+// floats, lda * 4 an odd multiple of 16 bytes) times B [K][4 CPT] over the
+// groups of four inputs k = k0, k0 + 4 dq, ... < k1, as f32 FMA in k order.
+// Lane 4 m + q owns rows m, m + 8, m + 16, m + 24 and columns q CPT ..
+// q CPT + CPT - 1: each B value read feeds four rows, so the FMA pipe and
+// not shared memory sets the pace.
+template <int CPT>
+__device__ __forceinline__ void fma_rows32(const float* A, int lda, const float* B, int k0,
+                                           int k1, int dq, float (&acc)[4][CPT]) {
+  constexpr int NC = 4 * CPT;
+  const int lane = threadIdx.x & 31, m = lane >> 2, q = lane & 3;
+  const float* arow = A + m * lda;
+  const float* bcol = B + q * CPT;
+  for (int k = k0; k < k1; k += 4 * dq) {
+    float av[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float4 a4 = *reinterpret_cast<const float4*>(arow + 8 * r * lda + k);
+      av[r][0] = a4.x; av[r][1] = a4.y; av[r][2] = a4.z; av[r][3] = a4.w;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float* br = bcol + (size_t)(k + e) * NC;
+      float w[CPT];
+      if constexpr (CPT % 4 == 0) {
+#pragma unroll
+        for (int c = 0; c < CPT; c += 4) {
+          const float4 v = *reinterpret_cast<const float4*>(br + c);
+          w[c] = v.x; w[c + 1] = v.y; w[c + 2] = v.z; w[c + 3] = v.w;
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < CPT; c += 2) {
+          const float2 v = *reinterpret_cast<const float2*>(br + c);
+          w[c] = v.x; w[c + 1] = v.y;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) acc[r][c] = __fmaf_rn(av[r][e], w[c], acc[r][c]);
+    }
+  }
+}
+
+// Lane rows per tile (MT), the row padding of a staged tile (PAD), and the
+// most lane rows of one pass (RMAX = 8 warps x MT), by weight type: bf16
+// tiles are mma's 16 rows; f32 tiles 32 rows (fma_rows32).
+template <typename WT>
+struct Rows;
+template <>
+struct Rows<__nv_bfloat16> {
+  static constexpr int MT = 16;
+  static constexpr int PAD = 8;  // elements: 16 bytes
+  static constexpr int RMAX = 128;
+};
+template <>
+struct Rows<float> {
+  static constexpr int MT = 32;
+  static constexpr int PAD = 4;
+  static constexpr int RMAX = 64;  // two m-tiles: the f32 weights leave less room
+};
+
+// ---------------------------------------------------------------------------
+// One pass: the products of up to RMAX lane rows against a block's weight
+// columns, with every warp busy.  The rows' inputs are staged in chunks of
+// KC inputs through a ring of up to NSTAGE = 2 shared-memory slots (cp.async,
+// one __syncthreads per chunk, the next chunk's copy in flight while a
+// chunk's products run).  KC is the widest multiple of 64 dividing K whose
+// slots fit the ring: every step starts after a grid barrier with a cold
+// pipeline, and L2's latency under all SMs' reads is long, so the more of a
+// pass is requested at once, the sooner it arrives (a pass of 16 bf16 rows
+// asks for all of K in one chunk).  The 8 warps are WM m-tiles side by side
+// times WK = 8 / WM groups that split the input axis (WM grows with the
+// rows: many lanes take all warps across lanes, few lanes split K); a
+// k-group's partial sums are added to group 0's in group order through
+// shared memory, so the sums do not depend on scheduling.  Group 0's warps
+// end with the sums in registers:
+//   bf16, lane 4 g + t: rows g and g + 8 of its m-tile, columns 8 j + 2 t
+//        and + 1 of n-tile j (acc.v[j][2 r + e]);
+//   f32,  lane 4 m + q: rows m + 8 r (r < 4) of its m-tile, columns q NC/4
+//        .. (acc.v[r][c]).
+
+constexpr int NSTAGE = 2;
+
+template <typename WT, int NC>
+struct PassAcc;
+template <int NC>
+struct PassAcc<__nv_bfloat16, NC> {
+  static constexpr int NV = NC / 2;  // floats a lane holds
+  float v[NC / 8][4];
+};
+template <int NC>
+struct PassAcc<float, NC> {
+  static constexpr int NV = NC;
+  float v[4][NC / 4];
+};
+
+// m-tiles side by side for a pass of `rows` lane rows (1, 2, 4 or 8)
+__device__ __forceinline__ int pass_wm(int rows, int mt) {
+  const int tiles = (rows + mt - 1) / mt;
+  return tiles > 4 ? 8 : tiles > 2 ? 4 : tiles;
+}
+
+// the least ring (elements) a pass may be given: NSTAGE slots of RMAX rows
+// of 64 inputs.  After the products the ring holds the k-groups' sums,
+// (WARPS - 1) x 32 x NV floats.
+template <typename WT>
+__host__ __device__ constexpr int ring_min() {
+  return NSTAGE * Rows<WT>::RMAX * (64 + Rows<WT>::PAD);
+}
+
+// row(r): the address of row r's K inputs (16-byte aligned), or nullptr
+// for zeros.  B: bf16 fragments [K/16][NC/8][32] (cuda_build.b_fragments)
+// or f32 [K][NC], in shared or global memory.  K a multiple of 64.  ring:
+// ring_cap >= ring_min elements.  gdummy: any global address (never read).
+template <typename WT, int NC, typename Row>
+__device__ __forceinline__ void pass_products(const void* B, int K, int rows, WT* ring,
+                                              int ring_cap, const void* gdummy, Row row,
+                                              PassAcc<WT, NC>& acc) {
+  static_assert((WARPS - 1) * 32 * PassAcc<WT, NC>::NV * 4 <= ring_min<WT>() * (int)sizeof(WT),
+                "the k-group sums must fit in the ring");
+  constexpr bool BF16 = sizeof(WT) == 2;
+  constexpr int MT = Rows<WT>::MT, PAD = Rows<WT>::PAD, EPP = 16 / (int)sizeof(WT);
+  constexpr int NV = PassAcc<WT, NC>::NV;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int WM = pass_wm(rows, MT), WK = WARPS / WM, mt = warp % WM, kg = warp / WM;
+  const int srows = WM * MT;
+  int KC = 64;  // the widest chunk whose slots fit the ring
+  for (int m = K / 64; m > 1; --m) {
+    const int kc = 64 * m, n = K / kc;
+    if (K % kc == 0 && (n < NSTAGE ? n : NSTAGE) * srows * (kc + PAD) <= ring_cap) {
+      KC = kc;
+      break;
+    }
+  }
+  const int LDA = KC + PAD, SLOT = srows * LDA, nch = K / KC;
+  const int ppr = KC / EPP, pieces = srows * ppr;  // 16-byte pieces per row, per chunk
+  auto stage = [&](int c) {
+    if (c < nch) {
+      WT* dst = ring + (c % NSTAGE) * SLOT;
+      for (int i = tid; i < pieces; i += THREADS) {
+        const int r = i / ppr, e = (i - r * ppr) * EPP;
+        const WT* p = r < rows ? row(r) : nullptr;
+        if (p) p += c * KC + e;
+        cp_async16(dst + r * LDA + e, p ? static_cast<const void*>(p) : gdummy, p != nullptr);
+      }
+    }
+    cp_async_commit();  // an empty group past the end keeps the count
+  };
+#pragma unroll
+  for (int c = 0; c < NSTAGE - 1; ++c) stage(c);
+  float* flat = reinterpret_cast<float*>(acc.v);  // NV sums, indexed in unrolled loops
+#pragma unroll
+  for (int i = 0; i < NV; ++i) flat[i] = 0.0f;
+  for (int c = 0; c < nch; ++c) {
+    cp_async_wait<NSTAGE - 2>();
+    __syncthreads();  // chunk c is in, and chunk c - 1's slot is free
+    stage(c + NSTAGE - 1);
+    const WT* A = ring + (c % NSTAGE) * SLOT + mt * MT * LDA;
+    const int k0 = c * KC;
+    if constexpr (BF16) {
+      constexpr int NT = NC / 8;
+      // the chunk's k-steps s (global) with s % WK == kg
+      const int s_lo = k0 / 16, s0 = s_lo + ((kg - s_lo) % WK + WK) % WK;
+      mma_rows16<NT>(A - k0, LDA, static_cast<const uint2*>(B), s0, s_lo + KC / 16, WK, acc.v);
+    } else {
+      constexpr int CPT = NC / 4;
+      const int q_lo = k0 / 4, q0 = q_lo + ((kg - q_lo) % WK + WK) % WK;
+      fma_rows32<CPT>(A - k0, LDA, static_cast<const float*>(B), 4 * q0, k0 + KC, WK, acc.v);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring
+  if (WK > 1) {  // red[(group - 1, m-tile)][i][lane] in the ring: no bank conflicts
+    float* red = reinterpret_cast<float*>(ring);
+    float* mine = red + ((kg - 1) * WM + mt) * NV * 32 + lane;
+    if (kg > 0) {
+#pragma unroll
+      for (int i = 0; i < NV; ++i) mine[32 * i] = flat[i];
+    }
+    __syncthreads();
+    if (kg == 0)
+      for (int g = 1; g < WK; ++g) {
+        const float* other = red + ((g - 1) * WM + mt) * NV * 32 + lane;
+#pragma unroll
+        for (int i = 0; i < NV; ++i) flat[i] = __fadd_rn(flat[i], other[32 * i]);
+      }
+    __syncthreads();  // the ring is free again
+  }
+}
+
+}  // namespace hopper

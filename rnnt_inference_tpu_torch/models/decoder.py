@@ -8,10 +8,11 @@ Mask algebra (per lane, per iteration):
       -> advance time; finish |= time >= f_lens; clamp time to eos;
          reset symbols_added
 
-The symbol loop is a host loop.  Each trip runs K iterations back to back
-(kernel B on CUDA tensors, one launch each) and then reads ``finish.all()``
-once.  Every update of an iteration is finish-gated, so iterations applied
-to lanes that have already finished change nothing, and the tokens are the
+The symbol loop is a host loop.  Each trip runs up to K iterations (on
+CUDA tensors one launch of kernel B, which leaves early once every lane has
+finished; the plain twin runs all K) and then reads ``finish.all()`` once.
+Every update of an iteration is finish-gated, so iterations applied to
+lanes that have already finished change nothing, and the tokens are the
 same at any K.  The cap ``it < max_iters`` is checked for every iteration,
 not once per trip.
 """
@@ -28,8 +29,9 @@ from rnnt_inference_tpu_torch.models import rnnt as model
 from rnnt_inference_tpu_torch.ops import decode_cuda as dc
 from rnnt_inference_tpu_torch.ops.lstm import dot_f32
 
-# iterations between two host reads of finish.all()
-DEFAULT_STEPS_PER_CHECK = 16
+# iterations between two host reads of finish.all(): one kernel-B launch
+# each; chip_smoke.py's symbol_loop_by_k times the choice (PERF.md)
+DEFAULT_STEPS_PER_CHECK = 64
 
 
 @dataclasses.dataclass

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
 first use into ``build/torch_kernels/lib<name>-<hash>.so`` at the repository
-root (the hash is of the source and flags, so an edited source rebuilds).
+root (the hash is of the source, the shared headers ``csrc/*.cuh`` and the
+flags, so an edited source or header rebuilds).
 Nothing is compiled when a module is imported.  A failed build raises.
 
 Flags: ``sm_90a`` (Hopper), no fast math, and ``--fmad=false`` so that the
@@ -12,6 +13,7 @@ float epilogues round exactly like their plain PyTorch twins.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -20,6 +22,8 @@ import time
 import weakref
 from pathlib import Path
 from typing import Callable, Dict, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -45,7 +49,7 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = b"".join(f.read_bytes() for f in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
@@ -136,3 +140,66 @@ def cached_operands(owner, name: str, tensors: Sequence, build: Callable[[], obj
 
     _OPERANDS[key] = (weakref.ref(owner, forget), stamp, operands)
     return operands
+
+
+# shared memory one block may use on an H100 (sm_90)
+SMEM_PER_BLOCK = 232448
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """Streaming multiprocessors of the card: the most blocks a persistent
+    kernel (one block per SM, all co-resident) may launch."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# csrc/hopper.cuh's pass engine, mirrored for shared-memory planning
+NSTAGE = 2
+
+
+def rows(dtype: torch.dtype):
+    """(MT, PAD, RMAX) of csrc/hopper.cuh Rows: lane rows per m-tile, row
+    padding in elements, lane rows per pass."""
+    return (16, 8, 128) if dtype == torch.bfloat16 else (32, 4, 64)
+
+
+def ring_min_bytes(dtype: torch.dtype) -> int:
+    """The least staging ring a pass may be given (csrc/hopper.cuh ring_min);
+    a kernel's ring takes whatever shared memory its other arrays leave."""
+    _, pad, rmax = rows(dtype)
+    return NSTAGE * rmax * (64 + pad) * (2 if dtype == torch.bfloat16 else 4)
+
+
+def gate_columns(U: int, dtype: torch.dtype) -> torch.Tensor:
+    """The order of a block's 4U gate columns: local column c holds unit u,
+    gate g at index 4u + g of perm[c].  bf16: c = 8 (2 (u // 4) + g // 2) +
+    2 (u % 4) + g % 2, so lane 4g' + t of an mma C fragment holds all four
+    gates of unit 4i + t in n-tiles 2i, 2i + 1; f32: c = 4u + g, so lane
+    4m + q of fma_rows32 holds units q U/4 .. (csrc/hopper.cuh)."""
+    perm = torch.empty(4 * U, dtype=torch.long)
+    for u in range(U):
+        for g in range(4):
+            c = (8 * (2 * (u // 4) + g // 2) + 2 * (u % 4) + g % 2
+                 if dtype == torch.bfloat16 else 4 * u + g)
+            perm[c] = 4 * u + g
+    return perm
+
+
+def b_fragments(w: torch.Tensor) -> torch.Tensor:
+    """bf16 operand B {..., K, NC} in mma.sync m16n8k16 fragment order
+    {..., K/16, NC/8, 32, 4}: for k-step s and n-tile j, lane 4g + t holds
+    B[16s + 2t + (0, 1, 8, 9), 8j + g] (csrc/hopper.cuh)."""
+    *lead, K, NC = w.shape
+    d = len(lead)
+    f = w.reshape(*lead, K // 16, 2, 4, 2, NC // 8, 8)  # k = 16s + 8hh + 2t + p, n = 8j + g
+    f = f.permute(*range(d), d, d + 4, d + 5, d + 2, d + 1, d + 3)  # s, j, g, t, hh, p
+    return f.reshape(*lead, K // 16, NC // 8, 32, 4).contiguous()
+
+
+def b_fragments_inverse(f: torch.Tensor) -> torch.Tensor:
+    """The plain {..., K, NC} operand back from ``b_fragments``."""
+    *lead, KS, NT, _, _ = f.shape
+    d = len(lead)
+    w = f.reshape(*lead, KS, NT, 8, 4, 2, 2)  # s, j, g, t, hh, p
+    w = w.permute(*range(d), d, d + 4, d + 3, d + 5, d + 1, d + 2)  # s, hh, t, p, j, g
+    return w.reshape(*lead, KS * 16, NT * 8).contiguous()

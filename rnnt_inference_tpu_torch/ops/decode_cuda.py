@@ -1,5 +1,5 @@
-"""Kernel B: one greedy-decode iteration in CUDA C++ (csrc/decode_step.cu),
-and its plain PyTorch twin.
+"""Kernel B: the greedy-decode symbol loop in CUDA C++ (csrc/decode_step.cu),
+and its plain PyTorch twin (one iteration).
 
 Replaces rnnt_inference_tpu/ops/decode_pallas.py::_decode_step_kernel, with
 the fproj gather and the token write folded in.  Both versions update the
@@ -12,7 +12,10 @@ Both multiply in the weight dtype and accumulate every dot product in f32,
 as the TPU kernel does (preferred_element_type=f32); the kernel sums in its
 own fixed order and the twin in the matmul library's, so they agree to f32
 rounding.  ``decode_step`` is the wrapper: CPU tensors take the twin, CUDA
-tensors launch the kernel (the twin only for impl="reference").
+tensors launch the kernel (the twin only for impl="reference").  One
+launch runs up to ``steps`` iterations as one cooperative grid that keeps
+the weights in its blocks' shared memory (``plan``, ``kernel_operands``)
+and leaves early once every lane has finished.
 ``decode_step_cuda.launches`` counts kernel launches.
 """
 
@@ -20,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -48,20 +52,27 @@ class DecodeWeights:
 
 
 def decode_weights(weights) -> DecodeWeights:
-    """Stack the prediction layers of RNNTWeights / QuantRNNTWeights."""
+    """Stack the prediction layers of RNNTWeights / QuantRNNTWeights; kept
+    with ``weights`` and made again if one of its tensors changes."""
     jw = weights.joint
-    dt = weights.embed.dtype
-    c = lambda t: t.contiguous()
-    return DecodeWeights(
-        embed=c(weights.embed),
-        w_ih=c(torch.stack([l.w_ih for l in weights.pred_rnn]).to(dt)),
-        w_hh=c(torch.stack([l.w_hh for l in weights.pred_rnn]).to(dt)),
-        b=c(torch.stack([l.b for l in weights.pred_rnn]).float()),
-        w1p=c(jw.w1_pred.to(dt)),
-        b1=c(jw.b1.float()),
-        w2=c(jw.w2.to(dt)),
-        b2=c(jw.b2.float()),
-    )
+    tensors = [weights.embed, jw.w1_pred, jw.b1, jw.w2, jw.b2] + [
+        t for l in weights.pred_rnn for t in (l.w_ih, l.w_hh, l.b)]
+
+    def build() -> DecodeWeights:
+        dt = weights.embed.dtype
+        c = lambda t: t.contiguous()
+        return DecodeWeights(
+            embed=c(weights.embed),
+            w_ih=c(torch.stack([l.w_ih for l in weights.pred_rnn]).to(dt)),
+            w_hh=c(torch.stack([l.w_hh for l in weights.pred_rnn]).to(dt)),
+            b=c(torch.stack([l.b for l in weights.pred_rnn]).float()),
+            w1p=c(jw.w1_pred.to(dt)),
+            b1=c(jw.b1.float()),
+            w2=c(jw.w2.to(dt)),
+            b2=c(jw.b2.float()),
+        )
+
+    return cuda_build.cached_operands(weights, "decode_weights", tensors, build)
 
 
 def decode_step_reference(
@@ -121,13 +132,169 @@ def decode_step_reference(
     lanes[SYMBOL] = symbols
 
 
+UJ = 8  # joint columns per block
+VP = 32  # labels padded: W2's columns in the kernel's operand
+UP = 4  # prediction units per block the kernel is built for
+
+
+@functools.lru_cache(maxsize=64)
+def plan(P: int, J: int, V: int, N: int, L: int, dtype: torch.dtype, sms: int):
+    """(UP, least shared bytes per block) for kernel B on a card with ``sms``
+    SMs: P / UP prediction blocks and J / UJ joint blocks, one to an SM (the
+    staging ring then takes the rest of shared memory).  Raises ValueError
+    for a shape the kernel cannot take."""
+    if L != 2:
+        raise ValueError(f"kernel B runs two prediction layers, got {L}")
+    if P <= 0 or J <= 0 or P % 64 or J % 64:
+        raise ValueError(f"kernel B needs P and J multiples of 64, got P={P} J={J}")
+    if not 1 <= V <= VP:
+        raise ValueError(f"kernel B takes 1..{VP} labels, got V={V}")
+    for what, blocks in (("P", P // UP), ("J", J // UJ)):
+        if blocks > sms:
+            raise ValueError(f"kernel B: {what} needs {blocks} blocks, the card has {sms} SMs")
+    mt = cuda_build.rows(dtype)[0]
+    es = 2 if dtype == torch.bfloat16 else 4
+    smem = (P * (8 * UP + UJ + 4 * UP) * es + cuda_build.ring_min_bytes(dtype)
+            + (J * VP * es if dtype == torch.bfloat16 else 0)  # W2 in shared memory
+            + (mt * VP + V * UP * 4) * 4 + 4 * N * UP * 4 + 3 * -(-N // 4) * 16)
+    if smem > cuda_build.SMEM_PER_BLOCK:
+        raise ValueError(
+            f"kernel B: N={N} lanes need {smem} bytes of shared memory per block, "
+            f"more than {cuda_build.SMEM_PER_BLOCK}"
+        )
+    return UP, smem
+
+
+def _gates(w: torch.Tensor, UP: int) -> torch.Tensor:
+    """(K, 4P) gate columns -> (P/UP, K, UP, 4): block, input, unit, gate."""
+    K, G = w.shape
+    return w.reshape(K, 4, G // 4 // UP, UP).permute(2, 0, 3, 1)
+
+
+def _joint_columns(UP: int, dtype: torch.dtype) -> torch.Tensor:
+    """Order of the joint pass's UJ + 4UP columns over [W1p's UJ | W_hh[1]'s
+    4u + g]: bf16 the UJ joint columns (n-tile 0), then the units in
+    cuda_build.gate_columns order; f32 lane 4m + q's 2 + UP columns, its
+    joint columns 2q, 2q + 1 and then the gates of its units."""
+    if dtype == torch.bfloat16:
+        return torch.cat([torch.arange(UJ), UJ + cuda_build.gate_columns(UP, dtype)])
+    sl = UP // 4
+    return torch.tensor([2 * q + x if x < 2 else UJ + 4 * (q * sl + (x - 2) // 4) + (x - 2) % 4
+                         for q in range(4) for x in range(2 + UP)])
+
+
+def kernel_operands(dw: DecodeWeights, UP: int):
+    """(whh, w1, w2, wout, eproj), the weights in kernel B's per-block order
+    (two prediction layers):
+      whh {P/UP, 2, P, 4UP}: block b's W_hh columns (gate g of unit b UP +
+          u) per layer, in cuda_build.gate_columns order (the launch's first
+          h.W_hh);
+      w1 {P/UP, P, 8UP}: layer 1's pass on y = layer 0's h': W_ih[1]'s and
+          W_hh[0]'s columns of the block's units, as 2UP units (layer 1's,
+          then layer 0's) in gate_columns order;
+      w2 {nb, P, UJ + 4UP}, nb = max(P/UP, J/UJ): the joint's pass on
+          y = layer 1's h': W1p's columns b UJ .. and W_hh[1]'s of the
+          block's units (zeros where the block has none), in _joint_columns
+          order;
+      wout {J, VP}: W2 padded with zero columns;
+    in bf16 each then in mma fragment order (cuda_build.b_fragments).
+    eproj {P/UP, V, UP, 4} f32: layer 0's input gates for every embedding
+    row, embed . W_ih[0] + b[0] (f32 sums, as the twin), and in row V-1
+    those of SOS's zero embedding, b[0]."""
+    L, P, G = dw.w_ih.shape
+    J, V = dw.w2.shape
+    dt, dev = dw.w2.dtype, dw.w2.device
+    nbp, nbj = P // UP, J // UJ
+    nb = max(nbp, nbj)
+    order = lambda U: cuda_build.gate_columns(U, dt).to(dev)
+    whh = torch.stack([_gates(dw.w_hh[l], UP) for l in range(L)], dim=1).reshape(
+        nbp, L, P, 4 * UP)[..., order(UP)]
+    w1 = torch.cat([_gates(dw.w_ih[1], UP), _gates(dw.w_hh[0], UP)], dim=2).reshape(
+        nbp, P, 8 * UP)[..., order(2 * UP)]
+    w2 = w1.new_zeros((nb, P, UJ + 4 * UP))
+    w2[:nbj, :, :UJ] = dw.w1p.reshape(P, nbj, UJ).permute(1, 0, 2)
+    w2[:nbp, :, UJ:] = _gates(dw.w_hh[1], UP).reshape(nbp, P, 4 * UP)
+    w2 = w2[..., _joint_columns(UP, dt).to(dev)]
+    wout = torch.cat([dw.w2, dw.w2.new_zeros((J, VP - V))], dim=1)
+    ops = (whh, w1, w2, wout)
+    if dt == torch.bfloat16:
+        ops = tuple(cuda_build.b_fragments(t) for t in ops)
+    eproj = torch.cat([dot_f32(dw.embed, dw.w_ih[0]) + dw.b[0], dw.b[0][None]])  # (V, 4P)
+    eproj = eproj.reshape(V, 4, nbp, UP).permute(2, 0, 3, 1)
+    return tuple(t.contiguous() for t in ops + (eproj,))
+
+
+def _gates_inverse(w: torch.Tensor) -> torch.Tensor:
+    """(P/UP, K, UP, 4) -> the (K, 4P) gate columns (``_gates``' inverse)."""
+    nbp, K, U, _ = w.shape
+    return w.permute(1, 3, 0, 2).reshape(K, 4 * nbp * U)
+
+
+def kernel_operands_inverse(ops, V: int):
+    """(w_ih1, w_hh, w1p, w2) back from ``kernel_operands``: W_ih[1] {P, 4P}
+    from w1, W_hh {2, P, 4P} from whh, W1p and W2 from w2 and wout.  Layer
+    0's W_ih reaches the kernel only as eproj's sums."""
+    whh, w1, w2, wout = ops[:4]
+    if whh.dtype == torch.bfloat16:
+        whh, w1, w2, wout = (cuda_build.b_fragments_inverse(t) for t in (whh, w1, w2, wout))
+    nbp, L, P, NC = whh.shape
+    UP = NC // 4
+    unorder = lambda U: torch.argsort(cuda_build.gate_columns(U, whh.dtype)).to(whh.device)
+    whh = whh[..., unorder(UP)].reshape(nbp, L, P, UP, 4)
+    w_hh = torch.stack([_gates_inverse(whh[:, l]) for l in range(L)])
+    w_ih1 = _gates_inverse(w1[..., unorder(2 * UP)].reshape(nbp, P, 2 * UP, 4)[:, :, :UP])
+    w2 = w2[..., torch.argsort(_joint_columns(UP, w2.dtype)).to(w2.device)]
+    J = wout.shape[0]
+    w1p = w2[: J // UJ, :, :UJ].permute(1, 0, 2).reshape(P, J)
+    return w_ih1, w_hh, w1p, wout[:, :V]
+
+
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load(NAME)
     if lib.rnnt_decode_steps.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rnnt_decode_steps.argtypes = [i, i] + [p] * 13 + [i] * 9 + [p]
+        lib.rnnt_decode_steps.argtypes = [i, i, i] + [p] * 20 + [i] * 8 + [p]
         lib.rnnt_decode_steps.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=16)
+def _scratch(dev: torch.device, stream: int, N: int, P: int, J: int, L: int,
+             wdt: torch.dtype):
+    """Kernel B's scratch for one stream and shape, made once and reused by
+    every launch (the kernel zeroes each ``alive`` slot before it counts
+    into it): the data pointers of h.W_hh of the committed h (keep) and of
+    each iteration's h' (spec), hn, hc, z, upd and alive."""
+    keep = torch.empty((2, P // UP, L, N, UP, 4), dtype=torch.float32, device=dev)
+    hn = torch.empty((2, L, N, P), dtype=wdt, device=dev)
+    hc = torch.empty_like(hn)
+    z = torch.empty((N, J), dtype=wdt, device=dev)
+    upd = torch.empty((2, N), dtype=torch.int32, device=dev)
+    alive = torch.empty((2,), dtype=torch.int32, device=dev)
+    tensors = (keep, hn, hc, z, upd, alive)
+    return tensors, [keep[0].data_ptr(), keep[1].data_ptr()] + [t.data_ptr() for t in tensors[1:]]
+
+
+def _operands(dw: DecodeWeights, P: int, J: int, V: int, L: int):
+    """``kernel_operands`` of ``dw``, made once per weight set (and again if
+    one of its tensors changes), after checking that dw fits the state."""
+    def build():
+        wdt = dw.embed.dtype
+        for name, t, dt, shape in [
+            ("embed", dw.embed, wdt, (V - 1, P)),
+            ("w_ih", dw.w_ih, wdt, (L, P, 4 * P)),
+            ("w_hh", dw.w_hh, wdt, (L, P, 4 * P)),
+            ("b", dw.b, torch.float32, (L, 4 * P)),
+            ("w1p", dw.w1p, wdt, (P, J)),
+            ("b1", dw.b1, torch.float32, (J,)),
+            ("w2", dw.w2, wdt, (J, V)),
+            ("b2", dw.b2, torch.float32, (V,)),
+        ]:
+            cuda_build.require(t, f"decode_step_cuda {name}", dt, shape)
+        return kernel_operands(dw, UP)
+
+    tensors = (dw.embed, dw.w_ih, dw.w_hh, dw.b, dw.w1p, dw.b1, dw.w2, dw.b2)
+    return cuda_build.cached_operands(dw, f"{NAME}/P{P}J{J}V{V}L{L}", tensors, build)
 
 
 def decode_step_cuda(
@@ -140,7 +307,9 @@ def decode_step_cuda(
     params: RNNTParams,
     steps: int = 1,
 ) -> None:
-    """``steps`` back-to-back decode iterations on the card, in place."""
+    """Up to ``steps`` decode iterations on the card, in place, in one
+    launch that stops early once every lane has finished (the iterations it
+    skips would change nothing).  A refused cooperative launch raises."""
     T2, N, J = fproj.shape
     L, _, P = hg.shape
     V = dw.w2.shape[1]
@@ -148,40 +317,35 @@ def decode_step_cuda(
     wdt = dw.embed.dtype
     if wdt not in (torch.bfloat16, torch.float32):
         raise ValueError(f"kernel B takes bf16 or f32 weights, got {wdt}")
-    want = [
+    for name, t, dt, shape in [
         ("fproj", fproj, torch.float32, (T2, N, J)),
         ("lanes", lanes, torch.int32, (N_LANE_ROWS, N)),
         ("hg", hg, wdt, (L, N, P)),
         ("cg", cg, torch.float32, (L, N, P)),
         ("res", res, torch.int8, (N, R)),
-        ("embed", dw.embed, wdt, (V - 1, P)),
-        ("w_ih", dw.w_ih, wdt, (L, P, 4 * P)),
-        ("w_hh", dw.w_hh, wdt, (L, P, 4 * P)),
-        ("b", dw.b, torch.float32, (L, 4 * P)),
-        ("w1p", dw.w1p, wdt, (P, J)),
-        ("b1", dw.b1, torch.float32, (J,)),
-        ("w2", dw.w2, wdt, (J, V)),
-        ("b2", dw.b2, torch.float32, (V,)),
-    ]
-    for name, t, dt, shape in want:
-        if not t.is_cuda or t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(
-                f"decode_step_cuda {name}: want contiguous CUDA {dt} {shape}, "
-                f"got {t.device} {t.dtype} {tuple(t.shape)}"
-            )
-    if (4 * P) % 8 or J % 8 or any(t.data_ptr() % 16 for _, t, _, _ in want[5:]):
-        raise ValueError("kernel B needs 4P and J multiples of 8 and 16-byte aligned weights")
+    ]:
+        cuda_build.require(t, f"decode_step_cuda {name}", dt, shape)
+    if hg.data_ptr() % 16:
+        raise ValueError("kernel B copies hg rows in 16-byte pieces: align it")
     if steps <= 0:
         return
+    dev = lanes.device
+    plan(P, J, V, N, L, wdt, cuda_build.sm_count(dev))
+    whh, w1, w2, wout, eproj = _operands(dw, P, J, V, L)
+    if whh.device != dev:
+        raise ValueError(f"kernel B: weights on {whh.device}, state on {dev}")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _, scratch = _scratch(dev, stream, N, P, J, L, wdt)
     lib = _lib()
-    ptrs = [t.data_ptr() for _, t, _, _ in want]
     err = lib.rnnt_decode_steps(
-        int(wdt == torch.bfloat16), steps, *ptrs,
-        N, L, P, J, V, R, params.BLANK, params.SOS, params.max_symbols_per_step,
-        torch.cuda.current_stream(fproj.device).cuda_stream,
+        int(wdt == torch.bfloat16), UP, steps, fproj.data_ptr(), lanes.data_ptr(),
+        hg.data_ptr(), cg.data_ptr(), res.data_ptr(), whh.data_ptr(), w1.data_ptr(),
+        w2.data_ptr(), dw.b.data_ptr(), dw.b1.data_ptr(), wout.data_ptr(), dw.b2.data_ptr(),
+        eproj.data_ptr(), *scratch,
+        N, P, J, V, R, params.BLANK, params.SOS, params.max_symbols_per_step, stream,
     )
     cuda_build.check(lib, err, "decode_step kernel")
-    decode_step_cuda.launches += steps
+    decode_step_cuda.launches += 1
 
 
 decode_step_cuda.launches = 0
@@ -199,7 +363,8 @@ def decode_step(
     impl: Optional[str] = None,
 ) -> None:
     """Kernel B's wrapper: ``steps`` iterations, the CUDA kernel for CUDA
-    tensors, the plain twin for CPU tensors or when impl="reference"."""
+    tensors (one launch, which may stop early once every lane has
+    finished), the plain twin for CPU tensors or when impl="reference"."""
     if impl not in (None, "reference"):
         raise ValueError(f"unknown impl {impl!r}")
     if impl == "reference" or not lanes.is_cuda:

@@ -45,8 +45,10 @@ class RunReport:
     wer: Optional[float] = None
     hypotheses: List[str] = field(default_factory=list)
     extra: dict = field(default_factory=dict)
-    # seconds per phase (OfflineResult.phase_seconds); not in the summary
+    # seconds per phase (OfflineResult.phase_seconds) and kernel launches
+    # of the timed pass (OfflineResult.launches); not in the summary
     phase_seconds: dict = field(default_factory=dict)
+    launches: dict = field(default_factory=dict)
 
     def summary(self) -> dict:
         d = dict(
@@ -127,6 +129,7 @@ def run_offline(
     )
     report.hypotheses = [seq_to_sen(t, len(t)) for t in result.tokens]
     report.phase_seconds = result.phase_seconds
+    report.launches = result.launches
     if accuracy and any(store.transcripts):
         report.wer, _, _ = word_error_rate(report.hypotheses, store.transcripts)
     if output_dir:

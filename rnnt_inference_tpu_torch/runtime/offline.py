@@ -33,6 +33,24 @@ class OfflineResult:
     phase_seconds: Dict[str, float] = field(default_factory=dict)
     # run_device: the packed token readback, outside wall_seconds
     readback_seconds: float = 0.0
+    # kernel launches of the timed loop, by wrapper (_KERNELS)
+    launches: Dict[str, int] = field(default_factory=dict)
+
+
+# the CUDA kernels a runner can launch: each wrapper counts its launches
+_KERNELS = {
+    "quant_lstm_layer": lstm_cuda.quant_lstm_layer_cuda,
+    "lstm_recurrence": lstm_scan_cuda.lstm_recurrence_cuda,
+    "decode_step": decode_cuda.decode_step_cuda,
+}
+
+
+def _launch_counts() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in _KERNELS.items()}
+
+
+def _launches_since(before: Dict[str, int]) -> Dict[str, int]:
+    return {name: n - before[name] for name, n in _launch_counts().items()}
 
 
 class _PhaseClock:
@@ -166,6 +184,7 @@ class OfflineRunner:
         timed apart as readback_seconds."""
         clock = _PhaseClock(self.device)
         pending, row_indices = [], []
+        before = _launch_counts()
         t0 = time.time()
         with torch.inference_mode():
             for wav, lens, row_index in dqsl.batches():
@@ -175,6 +194,7 @@ class OfflineRunner:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         wall = time.time() - t0
+        launches = _launches_since(before)
 
         t1 = time.time()
         packed_all = packed.cpu().numpy()
@@ -191,6 +211,7 @@ class OfflineRunner:
             batches=len(pending),
             phase_seconds=clock.totals(),
             readback_seconds=readback,
+            launches=launches,
         )
 
     def run(
@@ -204,6 +225,7 @@ class OfflineRunner:
         order = qsl.sort_desc(indices)
         clock = _PhaseClock(self.device)
         results: dict = {}
+        before = _launch_counts()
         t0 = time.time()
         n_batches = 0
         with torch.inference_mode():
@@ -237,4 +259,5 @@ class OfflineRunner:
             wall_seconds=wall,
             batches=n_batches,
             phase_seconds=clock.totals(),
+            launches=_launches_since(before),
         )

@@ -1,0 +1,223 @@
+"""Where the time goes inside the persistent kernels B and C, on the card.
+
+    python -m rnnt_inference_tpu_torch.tools.kernel_phases
+
+Copies csrc/decode_step.cu, csrc/lstm_scan.cu and csrc/hopper.cuh into
+build/kernel_phases/, inserts %globaltimer stamps (thread 0 of block 0) at
+the phase boundaries below, builds them with the port's nvcc flags, runs
+each at the main path's shapes (random weights, MLPerf widths) and prints,
+per shape, the mean microseconds of one iteration (B) or step (C) and of
+each segment between two stamps, averaged over the steady iterations.
+
+Kernel B segments, one iteration:
+  lanes     the lane arrays read after the iteration's first barrier
+  l0        phase 1, layer 0's cell updates (no product)
+  sync1     its grid barrier
+  l1_in     phase 2 until the first chunk of layer 1's input has arrived
+  l1_mma    the rest of layer 1's pass (products, k-group sums)
+  l1_epi    layer 1's cell updates and the layer-0 h.W_hh it keeps
+  sync2
+  j_in      phase 3 until the first chunk of the joint's input has arrived
+  j_mma     the rest of the joint's pass
+  j_epi     z and the layer-1 h.W_hh it keeps
+  sync3
+  o_in      phase 4 until the first chunk of z has arrived
+  o_mma     logits (products, sums, shared memory)
+  o_argmax  argmax and the lane algebra
+  sync4
+Kernel C segments, one step: in (the first chunk of h), mma (the rest of
+the pass), epi (cell updates), sync; a step of several passes (f32 at
+N = 128) counts the earlier passes in `in`.
+
+The stamps are inserted by text: an anchor that is missing stops the tool
+(a kernel's change must bring this file up to date).  Nothing of this
+module runs at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+PROBE = """__device__ unsigned long long g_prof[256 * 32];
+__device__ int g_it, g_base;
+__device__ __forceinline__ unsigned long long gtime() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %globaltimer;" : "=l"(t));
+  return t;
+}
+#define STAMP(i) do { if (blockIdx.x == 0 && threadIdx.x == 0 && g_it < 256) \\
+  g_prof[g_it * 32 + (i)] = gtime(); } while (0)
+"""
+READ = """int rnnt_prof_read(void* host) {
+  return (int)cudaMemcpyFromSymbol(host, g_prof, sizeof(g_prof));
+}
+
+const char* rnnt_cuda_error_string(int err) {"""
+
+HEADER = [
+    ("namespace hopper {", PROBE + "namespace hopper {"),
+    ("    __syncthreads();  // chunk c is in, and chunk c - 1's slot is free",
+     "    __syncthreads();  // chunk c is in, and chunk c - 1's slot is free\n"
+     "    if (c == 0) STAMP(g_base);"),
+]
+DECODE = [
+    ("  for (;; ++it) {\n    const int p = it & 1;",
+     "  for (;; ++it) {\n    if (b == 0 && tid == 0) g_it = it;\n    STAMP(0);\n"
+     "    const int p = it & 1;"),
+    ("    __syncthreads();\n\n    // phase 1: layer 0.",
+     "    __syncthreads();\n    STAMP(1);\n\n    // phase 1: layer 0."),
+    ("    grid.sync();\n\n    // phase 2: layer 1",
+     "    STAMP(2);\n    grid.sync();\n    STAMP(3);\n\n    // phase 2: layer 1"),
+    ("        PassAcc<WT, NC1> acc;\n        pass_products<WT, NC1>(",
+     "        PassAcc<WT, NC1> acc;\n        if (b == 0 && tid == 0) g_base = 4;\n"
+     "        pass_products<WT, NC1>("),
+    ("[&](int r) { return hn_cur + ((size_t)p0 + r) * P; }, acc);\n        if (kg != 0)",
+     "[&](int r) { return hn_cur + ((size_t)p0 + r) * P; }, acc);\n        STAMP(5);\n"
+     "        if (kg != 0)"),
+    ("    grid.sync();\n\n    // phase 3: the joint",
+     "    STAMP(6);\n    grid.sync();\n    STAMP(7);\n\n    // phase 3: the joint"),
+    ("        PassAcc<WT, NC2> acc;\n        pass_products<WT, NC2>(",
+     "        PassAcc<WT, NC2> acc;\n        if (b == 0 && tid == 0) g_base = 8;\n"
+     "        pass_products<WT, NC2>("),
+    ("[&](int r) { return y + ((size_t)p0 + r) * P; }, acc);\n        if (kg != 0)",
+     "[&](int r) { return y + ((size_t)p0 + r) * P; }, acc);\n        STAMP(9);\n"
+     "        if (kg != 0)"),
+    ("    grid.sync();\n\n    // phase 4:",
+     "    STAMP(10);\n    grid.sync();\n    STAMP(11);\n\n    // phase 4:"),
+    ("      PassAcc<WT, VP> acc;\n      pass_products<WT, VP>(",
+     "      PassAcc<WT, VP> acc;\n      if (b == 0 && tid == 0) g_base = 12;\n"
+     "      pass_products<WT, VP>("),
+    ("      __syncthreads();\n      int unfinished = 0;",
+     "      __syncthreads();\n      STAMP(13);\n      int unfinished = 0;"),
+    ("    grid.sync();\n    if (it + 1 >= a.steps ||",
+     "    STAMP(14);\n    grid.sync();\n    STAMP(15);\n    if (it + 1 >= a.steps ||"),
+    ("const char* rnnt_cuda_error_string(int err) {", READ),
+]
+SCAN = [
+    ("  for (int t = 0; t < T; ++t) {\n    const WT* hsrc",
+     "  for (int t = 0; t < T; ++t) {\n    if (blockIdx.x == 0 && tid == 0) { g_it = t; g_base = 1; }\n"
+     "    STAMP(0);\n    const WT* hsrc"),
+    ("[&](int r) { return hsrc + (size_t)(p0 + r) * H; }, acc);\n      if (kg == 0) {",
+     "[&](int r) { return hsrc + (size_t)(p0 + r) * H; }, acc);\n      STAMP(2);\n"
+     "      if (kg == 0) {"),
+    ("    if (t + 1 < T) cooperative_groups::this_grid().sync();",
+     "    STAMP(3);\n    if (t + 1 < T) cooperative_groups::this_grid().sync();\n    STAMP(4);"),
+    ("const char* rnnt_cuda_error_string(int err) {", READ),
+]
+B_SEGMENTS = ("lanes", "l0", "sync1", "l1_in", "l1_mma", "l1_epi", "sync2", "j_in", "j_mma",
+              "j_epi", "sync3", "o_in", "o_mma", "o_argmax", "sync4")
+C_SEGMENTS = ("in", "mma", "epi", "sync")
+
+
+def _patch(text: str, edits) -> str:
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise SystemExit(f"kernel_phases: anchor not found once: {old[:60]!r}")
+        text = text.replace(old, new)
+    return text
+
+
+def _build(out: Path):
+    from rnnt_inference_tpu_torch.ops import cuda_build
+
+    out.mkdir(parents=True, exist_ok=True)
+    src = cuda_build.CSRC
+    (out / "hopper.cuh").write_text(_patch((src / "hopper.cuh").read_text(), HEADER))
+    (out / "decode_step.cu").write_text(_patch((src / "decode_step.cu").read_text(), DECODE))
+    (out / "lstm_scan.cu").write_text(_patch((src / "lstm_scan.cu").read_text(), SCAN))
+    procs = {
+        n: subprocess.Popen([cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-o",
+                             str(out / f"lib{n}.so"), str(out / f"{n}.cu")],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for n in ("decode_step", "lstm_scan")
+    }
+    logs = {n: p.communicate()[0] for n, p in procs.items()}  # every nvcc ends
+    libs = {}
+    for n, p in procs.items():
+        if p.returncode:
+            raise SystemExit(f"nvcc failed for {n}:\n{logs[n][-4000:]}")
+        lib = ctypes.CDLL(str(out / f"lib{n}.so"))
+        lib.rnnt_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.rnnt_cuda_error_string.restype = ctypes.c_char_p
+        cuda_build._LIBS[n] = lib  # the wrappers launch the probed build
+        libs[n] = lib
+    return libs
+
+
+def _segments(lib, steps: int, stamps: int, first: int, last: int):
+    """Mean microseconds per iteration and per segment over iterations
+    first .. last - 1 of the last launch."""
+    import numpy as np
+
+    buf = np.zeros(256 * 32, np.uint64)
+    if lib.rnnt_prof_read(buf.ctypes.data) != 0:
+        raise SystemExit("kernel_phases: could not read the stamps")
+    a = buf.reshape(256, 32)[:steps, :stamps].astype(np.int64)
+    seg = np.diff(a[first:last], axis=1).mean(axis=0) / 1e3
+    per = (a[first + 1:last, 0] - a[first:last - 1, 0]).mean() / 1e3
+    return float(per), [float(x) for x in seg]
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_phases: no CUDA device", file=sys.stderr)
+        return 2
+    from rnnt_inference_tpu_torch.config import RNNTParams
+    from rnnt_inference_tpu_torch.models.weights import LSTMLayerWeights, init_weights
+    from rnnt_inference_tpu_torch.ops import decode_cuda as dc
+    from rnnt_inference_tpu_torch.ops import lstm_scan_cuda as ls
+
+    root = Path(__file__).resolve().parents[2]
+    out = root / "build" / "kernel_phases"
+    shutil.rmtree(out, ignore_errors=True)
+    libs = _build(out)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    dev = torch.device("cuda")
+    params = RNNTParams()
+    rng = np.random.RandomState(0)
+    for dt in (torch.bfloat16, torch.float32):
+        dw = dc.decode_weights(init_weights(params, torch.Generator().manual_seed(0), dtype=dt,
+                                            device=dev))
+        P, J, R = params.pred_hidden_size, params.joint_hidden_size, params.max_res_len
+        for N in (16, 32, 64, 128):
+            T2 = 1024  # every lane at frame 0 of 1024: none finishes in these 16 iterations
+            fproj = torch.from_numpy(rng.randn(T2, N, J).astype(np.float32)).to(dev)
+            z = np.zeros(N, np.int64)
+            lanes = np.stack([z - 1, z, z, z - 1, z, z + T2, z + T2 - 1, z]).astype(np.int32)
+            st = [torch.from_numpy(lanes).to(dev), torch.zeros(2, N, P, dtype=dt, device=dev),
+                  torch.zeros(2, N, P, device=dev),
+                  torch.full((N, R), -1, dtype=torch.int8, device=dev)]
+            for _ in range(2):
+                dc.decode_step_cuda(fproj, *st, dw, params, 16)
+                torch.cuda.synchronize()
+            per, seg = _segments(libs["decode_step"], 16, len(B_SEGMENTS) + 1, 2, 15)
+            print(f"B {str(dt)[6:]} N={N}: {per:.2f} us per iteration; "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in zip(B_SEGMENTS, seg)), flush=True)
+    H, T = 1024, 48
+    g = torch.Generator().manual_seed(0)
+    for dt in (torch.bfloat16, torch.float32):
+        layer = LSTMLayerWeights(*(((torch.rand(s, generator=g) * 2 - 1) / 32).to(dev, dt)
+                                   for s in ((H, 4 * H), (H, 4 * H), (4 * H,))))
+        for N in (16, 128):
+            xw = (torch.randn(T, N, 4 * H, generator=g) * 0.5).to(dev, dt)
+            h0, c0 = torch.zeros(N, H, dtype=dt, device=dev), torch.zeros(N, H, device=dev)
+            for _ in range(2):
+                ls.lstm_recurrence_cuda(layer, xw, h0, c0)
+                torch.cuda.synchronize()
+            per, seg = _segments(libs["lstm_scan"], T, len(C_SEGMENTS) + 1, 2, T - 1)
+            print(f"C {str(dt)[6:]} N={N}: {per:.2f} us per step; "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in zip(C_SEGMENTS, seg)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

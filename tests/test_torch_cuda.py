@@ -105,9 +105,9 @@ def test_pipeline_kernels_match_twins(dev, qweights):
 @pytest.mark.parametrize("N", [5, 40])
 @pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
 def test_lstm_scan_kernel_matches_twin(dev, wdtype, N):
-    """Kernel C over T=7 steps, N lanes not a multiple of the block's 16:
+    """Kernel C over T=7 steps, N lanes not a multiple of the lane tile:
     f32 y/h/c within 1e-5; bf16 y/h within 2**-8 (one bf16 step below 1)
-    and c within 1e-3.  Launch count = T."""
+    and c within 1e-3.  One launch per call."""
     from rnnt_inference_tpu_torch.ops import lstm as tl
     from rnnt_inference_tpu_torch.ops import lstm_scan_cuda
 
@@ -120,7 +120,7 @@ def test_lstm_scan_kernel_matches_twin(dev, wdtype, N):
     c0 = (torch.randn((N, H), generator=g) * 0.5).to(dev)
     before = lstm_scan_cuda.lstm_recurrence_cuda.launches
     got = tl.lstm_layer(layer, x, h0, c0)
-    assert lstm_scan_cuda.lstm_recurrence_cuda.launches == before + 7
+    assert lstm_scan_cuda.lstm_recurrence_cuda.launches == before + 1
     want = tl.lstm_layer(layer, x, h0, c0, impl="reference")
     torch.cuda.synchronize()
     bf16 = wdtype == torch.bfloat16
@@ -166,3 +166,145 @@ def test_float_pipeline_kernels_match_twins(dev, wdtype):
     want = greedy_decode(w, x, lens, P, impl="reference")
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def _decode_case(dev, wdtype, N, P=320, J=512, seed=12):
+    """Full-width (P=320, J=512 by default) decode weights and N lanes in
+    random states."""
+    params = RNNTParams(trans_hidden_size=256, pred_hidden_size=P, joint_hidden_size=J,
+                        max_res_len=128)
+    w = init_weights(params, torch.Generator().manual_seed(seed), dtype=wdtype, device=dev)
+    dw = dc.decode_weights(w)
+    T2, L, R = 6, params.pred_num_layers, params.max_res_len
+    rng = np.random.RandomState(seed)
+    f_lens = rng.randint(0, T2 + 1, N)
+    eos = np.maximum(f_lens - 1, 0)
+    lanes = np.stack([
+        rng.randint(-1, 28, N), np.minimum(rng.randint(0, T2, N), eos),
+        rng.choice([0, 3, 30], N), rng.choice([-1, 5, R - 1], N), f_lens == 0,
+        f_lens, eos, np.zeros(N),
+    ]).astype(np.int32)
+    fproj = torch.from_numpy(rng.randn(T2, N, J).astype(np.float32)).to(dev)
+    hg = torch.from_numpy(rng.randn(L, N, P).astype(np.float32) * 0.5).to(dev, wdtype)
+    cg = torch.from_numpy(rng.randn(L, N, P).astype(np.float32) * 0.5).to(dev)
+    res = torch.full((N, R), -1, dtype=torch.int8, device=dev)
+    return params, dw, fproj, [torch.from_numpy(lanes).to(dev), hg, cg, res]
+
+
+def _assert_decode_close(a, b, bf16):
+    assert torch.equal(a[0], b[0]) and torch.equal(a[3], b[3])
+    assert float((a[1].float() - b[1].float()).abs().max()) <= (2 ** -8 if bf16 else 1e-5)
+    assert float((a[2] - b[2]).abs().max()) <= (1e-3 if bf16 else 1e-5)
+
+
+@pytest.mark.parametrize("N", [1, 16, 64, 128, 200, 1024])
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_one_and_k_steps(dev, wdtype, N):
+    """Kernel B at full width, 1 to 1,024 lanes: one iteration from the
+    twin's state, and one launch of K=8 iterations from a fresh state
+    against 8 twin steps, held
+    to the per-step tolerances (lanes and tokens equal; bf16 hg 2**-8, cg
+    1e-3; f32 1e-5).  One launch per call."""
+    params, dw, fproj, state = _decode_case(dev, wdtype, N)
+    bf16 = wdtype == torch.bfloat16
+    for steps in (1, 8):
+        a = [t.clone() for t in state]
+        b = [t.clone() for t in state]
+        before = dc.decode_step_cuda.launches
+        dc.decode_step_cuda(fproj, *a, dw, params, steps)
+        assert dc.decode_step_cuda.launches == before + 1
+        for _ in range(steps):
+            dc.decode_step_reference(fproj, *b, dw, params)
+        torch.cuda.synchronize()
+        _assert_decode_close(a, b, bf16)
+
+
+def test_decode_kernel_leaves_early(dev):
+    """A launch asked for 100000 iterations on lanes that all finish within
+    31 leaves once they have: it takes far less than 100000 iterations'
+    time, and its state is the twin's after 31 steps."""
+    params, dw, fproj, state = _decode_case(dev, torch.bfloat16, 64)
+    state[0][dc.F_LENS] = 1
+    state[0][dc.EOS] = 0
+    state[0][dc.TIME] = 0
+    state[0][dc.FINISH] = 0
+    state[0][dc.SYMADD] = 0
+    a = [t.clone() for t in state]
+    dc.decode_step_cuda(fproj, *[t.clone() for t in state], dw, params, 1)  # warm
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    dc.decode_step_cuda(fproj, *[t.clone() for t in state], dw, params, 1)
+    t1.record()
+    t1.synchronize()
+    one = t0.elapsed_time(t1)
+    t0.record()
+    dc.decode_step_cuda(fproj, *a, dw, params, 100000)
+    t1.record()
+    t1.synchronize()
+    assert bool(a[0][dc.FINISH].all())
+    assert t0.elapsed_time(t1) < 200 * one
+    b = [t.clone() for t in state]
+    for _ in range(params.max_symbols_per_step + 1):
+        dc.decode_step_reference(fproj, *b, dw, params)
+    _assert_decode_close(a, b, True)
+
+
+def _scan_layer(dev, dtype, H, IC=64, seed=13):
+    from rnnt_inference_tpu_torch.models.weights import LSTMLayerWeights
+
+    rng = np.random.RandomState(seed)
+    k = 1.0 / np.sqrt(H)
+    return LSTMLayerWeights(*(
+        torch.from_numpy(rng.uniform(-k, k, s).astype(np.float32)).to(dev, dtype)
+        for s in ((IC, 4 * H), (H, 4 * H), (4 * H,))))
+
+
+@pytest.mark.parametrize("T", [1, 48])
+@pytest.mark.parametrize("N", [1, 16, 128, 200, 1024])
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+def test_lstm_scan_kernel_mlperf_width(dev, wdtype, N, T):
+    """Kernel C at H=1024 (MLPerf's width), 1 to 1,024 lanes, against its
+    twin on the same xw:
+    f32 within 1e-5; bf16 y/h within 2**-8 and c within 1e-3.  One launch
+    per call."""
+    from rnnt_inference_tpu_torch.ops import lstm as tl
+    from rnnt_inference_tpu_torch.ops import lstm_scan_cuda
+
+    layer = _scan_layer(dev, wdtype, 1024)
+    g = torch.Generator().manual_seed(14)
+    xw = (torch.randn((T, N, 4096), generator=g) * 0.5).to(dev, wdtype)
+    h0 = (torch.randn((N, 1024), generator=g) * 0.5).to(dev, wdtype)
+    c0 = (torch.randn((N, 1024), generator=g) * 0.5).to(dev)
+    before = lstm_scan_cuda.lstm_recurrence_cuda.launches
+    got = lstm_scan_cuda.lstm_recurrence_cuda(layer, xw, h0, c0)
+    assert lstm_scan_cuda.lstm_recurrence_cuda.launches == before + 1
+    want = tl.lstm_recurrence(xw, layer.w_hh, h0, c0)
+    torch.cuda.synchronize()
+    bf16 = wdtype == torch.bfloat16
+    for name, a, b in zip(("y", "h", "c"), got, want):
+        tol = (1e-3 if name == "c" else 2 ** -8) if bf16 else 1e-5
+        assert float((a.float() - b.float()).abs().max()) <= tol, name
+
+
+def test_refused_shapes_raise(dev):
+    """Shapes the kernels cannot take raise ValueError before any launch:
+    kernel C with H not a multiple of 128 or too many lanes for shared
+    memory; kernel B with P not a multiple of 64."""
+    from rnnt_inference_tpu_torch.ops import lstm_scan_cuda
+
+    before = (lstm_scan_cuda.lstm_recurrence_cuda.launches, dc.decode_step_cuda.launches)
+    layer = _scan_layer(dev, torch.float32, 192)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        lstm_scan_cuda.lstm_recurrence_cuda(
+            layer, torch.zeros((2, 3, 768), device=dev), torch.zeros((3, 192), device=dev),
+            torch.zeros((3, 192), device=dev))
+    layer = _scan_layer(dev, torch.float32, 1024)
+    with pytest.raises(ValueError, match="shared memory"):
+        lstm_scan_cuda.lstm_recurrence_cuda(
+            layer, torch.zeros((1, 4000, 4096), device=dev), torch.zeros((4000, 1024), device=dev),
+            torch.zeros((4000, 1024), device=dev))
+    params, dw, fproj, state = _decode_case(dev, torch.float32, 4, P=96, J=64)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        dc.decode_step_cuda(fproj, *state, dw, params, 4)
+    assert before == (lstm_scan_cuda.lstm_recurrence_cuda.launches, dc.decode_step_cuda.launches)

@@ -2,6 +2,8 @@
 the greedy decode, on the same weights (made by the JAX package, carried
 over by the bridge) and the same numpy inputs."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +19,7 @@ from rnnt_inference_tpu_torch.config import RNNTParams
 from rnnt_inference_tpu_torch.models import rnnt as tmodel
 from rnnt_inference_tpu_torch.models.decoder import greedy_decode
 from rnnt_inference_tpu_torch.models.weights import weights_from_numpy_leaves
+from rnnt_inference_tpu_torch.ops import cuda_build
 from rnnt_inference_tpu_torch.ops import decode_cuda as dc
 
 torch.set_num_threads(1)  # tier-1 runs several pytest workers
@@ -51,6 +54,12 @@ def test_decode_step_reference_matches_pallas(dtype, width):
     one bf16 step below 1 (an h may land on the other side of a rounding
     boundary), and cg within 1e-3 (such an h in layer 0 moves the layer-1
     gates by up to 2**-8 * max|W_ih| ~ 2e-4)."""
+    _step_against_pallas(dtype, width)
+
+
+def _step_against_pallas(dtype, width, relayout=None):
+    """decode_step_reference on the bridged weights (``relayout(dw)`` of
+    them if given) against the JAX Pallas step; see the tests below."""
     jp, tp = STEP_WIDTHS[width]
     jw, tw = _both(3, dtype, jp, tp)
     rng = np.random.RandomState(5)
@@ -84,13 +93,15 @@ def test_decode_step_reference_matches_pallas(dtype, width):
     want_res[np.arange(N)[ok], write_idx[ok]] = symbols[ok]
 
     # port: the twin, in place
+    dw = dc.decode_weights(tw)
+    dw = relayout(dw) if relayout else dw
     lanes = torch.from_numpy(np.stack(lanes_in + [np.zeros(N, np.int32)]))
     wdt = torch.bfloat16 if dtype == "bf16" else torch.float32
     thg = torch.from_numpy(hg_w.astype(np.float32)).to(wdt)  # exact: values are wdt's
     tcg = torch.from_numpy(cg.copy())
     tres = torch.from_numpy(res.copy())
     dc.decode_step_reference(
-        torch.from_numpy(fproj), lanes, thg, tcg, tres, dc.decode_weights(tw), tp
+        torch.from_numpy(fproj), lanes, thg, tcg, tres, dw, tp
     )
     got = lanes.numpy()
     for row, want in zip((dc.PRE_G, dc.TIME, dc.SYMADD, dc.RES_IDX, dc.FINISH), out[:5]):
@@ -108,6 +119,97 @@ def test_decode_step_reference_matches_pallas(dtype, width):
     else:
         np.testing.assert_allclose(thg.float().numpy(), want_hg, atol=2**-8)
         np.testing.assert_allclose(tcg.numpy(), want_cg, atol=1e-3)
+
+
+
+def _via_kernel_operands(dw):
+    """DecodeWeights rebuilt from the operands kernel B reads
+    (kernel_operands_inverse): W_ih[1], W_hh, W1p and W2.  Layer 0's
+    embedding, W_ih and bias reach the kernel only as eproj, which
+    test_kernel_operands_inverse holds to embed . W_ih[0] + b[0] bit for
+    bit, so they stay the plain ones."""
+    w_ih1, w_hh, w1p, w2 = dc.kernel_operands_inverse(dc.kernel_operands(dw, dc.UP),
+                                                      dw.w2.shape[1])
+    w_ih = torch.stack([dw.w_ih[0], w_ih1])
+    return dataclasses.replace(dw, w_ih=w_ih, w_hh=w_hh, w1p=w1p, w2=w2)
+
+
+@pytest.mark.parametrize("width", ["narrow", "full"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_twin_from_kernel_operands_matches_pallas(dtype, width):
+    """The twin on weights recovered from kernel B's per-block, fragment-
+    ordered operands against the JAX Pallas step, with the tolerances of
+    test_decode_step_reference_matches_pallas: the layout loses nothing."""
+    _step_against_pallas(dtype, width, _via_kernel_operands)
+
+
+@pytest.mark.parametrize("UP,P,J", [(4, 64, 64), (4, 320, 512), (8, 640, 512)])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_kernel_operands_inverse(dtype, UP, P, J):
+    """kernel_operands' inverse gives W_ih[1], W_hh, W1p and W2 back bit
+    for bit, and each per-block operand holds the columns its pass needs:
+    whh the gate columns of units b UP .. b UP + UP - 1 of W_hh per layer;
+    w1 those of W_ih[1] and then W_hh[0] (layer 1's pass on layer 0's h');
+    w2 W1p's columns b UJ .. and W_hh[1]'s (the joint's pass on layer 1's
+    h'), zeros where the block owns none; eproj embed . W_ih[0] + b[0] for
+    every embedding row and b[0] for SOS."""
+    wdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    rng = np.random.RandomState(P + UP)
+    L, V = 2, 29
+    r = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32))
+    dw = dc.DecodeWeights(
+        embed=r(V - 1, P).to(wdt), w_ih=r(L, P, 4 * P).to(wdt), w_hh=r(L, P, 4 * P).to(wdt),
+        b=r(L, 4 * P), w1p=r(P, J).to(wdt), b1=r(J), w2=r(J, V).to(wdt), b2=r(V))
+    ops = dc.kernel_operands(dw, UP)
+    for got, want in zip(dc.kernel_operands_inverse(ops, V),
+                         (dw.w_ih[1], dw.w_hh, dw.w1p, dw.w2)):
+        assert torch.equal(got, want)
+    plain = [cuda_build.b_fragments_inverse(t) if dtype == "bf16" else t for t in ops[:3]]
+    whh, w1, w2 = plain
+    nbp, nbj, uj = P // UP, J // dc.UJ, dc.UJ
+    col = lambda w, b, u, g: w[:, g * P + b * UP + u]
+    for b in (0, nbp - 1):
+        perm = cuda_build.gate_columns(UP, wdt)
+        for c in (0, 4 * UP - 1):
+            u, g = divmod(int(perm[c]), 4)
+            for l in range(L):
+                assert torch.equal(whh[b, l, :, c], col(dw.w_hh[l], b, u, g))
+        perm = cuda_build.gate_columns(2 * UP, wdt)
+        for c in range(8 * UP):
+            v, g = divmod(int(perm[c]), 4)
+            want = col(dw.w_ih[1], b, v, g) if v < UP else col(dw.w_hh[0], b, v - UP, g)
+            assert torch.equal(w1[b, :, c], want)
+    perm = dc._joint_columns(UP, wdt)
+    for b in range(w2.shape[0]):
+        for c in range(uj + 4 * UP):
+            x = int(perm[c])
+            if x < uj:
+                want = dw.w1p[:, b * uj + x] if b < nbj else torch.zeros(P, dtype=wdt)
+            else:
+                u, g = divmod(x - uj, 4)
+                want = col(dw.w_hh[1], b, u, g) if b < nbp else torch.zeros(P, dtype=wdt)
+            assert torch.equal(w2[b, :, c], want)
+    table = torch.cat([dw.embed.float() @ dw.w_ih[0].float() + dw.b[0], dw.b[0][None]])
+    assert torch.equal(ops[4].permute(1, 3, 0, 2).reshape(V, 4 * P), table)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_decode_plan_units_and_refusals(dtype):
+    """plan: P=320, J=512 on 132 SMs takes UP=4 (80 prediction blocks, 64
+    joint blocks) up to N=1024 lanes and beyond; P=64 takes UP=4; P or J
+    not a multiple of 64, more than 32 labels, other than two prediction
+    layers, more blocks than SMs (P=640 needs 160) or more lanes than
+    shared memory holds raise ValueError."""
+    wdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    assert dc.plan(320, 512, 29, 1024, 2, wdt, 132)[0] == 4
+    assert dc.plan(64, 64, 29, 1, 2, wdt, 132)[0] == 4
+    for args, msg in [((96, 512, 29, 8), "multiples of 64"), ((320, 500, 29, 8), "multiples of 64"),
+                      ((320, 512, 40, 8), "labels"), ((320, 512, 29, 8192), "shared memory"),
+                      ((640, 512, 29, 8), "blocks")]:
+        with pytest.raises(ValueError, match=msg):
+            dc.plan(*args, 2, wdt, 132)
+    with pytest.raises(ValueError, match="two prediction layers"):
+        dc.plan(320, 512, 29, 8, 3, wdt, 132)
 
 
 @pytest.mark.parametrize("dtype,atol", [("f32", 1e-6), ("bf16", 4e-3)])
@@ -145,14 +247,23 @@ def decode_inputs():
     return feats, flens
 
 
-@pytest.mark.parametrize("split_len", [-1, 2])
-@pytest.mark.parametrize("dtype", ["f32", "bf16"])
-def test_greedy_decode_matches_jax(decode_inputs, dtype, split_len):
-    """Tokens and lengths equal to the JAX decode under both of its step
-    implementations (XLA body and Pallas kernel in interpret mode), at the
-    symbol cap 30, for K = 1, 2, 3 iterations between finish checks."""
+@pytest.fixture(scope="module")
+def jax_decode(decode_inputs):
+    """(dtype, split_len) -> the JAX decode's (res, lens) under both of its
+    step implementations, which must agree; each computed once."""
     feats, flens = decode_inputs
-    jw, tw = _both(11, dtype)
+    cache = {}
+
+    def get(dtype, split_len):
+        if (dtype, split_len) not in cache:
+            cache[dtype, split_len] = _jax_decode(feats, flens, dtype, split_len)
+        return cache[dtype, split_len]
+
+    return get
+
+
+def _jax_decode(feats, flens, dtype, split_len):
+    jw, _ = _both(11, dtype)
     want = None
     try:
         for impl in ("xla", "pallas"):
@@ -167,11 +278,45 @@ def test_greedy_decode_matches_jax(decode_inputs, dtype, split_len):
             np.testing.assert_array_equal(got[0], want[0])
     finally:
         jdec.set_decode_impl("xla")
+    return want
+
+
+# iterations per finish check: 1, 2, 3, the default, and max_iters of one
+# chunk (T2 * 31 + 1: the whole symbol loop in one call)
+@pytest.mark.parametrize("ks", ["1,2,3", "16", "max"])
+@pytest.mark.parametrize("split_len", [-1, 2])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_greedy_decode_matches_jax(decode_inputs, jax_decode, dtype, split_len, ks):
+    """Tokens and lengths equal to the JAX decode under both of its step
+    implementations (XLA body and Pallas kernel in interpret mode), at the
+    symbol cap 30, for K iterations between finish checks."""
+    feats, flens = decode_inputs
+    _, tw = _both(11, dtype)
+    want = jax_decode(dtype, split_len)
     assert want[1][-1] == 0  # the zero-length lane emits nothing
-    for k in (1, 2, 3):
+    T2 = -(-(feats.shape[0] if split_len == -1 else split_len) // TP.stack_time_factor)
+    max_iters = T2 * (TP.max_symbols_per_step + 1) + 1
+    for k in ([max_iters] if ks == "max" else map(int, ks.split(","))):
         res, lens = greedy_decode(
             tw, torch.from_numpy(feats), torch.from_numpy(flens), TP,
             split_len=split_len, steps_per_check=k,
         )
         np.testing.assert_array_equal(lens.numpy(), want[1])
         np.testing.assert_array_equal(res.numpy(), want[0])
+
+
+def test_kernel_phase_probes_match_sources():
+    """The phase-profile tool (rnnt_inference_tpu_torch/tools/kernel_phases.py)
+    finds each of its anchors exactly once in kernels B and C and their
+    shared header, so its stamps land where its segment names say, and its
+    edits only add stamp lines: the profiled kernels are the real ones."""
+    from rnnt_inference_tpu_torch.tools import kernel_phases as kp
+
+    probe = ("STAMP", "g_base", "g_it")
+    for name, edits in (("hopper.cuh", kp.HEADER), ("decode_step.cu", kp.DECODE),
+                        ("lstm_scan.cu", kp.SCAN)):
+        patched = kp._patch((cuda_build.CSRC / name).read_text(), edits)
+        assert patched.count("STAMP(") >= (1 if name == "hopper.cuh" else 3)
+        for anchor, stamped in edits:  # the stamps only add lines or a prefix
+            kept = [l for l in stamped.split("\n") if not any(w in l for w in probe)]
+            assert stamped.endswith(anchor) or kept == anchor.split("\n"), anchor

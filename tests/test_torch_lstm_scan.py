@@ -22,7 +22,7 @@ from rnnt_inference_tpu_torch.models import rnnt as trnnt
 from rnnt_inference_tpu_torch.models.quant import calibrate
 from rnnt_inference_tpu_torch.models.weights import LSTMLayerWeights, init_weights
 from rnnt_inference_tpu_torch.ops import lstm as tl
-from rnnt_inference_tpu_torch.ops import lstm_scan_cuda
+from rnnt_inference_tpu_torch.ops import cuda_build, lstm_scan_cuda
 
 torch.set_num_threads(1)  # tier-1 runs several pytest workers
 
@@ -73,18 +73,95 @@ def test_impl_dispatch_on_cpu():
 
 
 def test_recurrent_weight_layout_and_rebuild():
-    """Kernel C's operand is W_hh^T, contiguous, kept per layer and rebuilt
-    after an in-place change of W_hh."""
+    """Kernel C's operand is W_hh in per-block order (scan_operand), whose
+    inverse gives W_hh back; it is kept per layer and rebuilt after an
+    in-place change of W_hh."""
     rng = np.random.RandomState(3)
-    lay = LSTMLayerWeights(*map(torch.from_numpy, _layer(rng, 8, 16)))
-    w_t = lstm_scan_cuda.recurrent_weight(lay)
-    assert w_t.shape == (64, 16) and w_t.is_contiguous()
-    assert torch.equal(w_t, lay.w_hh.t())
-    assert lstm_scan_cuda.recurrent_weight(lay) is w_t
+    lay = LSTMLayerWeights(*map(torch.from_numpy, _layer(rng, 8, 128)))
+    op = lstm_scan_cuda.recurrent_weight(lay, 4)
+    assert op.shape == (32, 128, 16) and op.is_contiguous()
+    assert torch.equal(lstm_scan_cuda.scan_operand_inverse(op, 128, 4), lay.w_hh)
+    assert lstm_scan_cuda.recurrent_weight(lay, 4) is op
     lay.w_hh.neg_()
-    assert torch.equal(lstm_scan_cuda.recurrent_weight(lay), lay.w_hh.t())
+    assert torch.equal(
+        lstm_scan_cuda.scan_operand_inverse(lstm_scan_cuda.recurrent_weight(lay, 4), 128, 4),
+        lay.w_hh)
     other = dataclasses.replace(lay, w_hh=lay.w_hh.clone())
-    assert lstm_scan_cuda.recurrent_weight(other) is not lstm_scan_cuda.recurrent_weight(lay)
+    assert lstm_scan_cuda.recurrent_weight(other, 4) is not lstm_scan_cuda.recurrent_weight(lay, 4)
+
+
+@pytest.mark.parametrize("H,U", [(128, 4), (256, 4), (1024, 8), (2048, 16)])
+@pytest.mark.parametrize("mode", ["f32", "bf16"])
+def test_scan_operand_inverse(mode, H, U):
+    """scan_operand's inverse gives W_hh back bit for bit.  In bf16, lane
+    4 g + t of n-tiles 2i, 2i + 1 holds the four gates of unit 4i + t
+    (column 8 j + 2 t + e: gate 2 (j % 2) + e), so an mma C fragment holds
+    whole units; lane 4 g + t of the fragment of k-step s holds rows
+    16 s + 2 t + (0, 1, 8, 9).  In f32 local column 4 u + g is gate g of
+    unit u (csrc/hopper.cuh)."""
+    tdt = DTYPES[mode][0]
+    w = torch.from_numpy(np.random.RandomState(H).randn(H, 4 * H).astype(np.float32)).to(tdt)
+    op = lstm_scan_cuda.scan_operand(w, U)
+    assert torch.equal(lstm_scan_cuda.scan_operand_inverse(op, H, U), w)
+    b = H // U - 1
+    perm = cuda_build.gate_columns(U, tdt)  # local column c: unit perm[c] // 4, gate perm[c] % 4
+    if mode == "bf16":
+        for i in range(U // 4):
+            for t in range(4):  # the C fragment's columns of lane 4 g + t
+                held = {int(perm[8 * (2 * i + jj) + 2 * t + e]) for jj in (0, 1) for e in (0, 1)}
+                assert held == {4 * (4 * i + t) + gate for gate in range(4)}
+        s_, j, g, t = 3, U // 2 - 1, 5, 2
+        unit, gate = divmod(int(perm[8 * j + g]), 4)
+        want = w[[16 * s_ + 2 * t + k for k in (0, 1, 8, 9)], gate * H + b * U + unit]
+        assert torch.equal(op[b, s_, j, 4 * g + t], want)
+    else:
+        u, gate = U - 1, 2
+        assert int(perm[4 * u + gate]) == 4 * u + gate
+        assert torch.equal(op[b, :, 4 * u + gate], w[:, gate * H + b * U + u])
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16"])
+def test_twin_from_operand_matches_jax_pallas(mode):
+    """The twin's recurrence on W_hh recovered from kernel C's operand
+    against the JAX Pallas recurrence (_lstm_recurrence, interpret mode) on
+    the same xw, at T=5, N=8, H=128: the layout loses nothing.  Tolerances
+    as the module's."""
+    from rnnt_inference_tpu.ops.lstm_pallas import _lstm_recurrence
+
+    tdt, jdt, tol_h, tol_c = DTYPES[mode]
+    rng = np.random.RandomState(12)
+    T, N, H = 5, 8, 128
+    w_hh = _layer(rng, 8, H)[1]
+    xw = (rng.randn(T, N, 4 * H) * 0.5).astype(np.float32)
+    h0 = (rng.randn(N, H) * 0.5).astype(np.float32)
+    c0 = (rng.randn(N, H) * 0.5).astype(np.float32)
+    j = lambda a: jnp.asarray(a).astype(jdt)
+    want = _lstm_recurrence(j(xw), j(w_hh), j(h0), jnp.asarray(c0), interpret=True)
+    t = lambda a: torch.from_numpy(np.array(jnp.asarray(a).astype(jdt).astype(jnp.float32))).to(tdt)
+    op = lstm_scan_cuda.scan_operand(t(w_hh), 4)
+    got = tl.lstm_recurrence(t(xw), lstm_scan_cuda.scan_operand_inverse(op, H, 4), t(h0),
+                             torch.from_numpy(c0))
+    for g, w, tol in zip(got, want, (tol_h, tol_h, tol_c)):
+        np.testing.assert_allclose(g.float().numpy(), np.asarray(w.astype(jnp.float32)), atol=tol)
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16"])
+def test_plan_units_and_refusals(mode):
+    """plan takes U=8 units per block, one block to an SM (H=1024 on 132
+    SMs: 128 blocks; H=256: 32) and refuses, with ValueError, H not a
+    multiple of 128, a grid larger than the card (H=2048 needs 256
+    blocks), and more lanes than shared memory holds; N=1024 fits."""
+    tdt = DTYPES[mode][0]
+    assert lstm_scan_cuda.plan(1024, 1024, tdt, 132)[0] == 8
+    assert lstm_scan_cuda.plan(256, 1, tdt, 132)[0] == 8
+    with pytest.raises(ValueError, match="blocks"):
+        lstm_scan_cuda.plan(2048, 8, tdt, 132)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        lstm_scan_cuda.plan(192, 8, tdt, 132)
+    with pytest.raises(ValueError, match="blocks"):
+        lstm_scan_cuda.plan(4096, 8, tdt, 132)
+    with pytest.raises(ValueError, match="shared memory"):
+        lstm_scan_cuda.plan(1024, 4096, tdt, 132)
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():

@@ -126,6 +126,36 @@ def test_run_device_tokens_match_jax(models, mode):
     assert sum(len(t) for t in tres.tokens) > 0
 
 
+def test_runner_counts_launches_of_its_timed_pass(models, monkeypatch):
+    """OfflineResult.launches / RunReport.launches count the kernel launches
+    of the timed loop only, not those of the warm-up or priming pass.  On
+    the CPU nothing launches (all zero), so a stand-in for kernel B's
+    wrapper counts each decode call as its launch."""
+    from rnnt_inference_tpu_torch.models import decoder
+    from rnnt_inference_tpu_torch.ops import decode_cuda
+
+    _, tw = models["f32"]
+    _, ts = _stores(5, 6)
+    runner = OfflineRunner(tw, TP, batch_size=4, device="cpu")
+    dqsl = QuerySampleLibrary(ts).load_to_device(4, device="cpu")
+    assert runner.run_device(dqsl).launches == {
+        "quant_lstm_layer": 0, "lstm_recurrence": 0, "decode_step": 0}
+    counter = decode_cuda.decode_step_cuda
+    monkeypatch.setattr(counter, "launches", 0)
+    real = decoder.dc.decode_step
+
+    def counting(*args, **kwargs):
+        counter.launches += 1
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(decoder.dc, "decode_step", counting)
+    one = runner.run_device(dqsl).launches
+    assert one["decode_step"] == counter.launches > 0
+    rep = tharness.run_offline(tw, ts, TP, batch_size=4, device_resident=True, device="cpu")
+    assert rep.launches == one  # the timed pass alone
+    assert counter.launches > 3 * one["decode_step"]  # + warm-up and priming
+
+
 def test_features_store_run_matches_jax(models):
     """A kind="features" store (precomputed log-mels) through both runners."""
     jw, tw = models["f32"]
