@@ -1,17 +1,20 @@
-// Device helpers shared by the persistent kernels B (decode_step.cu) and C
-// (lstm_scan.cu), for Hopper (sm_90a): 16-byte cp.async copies into shared
-// memory, the bf16 tensor-core product mma.sync m16n8k16 (f32 sums), the
-// f32 FMA product on the CUDA cores, and the rounding helpers.
+// Device helpers shared by the persistent kernels A (quant_lstm.cu), B
+// (decode_step.cu) and C (lstm_scan.cu), for Hopper (sm_90a): 16-byte
+// cp.async copies into shared memory, the tensor-core products mma.sync
+// m16n8k16 (bf16, f32 sums) and m16n8k32 (int8, s32 sums), the f32 FMA
+// product on the CUDA cores, the rounding helpers, and a grid barrier split
+// into arrive and wait.
 //
 // pass_products (below) runs one product for up to 128 lane rows with
 // every warp busy; the two product routines under it compute a warp's
 // partial sums over a share of the input axis K for one tile of lane rows.
 //
-// bf16 operand B is laid out on the host in mma fragment order
-// (ops/cuda_build.py b_fragments): for k-step s (16 inputs) and n-tile j
-// (8 columns), lane l = 4 g + t holds the bf16 values
-// B[16 s + 2 t + {0, 1, 8, 9}, 8 j + g] as one uint2, so a warp reads its
-// fragment as 256 contiguous bytes.
+// bf16 and int8 operands B are laid out on the host in mma fragment order
+// (ops/cuda_build.py b_fragments): for k-step s (32 bytes of inputs: 16
+// bf16 or 32 int8) and n-tile j (8 columns), lane l = 4 g + t holds
+// B[16 s + 2 t + {0, 1, 8, 9}, 8 j + g] (bf16) or
+// B[32 s + 4 t + {0..3, 16..19}, 8 j + g] (int8) as one uint2, so a warp
+// reads its fragment as 256 contiguous bytes.
 
 #pragma once
 
@@ -57,51 +60,63 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&a)[4], const __nv_bfloat16* p) {
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&a)[4], const void* p) {
   const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
                : "r"(addr));
 }
-__device__ __forceinline__ void mma_16816(float (&c)[4], const unsigned (&a)[4], uint2 b) {
+// One k-step (32 bytes of inputs) of a 16 x 8 tile, by the type of its
+// sums: bf16 m16n8k16 with f32 sums, or int8 m16n8k32 with s32 sums
+// (exact, so sums of any order agree).
+__device__ __forceinline__ void mma_k32bytes(float (&c)[4], const unsigned (&a)[4], uint2 b) {
   asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
 }
+__device__ __forceinline__ void mma_k32bytes(int (&c)[4], const unsigned (&a)[4], uint2 b) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
 
-// Partial sums of a 16-row bf16 tile A (shared memory, row stride lda
-// elements, lda * 2 an odd multiple of 16 bytes so ldmatrix is free of bank
-// conflicts) times B over the k-steps s = s0, s0 + ds, ... < s1.
+// Partial sums of a 16-row tile A of bf16 (f32 sums) or int8 (s32 sums)
+// (shared memory, row stride lda elements, an odd multiple of 16 bytes so
+// ldmatrix is free of bank conflicts) times B over the k-steps s = s0,
+// s0 + ds, ... < s1; a k-step is 32 bytes of a row (16 bf16, 32 int8), and
+// ldmatrix .b16 loads either type's A fragment unchanged.
 // Bf: fragments [k-step][NT][32] (shared or global memory).
 // acc[j] is the warp's C fragment of n-tile j: rows g and g + 8, columns
 // 8 j + 2 t and + 1 (lane = 4 g + t).
-template <int NT>
-__device__ __forceinline__ void mma_rows16(const __nv_bfloat16* A, int lda, const uint2* Bf,
-                                           int s0, int s1, int ds, float (&acc)[NT][4]) {
+template <int NT, typename T, typename S>
+__device__ __forceinline__ void mma_rows16(const T* A, int lda, const uint2* Bf, int s0, int s1,
+                                           int ds, S (&acc)[NT][4]) {
+  constexpr int KS = 32 / (int)sizeof(T);  // elements per k-step
   const int lane = threadIdx.x & 31;
   const int mat = lane >> 3, r = lane & 7;
-  const __nv_bfloat16* arow = A + (r + 8 * (mat & 1)) * lda + 8 * (mat >> 1);
+  const T* arow = A + (r + 8 * (mat & 1)) * lda + (KS / 2) * (mat >> 1);
   int s = s0;
   for (; s + 3 * ds < s1; s += 4 * ds) {  // four k-steps: every load before the products
     unsigned a[4][4];
     uint2 b[4][NT];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      ldmatrix_x4(a[u], arow + 16 * (s + u * ds));
+      ldmatrix_x4(a[u], arow + KS * (s + u * ds));
 #pragma unroll
       for (int j = 0; j < NT; ++j) b[u][j] = Bf[((s + u * ds) * NT + j) * 32 + lane];
     }
 #pragma unroll
     for (int u = 0; u < 4; ++u)
 #pragma unroll
-      for (int j = 0; j < NT; ++j) mma_16816(acc[j], a[u], b[u][j]);
+      for (int j = 0; j < NT; ++j) mma_k32bytes(acc[j], a[u], b[u][j]);
   }
   for (; s < s1; s += ds) {
     unsigned a[4];
-    ldmatrix_x4(a, arow + 16 * s);
+    ldmatrix_x4(a, arow + KS * s);
 #pragma unroll
-    for (int j = 0; j < NT; ++j) mma_16816(acc[j], a, Bf[(s * NT + j) * 32 + lane]);
+    for (int j = 0; j < NT; ++j) mma_k32bytes(acc[j], a, Bf[(s * NT + j) * 32 + lane]);
   }
 }
 
@@ -152,13 +167,19 @@ __device__ __forceinline__ void fma_rows32(const float* A, int lda, const float*
 
 // Lane rows per tile (MT), the row padding of a staged tile (PAD), and the
 // most lane rows of one pass (RMAX = 8 warps x MT), by weight type: bf16
-// tiles are mma's 16 rows; f32 tiles 32 rows (fma_rows32).
+// and int8 tiles are mma's 16 rows; f32 tiles 32 rows (fma_rows32).
 template <typename WT>
 struct Rows;
 template <>
 struct Rows<__nv_bfloat16> {
   static constexpr int MT = 16;
   static constexpr int PAD = 8;  // elements: 16 bytes
+  static constexpr int RMAX = 128;
+};
+template <>
+struct Rows<int8_t> {
+  static constexpr int MT = 16;
+  static constexpr int PAD = 16;  // elements: 16 bytes
   static constexpr int RMAX = 128;
 };
 template <>
@@ -183,8 +204,9 @@ struct Rows<float> {
 // k-group's partial sums are added to group 0's in group order through
 // shared memory, so the sums do not depend on scheduling.  Group 0's warps
 // end with the sums in registers:
-//   bf16, lane 4 g + t: rows g and g + 8 of its m-tile, columns 8 j + 2 t
-//        and + 1 of n-tile j (acc.v[j][2 r + e]);
+//   bf16 (f32 sums) and int8 (int32 sums), lane 4 g + t: rows g and g + 8
+//        of its m-tile, columns 8 j + 2 t and + 1 of n-tile j
+//        (acc.v[j][2 r + e]);
 //   f32,  lane 4 m + q: rows m + 8 r (r < 4) of its m-tile, columns q NC/4
 //        .. (acc.v[r][c]).
 
@@ -194,14 +216,25 @@ template <typename WT, int NC>
 struct PassAcc;
 template <int NC>
 struct PassAcc<__nv_bfloat16, NC> {
-  static constexpr int NV = NC / 2;  // floats a lane holds
+  using Sum = float;
+  static constexpr int NV = NC / 2;  // sums a lane holds
   float v[NC / 8][4];
 };
 template <int NC>
+struct PassAcc<int8_t, NC> {
+  using Sum = int;
+  static constexpr int NV = NC / 2;
+  int v[NC / 8][4];
+};
+template <int NC>
 struct PassAcc<float, NC> {
+  using Sum = float;
   static constexpr int NV = NC;
   float v[4][NC / 4];
 };
+
+__device__ __forceinline__ float add_sum(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ int add_sum(int a, int b) { return a + b; }
 
 // m-tiles side by side for a pass of `rows` lane rows (1, 2, 4 or 8)
 __device__ __forceinline__ int pass_wm(int rows, int mt) {
@@ -211,23 +244,31 @@ __device__ __forceinline__ int pass_wm(int rows, int mt) {
 
 // the least ring (elements) a pass may be given: NSTAGE slots of RMAX rows
 // of 64 inputs.  After the products the ring holds the k-groups' sums,
-// (WARPS - 1) x 32 x NV floats.
+// (WARPS - 1) x 32 x NV 4-byte sums.
 template <typename WT>
 __host__ __device__ constexpr int ring_min() {
   return NSTAGE * Rows<WT>::RMAX * (64 + Rows<WT>::PAD);
 }
 
-// row(r): the address of row r's K inputs (16-byte aligned), or nullptr
-// for zeros.  B: bf16 fragments [K/16][NC/8][32] (cuda_build.b_fragments)
-// or f32 [K][NC], in shared or global memory.  K a multiple of 64.  ring:
-// ring_cap >= ring_min elements.  gdummy: any global address (never read).
+// row(r): the address of row r's inputs (16-byte aligned), or nullptr for
+// zeros; a row holds kin inputs (a multiple of 16 bytes), and inputs kin ..
+// K - 1 are zeros.  B: bf16 or int8 fragments [K / k-step][NC/8][32]
+// (cuda_build.b_fragments) or f32 [K][NC], in shared or global memory.  K
+// a multiple of 64.  ring: ring_cap >= ring_min elements.  gdummy: any
+// global address (never read).  acc: zeroed first; with accumulate, the
+// products are added to what acc holds, and without reduce each warp keeps
+// its own k-group's partial sums (a later pass over the same number of
+// rows may accumulate onto them and reduce: int32 sums, where any order
+// gives the same result).
 template <typename WT, int NC, typename Row>
 __device__ __forceinline__ void pass_products(const void* B, int K, int rows, WT* ring,
                                               int ring_cap, const void* gdummy, Row row,
-                                              PassAcc<WT, NC>& acc) {
+                                              PassAcc<WT, NC>& acc, int kin = 1 << 30,
+                                              bool accumulate = false, bool reduce = true) {
   static_assert((WARPS - 1) * 32 * PassAcc<WT, NC>::NV * 4 <= ring_min<WT>() * (int)sizeof(WT),
                 "the k-group sums must fit in the ring");
-  constexpr bool BF16 = sizeof(WT) == 2;
+  using Sum = typename PassAcc<WT, NC>::Sum;
+  constexpr bool MMA = sizeof(WT) < 4;  // bf16 or int8 on the tensor cores
   constexpr int MT = Rows<WT>::MT, PAD = Rows<WT>::PAD, EPP = 16 / (int)sizeof(WT);
   constexpr int NV = PassAcc<WT, NC>::NV;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -247,9 +288,9 @@ __device__ __forceinline__ void pass_products(const void* B, int K, int rows, WT
     if (c < nch) {
       WT* dst = ring + (c % NSTAGE) * SLOT;
       for (int i = tid; i < pieces; i += THREADS) {
-        const int r = i / ppr, e = (i - r * ppr) * EPP;
-        const WT* p = r < rows ? row(r) : nullptr;
-        if (p) p += c * KC + e;
+        const int r = i / ppr, e = (i - r * ppr) * EPP, k = c * KC + e;
+        const WT* p = r < rows && k < kin ? row(r) : nullptr;
+        if (p) p += k;
         cp_async16(dst + r * LDA + e, p ? static_cast<const void*>(p) : gdummy, p != nullptr);
       }
     }
@@ -257,20 +298,22 @@ __device__ __forceinline__ void pass_products(const void* B, int K, int rows, WT
   };
 #pragma unroll
   for (int c = 0; c < NSTAGE - 1; ++c) stage(c);
-  float* flat = reinterpret_cast<float*>(acc.v);  // NV sums, indexed in unrolled loops
+  Sum* flat = reinterpret_cast<Sum*>(acc.v);  // NV sums, indexed in unrolled loops
+  if (!accumulate) {
 #pragma unroll
-  for (int i = 0; i < NV; ++i) flat[i] = 0.0f;
+    for (int i = 0; i < NV; ++i) flat[i] = 0;
+  }
   for (int c = 0; c < nch; ++c) {
     cp_async_wait<NSTAGE - 2>();
     __syncthreads();  // chunk c is in, and chunk c - 1's slot is free
     stage(c + NSTAGE - 1);
     const WT* A = ring + (c % NSTAGE) * SLOT + mt * MT * LDA;
     const int k0 = c * KC;
-    if constexpr (BF16) {
-      constexpr int NT = NC / 8;
+    if constexpr (MMA) {
+      constexpr int NT = NC / 8, KS = 32 / (int)sizeof(WT);
       // the chunk's k-steps s (global) with s % WK == kg
-      const int s_lo = k0 / 16, s0 = s_lo + ((kg - s_lo) % WK + WK) % WK;
-      mma_rows16<NT>(A - k0, LDA, static_cast<const uint2*>(B), s0, s_lo + KC / 16, WK, acc.v);
+      const int s_lo = k0 / KS, s0 = s_lo + ((kg - s_lo) % WK + WK) % WK;
+      mma_rows16<NT>(A - k0, LDA, static_cast<const uint2*>(B), s0, s_lo + KC / KS, WK, acc.v);
     } else {
       constexpr int CPT = NC / 4;
       const int q_lo = k0 / 4, q0 = q_lo + ((kg - q_lo) % WK + WK) % WK;
@@ -279,9 +322,9 @@ __device__ __forceinline__ void pass_products(const void* B, int K, int rows, WT
   }
   cp_async_wait<0>();
   __syncthreads();  // every warp is done with the ring
-  if (WK > 1) {  // red[(group - 1, m-tile)][i][lane] in the ring: no bank conflicts
-    float* red = reinterpret_cast<float*>(ring);
-    float* mine = red + ((kg - 1) * WM + mt) * NV * 32 + lane;
+  if (WK > 1 && reduce) {  // red[(group - 1, m-tile)][i][lane] in the ring: no bank conflicts
+    Sum* red = reinterpret_cast<Sum*>(ring);
+    Sum* mine = red + ((kg - 1) * WM + mt) * NV * 32 + lane;
     if (kg > 0) {
 #pragma unroll
       for (int i = 0; i < NV; ++i) mine[32 * i] = flat[i];
@@ -289,12 +332,50 @@ __device__ __forceinline__ void pass_products(const void* B, int K, int rows, WT
     __syncthreads();
     if (kg == 0)
       for (int g = 1; g < WK; ++g) {
-        const float* other = red + ((g - 1) * WM + mt) * NV * 32 + lane;
+        const Sum* other = red + ((g - 1) * WM + mt) * NV * 32 + lane;
 #pragma unroll
-        for (int i = 0; i < NV; ++i) flat[i] = __fadd_rn(flat[i], other[32 * i]);
+        for (int i = 0; i < NV; ++i) flat[i] = add_sum(flat[i], other[32 * i]);
       }
     __syncthreads();  // the ring is free again
   }
+}
+
+// ---------------------------------------------------------------------------
+// A grid barrier in two halves, so that a block can do work that needs no
+// other block's writes between arriving and waiting (cooperative_groups'
+// grid.sync cannot be split).  One 32-bit word: each block adds 1 to it,
+// block 0 adds 2^31 - (blocks - 1), so its top bit (the generation) flips
+// with the last arrival, which is itself the release, and its low bits
+// return to 0.  bar is zeroed once when it is allocated and serves launch
+// after launch (one launch at a time).  All blocks must be co-resident (a
+// cooperative launch).  Every thread calls both halves.
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// Returns the word before this block's arrival (thread 0's; the others'
+// is unused).  The add is a release: the block's writes before the
+// __syncthreads are visible to every block that has seen the flip.
+__device__ __forceinline__ unsigned grid_arrive(unsigned* bar) {
+  __syncthreads();
+  unsigned old = 0;
+  if (threadIdx.x == 0) {
+    const unsigned add = blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
+    asm volatile("atom.add.release.gpu.global.u32 %0, [%1], %2;\n"
+                 : "=r"(old) : "l"(bar), "r"(add) : "memory");
+  }
+  return old;
+}
+
+__device__ __forceinline__ void grid_wait(const unsigned* bar, unsigned old) {
+  if (threadIdx.x == 0) {
+    while (((ld_acquire(bar) ^ old) & 0x80000000u) == 0) {
+    }
+  }
+  __syncthreads();  // every block's writes before its arrival are visible
 }
 
 }  // namespace hopper

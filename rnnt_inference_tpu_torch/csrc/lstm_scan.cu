@@ -28,7 +28,7 @@
 // blocks, one per SM) is co-resident up to H = 8 x the SM count: 128
 // blocks at H = 1024.  The block's W_hh columns (H x 4U: 64 KB bf16,
 // 128 KB f32) are copied into shared memory once and stay there for the
-// call, laid out by the host (ops/lstm_scan_cuda.py scan_operand): in bf16 in mma fragment
+// call, laid out by the host (ops/cuda_build.py block_columns): in bf16 in mma fragment
 // order, in f32 as (H, 4U) rows, in both with the columns ordered so that a
 // thread's sums are all four gates of its units.  The block's c (N x U,
 // f32) stays in shared memory from c0 to cT.  Each step is one pass
@@ -185,7 +185,7 @@ extern "C" {
 
 // One cooperative launch of H / U blocks on `stream` for all T steps;
 // weight_bf16 selects the compute dtype (1: bf16, 0: f32), w_op is the
-// layout of ops/lstm_scan_cuda.py scan_operand for U = 8 (the only unit
+// layout of ops/cuda_build.py block_columns for U = 8 (the only unit
 // count built).  Returns 0, or the CUDA error of a refused launch (a grid
 // that cannot be co-resident: cudaErrorCooperativeLaunchTooLarge).
 int rnnt_lstm_scan(int weight_bf16, int U, const void* xw, const void* w_op, const void* h0,

@@ -1,219 +1,249 @@
-// Kernel A: one int8 LSTM layer over T steps, for Hopper (sm_90a).
+// Kernel A: one int8 LSTM layer over T steps, for Hopper (sm_90a), as one
+// persistent cooperative launch per layer call.
 //
 // Replaces rnnt_inference_tpu/ops/lstm_pallas.py::_quant_lstm_cat_kernel
 // (reached through quant_lstm_layer_pallas).  Per step t and lane n:
-//   acc   = cat(x_t, h_{t-1}) . W_cat           int8 x int8 -> int32 (exact)
+//   acc   = x_t . W_ih + h_{t-1} . W_hh         int8 x int8 -> int32 (exact)
 //   gates = float(acc) * rb + bias              f32
 //   c     = sigmoid(f) * c + sigmoid(i) * tanh(g)
 //   h     = sigmoid(o) * tanh(c)
-//   h_{t} = quantize(h, in_scale)               int8, the recurrence
+//   h_t   = quantize(h, in_scale)               int8, the recurrence
 //   y_t   = quantize(h, out_scale) or h (f32, the last post layer)
 // quantize = round half to even (__float2int_rn), clamp to [-128, 127].
 //
-// What bounds it on an H100: each step reads the whole weight matrix
-// (IC+H)*4H bytes (5.2 MB for the first pre layer, 8.4 MB for the middle
-// ones, 12.6 MB for the first post layer).  That fits in the 50 MB L2 but
-// not in shared memory, so at the serving batch the step is bound by moving
-// the weights from L2 to the SMs, not by the int8 arithmetic.
+// What bounds it on an H100: a step does 2 N (IC + H) 4H operations (1.6
+// GOP at N = 64, IC = 2048, H = 1024: 0.8 us at the int8 tensor-core rate),
+// but the steps run one after another, so each step also pays a grid-wide
+// barrier and every block reading all of h_{t-1} (N H bytes) and x_t (N IC
+// bytes) of its lanes from L2, right after the barrier for h.  The weights,
+// (IC + H) 4H bytes (5.2, 8.4 or 12.6 MB by layer), fit the grid's shared
+// memory but not one SM's.
 //
-// Design (the simple, correct first version): one launch per time step.  A
-// block owns UJ hidden units x BN lanes and computes all four gate columns
-// (i, f, g, o) of its units, so the cell update stays in the block.  The
-// weights are pre-transposed once to (4H, KP) rows, K = IC + H contiguous
-// (zero-padded to KP, a multiple of 16), so a warp streams a gate row with
-// 16-byte loads and accumulates with __dp4a.  cat(x_t, h_{t-1}) of the
-// block's lanes is staged in shared memory.  h ping-pongs between two
-// buffers, since every block reads all of h_{t-1}.  The float epilogue uses
-// the _rn intrinsics and the file is built with --fmad=false, so it rounds
-// exactly as the plain PyTorch twin (ops/lstm_int8.py quant_lstm_layer).
-// Tensor-core int8 (mma/wgmma), a persistent kernel and CUDA graphs are for
-// later versions.
+// Design: one cooperative launch runs the whole time loop; a grid that
+// cannot be co-resident makes the launch fail and the wrapper raises.
+// Block b owns U = 8 hidden units j = 8 b .. 8 b + 7 and all four gate
+// columns of each (i, f, g, o), so the cell update stays in the block: 128
+// blocks at H = 1024, one to an SM.  The block's columns of W_ih and W_hh
+// ((IC + H) x 32 int8: 40 KB at IC = 240, 96 KB at IC = 2048) are copied
+// into shared memory once and stay there for the call, as the TPU kernel
+// keeps both matrices in VMEM; the host lays them out once per weight set
+// (ops/lstm_cuda.py kernel_operands) in mma fragment order, K padded with
+// zero rows to a multiple of 64 (IC = 240 -> 256; cp.async's zero fill
+// pads the x rows).  The block's c (N x U, f32) stays in shared memory
+// from c0 to cT.  Products run on the int8 tensor cores (mma.sync
+// m16n8k32, s32 sums, lanes as M) through the pass engine of
+// csrc/hopper.cuh, up to 128 lanes per pass.
+// x_t does not depend on h_{t-1}, so x_{t+1} . W_ih of the first 128
+// lanes is computed between arriving at step t's grid barrier and waiting
+// on it (hopper.cuh's split barrier: one word whose top bit is the
+// generation), and its sums stay in the pass's registers, each warp's
+// k-group share unreduced; after the wait the h_{t-1} . W_hh pass (K = H)
+// adds onto them, every warp leaves its share in shared memory, and each
+// epilogue thread adds the shares of its (lane, unit): the two products
+// are summed in int32 before the float epilogue (float(ax + ah), as the
+// twin; int32 sums are exact in any order).  Lanes past the first 128
+// (a second pass) take their x product after the wait.  Every block reads
+// all of x.
+// The recurrent h is not y (y is quantized with out_scale, or f32), so h_t
+// goes to a ping-pong int8 buffer (2, N, H) that every block reads after
+// the barrier through cp.async.cg (L2, never a stale L1 line); hT and cT
+// are written once at the end.  The epilogue is spread over all threads
+// (pair q = tid + 256 k is lane q / 8, unit q % 8), uses the _rn
+// intrinsics, and the file is built with --fmad=false, so it rounds as the
+// plain twin (ops/lstm_int8.py quant_lstm_layer) does: the two agree bit
+// for bit.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int UJ = 8;                  // hidden units per block
-constexpr int ROWS = 4 * UJ;           // gate rows per block (i, f, g, o of each unit)
-constexpr int BN = 16;                 // lanes per block
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int RPW = ROWS / WARPS;      // gate rows per warp
+using namespace hopper;
+
+constexpr int U = 8;                     // hidden units per block
+constexpr int NC = 4 * U;                // gate columns per block
+constexpr int MT = Rows<int8_t>::MT, RMAX = Rows<int8_t>::RMAX;
+constexpr int KP = RMAX * U / THREADS;   // (lane, unit) pairs per thread in a pass
+static_assert(THREADS % U == 0, "a thread keeps one unit in every pass");
+constexpr int PST = NC + 8;              // words per row of the warps' sums: int2
+                                         // stores and loads free of bank conflicts
+static_assert(WARPS * MT * PST * 4 <= ring_min<int8_t>(), "the warps' sums fit the ring");
+
+struct Args {
+  const int8_t* x;     // (T, N, IC)
+  const int8_t* wop;   // (H / U, (ICP + HP) NC): per block W_ih's, then W_hh's columns
+  const float* bias;   // (4H)
+  const int8_t* h0;    // (N, H)
+  const float* c0;     // (N, H)
+  void* y;             // (T, N, H) int8, or f32
+  int8_t* hT;          // (N, H)
+  float* cT;           // (N, H)
+  int8_t* hbuf;        // (2, N, H): h_t, read back by every block after the barrier
+  unsigned* bar;       // the grid barrier (hopper.cuh grid_arrive)
+  float rb, in_scale, out_scale;
+  int T, N, IC, ICP, H, HP, ring_cap;
+};
 
 __device__ __forceinline__ int8_t quantize(float v, float scale) {
   const int q = __float2int_rn(__fmul_rn(v, scale));
   return static_cast<int8_t>(max(-128, min(127, q)));
 }
 
-// torch.sigmoid's formula: 1 / (1 + exp(-x))
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));
-}
-
 template <bool EMIT_F32>
-__global__ void __launch_bounds__(THREADS)
-quant_lstm_step(const int8_t* __restrict__ x_t,   // (N, IC)
-                const int8_t* __restrict__ h_in,  // (N, H)
-                const float* c_in,                // (N, H); may alias c_out
-                const int8_t* __restrict__ w,     // (4H, KP)
-                const float* __restrict__ bias,   // (4H)
-                float rb, float in_scale, float out_scale,
-                int N, int IC, int H, int KP,
-                int8_t* __restrict__ h_out,       // (N, H)
-                float* c_out,                     // (N, H)
-                void* __restrict__ y_t) {         // (N, H) int8 or f32
+__global__ void __launch_bounds__(THREADS, 1) quant_lstm(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  int8_t* xh = reinterpret_cast<int8_t*>(smem);             // (BN, KP)
-  int* gsum = reinterpret_cast<int*>(smem + BN * KP);       // (ROWS, BN)
-  const int j0 = blockIdx.x * UJ;
-  const int n0 = blockIdx.y * BN;
-  const int tid = threadIdx.x;
-  const int K = IC + H;
+  const size_t wbytes = (size_t)(a.ICP + a.HP) * NC;
+  const int8_t* wih_s = reinterpret_cast<const int8_t*>(smem);
+  const int8_t* whh_s = wih_s + (size_t)a.ICP * NC;
+  float* c_s = reinterpret_cast<float*>(smem + wbytes);               // (N, U)
+  int8_t* ring = reinterpret_cast<int8_t*>(c_s + ((a.N * U + 3) & ~3));  // ring_cap bytes
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g8 = lane >> 2, q4 = lane & 3;
+  const int N = a.N, H = a.H, j0 = blockIdx.x * U;
+  const size_t NH = (size_t)N * H;
 
-  // 1. stage cat(x_t, h_{t-1}) of the block's lanes, 16 bytes at a time
-  //    (IC and H are multiples of 16, so no word straddles the two)
-  const int kv = KP >> 4;
-  int4* xh16 = reinterpret_cast<int4*>(xh);
-#pragma unroll 4
-  for (int idx = tid; idx < BN * kv; idx += THREADS) {
-    const int r = idx / kv;
-    const int k = (idx - r * kv) << 4;
-    const int n = n0 + r;
-    int4 v = make_int4(0, 0, 0, 0);
-    if (n < N) {
-      if (k < IC)
-        v = *reinterpret_cast<const int4*>(x_t + (size_t)n * IC + k);
-      else if (k < K)
-        v = *reinterpret_cast<const int4*>(h_in + (size_t)n * H + (k - IC));
-    }
-    xh16[idx] = v;
+  {  // the block's weight columns and c, for the whole call
+    const uint4* src = reinterpret_cast<const uint4*>(a.wop + blockIdx.x * wbytes);
+    uint4* dst = reinterpret_cast<uint4*>(smem);
+    for (int i = tid; i < (int)(wbytes / 16); i += THREADS) dst[i] = src[i];
+    for (int i = tid; i < N * U; i += THREADS) c_s[i] = a.c0[(size_t)(i / U) * H + j0 + i % U];
   }
   __syncthreads();
 
-  // 2. int32 gate sums: warp w owns the block rows RPW*w .. RPW*w + RPW-1;
-  //    block row r is gate r / UJ of unit j0 + r % UJ
-  const int warp = tid >> 5, lane = tid & 31;
-  const int4* wrow[RPW];
-#pragma unroll
-  for (int q = 0; q < RPW; ++q) {
-    const int r = warp * RPW + q;
-    const int col = (r / UJ) * H + j0 + (r % UJ);
-    wrow[q] = reinterpret_cast<const int4*>(w + (size_t)col * KP);
-  }
-  int acc[RPW][BN];
-#pragma unroll
-  for (int q = 0; q < RPW; ++q)
-#pragma unroll
-    for (int n = 0; n < BN; ++n) acc[q][n] = 0;
+  // x_t . W_ih of lanes p0 .. p0 + rows - 1 into acc, unreduced: each
+  // warp keeps its k-group's share for the h pass to add onto
+  auto x_products = [&](int t, int p0, int rows, PassAcc<int8_t, NC>& acc) {
+    const int8_t* xt = a.x + ((size_t)t * N + p0) * a.IC;
+    pass_products<int8_t, NC>(
+        wih_s, a.ICP, rows, ring, a.ring_cap, a.x,
+        [&](int r) { return xt + (size_t)r * a.IC; }, acc, a.IC, false, false);
+  };
 
-  const int4* xs = reinterpret_cast<const int4*>(xh);
-  for (int k = lane; k < kv; k += 32) {
-    int4 wv[RPW];
+  // The epilogue: pass pair q = tid + THREADS k is lane row q / U, unit
+  // u = q % U = tid % U.  Every warp first leaves its k-group's sums in the
+  // ring (free once the pass is done) as part[k-group][row][column], in the
+  // host's column order (ops/cuda_build.py gate_columns): gates 0, 1 of
+  // unit u are the int2 at c2 = 8 (u / 4) + u % 4 of a row, gates 2, 3 the
+  // int2 at c2 + 4.
+  const int u = tid % U, c2 = 8 * (u / 4) + u % 4;
+  float bias[4];
 #pragma unroll
-    for (int q = 0; q < RPW; ++q) wv[q] = __ldg(wrow[q] + k);
-#pragma unroll
-    for (int n = 0; n < BN; ++n) {
-      const int4 xv = xs[n * kv + k];
-#pragma unroll
-      for (int q = 0; q < RPW; ++q) {
-        acc[q][n] = __dp4a(xv.x, wv[q].x, acc[q][n]);
-        acc[q][n] = __dp4a(xv.y, wv[q].y, acc[q][n]);
-        acc[q][n] = __dp4a(xv.z, wv[q].z, acc[q][n]);
-        acc[q][n] = __dp4a(xv.w, wv[q].w, acc[q][n]);
-      }
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < RPW; ++q) {
-#pragma unroll
-    for (int n = 0; n < BN; ++n) {
-      int v = acc[q][n];
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-      if (lane == 0) gsum[(warp * RPW + q) * BN + n] = v;
-    }
-  }
-  __syncthreads();
+  for (int g = 0; g < 4; ++g) bias[g] = a.bias[g * H + j0 + u];
+  int* part = reinterpret_cast<int*>(ring);
 
-  // 3. epilogue: one thread per (lane, unit), units fastest for coalescing
-  if (tid < UJ * BN) {
-    const int nl = tid / UJ, u = tid - nl * UJ;
-    const int n = n0 + nl, j = j0 + u;
-    if (n < N) {
-      float gate[4];
-#pragma unroll
-      for (int g = 0; g < 4; ++g)
-        gate[g] = __fadd_rn(__fmul_rn(__int2float_rn(gsum[(g * UJ + u) * BN + nl]), rb),
-                            bias[g * H + j]);
-      const float ig = sigmoid_f(gate[0]);
-      const float fg = sigmoid_f(gate[1]);
-      const float gg = tanhf(gate[2]);
-      const float og = sigmoid_f(gate[3]);
-      const size_t off = (size_t)n * H + j;
-      const float c = __fadd_rn(__fmul_rn(fg, c_in[off]), __fmul_rn(ig, gg));
-      const float h = __fmul_rn(og, tanhf(c));
-      c_out[off] = c;
-      h_out[off] = quantize(h, in_scale);
-      if (EMIT_F32)
-        reinterpret_cast<float*>(y_t)[off] = h;
+  PassAcc<int8_t, NC> xacc;  // x_t . W_ih of the first pass's lanes, made before the step
+  x_products(0, 0, min(RMAX, N), xacc);
+  for (int t = 0; t < a.T; ++t) {
+    const int8_t* hsrc = t == 0 ? a.h0 : a.hbuf + (size_t)((t - 1) & 1) * NH;
+    int8_t* hdst = t == a.T - 1 ? a.hT : a.hbuf + (size_t)(t & 1) * NH;
+    for (int p0 = 0; p0 < N; p0 += RMAX) {
+      const int rows = min(RMAX, N - p0);
+      const int WM = pass_wm(rows, MT), WK = WARPS / WM, mt = warp % WM, kg = warp / WM;
+      PassAcc<int8_t, NC> acc;
+      if (p0 == 0)
+        acc = xacc;
       else
-        reinterpret_cast<int8_t*>(y_t)[off] = quantize(h, out_scale);
+        x_products(t, p0, rows, acc);
+      pass_products<int8_t, NC>(
+          whh_s, a.HP, rows, ring, a.ring_cap, a.x,
+          [&](int r) { return hsrc + (size_t)(p0 + r) * H; }, acc, H, true, false);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        int2* prow = reinterpret_cast<int2*>(part + (kg * WM * MT + mt * MT + g8 + 8 * r) * PST);
+#pragma unroll
+        for (int j = 0; j < NC / 8; ++j)
+          prow[4 * j + q4] = make_int2(acc.v[j][2 * r], acc.v[j][2 * r + 1]);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < KP; ++k) {
+        const int q = tid + THREADS * k;
+        if (q >= rows * U) break;
+        const int row = q / U, n = p0 + row;
+        int sum[4] = {0, 0, 0, 0};
+        for (int kq = 0; kq < WK; ++kq) {
+          const int2* prow = reinterpret_cast<const int2*>(part + (kq * WM * MT + row) * PST);
+          const int2 s01 = prow[c2], s23 = prow[c2 + 4];
+          sum[0] += s01.x;
+          sum[1] += s01.y;
+          sum[2] += s23.x;
+          sum[3] += s23.y;
+        }
+        float gate[4];
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          gate[g] = __fadd_rn(__fmul_rn(__int2float_rn(sum[g]), a.rb), bias[g]);
+        const float ig = sigmoid_f(gate[0]);
+        const float fg = sigmoid_f(gate[1]);
+        const float gg = tanhf(gate[2]);
+        const float og = sigmoid_f(gate[3]);
+        float* cp = c_s + n * U + u;
+        const float cn = __fadd_rn(__fmul_rn(fg, *cp), __fmul_rn(ig, gg));
+        *cp = cn;
+        const float h = __fmul_rn(og, tanhf(cn));
+        const size_t off = (size_t)n * H + j0 + u;
+        hdst[off] = quantize(h, a.in_scale);
+        if (EMIT_F32)
+          static_cast<float*>(a.y)[t * NH + off] = h;
+        else
+          static_cast<int8_t*>(a.y)[t * NH + off] = quantize(h, a.out_scale);
+      }
+      __syncthreads();  // the ring is staged over next
+    }
+    if (t + 1 < a.T) {  // h_t complete across the grid after the wait
+      const unsigned old = grid_arrive(a.bar);
+      x_products(t + 1, 0, min(RMAX, N), xacc);  // needs no other block's h_t
+      grid_wait(a.bar, old);
     }
   }
+  __syncthreads();
+  for (int i = tid; i < N * U; i += THREADS) a.cT[(size_t)(i / U) * H + j0 + i % U] = c_s[i];
 }
 
 template <bool EMIT_F32>
-cudaError_t run_layer(const int8_t* x, const int8_t* w, const float* bias,
-                      const int8_t* h0, const float* c0, void* y, int8_t* hT,
-                      float* cT, int8_t* hbuf, int T, int N, int IC, int H, int KP,
-                      float rb, float in_scale, float out_scale, cudaStream_t stream) {
-  const size_t smem = (size_t)BN * KP + (size_t)ROWS * BN * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(quant_lstm_step<EMIT_F32>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+cudaError_t launch(Args a, cudaStream_t stream) {
+  // the staging ring takes what the block's other arrays leave
+  int dev = 0, limit = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  const dim3 grid(H / UJ, (N + BN - 1) / BN);
-  const size_t y_step = (size_t)N * H * (EMIT_F32 ? sizeof(float) : 1);
-  const int8_t* h_in = h0;
-  const float* c_in = c0;
-  for (int t = 0; t < T; ++t) {
-    int8_t* h_out = (t == T - 1) ? hT : hbuf + (size_t)(t & 1) * N * H;
-    quant_lstm_step<EMIT_F32><<<grid, THREADS, smem, stream>>>(
-        x + (size_t)t * N * IC, h_in, c_in, w, bias, rb, in_scale, out_scale,
-        N, IC, H, KP, h_out, cT, static_cast<char*>(y) + t * y_step);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    h_in = h_out;
-    c_in = cT;
-  }
-  return cudaSuccess;
+  const size_t fixed = (size_t)(a.ICP + a.HP) * NC + (size_t)((a.N * U + 3) & ~3) * 4;
+  if (fixed + (size_t)ring_min<int8_t>() > (size_t)limit) return cudaErrorInvalidValue;
+  a.ring_cap = (int)((size_t)limit - fixed) & ~15;
+  const size_t smem = fixed + (size_t)a.ring_cap;
+  auto kern = quant_lstm<EMIT_F32>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kern), dim3(a.H / U),
+                                    dim3(THREADS), args, smem, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Runs T launches on `stream`.  Returns 0, or the CUDA error of the first
-// refused launch.  hbuf is (2, N, H) int8 scratch.
-int rnnt_quant_lstm_layer(const void* x, const void* w, const void* bias,
-                          const void* h0, const void* c0, void* y, void* hT,
-                          void* cT, void* hbuf, int T, int N, int IC, int H, int KP,
-                          float rb, float in_scale, float out_scale, int emit_f32,
-                          void* stream) {
-  if (T <= 0 || N <= 0 || H % UJ != 0 || IC % 16 != 0 || H % 16 != 0 || KP % 16 != 0 ||
-      KP < IC + H)
+// One cooperative launch of H / 8 blocks on `stream` for all T steps.
+// w_op is the layout of ops/lstm_cuda.py kernel_operands; hbuf (2, N, H)
+// int8 is scratch; bar (one u32) is the grid barrier's state, zeroed once
+// and reused by every launch on the stream.  Returns 0, or the CUDA error
+// of a refused launch (a grid that cannot be co-resident:
+// cudaErrorCooperativeLaunchTooLarge).
+int rnnt_quant_lstm_layer(const void* x, const void* w_op, const void* bias, const void* h0,
+                          const void* c0, void* y, void* hT, void* cT, void* hbuf, void* bar,
+                          int T, int N, int IC, int H, float rb, float in_scale,
+                          float out_scale, int emit_f32, void* stream) {
+  if (T <= 0 || N <= 0 || IC <= 0 || H <= 0 || IC % 16 != 0 || H % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  Args a{static_cast<const int8_t*>(x), static_cast<const int8_t*>(w_op),
+         static_cast<const float*>(bias), static_cast<const int8_t*>(h0),
+         static_cast<const float*>(c0), y, static_cast<int8_t*>(hT), static_cast<float*>(cT),
+         static_cast<int8_t*>(hbuf), static_cast<unsigned*>(bar),
+         rb, in_scale, out_scale, T, N, IC, (IC + 63) & ~63, H, (H + 63) & ~63, 0};
   auto* s = static_cast<cudaStream_t>(stream);
-  auto args = [&](auto fn) {
-    return fn(static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
-              static_cast<const float*>(bias), static_cast<const int8_t*>(h0),
-              static_cast<const float*>(c0), y, static_cast<int8_t*>(hT),
-              static_cast<float*>(cT), static_cast<int8_t*>(hbuf), T, N, IC, H, KP, rb,
-              in_scale, out_scale, s);
-  };
-  const cudaError_t err = emit_f32 ? args(run_layer<true>) : args(run_layer<false>);
-  return static_cast<int>(err);
+  return static_cast<int>(emit_f32 ? launch<true>(a, s) : launch<false>(a, s));
 }
 
 const char* rnnt_cuda_error_string(int err) {

@@ -160,46 +160,71 @@ NSTAGE = 2
 def rows(dtype: torch.dtype):
     """(MT, PAD, RMAX) of csrc/hopper.cuh Rows: lane rows per m-tile, row
     padding in elements, lane rows per pass."""
-    return (16, 8, 128) if dtype == torch.bfloat16 else (32, 4, 64)
+    return {torch.bfloat16: (16, 8, 128), torch.int8: (16, 16, 128)}.get(dtype, (32, 4, 64))
 
 
 def ring_min_bytes(dtype: torch.dtype) -> int:
     """The least staging ring a pass may be given (csrc/hopper.cuh ring_min);
     a kernel's ring takes whatever shared memory its other arrays leave."""
     _, pad, rmax = rows(dtype)
-    return NSTAGE * rmax * (64 + pad) * (2 if dtype == torch.bfloat16 else 4)
+    return NSTAGE * rmax * (64 + pad) * dtype.itemsize
 
 
 def gate_columns(U: int, dtype: torch.dtype) -> torch.Tensor:
     """The order of a block's 4U gate columns: local column c holds unit u,
-    gate g at index 4u + g of perm[c].  bf16: c = 8 (2 (u // 4) + g // 2) +
-    2 (u % 4) + g % 2, so lane 4g' + t of an mma C fragment holds all four
-    gates of unit 4i + t in n-tiles 2i, 2i + 1; f32: c = 4u + g, so lane
-    4m + q of fma_rows32 holds units q U/4 .. (csrc/hopper.cuh)."""
+    gate g at index 4u + g of perm[c].  bf16 and int8 (mma products): c =
+    8 (2 (u // 4) + g // 2) + 2 (u % 4) + g % 2, so lane 4g' + t of an mma C
+    fragment holds all four gates of unit 4i + t in n-tiles 2i, 2i + 1; f32:
+    c = 4u + g, so lane 4m + q of fma_rows32 holds units q U/4 ..
+    (csrc/hopper.cuh)."""
     perm = torch.empty(4 * U, dtype=torch.long)
     for u in range(U):
         for g in range(4):
-            c = (8 * (2 * (u // 4) + g // 2) + 2 * (u % 4) + g % 2
-                 if dtype == torch.bfloat16 else 4 * u + g)
+            c = (4 * u + g if dtype == torch.float32
+                 else 8 * (2 * (u // 4) + g // 2) + 2 * (u % 4) + g % 2)
             perm[c] = 4 * u + g
     return perm
 
 
 def b_fragments(w: torch.Tensor) -> torch.Tensor:
-    """bf16 operand B {..., K, NC} in mma.sync m16n8k16 fragment order
-    {..., K/16, NC/8, 32, 4}: for k-step s and n-tile j, lane 4g + t holds
-    B[16s + 2t + (0, 1, 8, 9), 8j + g] (csrc/hopper.cuh)."""
+    """bf16 or int8 operand B {..., K, NC} in mma.sync fragment order, a
+    k-step of KS = 32 bytes of inputs (bf16 m16n8k16: KS = 16; int8
+    m16n8k32: KS = 32): {..., K/KS, NC/8, 32, KS/4}, where for k-step s and
+    n-tile j lane 4g + t holds B[KS s + (KS/8) t + (0 .. KS/8 - 1) +
+    (0, KS/2), 8j + g]: bf16 rows 16s + 2t + (0, 1, 8, 9), int8 rows
+    32s + 4t + (0..3, 16..19) (csrc/hopper.cuh)."""
     *lead, K, NC = w.shape
+    ks = 32 // w.element_size()
     d = len(lead)
-    f = w.reshape(*lead, K // 16, 2, 4, 2, NC // 8, 8)  # k = 16s + 8hh + 2t + p, n = 8j + g
+    # k = KS s + (KS/2) hh + (KS/8) t + p, n = 8j + g
+    f = w.reshape(*lead, K // ks, 2, 4, ks // 8, NC // 8, 8)
     f = f.permute(*range(d), d, d + 4, d + 5, d + 2, d + 1, d + 3)  # s, j, g, t, hh, p
-    return f.reshape(*lead, K // 16, NC // 8, 32, 4).contiguous()
+    return f.reshape(*lead, K // ks, NC // 8, 32, ks // 4).contiguous()
 
 
 def b_fragments_inverse(f: torch.Tensor) -> torch.Tensor:
     """The plain {..., K, NC} operand back from ``b_fragments``."""
-    *lead, KS, NT, _, _ = f.shape
+    *lead, KS, NT, _, E = f.shape
     d = len(lead)
-    w = f.reshape(*lead, KS, NT, 8, 4, 2, 2)  # s, j, g, t, hh, p
+    w = f.reshape(*lead, KS, NT, 8, 4, 2, E // 2)  # s, j, g, t, hh, p
     w = w.permute(*range(d), d, d + 4, d + 3, d + 5, d + 1, d + 2)  # s, hh, t, p, j, g
-    return w.reshape(*lead, KS * 16, NT * 8).contiguous()
+    return w.reshape(*lead, KS * 4 * E, NT * 8).contiguous()
+
+
+def block_columns(w: torch.Tensor, U: int) -> torch.Tensor:
+    """Gate columns {K, 4H} (gate g of unit j at column g H + j) in the
+    per-block order of the persistent LSTM kernels: block b's columns, gate
+    g of unit b U + u, in ``gate_columns`` order, {H / U, K, 4U}; for bf16
+    and int8 then in mma fragment order (``b_fragments``)."""
+    K, G = w.shape
+    w = w.reshape(K, 4, G // 4 // U, U).permute(2, 0, 3, 1).reshape(G // 4 // U, K, 4 * U)
+    w = w[..., gate_columns(U, w.dtype).to(w.device)]
+    return w.contiguous() if w.dtype == torch.float32 else b_fragments(w)
+
+
+def block_columns_inverse(op: torch.Tensor, H: int, U: int) -> torch.Tensor:
+    """The {K, 4H} gate columns back from ``block_columns``."""
+    w = op if op.dtype == torch.float32 else b_fragments_inverse(op)
+    w = w[..., torch.argsort(gate_columns(U, op.dtype)).to(w.device)]
+    K = w.shape[1]
+    return w.reshape(H // U, K, U, 4).permute(1, 3, 0, 2).reshape(K, 4 * H)

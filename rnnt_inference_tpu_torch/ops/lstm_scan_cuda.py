@@ -5,7 +5,7 @@ Replaces rnnt_inference_tpu/ops/lstm_pallas.py::_lstm_scan_kernel.
 ``lstm_recurrence_cuda`` launches it on PyTorch's current stream: one
 cooperative launch per call, all T steps inside, H / U blocks that each
 keep U hidden units' W_hh columns in shared memory (``plan``,
-``scan_operand``).  Every launch is counted in
+``recurrent_weight``).  Every launch is counted in
 ``lstm_recurrence_cuda.launches``.  Its plain twin is ops/lstm.py
 lstm_recurrence; ops/lstm.py lstm_layer chooses between them by device.
 """
@@ -42,28 +42,12 @@ def plan(H: int, N: int, dtype: torch.dtype, sms: int) -> Tuple[int, int]:
     return U, smem
 
 
-def scan_operand(w_hh: torch.Tensor, U: int) -> torch.Tensor:
-    """W_hh {H, 4H} in the kernel's per-block order: block b's columns
-    (gate g of unit b U + u) in cuda_build.gate_columns order, {H / U, H,
-    4U}; in bf16 then in mma fragment order (cuda_build.b_fragments)."""
-    H = w_hh.shape[0]
-    w = w_hh.reshape(H, 4, H // U, U).permute(2, 0, 3, 1).reshape(H // U, H, 4 * U)
-    w = w[..., cuda_build.gate_columns(U, w.dtype).to(w.device)]
-    return cuda_build.b_fragments(w) if w.dtype == torch.bfloat16 else w.contiguous()
-
-
-def scan_operand_inverse(op: torch.Tensor, H: int, U: int) -> torch.Tensor:
-    """W_hh {H, 4H} back from ``scan_operand``."""
-    w = cuda_build.b_fragments_inverse(op) if op.dtype == torch.bfloat16 else op
-    w = w[..., torch.argsort(cuda_build.gate_columns(U, op.dtype)).to(w.device)]
-    return w.reshape(H // U, H, U, 4).permute(1, 3, 0, 2).reshape(H, 4 * H)
-
-
 def recurrent_weight(layer, U: int) -> torch.Tensor:
-    """``scan_operand`` of an LSTMLayerWeights' W_hh, kept until the layer
-    is freed and made again if W_hh changes."""
+    """W_hh {H, 4H} of an LSTMLayerWeights in the kernel's per-block order
+    (cuda_build.block_columns: {H / U, H, 4U}, in bf16 in mma fragment
+    order), kept until the layer is freed and made again if W_hh changes."""
     return cuda_build.cached_operands(
-        layer, f"{NAME}/U{U}", (layer.w_hh,), lambda: scan_operand(layer.w_hh, U)
+        layer, f"{NAME}/U{U}", (layer.w_hh,), lambda: cuda_build.block_columns(layer.w_hh, U)
     )
 
 

@@ -1,13 +1,14 @@
-"""Where the time goes inside the persistent kernels B and C, on the card.
+"""Where the time goes inside the persistent kernels A, B and C, on the card.
 
     python -m rnnt_inference_tpu_torch.tools.kernel_phases
 
-Copies csrc/decode_step.cu, csrc/lstm_scan.cu and csrc/hopper.cuh into
-build/kernel_phases/, inserts %globaltimer stamps (thread 0 of block 0) at
-the phase boundaries below, builds them with the port's nvcc flags, runs
-each at the main path's shapes (random weights, MLPerf widths) and prints,
-per shape, the mean microseconds of one iteration (B) or step (C) and of
-each segment between two stamps, averaged over the steady iterations.
+Copies csrc/quant_lstm.cu, csrc/decode_step.cu, csrc/lstm_scan.cu and
+csrc/hopper.cuh into build/kernel_phases/, inserts %globaltimer stamps
+(thread 0 of block 0) at the phase boundaries below, builds them with the
+port's nvcc flags, runs each at the main path's shapes (random weights,
+MLPerf widths) and prints, per shape, the mean microseconds of one
+iteration (B) or step (A, C) and of each segment between two stamps,
+averaged over the steady iterations.
 
 Kernel B segments, one iteration:
   lanes     the lane arrays read after the iteration's first barrier
@@ -28,6 +29,14 @@ Kernel B segments, one iteration:
 Kernel C segments, one step: in (the first chunk of h), mma (the rest of
 the pass), epi (cell updates), sync; a step of several passes (f32 at
 N = 128) counts the earlier passes in `in`.
+Kernel A segments, one step (N <= 128: one pass each for h and x):
+  h_in      after the barrier, until the first chunk of h_{t-1} has arrived
+  h_mma     the rest of the h . W_hh pass
+  epi       the warps' sums to shared memory, cell updates, h_t and y_t out
+  arrive    the barrier's arrival
+  x_in      x_{t+1} arriving, between arrival and wait
+  x_mma     the rest of the x_{t+1} . W_ih pass (its sums stay in registers)
+  wait      the rest of the barrier: waiting for the last block
 
 The stamps are inserted by text: an anchor that is missing stops the tool
 (a kernel's change must bring this file up to date).  Nothing of this
@@ -108,6 +117,27 @@ SCAN = [
      "    STAMP(3);\n    if (t + 1 < T) cooperative_groups::this_grid().sync();\n    STAMP(4);"),
     ("const char* rnnt_cuda_error_string(int err) {", READ),
 ]
+QUANT = [
+    ("  for (int t = 0; t < a.T; ++t) {\n    const int8_t* hsrc",
+     "  for (int t = 0; t < a.T; ++t) {\n    if (blockIdx.x == 0 && tid == 0) { g_it = t; g_base = 1; }\n"
+     "    STAMP(0);\n    const int8_t* hsrc"),
+    ("[&](int r) { return hsrc + (size_t)(p0 + r) * H; }, acc, H, true, false);\n",
+     "[&](int r) { return hsrc + (size_t)(p0 + r) * H; }, acc, H, true, false);\n"
+     "      STAMP(2);\n"),
+    ("    if (t + 1 < a.T) {  // h_t complete across the grid after the wait\n"
+     "      const unsigned old = grid_arrive(a.bar);\n"
+     "      x_products(t + 1, 0, min(RMAX, N), xacc);  // needs no other block's h_t\n"
+     "      grid_wait(a.bar, old);",
+     "    STAMP(3);\n"
+     "    if (t + 1 < a.T) {  // h_t complete across the grid after the wait\n"
+     "      const unsigned old = grid_arrive(a.bar);\n"
+     "      STAMP(4);\n      if (blockIdx.x == 0 && tid == 0) g_base = 5;\n"
+     "      x_products(t + 1, 0, min(RMAX, N), xacc);  // needs no other block's h_t\n"
+     "      STAMP(6);\n"
+     "      grid_wait(a.bar, old);\n      STAMP(7);"),
+    ("const char* rnnt_cuda_error_string(int err) {", READ),
+]
+A_SEGMENTS = ("h_in", "h_mma", "epi", "arrive", "x_in", "x_mma", "wait")
 B_SEGMENTS = ("lanes", "l0", "sync1", "l1_in", "l1_mma", "l1_epi", "sync2", "j_in", "j_mma",
               "j_epi", "sync3", "o_in", "o_mma", "o_argmax", "sync4")
 C_SEGMENTS = ("in", "mma", "epi", "sync")
@@ -129,11 +159,12 @@ def _build(out: Path):
     (out / "hopper.cuh").write_text(_patch((src / "hopper.cuh").read_text(), HEADER))
     (out / "decode_step.cu").write_text(_patch((src / "decode_step.cu").read_text(), DECODE))
     (out / "lstm_scan.cu").write_text(_patch((src / "lstm_scan.cu").read_text(), SCAN))
+    (out / "quant_lstm.cu").write_text(_patch((src / "quant_lstm.cu").read_text(), QUANT))
     procs = {
         n: subprocess.Popen([cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-o",
                              str(out / f"lib{n}.so"), str(out / f"{n}.cu")],
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for n in ("decode_step", "lstm_scan")
+        for n in ("decode_step", "lstm_scan", "quant_lstm")
     }
     logs = {n: p.communicate()[0] for n, p in procs.items()}  # every nvcc ends
     libs = {}
@@ -170,8 +201,10 @@ def main() -> int:
         print("kernel_phases: no CUDA device", file=sys.stderr)
         return 2
     from rnnt_inference_tpu_torch.config import RNNTParams
+    from rnnt_inference_tpu_torch.models.quant import QuantLSTMLayerWeights
     from rnnt_inference_tpu_torch.models.weights import LSTMLayerWeights, init_weights
     from rnnt_inference_tpu_torch.ops import decode_cuda as dc
+    from rnnt_inference_tpu_torch.ops import lstm_cuda as la
     from rnnt_inference_tpu_torch.ops import lstm_scan_cuda as ls
 
     root = Path(__file__).resolve().parents[2]
@@ -216,6 +249,20 @@ def main() -> int:
             per, seg = _segments(libs["lstm_scan"], T, len(C_SEGMENTS) + 1, 2, T - 1)
             print(f"C {str(dt)[6:]} N={N}: {per:.2f} us per step; "
                   + ", ".join(f"{k} {v:.2f}" for k, v in zip(C_SEGMENTS, seg)), flush=True)
+    IC = 2048  # the first post layer, the widest
+    i8 = lambda *s: torch.randint(-128, 128, s, generator=g, dtype=torch.int8).to(dev)
+    scale = lambda v: torch.tensor(v, device=dev)
+    layer = QuantLSTMLayerWeights(i8(IC, 4 * H), i8(H, 4 * H), torch.randn(4 * H, generator=g).to(dev),
+                                  scale(16.0), scale(2000.0), scale(16.0))
+    for N in (16, 64):
+        x, h0 = i8(T, N, IC), i8(N, H)
+        c0 = torch.zeros(N, H, device=dev)
+        for _ in range(2):
+            la.quant_lstm_layer_cuda(layer, x, h0, c0, False)
+            torch.cuda.synchronize()
+        per, seg = _segments(libs["quant_lstm"], T, len(A_SEGMENTS) + 1, 2, T - 1)
+        print(f"A int8 IC={IC} N={N}: {per:.2f} us per step; "
+              + ", ".join(f"{k} {v:.2f}" for k, v in zip(A_SEGMENTS, seg)), flush=True)
     return 0
 
 

@@ -38,24 +38,69 @@ def qweights(dev):
     return quantize_weights(w, calib, P)
 
 
+def _assert_quant_layer_equal(got, want):
+    """Kernel A and its twin bit for bit: int8 y and h equal, c and f32 y
+    with a max abs diff of 0 (int8 sums are exact in any order, and the
+    float epilogue rounds as the twin's)."""
+    for name, a, b in zip(("y", "h", "c"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.equal(a, b), (name, float((a.double() - b.double()).abs().max()))
+
+
 @pytest.mark.parametrize("emit_f32", [False, True])
 def test_quant_lstm_kernel_matches_twin(dev, qweights, emit_f32):
-    """int8 y/h equal except |diff| <= 1 on <= 0.1%; c and f32 y within 1e-5."""
+    """A calibrated layer (IC=1024 -> H=256), 9 steps, 20 lanes: y, h and c
+    bit-equal to the twin's; one launch per call."""
     layer = qweights.post_rnn[0]
     IC, H = layer.w_ih.shape[0], layer.w_hh.shape[0]
     g = torch.Generator().manual_seed(2)
     x = torch.randint(-128, 128, (9, 20, IC), generator=g, dtype=torch.int8).to(dev)
     h = torch.randint(-128, 128, (20, H), generator=g, dtype=torch.int8).to(dev)
     c = torch.randn((20, H), generator=g).to(dev)
+    before = lstm_cuda.quant_lstm_layer_cuda.launches
     got = lstm_cuda.quant_lstm_layer_cuda(layer, x, h, c, emit_f32)
+    assert lstm_cuda.quant_lstm_layer_cuda.launches == before + 1
     want = quant_lstm_layer(layer, x, h, c, emit_f32)
     torch.cuda.synchronize()
-    for name, a, b in zip(("y", "h", "c"), got, want):
-        if a.dtype == torch.int8:
-            d = (a.int() - b.int()).abs()
-            assert int(d.max()) <= 1 and float((d != 0).float().mean()) <= 1e-3, name
-        else:
-            assert float((a - b).abs().max()) <= 1e-5, name
+    _assert_quant_layer_equal(got, want)
+
+
+def _quant_layer(dev, IC, H, seed=15):
+    """Random int8 weights, with scales that keep the gates near N(0, 2)
+    (sigmoid and tanh unsaturated, so a wrong column would show)."""
+    from rnnt_inference_tpu_torch.models.quant import QuantLSTMLayerWeights
+
+    rng = np.random.RandomState(seed)
+    w = lambda *s: torch.from_numpy(rng.randint(-128, 128, s).astype(np.int8)).to(dev)
+    sum_std = np.sqrt(IC + H) * 128 * 128 / 3  # of x.W_ih + h.W_hh for uniform int8
+    in_scale = 127.0
+    w_scale = sum_std / (2 * in_scale)  # rb = 1 / (in_scale w_scale) = 2 / sum_std
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
+    return QuantLSTMLayerWeights(
+        w(IC, 4 * H), w(H, 4 * H), torch.from_numpy(rng.randn(4 * H).astype(np.float32)).to(dev),
+        f32(in_scale), f32(w_scale), f32(100.0))
+
+
+@pytest.mark.parametrize("emit_f32", [False, True])
+@pytest.mark.parametrize("IC", [240, 1024, 2048])
+@pytest.mark.parametrize("T", [1, 48])
+@pytest.mark.parametrize("N", [1, 16, 128, 200, 1024])
+def test_quant_lstm_kernel_mlperf_width(dev, N, T, IC, emit_f32):
+    """Kernel A at H=1024 (MLPerf's width) for the three int8 layer shapes
+    (IC=240 padded to 256 inside), 1 to 1,024 lanes (more than one pass of
+    128 from N=200), one and 48 steps: bit-equal to the twin, one launch per
+    call."""
+    layer = _quant_layer(dev, IC, 1024)
+    g = torch.Generator().manual_seed(N + T + IC)
+    x = torch.randint(-128, 128, (T, N, IC), generator=g, dtype=torch.int8).to(dev)
+    h = torch.randint(-128, 128, (N, 1024), generator=g, dtype=torch.int8).to(dev)
+    c = (torch.randn((N, 1024), generator=g) * 0.5).to(dev)
+    before = lstm_cuda.quant_lstm_layer_cuda.launches
+    got = lstm_cuda.quant_lstm_layer_cuda(layer, x, h, c, emit_f32)
+    assert lstm_cuda.quant_lstm_layer_cuda.launches == before + 1
+    want = quant_lstm_layer(layer, x, h, c, emit_f32)
+    torch.cuda.synchronize()
+    _assert_quant_layer_equal(got, want)
 
 
 @pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
@@ -290,10 +335,13 @@ def test_lstm_scan_kernel_mlperf_width(dev, wdtype, N, T):
 def test_refused_shapes_raise(dev):
     """Shapes the kernels cannot take raise ValueError before any launch:
     kernel C with H not a multiple of 128 or too many lanes for shared
-    memory; kernel B with P not a multiple of 64."""
+    memory; kernel B with P not a multiple of 64; kernel A with H not a
+    multiple of 16, more blocks than SMs, too many lanes for shared memory,
+    or x not 16-byte aligned."""
     from rnnt_inference_tpu_torch.ops import lstm_scan_cuda
 
-    before = (lstm_scan_cuda.lstm_recurrence_cuda.launches, dc.decode_step_cuda.launches)
+    before = (lstm_scan_cuda.lstm_recurrence_cuda.launches, dc.decode_step_cuda.launches,
+              lstm_cuda.quant_lstm_layer_cuda.launches)
     layer = _scan_layer(dev, torch.float32, 192)
     with pytest.raises(ValueError, match="multiple of 128"):
         lstm_scan_cuda.lstm_recurrence_cuda(
@@ -307,4 +355,16 @@ def test_refused_shapes_raise(dev):
     params, dw, fproj, state = _decode_case(dev, torch.float32, 4, P=96, J=64)
     with pytest.raises(ValueError, match="multiples of 64"):
         dc.decode_step_cuda(fproj, *state, dw, params, 4)
-    assert before == (lstm_scan_cuda.lstm_recurrence_cuda.launches, dc.decode_step_cuda.launches)
+    i8 = lambda *s: torch.zeros(s, dtype=torch.int8, device=dev)
+    f32 = lambda *s: torch.zeros(s, device=dev)
+    for (IC, H, N), msg in [((240, 1000, 4), "multiples of 16"), ((240, 2048, 4), "blocks"),
+                            ((2048, 1024, 4096), "shared memory")]:
+        with pytest.raises(ValueError, match=msg):
+            lstm_cuda.quant_lstm_layer_cuda(_quant_layer(dev, IC, H), i8(2, N, IC), i8(N, H),
+                                            f32(N, H), False)
+    x = i8(2 * 4 * 240 + 1)[1:].view(2, 4, 240)  # contiguous, one byte off
+    with pytest.raises(ValueError, match="16-byte"):
+        lstm_cuda.quant_lstm_layer_cuda(_quant_layer(dev, 240, 1024), x, i8(4, 1024),
+                                        f32(4, 1024), False)
+    assert before == (lstm_scan_cuda.lstm_recurrence_cuda.launches, dc.decode_step_cuda.launches,
+                      lstm_cuda.quant_lstm_layer_cuda.launches)

@@ -307,14 +307,14 @@ def test_greedy_decode_matches_jax(decode_inputs, jax_decode, dtype, split_len, 
 
 def test_kernel_phase_probes_match_sources():
     """The phase-profile tool (rnnt_inference_tpu_torch/tools/kernel_phases.py)
-    finds each of its anchors exactly once in kernels B and C and their
+    finds each of its anchors exactly once in kernels A, B and C and their
     shared header, so its stamps land where its segment names say, and its
     edits only add stamp lines: the profiled kernels are the real ones."""
     from rnnt_inference_tpu_torch.tools import kernel_phases as kp
 
     probe = ("STAMP", "g_base", "g_it")
     for name, edits in (("hopper.cuh", kp.HEADER), ("decode_step.cu", kp.DECODE),
-                        ("lstm_scan.cu", kp.SCAN)):
+                        ("lstm_scan.cu", kp.SCAN), ("quant_lstm.cu", kp.QUANT)):
         patched = kp._patch((cuda_build.CSRC / name).read_text(), edits)
         assert patched.count("STAMP(") >= (1 if name == "hopper.cuh" else 3)
         for anchor, stamped in edits:  # the stamps only add lines or a prefix

@@ -73,18 +73,18 @@ def test_impl_dispatch_on_cpu():
 
 
 def test_recurrent_weight_layout_and_rebuild():
-    """Kernel C's operand is W_hh in per-block order (scan_operand), whose
+    """Kernel C's operand is W_hh in per-block order (block_columns), whose
     inverse gives W_hh back; it is kept per layer and rebuilt after an
     in-place change of W_hh."""
     rng = np.random.RandomState(3)
     lay = LSTMLayerWeights(*map(torch.from_numpy, _layer(rng, 8, 128)))
     op = lstm_scan_cuda.recurrent_weight(lay, 4)
     assert op.shape == (32, 128, 16) and op.is_contiguous()
-    assert torch.equal(lstm_scan_cuda.scan_operand_inverse(op, 128, 4), lay.w_hh)
+    assert torch.equal(cuda_build.block_columns_inverse(op, 128, 4), lay.w_hh)
     assert lstm_scan_cuda.recurrent_weight(lay, 4) is op
     lay.w_hh.neg_()
     assert torch.equal(
-        lstm_scan_cuda.scan_operand_inverse(lstm_scan_cuda.recurrent_weight(lay, 4), 128, 4),
+        cuda_build.block_columns_inverse(lstm_scan_cuda.recurrent_weight(lay, 4), 128, 4),
         lay.w_hh)
     other = dataclasses.replace(lay, w_hh=lay.w_hh.clone())
     assert lstm_scan_cuda.recurrent_weight(other, 4) is not lstm_scan_cuda.recurrent_weight(lay, 4)
@@ -93,7 +93,7 @@ def test_recurrent_weight_layout_and_rebuild():
 @pytest.mark.parametrize("H,U", [(128, 4), (256, 4), (1024, 8), (2048, 16)])
 @pytest.mark.parametrize("mode", ["f32", "bf16"])
 def test_scan_operand_inverse(mode, H, U):
-    """scan_operand's inverse gives W_hh back bit for bit.  In bf16, lane
+    """block_columns' inverse gives W_hh back bit for bit.  In bf16, lane
     4 g + t of n-tiles 2i, 2i + 1 holds the four gates of unit 4i + t
     (column 8 j + 2 t + e: gate 2 (j % 2) + e), so an mma C fragment holds
     whole units; lane 4 g + t of the fragment of k-step s holds rows
@@ -101,8 +101,8 @@ def test_scan_operand_inverse(mode, H, U):
     unit u (csrc/hopper.cuh)."""
     tdt = DTYPES[mode][0]
     w = torch.from_numpy(np.random.RandomState(H).randn(H, 4 * H).astype(np.float32)).to(tdt)
-    op = lstm_scan_cuda.scan_operand(w, U)
-    assert torch.equal(lstm_scan_cuda.scan_operand_inverse(op, H, U), w)
+    op = cuda_build.block_columns(w, U)
+    assert torch.equal(cuda_build.block_columns_inverse(op, H, U), w)
     b = H // U - 1
     perm = cuda_build.gate_columns(U, tdt)  # local column c: unit perm[c] // 4, gate perm[c] % 4
     if mode == "bf16":
@@ -138,8 +138,8 @@ def test_twin_from_operand_matches_jax_pallas(mode):
     j = lambda a: jnp.asarray(a).astype(jdt)
     want = _lstm_recurrence(j(xw), j(w_hh), j(h0), jnp.asarray(c0), interpret=True)
     t = lambda a: torch.from_numpy(np.array(jnp.asarray(a).astype(jdt).astype(jnp.float32))).to(tdt)
-    op = lstm_scan_cuda.scan_operand(t(w_hh), 4)
-    got = tl.lstm_recurrence(t(xw), lstm_scan_cuda.scan_operand_inverse(op, H, 4), t(h0),
+    op = cuda_build.block_columns(t(w_hh), 4)
+    got = tl.lstm_recurrence(t(xw), cuda_build.block_columns_inverse(op, H, 4), t(h0),
                              torch.from_numpy(c0))
     for g, w, tol in zip(got, want, (tol_h, tol_h, tol_c)):
         np.testing.assert_allclose(g.float().numpy(), np.asarray(w.astype(jnp.float32)), atol=tol)

@@ -21,13 +21,18 @@ from rnnt_inference_tpu.models.quant import quantize_weights as jquantize_weight
 from rnnt_inference_tpu.models.weights import init_weights as jinit_weights
 from rnnt_inference_tpu.ops.lstm_pallas import quant_lstm_layer_pallas
 from rnnt_inference_tpu_torch.config import RNNTParams
-from rnnt_inference_tpu_torch.models.quant import calibrate, quantize, quantize_weights
+from rnnt_inference_tpu_torch.models.quant import (
+    QuantLSTMLayerWeights,
+    calibrate,
+    quantize,
+    quantize_weights,
+)
 from rnnt_inference_tpu_torch.models.weights import (
     load_jax_npz,
     numpy_leaves,
     weights_from_numpy_leaves,
 )
-from rnnt_inference_tpu_torch.ops import lstm_cuda
+from rnnt_inference_tpu_torch.ops import cuda_build, lstm_cuda
 from rnnt_inference_tpu_torch.ops.lstm_int8 import quant_lstm_layer
 
 torch.set_num_threads(1)  # tier-1 runs several pytest workers
@@ -116,27 +121,104 @@ def test_quant_lstm_layer_matches_pallas(models, emit_f32, N):
 
 
 def test_kernel_a_operands_layout_and_rebuild(models):
-    """Kernel A's operands: row r of w_cat_t is [W_ih[:, r]; W_hh[:, r]]
-    zero-padded to a multiple of 16, the scales are the layer's; they are
-    built once per layer and rebuilt after an in-place change."""
+    """Kernel A's operands: w_op is kernel_operand of the layer's W_ih and
+    W_hh (its inverse gives them back), the bias and scales are the
+    layer's; they are built once per layer and rebuilt after an in-place
+    change."""
     src = models["tq"].post_rnn[0]
     layer = dataclasses.replace(src, w_hh=src.w_hh.clone())
-    w_t, bias, rb, in_scale, out_scale = ops = lstm_cuda.kernel_operands(layer)
-    K = layer.w_ih.shape[0] + layer.w_hh.shape[0]
-    assert w_t.shape == (layer.w_hh.shape[1], -(-K // 16) * 16) and w_t.is_contiguous()
-    np.testing.assert_array_equal(
-        w_t[:, :K].t().numpy(), torch.cat([layer.w_ih, layer.w_hh]).numpy()
-    )
-    assert not w_t[:, K:].any()
+    IC, H = layer.w_ih.shape[0], layer.w_hh.shape[0]
+    w_op, bias, rb, in_scale, out_scale = ops = lstm_cuda.kernel_operands(layer)
+    assert w_op.shape == (H // 8, (-(-IC // 64) + H // 64) * 64 * 32) and w_op.is_contiguous()
+    w_ih, w_hh = lstm_cuda.kernel_operand_inverse(w_op, IC, H)
+    assert torch.equal(w_ih, layer.w_ih) and torch.equal(w_hh, layer.w_hh)
     np.testing.assert_array_equal(bias.numpy(), layer.b.numpy())
     assert (rb, in_scale, out_scale) == tuple(
         float(v) for v in (layer.rb_scale, layer.in_scale, layer.out_scale)
     )
     assert lstm_cuda.kernel_operands(layer) is ops
     layer.w_hh.neg_()
-    w_t2 = lstm_cuda.kernel_operands(layer)[0]
-    np.testing.assert_array_equal(w_t2[:, K - layer.w_hh.shape[0]:K].t().numpy(),
-                                  layer.w_hh.numpy())
+    w_op2 = lstm_cuda.kernel_operands(layer)[0]
+    assert w_op2 is not w_op
+    assert torch.equal(lstm_cuda.kernel_operand_inverse(w_op2, IC, H)[1], layer.w_hh)
+
+
+@pytest.mark.parametrize("IC", [240, 128, 256])
+def test_kernel_a_operand_inverse(IC):
+    """kernel_operand's inverse gives W_ih and W_hh back bit for bit (IC=240
+    is padded to 256 with zero rows).  Block b's operand is its W_ih
+    fragments, then its W_hh fragments, in int8 mma m16n8k32 order: lane
+    4g + t of k-step s, n-tile j holds rows 32s + 4t + (0..3, 16..19) of
+    local column 8j + g, the gate_columns order shared with bf16."""
+    H, U = 64, 8
+    rng = np.random.RandomState(IC)
+    w_ih = torch.from_numpy(rng.randint(-128, 128, (IC, 4 * H)).astype(np.int8))
+    w_hh = torch.from_numpy(rng.randint(-128, 128, (H, 4 * H)).astype(np.int8))
+    op = lstm_cuda.kernel_operand(w_ih, w_hh)
+    ICP = -(-IC // 64) * 64
+    assert op.shape == (H // U, (ICP + H) * 4 * U)
+    got_ih, got_hh = lstm_cuda.kernel_operand_inverse(op, IC, H)
+    assert torch.equal(got_ih, w_ih) and torch.equal(got_hh, w_hh)
+    frag = op.reshape(H // U, -1, U // 2, 32, 8)  # block, k-step, n-tile, lane, byte
+    perm = cuda_build.gate_columns(U, torch.int8)
+    assert torch.equal(perm, cuda_build.gate_columns(U, torch.bfloat16))
+    b = H // U - 1
+    for which, w, s0 in (("ih", w_ih, 0), ("hh", w_hh, ICP // 32)):
+        for s, j, g, t in ((0, 0, 0, 0), (1, 3, 5, 2), (ICP // 32 - 1 if which == "ih" else 1, 2, 7, 3)):
+            unit, gate = divmod(int(perm[8 * j + g]), 4)
+            col = w[:, gate * H + b * U + unit]
+            col = torch.cat([col, col.new_zeros(ICP - len(col))]) if which == "ih" else col
+            want = col[[32 * s + 4 * t + k for k in (0, 1, 2, 3, 16, 17, 18, 19)]]
+            assert torch.equal(frag[b, s0 + s, j, 4 * g + t], want)
+    if IC == 240:  # the padded rows are zeros
+        assert not cuda_build.block_columns_inverse(frag[:, :ICP // 32], H, U)[IC:].any()
+
+
+@pytest.mark.parametrize("emit_f32", [False, True])
+def test_twin_from_kernel_a_operand_matches_pallas(models, emit_f32):
+    """The twin on W_ih and W_hh recovered from kernel A's operand against
+    the JAX Pallas kernel (interpret mode), with
+    test_quant_lstm_layer_matches_pallas's tolerances: the layout loses
+    nothing."""
+    jq = models["jq"]
+    tq = weights_from_numpy_leaves(_leaves(jq), "rnnt_quant_weights", TP, "cpu")
+    jlay, tlay = jq.pre_rnn[0], tq.pre_rnn[0]  # IC = 240, padded in the operand
+    IC, H = tlay.w_ih.shape[0], tlay.w_hh.shape[0]
+    w_ih, w_hh = lstm_cuda.kernel_operand_inverse(lstm_cuda.kernel_operands(tlay)[0], IC, H)
+    rng = np.random.RandomState(31)
+    x = rng.randint(-128, 128, size=(4, 8, IC)).astype(np.int8)
+    h0 = rng.randint(-128, 128, size=(8, H)).astype(np.int8)
+    c0 = (rng.randn(8, H) * 0.5).astype(np.float32)
+    jy, jh, jc = quant_lstm_layer_pallas(
+        jlay, jnp.asarray(x), jnp.asarray(h0), jnp.asarray(c0), emit_f32, interpret=True
+    )
+    ty, th, tc = quant_lstm_layer(dataclasses.replace(tlay, w_ih=w_ih, w_hh=w_hh),
+                                  *map(torch.from_numpy, (x, h0, c0)), emit_f32)
+    _int8_close(th.numpy(), np.asarray(jh))
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), atol=1e-5)
+    if emit_f32:
+        np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=1e-5)
+    else:
+        _int8_close(ty.numpy(), np.asarray(jy))
+
+
+def test_kernel_a_plan_and_refusals():
+    """plan: H=1024 on 132 SMs takes 128 blocks of 8 units; the first post
+    layer (IC=2048) fits 1,024 lanes; H or IC not a multiple of 16, more
+    blocks than SMs and more lanes than shared memory holds raise
+    ValueError.  The wrapper takes CUDA tensors only."""
+    assert lstm_cuda.plan(1024, 2048, 1024, 132) < cuda_build.SMEM_PER_BLOCK
+    assert lstm_cuda.plan(1024, 240, 16, 132) < lstm_cuda.plan(1024, 2048, 16, 132)
+    for args, msg in [((1000, 240, 16), "multiples of 16"), ((1024, 250, 16), "multiples of 16"),
+                      ((2048, 1024, 16), "blocks"), ((1024, 2048, 4096), "shared memory")]:
+        with pytest.raises(ValueError, match=msg):
+            lstm_cuda.plan(*args, 132)
+    z = lambda *s, dt=torch.int8: torch.zeros(s, dtype=dt)
+    lay = QuantLSTMLayerWeights(z(32, 64), z(16, 64), z(64, dt=torch.float32),
+                                *(torch.tensor(1.0) for _ in range(3)))
+    with pytest.raises(ValueError, match="CUDA"):
+        lstm_cuda.quant_lstm_layer_cuda(lay, z(2, 3, 32), z(3, 16), z(3, 16, dt=torch.float32),
+                                        False)
 
 
 def test_quantize_rounds_half_to_even():
