@@ -18,8 +18,19 @@ it and read just after:
   - features_fused: the fused featurizer entry point (kernel D);
   - cli_bf16 / cli_f32: the CLI, ``main --run_mode bf16|f32 --benchmark
     --scenario Offline --synthetic N`` (float encoder on kernel C, decode on
-    kernel B), then the same store through run_offline on the twins.
-Token edit rates kernels vs twins are held to 1e-3.  Launches are counted
+    kernel B), then the same store through run_offline on the twins;
+  - packed_int8: the CLI's sequence-packed Offline run on the int8 model,
+    ``main --run_mode quant --quant_in <tmp> --packed --benchmark
+    --synthetic 64 --batch_size 16`` (kernel A per chunk, kernel B in
+    packed mode), then the same store through the packed runner on the
+    twins and through the bucketed int8 runner on the kernels;
+  - server_int8: the Server slot pipeline (run_server over a ServerRunner
+    of 32 slots, kernels A and B) on 32 utterances, as fast as it accepts
+    them and then at half that rate in real time, its tokens against the
+    bucketed int8 runner's.
+Kernel B's packed mode is held against its twin over one launch of K
+iterations at N = 16, 64, 128 (phase kernel_b_packed).  Token edit rates
+kernels vs twins are held to 1e-3.  Launches are counted
 per main call and per timed pass.  Each phase prints one JSON line; the
 last line is {"ok": true, "device": {...}}.  Any failure
 raises (exit code != 0); with no CUDA device it exits with code 2 before
@@ -381,6 +392,115 @@ def phase_kernel_b(weights, params, dev, phase: str) -> dict:
     }
 
 
+def phase_kernel_b_packed(weights, params, dev) -> dict:
+    """Kernel B's packed mode against its twin at full width (bf16, the int8
+    model's prediction net and joint), N in {16, 64, 128} lanes on packed
+    timelines (utterance starts on a third of the frames, a budget of 8
+    tokens per utterance): 8 single steps from the twin's state, then one
+    launch of K iterations from a fresh state against K twin steps, which
+    must include lanes that enter an utterance, lanes the budget holds back
+    and lanes that finish.  Then its time per iteration at K per launch on
+    lanes that cannot finish, beside the bucketed mode's on the same
+    state."""
+    from rnnt_inference_tpu_torch.models import decoder
+    from rnnt_inference_tpu_torch.ops import decode_cuda as dc
+
+    dw = dc.decode_weights(weights)
+    K = decoder.DEFAULT_STEPS_PER_CHECK
+    T2, L, P, J, V, R = 40, params.pred_num_layers, params.pred_hidden_size, \
+        params.joint_hidden_size, params.num_labels, params.max_res_len
+    budget = 8
+    rng = np.random.RandomState(17)
+
+    def check(a, b, row, what):
+        dh = float((a[1].float() - b[1].float()).abs().max())
+        dcg = float((a[2] - b[2]).abs().max())
+        same = (torch.equal(a[0], b[0]) and torch.equal(a[3], b[3]) and torch.equal(a[4], b[4]))
+        row[f"{what}_lanes_res_rb_equal"] = row.get(f"{what}_lanes_res_rb_equal", True) and same
+        row[f"{what}_hg_max_abs_diff"] = max(row.get(f"{what}_hg_max_abs_diff", 0.0), dh)
+        row[f"{what}_cg_max_abs_diff"] = max(row.get(f"{what}_cg_max_abs_diff", 0.0), dcg)
+        if not (same and dh <= 2 ** -8 and dcg <= 1e-3):
+            raise AssertionError(f"kernel B packed off ({what}, N={row['N']}): equal {same}, "
+                                 f"hg {dh}, cg {dcg}")
+
+    def launch(st, steps, fp, starts):
+        dc.decode_step_cuda(fp, *st[:4], dw, params, steps, starts, st[4], budget)
+
+    def twin(st, fp, starts):
+        dc.decode_step_reference(fp, *st[:4], dw, params, starts, st[4], budget)
+
+    rows = []
+    for N in (16, 64, 128):
+        fproj = torch.from_numpy(rng.randn(T2, N, J).astype(np.float32)).to(dev)
+        lanes0 = _decode_lanes(rng, N, T2, V, R)
+        starts_np = rng.rand(T2, N) < 0.35
+        starts_np[0] = True
+        starts = torch.from_numpy(starts_np).to(dev)
+        rb0 = np.maximum(lanes0[3] - rng.randint(0, 12, N), -1).astype(np.int32)
+        hg0 = torch.from_numpy(rng.randn(L, N, P).astype(np.float32) * 0.5).to(dev, torch.bfloat16)
+        cg0 = torch.from_numpy(rng.randn(L, N, P).astype(np.float32) * 0.5).to(dev)
+        fresh = lambda: [torch.from_numpy(lanes0.copy()).to(dev), hg0.clone(), cg0.clone(),
+                         torch.full((N, R), -1, dtype=torch.int8, device=dev),
+                         torch.from_numpy(rb0.copy()).to(dev)]
+        row = {"N": N, "K": K, "budget": budget}
+        b = fresh()
+        for _ in range(8):  # per step from the twin's state
+            a = [t.clone() for t in b]
+            launch(a, 1, fproj, starts)
+            twin(b, fproj, starts)
+            check(a, b, row, "step")
+        a, b = fresh(), fresh()  # one launch of K iterations against K twin steps
+        launch(a, K, fproj, starts)
+        entered = held = finished_at = 0
+        for i in range(K):
+            ri, fin = b[0][dc.RES_IDX].clone(), b[0][dc.FINISH].clone()
+            sad, rb = b[0][dc.SYMADD].clone(), b[4].clone()
+            twin(b, fproj, starts)
+            upd = (b[0][dc.SYMBOL] != params.BLANK) & (sad != params.max_symbols_per_step) & (fin == 0)
+            entered += int((b[4] != rb).sum())  # rb moves only where a lane enters
+            held += int((upd & (b[0][dc.RES_IDX] == ri)).sum())
+            if i < K - 1:
+                finished_at += int(((b[0][dc.FINISH] != 0) & (fin == 0)).sum())
+        check(a, b, row, "k_launch")
+        row.update(entered_in_launch=entered, emissions_held_by_budget=held,
+                   lanes_finished_mid_launch=finished_at)
+        if not (entered and held and finished_at):
+            raise AssertionError(f"kernel B packed check misses a case: {row}")
+
+        # timing on lanes that cannot finish: 1,024 frames, an utterance
+        # start every 8 frames, bucketed and packed on the same state
+        TL = 1024
+        fl = torch.from_numpy(rng.randn(TL, N, J).astype(np.float32)).to(dev)
+        starts_l = torch.zeros((TL, N), dtype=torch.bool, device=dev)
+        starts_l[::8] = True
+        lanes_l = torch.from_numpy(_decode_lanes(rng, N, TL, V, R, long=True)).to(dev)
+        reps = max(1, TL // K - 2)
+        timed = {}
+        for mode in ("bucketed", "packed"):
+            st = [lanes_l.clone(), hg0.clone(), cg0.clone(),
+                  torch.full((N, R), -1, dtype=torch.int8, device=dev),
+                  torch.full((N,), -1, dtype=torch.int32, device=dev)]
+            sl = starts_l if mode == "packed" else None
+            run = ((lambda: launch(st, K, fl, sl)) if mode == "packed"
+                   else (lambda: dc.decode_step_cuda(fl, *st[:4], dw, params, K)))
+            timed[mode] = cuda_ms(run, reps, 1) / K
+            if bool(st[0][dc.FINISH].any()):
+                raise AssertionError("kernel B packed timing: a lane finished")
+            if mode == "packed":
+                row["markers_in_timing"] = int((st[3] == dc.PACK_BOUNDARY).sum())
+        st = [lanes_l.clone(), hg0.clone(), cg0.clone(),
+              torch.full((N, R), -1, dtype=torch.int8, device=dev),
+              torch.full((N,), -1, dtype=torch.int32, device=dev)]
+        row.update(ms_per_iteration_packed=timed["packed"],
+                   ms_per_iteration_bucketed=timed["bucketed"],
+                   plain_ms_per_step_packed=cuda_ms(lambda: twin(st, fl, starts_l), 20, 2))
+        rows.append(row)
+    emit({"phase": "kernel_b_packed", "tolerance": "8 steps from the twin's state and one "
+          f"launch of K={K} iterations against K twin steps: lanes, res and res_base equal, "
+          "hg <= 2**-8, cg <= 1e-3", "rows": rows})
+    return {r["N"]: r for r in rows}
+
+
 def phase_kernel_c(weights, dev) -> dict:
     """Kernel C against its twin at H=1024 (the middle encoder layer's
     shape, IC=1024), T=48, N in {16, 128}, bf16 and f32 weights; cuDNN's
@@ -659,6 +779,180 @@ def phase_end_to_end(qweights, params, dev, seed: int, card: str) -> dict:
     return {"main": launches, "timed_pass": rk.launches, "layer_calls": layer_calls}
 
 
+def _edit_rate(got, want):
+    """(token edit rate of got against want, tokens of want, indices that differ)."""
+    n_tok = sum(len(t) for t in want)
+    edits = [edit_distance(np.asarray(a), np.asarray(b)) for a, b in zip(got, want, strict=True)]
+    return sum(edits) / max(n_tok, 1), n_tok, [i for i, e in enumerate(edits) if e]
+
+
+def phase_packed_int8(qweights, params, dev, card: str) -> dict:
+    """The CLI's sequence-packed int8 Offline run: main --run_mode quant
+    --quant_in <the int8 weights, saved> --packed --benchmark --scenario
+    Offline --synthetic 64 --batch_size 16 (64 utterances of 1-15 s on 16
+    lanes; at cap 30 the budget of max_res_len tokens binds), with the
+    launch counts set to 0 just before it and read just after; kernel A
+    must launch five times per chunk of the timed rep.  Then the same store
+    through the packed runner on the twins (no launch) and through the
+    bucketed int8 runner on the kernels (device-resident, int16 staging as
+    the packed runner's): token edit rates <= 1e-3 against both."""
+    import contextlib
+    import os
+    import tempfile
+
+    from rnnt_inference_tpu_torch import main as cli
+    from rnnt_inference_tpu_torch.config import FeaturizerConfig
+    from rnnt_inference_tpu_torch.models import checkpoint
+    from rnnt_inference_tpu_torch.ops import decode_cuda, lstm_cuda
+    from rnnt_inference_tpu_torch.runtime.harness import run_offline
+    from rnnt_inference_tpu_torch.runtime.offline import OfflineRunner
+    from rnnt_inference_tpu_torch.runtime.packing import PackedOfflineRunner
+
+    counters = {"quant_lstm_layer": lstm_cuda.quant_lstm_layer_cuda,
+                "decode_step": decode_cuda.decode_step_cuda}
+    with tempfile.TemporaryDirectory() as out:
+        quant = os.path.join(out, "rnnt_quant.npz")
+        checkpoint.save_quant_weights(quant, qweights)
+        argv = ["--run_mode", "quant", "--quant_in", quant, "--packed", "--benchmark",
+                "--scenario", "Offline", "--synthetic", "64", "--batch_size", "16",
+                "--output_dir", out]
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.time()
+        with contextlib.redirect_stdout(sys.stderr):  # main prints its summary
+            rk = cli.main(argv)
+        seconds = time.time() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        per_rep = rk.launches
+        chunks = rk.extra["pack_chunks"]
+        layers = params.pre_num_layers + params.post_num_layers
+        if launches["quant_lstm_layer"] == 0 or launches["decode_step"] == 0:
+            raise AssertionError(f"the packed CLI run never launched kernel A or B: {launches}")
+        if per_rep["quant_lstm_layer"] != layers * chunks or per_rep["decode_step"] == 0:
+            raise AssertionError(f"the timed packed rep launched {per_rep} for {chunks} chunks")
+        args = cli.parse_args(argv)
+        weights, _ = cli.load_model_weights(args, params, dev)
+        store = cli.load_store(args, None)
+    cfg = FeaturizerConfig()
+    t0 = time.time()
+    ref = PackedOfflineRunner(weights, params, cfg, n_lanes=16, chunk_frames=16, batch_size=16,
+                              device=dev, impl="reference")
+    rr = run_offline(weights, store, params, cfg, batch_size=16, packed=True, runner=ref,
+                     warmup=False, device=dev)
+    ref_seconds = time.time() - t0
+    if any(rr.launches.values()):
+        raise AssertionError(f"impl='reference' launched a kernel: {rr.launches}")
+    rb = run_offline(weights, store, params, cfg, batch_size=16, device_resident=True,
+                     runner=OfflineRunner(weights, params, cfg, 16, device=dev), device=dev)
+    seq = lambda hyps: [np.frombuffer(h.encode(), np.uint8) for h in hyps]  # a char per token
+    rate_ref, n_tok, differ_ref = _edit_rate(seq(rk.hypotheses), seq(rr.hypotheses))
+    rate_b, n_tok_b, differ_b = _edit_rate(seq(rk.hypotheses), seq(rb.hypotheses))
+    if n_tok == 0 or rate_ref > 1e-3 or rate_b > 1e-3:
+        raise AssertionError(f"packed int8 token edit rates {rate_ref} (twins), {rate_b} "
+                             f"(bucketed) over {n_tok} tokens")
+    ms = lambda r: {k: v * 1e3 for k, v in r.phase_seconds.items()}
+    emit({
+        "phase": "packed_int8", "card": card, "argv": argv[:3] + ["<tmp>"] + argv[4:-2],
+        "utterances": len(store), "audio_seconds": store.audio_seconds, "lanes": 16,
+        "main_seconds": seconds, "tokens": n_tok,
+        "token_edit_rate_vs_twins": rate_ref, "utterances_differing_vs_twins": differ_ref,
+        "token_edit_rate_vs_bucketed": rate_b, "utterances_differing_vs_bucketed": differ_b,
+        "packing_efficiency": rk.extra["packing_efficiency"], "pack_chunks": chunks,
+        "chunk_frames": rk.extra["chunk_frames"], "launches": launches,
+        "launches_per_timed_rep": per_rep, "kernel_a_launches_per_chunk": layers,
+        "kernels": {"summary": rk.summary(), "ms": ms(rk)},
+        "reference": {"wall_seconds": rr.wall_seconds, "run_seconds": ref_seconds,
+                      "audio_seconds_per_second": rr.audio_seconds_per_second, "ms": ms(rr)},
+        "bucketed_int8": {"wall_seconds": rb.wall_seconds,
+                          "audio_seconds_per_second": rb.audio_seconds_per_second,
+                          "ms": ms(rb), "launches_per_timed_pass": rb.launches},
+    })
+    return {"main": launches, "timed_pass": per_rep}
+
+
+def phase_server_int8(qweights, params, dev, seed: int, card: str) -> dict:
+    """The Server slot pipeline on the int8 model: run_server over a
+    ServerRunner of 32 slots (split_len 24, insert_batch 8, 4 steps per
+    dispatch) on 32 utterances of 1-15 s, first issuing as fast as it
+    accepts them (launch counts set to 0 just before, read just after),
+    then the same run through a ServerRunner on the twins (impl=
+    "reference": kernels A and B at the shapes this path gives them, 32
+    slots and T = 24 / 12, against their plain versions on the same
+    inputs; it launches no kernel), then in real time at half the issue
+    rate the first run reached.  Tokens within edit rate 1e-3 of the
+    twins' and of the bucketed int8 runner's on the same store, in both
+    kernel runs."""
+    from rnnt_inference_tpu_torch.data.dataset import SampleStore
+    from rnnt_inference_tpu_torch.ops import decode_cuda, lstm_cuda
+    from rnnt_inference_tpu_torch.runtime.offline import OfflineRunner
+    from rnnt_inference_tpu_torch.runtime.qsl import QuerySampleLibrary
+    from rnnt_inference_tpu_torch.runtime.scheduler import run_server
+    from rnnt_inference_tpu_torch.runtime.server import ServerRunner
+
+    store = SampleStore.synthetic(n=32, seed=seed + 3, min_seconds=1.0, max_seconds=15.0)
+    runner = ServerRunner(qweights, params, slots=32, device=dev)
+    warm = runner.warmup()
+    counters = {"quant_lstm_layer": lstm_cuda.quant_lstm_layer_cuda,
+                "decode_step": decode_cuda.decode_step_cuda}
+    for c in counters.values():
+        c.launches = 0
+    metrics, results = run_server(runner, store, target_qps=1e6, realtime=False)
+    launches = {k: c.launches for k, c in counters.items()}
+    if any(v == 0 for v in launches.values()):
+        raise AssertionError(f"the Server run never launched kernel A or B: {launches}")
+    if metrics.completed != len(store) or runner.n_active:
+        raise AssertionError(f"Server completed {metrics.completed} of {len(store)}")
+    ref = ServerRunner(qweights, params, slots=32, device=dev, impl="reference")
+    before = {k: c.launches for k, c in counters.items()}
+    t0 = time.time()
+    ref_metrics, ref_results = run_server(ref, store, target_qps=1e6, realtime=False)
+    ref_seconds = time.time() - t0
+    if {k: c.launches for k, c in counters.items()} != before:
+        raise AssertionError("the Server run on the twins launched a kernel")
+    if ref_metrics.completed != len(store):
+        raise AssertionError(f"the twins' Server completed {ref_metrics.completed}")
+    twins = [ref_results[q] for q in range(len(store))]
+    bucketed = OfflineRunner(qweights, params, batch_size=16, device=dev)
+    qsl = QuerySampleLibrary(store)
+    bucketed.warmup(qsl)
+    rb = bucketed.run(qsl)
+    tokens = [results[q] for q in range(len(store))]
+    rate_ref, n_tok, differ_ref = _edit_rate(tokens, twins)
+    rate, _, differ = _edit_rate(tokens, rb.tokens)
+    if n_tok == 0 or rate_ref > 1e-3 or rate > 1e-3:
+        raise AssertionError(f"Server token edit rates {rate_ref} (twins), {rate} (bucketed "
+                             f"int8) over {n_tok} tokens")
+    issue_qps = metrics.issued / metrics.wall_seconds
+    rt_metrics, rt_results = run_server(runner, store, target_qps=issue_qps / 2, realtime=True)
+    if rt_metrics.completed != len(store):
+        raise AssertionError(f"real-time Server completed {rt_metrics.completed} of {len(store)}")
+    rt_tokens = [rt_results[q] for q in range(len(store))]
+    rt_rate_ref, _, _ = _edit_rate(rt_tokens, twins)
+    rt_rate, _, _ = _edit_rate(rt_tokens, rb.tokens)
+    if rt_rate_ref > 1e-3 or rt_rate > 1e-3:
+        raise AssertionError(f"real-time Server token edit rates {rt_rate_ref} (twins), "
+                             f"{rt_rate} (bucketed int8)")
+    rt = rt_metrics.summary()
+    emit({
+        "phase": "server_int8", "card": card, "utterances": len(store),
+        "audio_seconds": store.audio_seconds, "slots": runner.slots,
+        "split_len": runner.split_len, "insert_batch": runner.insert_batch,
+        "steps_per_dispatch": runner.steps_per_dispatch, "warmup_seconds": warm,
+        "tokens": n_tok, "token_edit_rate_vs_twins": rate_ref,
+        "utterances_differing_vs_twins": differ_ref, "token_edit_rate_vs_bucketed": rate,
+        "utterances_differing_vs_bucketed": differ, "launches": launches,
+        "twins": {"run_seconds": ref_seconds, "wall_seconds": ref_metrics.wall_seconds},
+        "as_fast_as_accepted": dict(metrics.summary(), issue_qps=issue_qps,
+                                    audio_seconds_per_second=store.audio_seconds
+                                    / metrics.wall_seconds),
+        "realtime": dict(rt, target_qps=issue_qps / 2,
+                         deferred=rt.get("deferred_completed", 0),
+                         token_edit_rate_vs_twins=rt_rate_ref,
+                         token_edit_rate_vs_bucketed=rt_rate),
+    })
+    return {"main": launches, "timed_pass": launches}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -698,6 +992,7 @@ def main() -> int:
     a = phase_kernel_a(qweights, dev)
     b = phase_kernel_b(qweights, params, dev, "kernel_b")
     b32 = phase_kernel_b(weights, params, dev, "kernel_b_f32")
+    bp = phase_kernel_b_packed(qweights, params, dev)
     c = phase_kernel_c(weights, dev)
     d = phase_kernel_d(dev)
     # each path driven with the launch counts set to 0 just before it
@@ -705,6 +1000,8 @@ def main() -> int:
         "int8": phase_end_to_end(qweights, params, dev, args.seed, card),
         "bf16": phase_cli("bf16", 32, dev, card),
         "f32": phase_cli("f32", 8, dev, card),
+        "packed": phase_packed_int8(qweights, params, dev, card),
+        "server": phase_server_int8(qweights, params, dev, args.seed, card),
     }
     # launches: A from the int8 Offline path (one pass); B and C from one
     # main call of the CLI's default run mode (bf16), this slice's main
@@ -714,7 +1011,8 @@ def main() -> int:
     b["launches"] = paths["bf16"]["main"]["decode_step"]
     c["launches"] = paths["bf16"]["main"]["lstm_recurrence"]
     d["launches_per_timed_pass"] = d["launches"]
-    for e, name, ks in ((a, "quant_lstm_layer", ("int8",)), (b, "decode_step", tuple(paths)),
+    for e, name, ks in ((a, "quant_lstm_layer", ("int8", "packed", "server")),
+                        (b, "decode_step", tuple(paths)),
                         (c, "lstm_recurrence", ("bf16", "f32"))):
         e["launches_per_timed_pass"] = paths["bf16" if e is not a else "int8"]["timed_pass"][name]
         e["launches_by_path"] = {k: paths[k]["main"][name] for k in ks}
@@ -723,7 +1021,15 @@ def main() -> int:
     b["f32"] = {k: b32[k] for k in ("ms", "ms_one_iteration_per_launch", "ms_by_n", "plain_ms",
                                     "bound_ms", "bound_by", "bound_ms_one_iteration_per_launch",
                                     "bound_by_one_iteration_per_launch", "max_abs_err")}
-    b["max_abs_err"] = max(b["max_abs_err"], b32["max_abs_err"])
+    b["max_abs_err"] = max(b["max_abs_err"], b32["max_abs_err"], *(
+        max(r["step_hg_max_abs_diff"], r["step_cg_max_abs_diff"], r["k_launch_hg_max_abs_diff"],
+            r["k_launch_cg_max_abs_diff"]) for r in bp.values()))
+    # packed mode's time per iteration (K per launch) beside the bucketed
+    # mode's of the same call and state
+    b["packed_mode"] = {n: {k: r[k] for k in ("ms_per_iteration_packed",
+                                              "ms_per_iteration_bucketed",
+                                              "plain_ms_per_step_packed")}
+                        for n, r in bp.items()}
     emit({"phase": "summary", "card": card, "seconds": time.time() - t_start})
     emit({"kernels": [a, b, c, d]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,6 +19,21 @@
 //   0 pre_g, 1 time_idx, 2 symbols_added, 3 res_idx, 4 finish,
 //   5 f_lens, 6 eos_idx (both read only), 7 symbol (output).
 //
+// Packed mode (a second instantiation; the bucketed one does none of this
+// work): each lane's timeline holds several utterances back to back, and
+// starts (T2, N) marks the frame each begins at (decoder.py
+// greedy_decode_chunk_packed).  A lane that advances into a start frame
+// "enters" a new utterance: its pre_g becomes SOS, its committed h, c and
+// h.W_hh read as zero from the next iteration on, res_idx moves one on and
+// a PACK_BOUNDARY (-2) is written there, and rb (N), the marker position of
+// the lane's current utterance, becomes res_idx.  An emission advances
+// res_idx and writes only while res_idx < rb + budget (budget 0: no gate);
+// over budget it still commits pre_g, h and c.  Each lane writes at most
+// once per iteration, a token or a marker.  The owner of a lane records
+// update_g in upd as 0 or 1, and an entering lane as 2 (ENTERED): the
+// phases read it where they choose between the committed state and the
+// new one, and take zeros for 2.
+//
 // What bounds it on an H100: the weights are small (3.6 MB in bf16 at
 // P = 320, J = 512; 7.2 MB in f32) and the work per iteration is a few
 // MFLOP, but the iterations are serial and each is a chain of dependent
@@ -88,6 +103,8 @@ using namespace hopper;
 
 constexpr int UJ = 8;   // joint columns per block
 constexpr int VP = 32;  // labels, padded: W2's columns in the operand
+constexpr int ENTERED = 2;  // upd of a lane that entered an utterance (packed mode)
+constexpr int PACK_BOUNDARY = -2;
 enum { PRE_G = 0, TIME, SYMADD, RES_IDX, FINISH, F_LENS, EOS, SYMBOL };
 
 struct Args {
@@ -111,11 +128,14 @@ struct Args {
   void* z;             // (N, J) WT
   int* upd;            // (2, N) update_g of an iteration
   int* alive;          // (2) nonzero while a lane is unfinished after an iteration
+  const unsigned char* starts;  // packed mode: (T2, N) 1 at an utterance's first frame
+  int* rb;                      // packed mode: (N) marker position of the current utterance
   int steps, N, P, J, V, R, blank, sos, max_sym;
+  int budget;  // packed mode: tokens per utterance, 0 = no gate
   int ring_cap;  // elements of the staging ring
 };
 
-template <typename WT, int UP>
+template <typename WT, int UP, bool PACKED>
 __global__ void __launch_bounds__(THREADS, 1) decode_loop(Args a) {
   constexpr int MT = Rows<WT>::MT, RMAX = Rows<WT>::RMAX, SLOTS = UP / 4;
   constexpr int NC1 = 8 * UP, NC2 = UJ + 4 * UP;  // layer 1's and the joint's columns
@@ -208,9 +228,14 @@ __global__ void __launch_bounds__(THREADS, 1) decode_loop(Args a) {
   __syncthreads();
 
   // the gates' h.W_hh of (layer l, lane n, unit u) at the iteration's start:
-  // spec (h' of the last iteration) where it emitted, else keep; hh_keep
-  // makes it the new keep
+  // spec (h' of the last iteration) where it emitted, zero where it entered
+  // an utterance, else keep; hh_keep makes it the new keep
+  auto entered = [&](int n, int it) { return PACKED && it > 0 && updp_s[n] == ENTERED; };
   auto hh_load = [&](int l, int n, int u, int it, float (&hh)[4]) {
+    if (entered(n, it)) {
+      hh[0] = hh[1] = hh[2] = hh[3] = 0.0f;
+      return;
+    }
     const size_t o = (((size_t)l * N + n) * UP + u) * 4;
     const float4 v = __ldcg(reinterpret_cast<const float4*>((it > 0 && updp_s[n] ? spec : keep) + o));
     hh[0] = v.x; hh[1] = v.y; hh[2] = v.z; hh[3] = v.w;
@@ -221,13 +246,14 @@ __global__ void __launch_bounds__(THREADS, 1) decode_loop(Args a) {
           make_float4(hh[0], hh[1], hh[2], hh[3]);
   };
   // the cell of (layer l, lane n, unit u): commits c' where the last
-  // iteration emitted, writes h' and the committed h it started from
+  // iteration emitted (zero where it entered), writes h' and the committed
+  // h it started from
   auto cell = [&](int l, int n, int u, int it, const float (&gate)[4], WT hold, WT* hn_cur,
                   WT* hc_cur) {
     const size_t off = ((size_t)l * N + n) * P + b * UP + u;
     hc_cur[off] = hold;
     const int ci = (l * N + n) * UP + u;
-    const float cprev = it > 0 && updp_s[n] ? cn_s[ci] : c_s[ci];
+    const float cprev = entered(n, it) ? 0.0f : it > 0 && updp_s[n] ? cn_s[ci] : c_s[ci];
     c_s[ci] = cprev;
     const float ig = sigmoid_f(gate[0]);
     const float fg = sigmoid_f(gate[1]);
@@ -249,7 +275,10 @@ __global__ void __launch_bounds__(THREADS, 1) decode_loop(Args a) {
     // the committed h of (layer l, lane n, unit u) at the iteration's start
     auto h_at = [&](int l, int n, int u) {
       const size_t off = ((size_t)l * N + n) * P + b * UP + u;
-      return it == 0 ? hg[off] : updp_s[n] ? hn_prev[off] : hc_prev[off];
+      return it == 0         ? hg[off]
+             : entered(n, it) ? store_as<WT>(0.0f)
+             : updp_s[n]      ? hn_prev[off]
+                              : hc_prev[off];
     };
     if (b == 0 && tid == 0) a.alive[p] = 0;  // last read two barriers ago
     for (int n = tid; n < N; n += THREADS) {
@@ -457,23 +486,38 @@ __global__ void __launch_bounds__(THREADS, 1) decode_loop(Args a) {
           const bool finish = fin[r] != 0;
           int symadd = sad[r], res_idx = rix[r];
           const bool update_g = sym != a.blank && symadd != a.max_sym && !finish;
-          res_idx += update_g;
-          const int write_idx = update_g ? res_idx : a.R;
+          // packed mode: an emission past the utterance's budget keeps the
+          // dynamics but neither writes nor advances res_idx
+          const bool adv = update_g && (!PACKED || a.budget == 0 ||
+                                        res_idx < __ldcg(a.rb + n) + a.budget);
+          res_idx += adv;
+          int write_idx = adv ? res_idx : a.R, val = sym, pre = update_g ? sym : pre_s[n];
           symadd += update_g;
           const bool update_f = !update_g && !finish;
           int t = time_s[n] + update_f;
           const bool new_finish = finish || t >= fl[r];
           t = min(t, eo[r]);
           if (update_f) symadd = 0;
+          bool entering = false;
+          if constexpr (PACKED) {  // advanced into the first frame of an utterance
+            entering = update_f && !new_finish && t > time_s[n] &&
+                       __ldg(a.starts + (size_t)t * N + n) != 0;
+            if (entering) {
+              pre = a.sos;
+              write_idx = ++res_idx;
+              val = PACK_BOUNDARY;
+              a.rb[n] = res_idx;
+            }
+          }
           int* ln = a.lanes + n;
-          ln[PRE_G * N] = update_g ? sym : pre_s[n];
+          ln[PRE_G * N] = pre;
           ln[TIME * N] = t;
           ln[SYMADD * N] = symadd;
           ln[RES_IDX * N] = res_idx;
           ln[FINISH * N] = new_finish;
           ln[SYMBOL * N] = sym;
-          if (write_idx >= 0 && write_idx < a.R) a.res[(size_t)n * a.R + write_idx] = (int8_t)sym;
-          a.upd[p * N + n] = update_g;
+          if (write_idx >= 0 && write_idx < a.R) a.res[(size_t)n * a.R + write_idx] = (int8_t)val;
+          a.upd[p * N + n] = entering ? ENTERED : update_g;
           unfinished += !new_finish;
         }
       }
@@ -485,21 +529,27 @@ __global__ void __launch_bounds__(THREADS, 1) decode_loop(Args a) {
   }
 
   // commit h/c of the block's units: h' and c' where the last iteration
-  // emitted, else the state it started from
+  // emitted, zeros where it entered an utterance, else the state it
+  // started from
   if (b < nbp) {
     const int p = it & 1;
     WT* hgw = static_cast<WT*>(a.hg);
     for (int i = tid; i < 2 * N * UP; i += THREADS) {
       const int u = i % UP, ln = i / UP, n = ln % N;
       const size_t off = (size_t)ln * P + b * UP + u;
-      const bool upd = __ldcg(a.upd + p * N + n) != 0;
+      const int upd = __ldcg(a.upd + p * N + n);
+      if (PACKED && upd == ENTERED) {
+        hgw[off] = store_as<WT>(0.0f);
+        a.cg[off] = 0.0f;
+        continue;
+      }
       hgw[off] = ((upd ? hn : hc) + (size_t)p * LNP)[off];  // the block's own writes
       a.cg[off] = upd ? cn_s[i] : c_s[i];
     }
   }
 }
 
-template <typename WT, int UP>
+template <typename WT, int UP, bool PACKED>
 cudaError_t launch(Args a, cudaStream_t stream) {
   // the staging ring takes what the block's other arrays leave
   int dev = 0, limit = 0;
@@ -515,7 +565,7 @@ cudaError_t launch(Args a, cudaStream_t stream) {
   if (fixed + (size_t)ring_min<WT>() * es > (size_t)limit) return cudaErrorInvalidValue;
   a.ring_cap = (int)(((size_t)limit - fixed) / es) & ~7;
   const size_t smem = fixed + (size_t)a.ring_cap * es;
-  auto kern = decode_loop<WT, UP>;
+  auto kern = decode_loop<WT, UP, PACKED>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int nbp = a.P / UP, nbj = a.J / UJ;
@@ -536,28 +586,35 @@ extern "C" {
 // selects the weight type (1: bf16, 0: f32); whh, w1, w2, wout, eproj are
 // the layouts of ops/decode_cuda.py kernel_operands for UP = 4 (the only
 // unit count built); keep, spec, hn, hc, z, upd and alive (two ints, each
-// zeroed by the kernel before it counts into it) are scratch.  Returns 0, or
-// the CUDA error of a refused launch (a grid that cannot be co-resident:
+// zeroed by the kernel before it counts into it) are scratch.  starts
+// (T2, N) bytes selects packed mode, with rb (N) int32 and budget; null
+// starts: the bucketed mode.  Returns 0, or the CUDA error of a refused
+// launch (a grid that cannot be co-resident:
 // cudaErrorCooperativeLaunchTooLarge).
 int rnnt_decode_steps(int weight_bf16, int UP, int steps, const void* fproj, void* lanes,
                       void* hg, void* cg, void* res, const void* whh, const void* w1,
                       const void* w2, const void* b, const void* b1, const void* wout,
                       const void* b2, const void* eproj, void* keep, void* spec, void* hn,
-                      void* hc, void* z, void* upd, void* alive, int N, int P, int J, int V,
-                      int R, int blank, int sos, int max_sym, void* stream) {
+                      void* hc, void* z, void* upd, void* alive, const void* starts, void* rb,
+                      int N, int P, int J, int V, int R, int blank, int sos, int max_sym,
+                      int budget, void* stream) {
   if (steps <= 0 || N <= 0 || P <= 0 || P % 64 != 0 || J <= 0 || J % 64 != 0 || V < 1 ||
-      V > VP || UP != 4)
+      V > VP || UP != 4 || (starts != nullptr && (rb == nullptr || budget < 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{static_cast<const float*>(fproj), static_cast<int*>(lanes), hg,
          static_cast<float*>(cg), static_cast<int8_t*>(res), whh, w1, w2,
          static_cast<const float*>(b), static_cast<const float*>(b1), wout,
          static_cast<const float*>(b2), static_cast<const float*>(eproj),
          static_cast<float*>(keep), static_cast<float*>(spec), hn, hc, z,
-         static_cast<int*>(upd), static_cast<int*>(alive), steps, N, P, J, V, R, blank, sos,
-         max_sym, 0};
+         static_cast<int*>(upd), static_cast<int*>(alive),
+         static_cast<const unsigned char*>(starts), static_cast<int*>(rb), steps, N, P, J, V,
+         R, blank, sos, max_sym, budget, 0};
   auto* s = static_cast<cudaStream_t>(stream);
+  const bool packed = starts != nullptr;
   const cudaError_t err =
-      weight_bf16 ? launch<__nv_bfloat16, 4>(a, s) : launch<float, 4>(a, s);
+      weight_bf16 ? (packed ? launch<__nv_bfloat16, 4, true>(a, s)
+                            : launch<__nv_bfloat16, 4, false>(a, s))
+                  : (packed ? launch<float, 4, true>(a, s) : launch<float, 4, false>(a, s));
   return static_cast<int>(err);
 }
 

@@ -8,13 +8,20 @@
   python -m rnnt_inference_tpu_torch.main --quant_in rnnt_quant.npz --benchmark \
       --scenario Offline --sample_file dev-clean.npz --accuracy
   python -m rnnt_inference_tpu_torch.main --benchmark --scenario Offline --synthetic 64
+  python -m rnnt_inference_tpu_torch.main --quant_in rnnt_quant.npz --benchmark --packed \
+      --synthetic 64
+  python -m rnnt_inference_tpu_torch.main --quant_in rnnt_quant.npz --accuracy \
+      --scenario Server --sample_file dev-clean.npz
 
 Weights, calibration, quantized models and sample stores are the JAX
 package's npz files, so either package reads what the other wrote.  Run
 modes: bf16 (the default: every weight cast to bf16), f32, quant (int8
-encoder from --quant_in).  Everything runs on the card unless --device cpu
-is given, where the plain PyTorch twins of the kernels run.  Options whose
-code is not ported yet exit with an error that names the ROADMAP item.
+encoder from --quant_in).  Scenarios: Offline (bucketed, or sequence-packed
+with --packed and by the JAX CLI's auto rule at symbol cap 1), Server (the
+slot pipeline under Poisson arrivals) and SingleStream.  Everything runs on
+the card unless --device cpu is given, where the plain PyTorch twins of the
+kernels run.  Options whose code is not ported yet exit with an error that
+names the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -63,8 +70,10 @@ def parse_args(argv=None):
                    help="force the sequence-packed Offline path")
     p.add_argument("--no_packed", dest="packed", action="store_false",
                    help="force the bucketed Offline path")
-    p.add_argument("--pack_chunk", type=int, default=16)
-    p.add_argument("--pack_decode_chunk", type=int, default=128)
+    p.add_argument("--pack_chunk", type=int, default=16,
+                   help="packing grain in feature frames")
+    p.add_argument("--pack_decode_chunk", type=int, default=128,
+                   help="decode grain over the packed timeline, in post-stack frames")
     p.add_argument("--server_slots", type=int, default=128)
     p.add_argument("--response_size", type=int, default=9)
     p.add_argument("--native_loadgen", action="store_true")
@@ -85,10 +94,6 @@ def _not_ported(what: str, item: str):
 def _refuse_unported(args) -> None:
     if args.run_mode == "fake_quant":
         _not_ported("--run_mode fake_quant", "1.3")
-    if args.scenario == "Server":
-        _not_ported("the Server scenario", "1.2")
-    if args.packed:
-        _not_ported("--packed (the sequence-packed Offline runner)", "1.1")
     if args.native_loadgen:
         _not_ported("--native_loadgen", "1.6")
     if args.profiler_dir:
@@ -126,8 +131,9 @@ def load_store(args, path):
 
 
 def main(argv=None):
-    """Run the stages the flags ask for; returns the scenario's RunReport
-    (None without --benchmark/--accuracy)."""
+    """Run the stages the flags ask for; returns the scenario's RunReport,
+    for Server (ServerMetrics, {query: tokens}) (None without
+    --benchmark/--accuracy)."""
     args = parse_args(argv)
     _refuse_unported(args)
     from rnnt_inference_tpu_torch.config import FeaturizerConfig, RNNTParams
@@ -210,9 +216,14 @@ def _run_scenario(args, weights, store, params, cfg, device):
     if args.scenario == "Offline":
         from rnnt_inference_tpu_torch.runtime.harness import run_offline
 
-        # the JAX CLI's auto rule picks the packed path only at symbol cap 1
-        if args.packed is None and store.kind == "waveform" and params.max_symbols_per_step == 1:
-            _not_ported("the sequence-packed Offline runner", "1.1")
+        # the JAX CLI's auto rule: packed at symbol cap 1, bucketed at the
+        # product cap; --packed / --no_packed force either; feature stores
+        # are always bucketed
+        packed = args.packed
+        if packed is None:
+            packed = store.kind == "waveform" and params.max_symbols_per_step == 1
+        elif packed and store.kind != "waveform":
+            raise SystemExit("--packed requires a waveform sample store")
         report = run_offline(
             weights, store, params, cfg,
             batch_size=args.batch_size,
@@ -220,9 +231,40 @@ def _run_scenario(args, weights, store, params, cfg, device):
             accuracy=args.accuracy,
             output_dir=args.output_dir,
             device_resident=not args.accuracy,
+            packed=packed,
             device=device,
+            chunk_frames=args.pack_chunk,
+            decode_chunk=args.pack_decode_chunk,
         )
         print(json.dumps(report.summary(), indent=2))
+    elif args.scenario == "Server":
+        from rnnt_inference_tpu_torch.runtime.harness import tokens_to_hex
+        from rnnt_inference_tpu_torch.runtime.scheduler import run_server
+        from rnnt_inference_tpu_torch.runtime.server import ServerRunner
+
+        runner = ServerRunner(
+            weights, params, cfg,
+            slots=args.server_slots,
+            split_len=max(args.split_len, 2) if args.split_len > 0 else 24,
+            device=device,
+        )
+        runner.warmup()
+        # accuracy runs cover the set once; performance runs keep the
+        # conf's min_duration / min_query_count rules
+        metrics, results = run_server(
+            runner, store, target_qps=settings.target_qps,
+            realtime=not args.accuracy,
+            response_size=args.response_size,
+            min_query_count=0 if args.accuracy else settings.min_query_count,
+            min_duration_s=0.0 if args.accuracy else settings.min_duration_ms / 1e3,
+        )
+        _write_summary(args, validate_report(settings, metrics.summary()))
+        if args.accuracy:
+            n = len(store)
+            acc = [{"qsl_idx": q % n, "data": tokens_to_hex(results[q])} for q in sorted(results)]
+            with open(os.path.join(args.output_dir, "accuracy_log.json"), "w") as f:
+                json.dump(acc, f)
+        return metrics, results
     else:  # SingleStream
         from rnnt_inference_tpu_torch.runtime.harness import run_single_stream
 

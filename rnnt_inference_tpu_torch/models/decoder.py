@@ -1,5 +1,6 @@
 """Batched greedy transducer decode (counterpart of
-rnnt_inference_tpu/models/decoder.py, bucketed / non-packed mode).
+rnnt_inference_tpu/models/decoder.py): the bucketed decode, and the packed
+one of the sequence-packed Offline runner (greedy_decode_chunk_packed).
 
 Mask algebra (per lane, per iteration):
   update_g = (symbol != BLANK) & (symbols_added != max_symbols_per_step) & ~finish
@@ -15,6 +16,13 @@ Every update of an iteration is finish-gated, so iterations applied to
 lanes that have already finished change nothing, and the tokens are the
 same at any K.  The cap ``it < max_iters`` is checked for every iteration,
 not once per trip.
+
+Packed mode (runtime/packing.py): a lane's timeline holds several
+utterances back to back.  Advancing into an utterance's first frame
+(``starts``) resets the lane's prediction state to what a standalone decode
+begins with and writes a PACK_BOUNDARY marker into res, and each utterance
+keeps at most ``utt_budget`` tokens (0: no gate).  Kernel B runs this
+algebra inside its K-iteration launch (ops/decode_cuda.py).
 """
 
 from __future__ import annotations
@@ -32,6 +40,9 @@ from rnnt_inference_tpu_torch.ops.lstm import dot_f32
 # iterations between two host reads of finish.all(): one kernel-B launch
 # each; chip_smoke.py's symbol_loop_by_k times the choice (PERF.md)
 DEFAULT_STEPS_PER_CHECK = 64
+
+# utterance-boundary marker in packed res buffers (tokens 0..28, -1 pads)
+PACK_BOUNDARY = dc.PACK_BOUNDARY
 
 
 @dataclasses.dataclass
@@ -65,6 +76,35 @@ def init_decode_state(
     )
 
 
+def masked_reset_decode(
+    state: DecodeState,
+    mask: torch.Tensor,
+    params: RNNTParams = RNNTParams(),
+    keep_res: bool = False,
+) -> DecodeState:
+    """Zero the encoder and decoder state of the lanes where mask (N,) is
+    True, with pre_g SOS.  keep_res=True leaves the token buffer and its
+    cursor as they are (the packed runner, whose lanes accumulate the tokens
+    of consecutive utterances); keep_res=False clears them (Server slots)."""
+    m1 = mask[None, :, None]
+    z = lambda a: a.masked_fill(m1, 0)
+    enc = state.enc
+    res, res_idx = state.res, state.res_idx
+    if not keep_res:
+        res = res.masked_fill(mask[:, None], -1)
+        res_idx = res_idx.masked_fill(mask, -1)
+    return DecodeState(
+        enc=model.EncoderState(
+            pre_h=z(enc.pre_h), pre_c=z(enc.pre_c), post_h=z(enc.post_h), post_c=z(enc.post_c)
+        ),
+        res=res,
+        res_idx=res_idx,
+        pre_g=state.pre_g.masked_fill(mask, params.SOS),
+        hg=z(state.hg),
+        cg=z(state.cg),
+    )
+
+
 def greedy_decode_chunk(
     weights,
     state: DecodeState,
@@ -77,6 +117,35 @@ def greedy_decode_chunk(
 ) -> DecodeState:
     """Run the symbol loop over one encoded chunk.
     f: {T2, N, 1024}, f_lens: {N} valid post-stack frames."""
+    return _symbol_loop(weights, state, f, f_lens, params, impl, steps_per_check, dw, {})
+
+
+def greedy_decode_chunk_packed(
+    weights,
+    state: DecodeState,
+    f: torch.Tensor,
+    f_lens: torch.Tensor,
+    params: RNNTParams,
+    starts: torch.Tensor,
+    res_base: torch.Tensor,
+    utt_budget: int,
+    impl: Optional[str] = None,
+    steps_per_check: int = DEFAULT_STEPS_PER_CHECK,
+    dw: Optional[dc.DecodeWeights] = None,
+) -> Tuple[DecodeState, torch.Tensor]:
+    """The packed symbol loop over one piece of the lanes' timelines.
+    starts {T2, N} bool marks utterance-start frames, res_base {N} each
+    lane's marker position of its current utterance (-1 before the first),
+    utt_budget the tokens an utterance keeps (0: no gate).  Returns
+    (state', res_base')."""
+    rb = res_base.to(device=f.device, dtype=torch.int32).clone()
+    packed = dict(starts=starts.to(device=f.device, dtype=torch.bool).contiguous(),
+                  res_base=rb, utt_budget=utt_budget)
+    state = _symbol_loop(weights, state, f, f_lens, params, impl, steps_per_check, dw, packed)
+    return state, rb
+
+
+def _symbol_loop(weights, state, f, f_lens, params, impl, steps_per_check, dw, packed):
     T2, N, _ = f.shape
     dev = f.device
     jw = weights.joint
@@ -97,7 +166,7 @@ def greedy_decode_chunk(
     it = 0
     while it < max_iters and not bool(lanes[dc.FINISH].all()):
         steps = min(steps_per_check, max_iters - it)
-        dc.decode_step(fproj, lanes, hg, cg, res, dw, params, steps, impl)
+        dc.decode_step(fproj, lanes, hg, cg, res, dw, params, steps, impl, **packed)
         it += steps
     return DecodeState(
         enc=state.enc,

@@ -7,6 +7,18 @@ decode state in place:
   lanes (8, N) int32: rows PRE_G, TIME, SYMADD, RES_IDX, FINISH, F_LENS,
         EOS (read only) and SYMBOL (the step's argmax, written);
   hg (L, N, P) in the weight dtype, cg (L, N, P) f32, res (N, R) int8.
+Packed mode (``starts`` given, the sequence-packed Offline runner) adds
+  starts (T2, N) bool: the first frame of each utterance on a lane's
+        timeline; advancing into one resets the lane's prediction state
+        (pre_g SOS, h and c zero), moves res_idx on and writes
+        PACK_BOUNDARY there;
+  res_base (N,) int32: the marker position of each lane's current
+        utterance, updated in place;
+  utt_budget: an emission writes and advances res_idx only while res_idx <
+        res_base + utt_budget (0: no gate); each lane writes at most once
+        per iteration, a token or a marker
+(the algebra of rnnt_inference_tpu/models/decoder.py
+_greedy_decode_chunk_xla with starts).
 
 Both multiply in the weight dtype and accumulate every dot product in f32,
 as the TPU kernel does (preferred_element_type=f32); the kernel sums in its
@@ -33,6 +45,8 @@ from rnnt_inference_tpu_torch.ops import cuda_build
 from rnnt_inference_tpu_torch.ops.lstm import dot_f32
 
 NAME = "decode_step"
+# the utterance-boundary marker of packed res buffers (tokens are 0..28, -1 pads)
+PACK_BOUNDARY = -2
 PRE_G, TIME, SYMADD, RES_IDX, FINISH, F_LENS, EOS, SYMBOL = range(8)
 N_LANE_ROWS = 8
 
@@ -75,24 +89,20 @@ def decode_weights(weights) -> DecodeWeights:
     return cuda_build.cached_operands(weights, "decode_weights", tensors, build)
 
 
-def decode_step_reference(
+def decode_logits_reference(
     fproj: torch.Tensor,
     lanes: torch.Tensor,
     hg: torch.Tensor,
     cg: torch.Tensor,
-    res: torch.Tensor,
     dw: DecodeWeights,
     params: RNNTParams,
-) -> None:
-    """One decode iteration in plain PyTorch (kernel B's twin), in place."""
-    N = lanes.shape[1]
-    R = res.shape[1]
+):
+    """The twin's products for one iteration: (logits (N, V) f32, h' (L, N,
+    P) in the weight dtype, c' (L, N, P) f32) of every lane, from pre_g,
+    the committed h and c and fproj at each lane's time."""
     wdt = dw.embed.dtype
-    pre_g, time_idx, symadd, res_idx = lanes[PRE_G], lanes[TIME], lanes[SYMADD], lanes[RES_IDX]
-    finish = lanes[FINISH] != 0
-    ar = torch.arange(N, device=lanes.device)
-    fi = fproj[time_idx.long(), ar]  # (N, J)
-
+    pre_g = lanes[PRE_G]
+    fi = fproj[lanes[TIME].long(), torch.arange(lanes.shape[1], device=lanes.device)]  # (N, J)
     sos = pre_g == params.SOS
     y = dw.embed[torch.where(sos, 0, pre_g).long()].masked_fill(sos[:, None], 0)
     hs, cs = [], []
@@ -105,12 +115,37 @@ def decode_step_reference(
         hs.append(y)
         cs.append(c_new)
     z = torch.clamp(fi + dot_f32(y, dw.w1p) + dw.b1, min=0.0).to(wdt)
-    logits = dot_f32(z, dw.w2) + dw.b2
+    return dot_f32(z, dw.w2) + dw.b2, torch.stack(hs), torch.stack(cs)
+
+
+def decode_step_reference(
+    fproj: torch.Tensor,
+    lanes: torch.Tensor,
+    hg: torch.Tensor,
+    cg: torch.Tensor,
+    res: torch.Tensor,
+    dw: DecodeWeights,
+    params: RNNTParams,
+    starts: Optional[torch.Tensor] = None,
+    res_base: Optional[torch.Tensor] = None,
+    utt_budget: int = 0,
+) -> None:
+    """One decode iteration in plain PyTorch (kernel B's twin), in place;
+    packed mode where ``starts`` is given."""
+    N = lanes.shape[1]
+    R = res.shape[1]
+    pre_g, time_idx, symadd, res_idx = lanes[PRE_G], lanes[TIME], lanes[SYMADD], lanes[RES_IDX]
+    finish = lanes[FINISH] != 0
+    ar = torch.arange(N, device=lanes.device)
+    logits, h_new, c_new = decode_logits_reference(fproj, lanes, hg, cg, dw, params)
     symbols = torch.argmax(logits, dim=-1).to(torch.int32)  # first maximum
 
     update_g = (symbols != params.BLANK) & (symadd != params.max_symbols_per_step) & ~finish
-    new_res_idx = res_idx + update_g.int()
-    write_idx = torch.where(update_g, new_res_idx, R)
+    adv = update_g
+    if starts is not None and utt_budget > 0:
+        adv = update_g & (res_idx < res_base + utt_budget)
+    new_res_idx = res_idx + adv.int()
+    write_idx = torch.where(adv, new_res_idx, R)
     new_symadd = symadd + update_g.int()
     new_pre_g = torch.where(update_g, symbols, pre_g)
     update_f = ~update_g & ~finish
@@ -118,12 +153,22 @@ def decode_step_reference(
     new_finish = finish | (new_time >= lanes[F_LENS])
     new_time = torch.minimum(new_time, lanes[EOS])
     new_symadd = torch.where(update_f, 0, new_symadd)
+    val = symbols
+    if starts is not None:  # advanced into the first frame of an utterance
+        entering = update_f & ~new_finish & (new_time > time_idx) & starts[new_time.long(), ar]
+        new_pre_g = torch.where(entering, params.SOS, new_pre_g)
+        new_res_idx = new_res_idx + entering.int()
+        write_idx = torch.where(entering, new_res_idx, write_idx)
+        val = torch.where(entering, PACK_BOUNDARY, symbols)
+        res_base.copy_(torch.where(entering, new_res_idx, res_base))
+        hg.masked_fill_(entering[None, :, None], 0)
+        cg.masked_fill_(entering[None, :, None], 0)
 
     keep = (write_idx >= 0) & (write_idx < R)
-    res[ar[keep], write_idx[keep].long()] = symbols[keep].to(res.dtype)
+    res[ar[keep], write_idx[keep].long()] = val[keep].to(res.dtype)
     sel = update_g[None, :, None]
-    hg.copy_(torch.where(sel, torch.stack(hs), hg))
-    cg.copy_(torch.where(sel, torch.stack(cs), cg))
+    hg.copy_(torch.where(sel, h_new, hg))
+    cg.copy_(torch.where(sel, c_new, cg))
     lanes[PRE_G] = new_pre_g
     lanes[TIME] = new_time
     lanes[SYMADD] = new_symadd
@@ -253,7 +298,7 @@ def _lib() -> ctypes.CDLL:
     lib = cuda_build.load(NAME)
     if lib.rnnt_decode_steps.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rnnt_decode_steps.argtypes = [i, i, i] + [p] * 20 + [i] * 8 + [p]
+        lib.rnnt_decode_steps.argtypes = [i, i, i] + [p] * 22 + [i] * 9 + [p]
         lib.rnnt_decode_steps.restype = ctypes.c_int
     return lib
 
@@ -306,10 +351,14 @@ def decode_step_cuda(
     dw: DecodeWeights,
     params: RNNTParams,
     steps: int = 1,
+    starts: Optional[torch.Tensor] = None,
+    res_base: Optional[torch.Tensor] = None,
+    utt_budget: int = 0,
 ) -> None:
     """Up to ``steps`` decode iterations on the card, in place, in one
     launch that stops early once every lane has finished (the iterations it
-    skips would change nothing).  A refused cooperative launch raises."""
+    skips would change nothing); packed mode where ``starts`` is given.  A
+    refused cooperative launch raises."""
     T2, N, J = fproj.shape
     L, _, P = hg.shape
     V = dw.w2.shape[1]
@@ -323,8 +372,13 @@ def decode_step_cuda(
         ("hg", hg, wdt, (L, N, P)),
         ("cg", cg, torch.float32, (L, N, P)),
         ("res", res, torch.int8, (N, R)),
-    ]:
+    ] + ([] if starts is None else [
+        ("starts", starts, torch.bool, (T2, N)),
+        ("res_base", res_base, torch.int32, (N,)),
+    ]):
         cuda_build.require(t, f"decode_step_cuda {name}", dt, shape)
+    if utt_budget < 0:
+        raise ValueError(f"kernel B: utt_budget must be >= 0, got {utt_budget}")
     if hg.data_ptr() % 16:
         raise ValueError("kernel B copies hg rows in 16-byte pieces: align it")
     if steps <= 0:
@@ -342,7 +396,10 @@ def decode_step_cuda(
         hg.data_ptr(), cg.data_ptr(), res.data_ptr(), whh.data_ptr(), w1.data_ptr(),
         w2.data_ptr(), dw.b.data_ptr(), dw.b1.data_ptr(), wout.data_ptr(), dw.b2.data_ptr(),
         eproj.data_ptr(), *scratch,
-        N, P, J, V, R, params.BLANK, params.SOS, params.max_symbols_per_step, stream,
+        None if starts is None else starts.data_ptr(),
+        None if starts is None else res_base.data_ptr(),
+        N, P, J, V, R, params.BLANK, params.SOS, params.max_symbols_per_step, utt_budget,
+        stream,
     )
     cuda_build.check(lib, err, "decode_step kernel")
     decode_step_cuda.launches += 1
@@ -361,14 +418,19 @@ def decode_step(
     params: RNNTParams,
     steps: int = 1,
     impl: Optional[str] = None,
+    starts: Optional[torch.Tensor] = None,
+    res_base: Optional[torch.Tensor] = None,
+    utt_budget: int = 0,
 ) -> None:
     """Kernel B's wrapper: ``steps`` iterations, the CUDA kernel for CUDA
     tensors (one launch, which may stop early once every lane has
-    finished), the plain twin for CPU tensors or when impl="reference"."""
+    finished), the plain twin for CPU tensors or when impl="reference";
+    packed mode where ``starts`` is given."""
     if impl not in (None, "reference"):
         raise ValueError(f"unknown impl {impl!r}")
+    packed = dict(starts=starts, res_base=res_base, utt_budget=utt_budget)
     if impl == "reference" or not lanes.is_cuda:
         for _ in range(steps):
-            decode_step_reference(fproj, lanes, hg, cg, res, dw, params)
+            decode_step_reference(fproj, lanes, hg, cg, res, dw, params, **packed)
         return
-    decode_step_cuda(fproj, lanes, hg, cg, res, dw, params, steps)
+    decode_step_cuda(fproj, lanes, hg, cg, res, dw, params, steps, **packed)

@@ -1,6 +1,7 @@
 """Benchmark/accuracy harness, the mlperf-loadgen-shaped front door
 (counterpart of rnnt_inference_tpu/runtime/harness.py: the bucketed Offline
-run, host-assembled or device-resident, SingleStream, and the accuracy log).
+run, host-assembled or device-resident, the sequence-packed Offline run,
+SingleStream, and the accuracy log).
 
 Artifacts are the JAX package's, byte for byte in format:
   - accuracy log JSON [{qsl_idx, data: <hex of int32 little-endian tokens>}]
@@ -83,32 +84,38 @@ def run_offline(
     accuracy: bool = False,
     output_dir: Optional[str] = None,
     warmup: bool = True,
-    runner: Optional[OfflineRunner] = None,
+    runner=None,
     device_resident: bool = False,
     packed: bool = False,
     device="cuda",
+    chunk_frames: int = 16,
+    decode_chunk: int = 128,
 ) -> RunReport:
     """Offline scenario: the whole sample set as one query, end-to-end
     throughput.  device_resident=True stages a waveform store in device
     memory untimed and times only the serve loop (run_device), after one
-    untimed priming pass.  ``runner`` replaces the default OfflineRunner
-    (for example one with impl="reference")."""
-    if packed:
-        raise NotImplementedError(
-            "the sequence-packed Offline runner is not ported yet (ROADMAP queue 1.1)"
-        )
+    untimed priming pass.  packed=True serves it through the sequence-packed
+    runner (runtime/packing.py, staged untimed, one untimed rep before the
+    timed one) on min(batch_size, len(store)) lanes.  ``runner`` replaces the
+    default OfflineRunner or PackedOfflineRunner (for example one with
+    impl="reference")."""
     qsl = QuerySampleLibrary(store, cfg)
-    runner = runner or OfflineRunner(weights, params, cfg, batch_size, split_len, device)
-    if device_resident and store.kind == "waveform":
-        dqsl = qsl.load_to_device(batch_size, device=runner.device)
-        if warmup:
-            runner.warmup_device(dqsl)
-            runner.run_device(dqsl)  # untimed priming pass
-        result = runner.run_device(dqsl)
+    packing = {}
+    if packed:
+        result, packing = _run_packed(weights, store, qsl, params, cfg, batch_size, warmup,
+                                      runner, device, chunk_frames, decode_chunk)
     else:
-        if warmup:
-            runner.warmup(qsl, waveform_mode=(store.kind == "waveform"))
-        result = runner.run(qsl)
+        runner = runner or OfflineRunner(weights, params, cfg, batch_size, split_len, device)
+        if device_resident and store.kind == "waveform":
+            dqsl = qsl.load_to_device(batch_size, device=runner.device)
+            if warmup:
+                runner.warmup_device(dqsl)
+                runner.run_device(dqsl)  # untimed priming pass
+            result = runner.run_device(dqsl)
+        else:
+            if warmup:
+                runner.warmup(qsl, waveform_mode=(store.kind == "waveform"))
+            result = runner.run(qsl)
 
     wall = result.wall_seconds
     report = RunReport(
@@ -122,9 +129,10 @@ def run_offline(
             reps=1,
             batch_size=batch_size,
             rep_wall_seconds=[round(wall, 3)],
-            # the bulk token transfer (device-resident runs only, outside
-            # wall_seconds)
+            # the bulk token transfer (device-resident and packed runs,
+            # outside wall_seconds)
             readback_seconds=round(result.readback_seconds, 3),
+            **packing,
         ),
     )
     report.hypotheses = [seq_to_sen(t, len(t)) for t in result.tokens]
@@ -135,6 +143,28 @@ def run_offline(
     if output_dir:
         _write_outputs(output_dir, result.tokens, report)
     return report
+
+
+def _run_packed(weights, store, qsl, params, cfg, batch_size, warmup, runner, device,
+                chunk_frames, decode_chunk):
+    """The timed rep of the packed runner (staged untimed, after one untimed
+    rep) and the report's packing keys."""
+    from rnnt_inference_tpu_torch.runtime.packing import PackedOfflineRunner
+
+    if store.kind != "waveform":
+        raise ValueError("the packed Offline runner serves waveform stores")
+    if len(store) == 0:
+        raise ValueError("the packed Offline runner needs at least one utterance")
+    # one lane per utterance at most: a lane with no utterance would idle
+    runner = runner or PackedOfflineRunner(
+        weights, params, cfg, n_lanes=min(batch_size, len(store)), chunk_frames=chunk_frames,
+        batch_size=batch_size, decode_chunk=decode_chunk, device=device)
+    plan = runner.stage(qsl)
+    if warmup:
+        runner.run_device()  # builds the kernels and pays one-off costs, untimed
+    return runner.run_device(), dict(packing_efficiency=round(plan.packing_efficiency, 4),
+                                     pack_chunks=plan.n_chunks,
+                                     chunk_frames=runner.chunk_frames)
 
 
 def eval_accuracy_log(log_path: str, references: List[str]) -> float:

@@ -45,15 +45,22 @@ _KERNELS = {
 }
 
 
-def _launch_counts() -> Dict[str, int]:
+def build_kernels(device: torch.device, impl: Optional[str]) -> None:
+    """Build every kernel a runner can launch (untimed set-up): on the card
+    unless impl="reference"."""
+    if device.type == "cuda" and impl is None:
+        cuda_build.build([lstm_cuda.NAME, lstm_scan_cuda.NAME, decode_cuda.NAME])
+
+
+def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in _KERNELS.items()}
 
 
-def _launches_since(before: Dict[str, int]) -> Dict[str, int]:
-    return {name: n - before[name] for name, n in _launch_counts().items()}
+def launches_since(before: Dict[str, int]) -> Dict[str, int]:
+    return {name: n - before[name] for name, n in launch_counts().items()}
 
 
-class _PhaseClock:
+class PhaseClock:
     """Time between consecutive marks, charged to the later mark's phase."""
 
     def __init__(self, device: torch.device):
@@ -102,19 +109,19 @@ class OfflineRunner:
         self.impl = impl
         self.weights = weights.to(self.device)
 
-    def _decode(self, feats: torch.Tensor, lens: torch.Tensor, clock: _PhaseClock):
+    def _decode(self, feats: torch.Tensor, lens: torch.Tensor, clock: PhaseClock):
         return greedy_decode(
             self.weights, feats, lens, self.params, self.split_len, self.impl, mark=clock.mark
         )
 
-    def _pipeline(self, wav: torch.Tensor, lens: torch.Tensor, clock: _PhaseClock):
+    def _pipeline(self, wav: torch.Tensor, lens: torch.Tensor, clock: PhaseClock):
         clock.mark("start")
         feats, feat_lens = log_mel_features(wav, lens, self.cfg)
         clock.mark("features")
         return self._decode(feats, feat_lens, clock)
 
     def _pipeline_i16(
-        self, wav_i16: torch.Tensor, lens: torch.Tensor, clock: _PhaseClock
+        self, wav_i16: torch.Tensor, lens: torch.Tensor, clock: PhaseClock
     ) -> torch.Tensor:
         """int16 PCM in, one int8 buffer out: each row is the tokens
         followed by the token count as two bytes (low, high)."""
@@ -128,7 +135,7 @@ class OfflineRunner:
         res_lens {N} int32) on the runner's device."""
         with torch.inference_mode():
             return self._pipeline(
-                wav.to(self.device), lens.to(self.device), _PhaseClock(self.device)
+                wav.to(self.device), lens.to(self.device), PhaseClock(self.device)
             )
 
     @staticmethod
@@ -140,19 +147,15 @@ class OfflineRunner:
         )
         return res, lens
 
-    def _build_kernels(self) -> None:
-        if self.device.type == "cuda" and self.impl is None:
-            cuda_build.build([lstm_cuda.NAME, lstm_scan_cuda.NAME, decode_cuda.NAME])
-
     def warmup(self, qsl: QuerySampleLibrary, waveform_mode: bool = True) -> float:
         """Build every kernel the runner can launch and run one silent batch
         of the shortest bucket (untimed set-up): the waveform pipeline, or
         the decode alone for a features store.  Returns its seconds."""
         t0 = time.time()
-        self._build_kernels()
+        build_kernels(self.device, self.impl)
         B, dev = self.batch_size, self.device
         with torch.inference_mode():
-            clock = _PhaseClock(dev)
+            clock = PhaseClock(dev)
             if not waveform_mode:
                 T = qsl.feat_buckets[0]
                 feats = torch.zeros((T, B, self.cfg.out_feat), device=dev)
@@ -167,14 +170,14 @@ class OfflineRunner:
         """Build the kernels and run one batch of each shape in a DeviceQSL
         (untimed).  Returns its seconds."""
         t0 = time.time()
-        self._build_kernels()
+        build_kernels(self.device, self.impl)
         seen = set()
         with torch.inference_mode():
             for wav, lens, _ in dqsl.batches():
                 if tuple(wav.shape) in seen:
                     continue
                 seen.add(tuple(wav.shape))
-                self._pipeline_i16(wav, lens, _PhaseClock(self.device))[:1, -2:].cpu()
+                self._pipeline_i16(wav, lens, PhaseClock(self.device))[:1, -2:].cpu()
         return time.time() - t0
 
     def run_device(self, dqsl: DeviceQSL) -> OfflineResult:
@@ -182,9 +185,9 @@ class OfflineRunner:
         covers dispatch and all device work of every batch (ended by a
         synchronize); the one packed token readback of the whole run is
         timed apart as readback_seconds."""
-        clock = _PhaseClock(self.device)
+        clock = PhaseClock(self.device)
         pending, row_indices = [], []
-        before = _launch_counts()
+        before = launch_counts()
         t0 = time.time()
         with torch.inference_mode():
             for wav, lens, row_index in dqsl.batches():
@@ -194,7 +197,7 @@ class OfflineRunner:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         wall = time.time() - t0
-        launches = _launches_since(before)
+        launches = launches_since(before)
 
         t1 = time.time()
         packed_all = packed.cpu().numpy()
@@ -223,9 +226,9 @@ class OfflineRunner:
             indices = np.arange(len(qsl))
         waveform_mode = qsl.store.kind == "waveform"
         order = qsl.sort_desc(indices)
-        clock = _PhaseClock(self.device)
+        clock = PhaseClock(self.device)
         results: dict = {}
-        before = _launch_counts()
+        before = launch_counts()
         t0 = time.time()
         n_batches = 0
         with torch.inference_mode():
@@ -259,5 +262,5 @@ class OfflineRunner:
             wall_seconds=wall,
             batches=n_batches,
             phase_seconds=clock.totals(),
-            launches=_launches_since(before),
+            launches=launches_since(before),
         )

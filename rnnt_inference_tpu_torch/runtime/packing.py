@@ -1,0 +1,368 @@
+"""Sequence-packed Offline runner (counterpart of
+rnnt_inference_tpu/runtime/packing.py, one device, no mesh).
+
+Instead of padding every utterance to a wav bucket, packing lays the
+utterances end to end along time in ``n_lanes`` timelines on a
+``chunk_frames`` grain (longest first onto the least-filled lane), so the
+only padding left is each utterance's last partial chunk.  One timed rep
+runs three phases on the device:
+
+  A. features: each staged wav-bucket batch is featurized (log_mel_features)
+     into a flat (rows, 240) buffer; one row gather then builds the packed
+     (T_pack, n_lanes, 240) buffer (pad positions gather a zero row).
+  B. encoder: a host loop over the C chunks, one ``transcription`` per chunk
+     (on the int8 path five kernel-A launches), the encoder state zeroed on
+     the lanes where an utterance starts (``resets``).
+  C. decode: the encoder outputs are compacted (chunk-tail pad frames
+     gathered away) into gapless per-lane timelines and decoded in
+     ``decode_chunk``-frame pieces by greedy_decode_chunk_packed, whose
+     kernel B resets a lane's prediction state where it advances into an
+     utterance's first frame and writes a PACK_BOUNDARY marker.  An
+     utterance that starts exactly at a piece's first frame is reset here,
+     between pieces, as the JAX runner does.
+
+The tokens equal a standalone decode of each utterance: the masked resets
+give each utterance a fresh state, compaction feeds the decode the same
+frames in the same order, and each utterance keeps at most max_res_len
+tokens (the standalone decode's truncation), enforced by the per-utterance
+budget.  ``harvest`` splits each lane's tokens at the markers.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import heapq
+import time
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from rnnt_inference_tpu_torch.config import FeaturizerConfig, RNNTParams
+from rnnt_inference_tpu_torch.models import rnnt as model
+from rnnt_inference_tpu_torch.models.decoder import (
+    PACK_BOUNDARY,
+    greedy_decode_chunk_packed,
+    init_decode_state,
+    masked_reset_decode,
+)
+from rnnt_inference_tpu_torch.ops import decode_cuda
+from rnnt_inference_tpu_torch.ops.features import log_mel_features
+from rnnt_inference_tpu_torch.runtime.offline import (
+    OfflineResult,
+    PhaseClock,
+    build_kernels,
+    launch_counts,
+    launches_since,
+)
+
+
+@dataclasses.dataclass
+class PackPlan:
+    """Host-side packing layout.
+
+    entries: per sample (position_in_indices, lane, chunk0, n_frames): the
+    sample's feature frames occupy packed frames [chunk0*P, chunk0*P + F).
+    chunk_lens[c, l]: valid feature frames of lane l in chunk c (0 = idle).
+    resets[c, l]: lane l starts a new utterance at chunk c.
+    """
+
+    n_lanes: int
+    chunk_frames: int
+    n_chunks: int
+    entries: List[Tuple[int, int, int, int]]
+    chunk_lens: np.ndarray  # (C, N) int32
+    resets: np.ndarray  # (C, N) bool
+
+    @property
+    def total_frames(self) -> int:
+        return self.n_chunks * self.chunk_frames * self.n_lanes
+
+    @property
+    def packing_efficiency(self) -> float:
+        return float(self.chunk_lens.sum()) / max(self.total_frames, 1)
+
+
+def make_pack_plan(feat_lens: np.ndarray, n_lanes: int, chunk_frames: int) -> PackPlan:
+    """Longest-first greedy bin-pack of utterances into n_lanes timelines:
+    the longest remaining utterance goes to the least-filled lane (ties to
+    the lower lane), so lane fills stay within one utterance of each other."""
+    feat_lens = np.asarray(feat_lens, np.int64)
+    P = int(chunk_frames)
+    order = np.argsort(-feat_lens, kind="stable")
+    chunks_needed = -(-feat_lens // P)
+    heap = [(0, l) for l in range(n_lanes)]
+    heapq.heapify(heap)
+    entries: List[Tuple[int, int, int, int]] = []
+    for i in order:
+        if feat_lens[i] <= 0:
+            continue
+        fill, l = heapq.heappop(heap)
+        entries.append((int(i), l, int(fill), int(feat_lens[i])))
+        heapq.heappush(heap, (fill + int(chunks_needed[i]), l))
+    C = max(max(f for f, _ in heap), 1)
+
+    chunk_lens = np.zeros((C, n_lanes), np.int32)
+    resets = np.zeros((C, n_lanes), bool)
+    for _i, l, c0, F in entries:
+        nc = int(-(-F // P))
+        resets[c0, l] = True
+        chunk_lens[c0 : c0 + nc, l] = P
+        chunk_lens[c0 + nc - 1, l] = F - (nc - 1) * P
+    return PackPlan(n_lanes=n_lanes, chunk_frames=P, n_chunks=C, entries=entries,
+                    chunk_lens=chunk_lens, resets=resets)
+
+
+class PackedOfflineRunner:
+    """Offline serving over a packed feature buffer (module docstring)."""
+
+    def __init__(
+        self,
+        weights,
+        params: RNNTParams = RNNTParams(),
+        cfg: FeaturizerConfig = FeaturizerConfig(),
+        n_lanes: int = 1024,
+        chunk_frames: int = 16,
+        batch_size: int = 1024,
+        decode_chunk: int = 128,
+        device="cuda",
+        impl: Optional[str] = None,
+    ):
+        """impl=None runs the CUDA kernels on the card (the plain twins on
+        the CPU); impl="reference" runs the plain twins on the card too."""
+        if chunk_frames % params.stack_time_factor:
+            raise ValueError(f"chunk_frames {chunk_frames} must be a multiple of the "
+                             f"stack_time factor {params.stack_time_factor}")
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("PackedOfflineRunner(device='cuda') but CUDA is not available")
+        self.params = params
+        self.cfg = cfg
+        self.n_lanes = n_lanes
+        self.chunk_frames = chunk_frames
+        self.batch_size = batch_size
+        self.decode_chunk = decode_chunk
+        self.impl = impl
+        self.weights = weights.to(self.device)
+        self.plan: Optional[PackPlan] = None
+        self._staged = None  # [(wav_i16 {g, S}, lens {g}, flat base row)]
+        self._enc_dtype = weights.pre_rnn[0].w_ih.dtype
+        self._pred_dtype = weights.pred_rnn[0].w_ih.dtype
+        # f in the joint's input type is bit-exact: the decode's hoisted
+        # fproj product casts f to it anyway
+        self._f_dtype = weights.joint.w1_trans.dtype
+
+    # -- untimed staging --------------------------------------------------
+
+    def stage(self, qsl, indices=None) -> PackPlan:
+        """Stage the waveforms in device memory (DeviceQSL) and build the
+        packing plan, the pack gather table and the compaction tables.
+        Raises ValueError when there are fewer utterances than lanes (a lane
+        would idle through the whole rep)."""
+        cfg, dev = self.cfg, self.device
+        stack = self.params.stack_time_factor
+        P = self.chunk_frames
+        P2 = P // stack
+        idx_arr = np.arange(len(qsl)) if indices is None else np.asarray(indices)
+        if len(idx_arr) < self.n_lanes:
+            raise ValueError(f"{len(idx_arr)} utterances for {self.n_lanes} lanes: a lane would "
+                             "idle; use at most as many lanes as utterances")
+        wav_cap = qsl.wav_buckets[-1]
+        wav_lens = np.array([min(qsl.store.samples[i].shape[0], wav_cap) for i in idx_arr],
+                            np.int64)
+        feat_lens = np.array([cfg.out_frames(int(s)) for s in wav_lens], np.int64)
+        self.plan = plan = make_pack_plan(feat_lens, self.n_lanes, P)
+
+        # per-lane gapless timelines: src_idx gathers each utterance's
+        # ceil(F / stack) post-stack frames out of the chunked encoder output
+        lane_entries: List[List[Tuple[int, int, int]]] = [[] for _ in range(self.n_lanes)]
+        for pos, lane, c0, F in plan.entries:
+            lane_entries[lane].append((c0, pos, F))
+        lane_srcs, lane_starts = [], []
+        self._lane_order: List[List[int]] = []  # sample positions per lane
+        for lane in range(self.n_lanes):
+            srcs, starts, order = [], [], []
+            for c0, pos, F in sorted(lane_entries[lane]):
+                F2 = -(-F // stack)
+                srcs.append(c0 * P2 + np.arange(F2, dtype=np.int64))
+                s = np.zeros((F2,), bool)
+                s[0] = True
+                starts.append(s)
+                order.append(pos)
+            lane_srcs.append(np.concatenate(srcs))
+            lane_starts.append(np.concatenate(starts))
+            self._lane_order.append(order)
+        lane_f_lens = np.array([len(s) for s in lane_srcs], np.int32)
+        T2c = max(int(lane_f_lens.max()), 1)
+        src_idx = np.zeros((T2c, self.n_lanes), np.int64)
+        starts_arr = np.zeros((T2c, self.n_lanes), bool)
+        for lane in range(self.n_lanes):
+            L = lane_f_lens[lane]
+            src_idx[:L, lane] = lane_srcs[lane]
+            starts_arr[:L, lane] = lane_starts[lane]
+
+        # result capacity: each utterance keeps at most min(frames * cap,
+        # max_res_len) tokens (the per-utterance budget enforces the
+        # standalone decode's truncation), plus its boundary marker; the
+        # budget gate is switched off (0) where no utterance can exceed it
+        cap = self.params.max_symbols_per_step
+        budget = self.params.max_res_len
+        lane_need, budget_binds = 1, False
+        for lane in range(self.n_lanes):
+            need = 1
+            for _c0, _pos, F in lane_entries[lane]:
+                F2 = -(-F // stack)
+                budget_binds |= F2 * cap > budget
+                need += min(F2 * cap, budget) + 1
+            lane_need = max(lane_need, need)
+        self._utt_budget = int(budget) if budget_binds else 0
+        # rounded up to a multiple of 128, as the JAX runner sizes it
+        self._params_pack = dataclasses.replace(
+            self.params, max_res_len=-(-lane_need // 128) * 128)
+
+        # sample -> (lane, first packed frame) for the pack gather table
+        dest0 = {int(idx_arr[pos]): (lane, c0 * P) for pos, lane, c0, _F in plan.entries}
+        by_sample = dict(zip(map(int, idx_arr), feat_lens))
+        dqsl = qsl.load_to_device(self.batch_size, idx_arr, device=dev)
+        # flat feature buffer: a staged batch's (T_b, g, 240) features land
+        # at rows base + t g + r; pack_src[t, lane] is the flat row of packed
+        # frame t, and pad positions point at the zero row after the last
+        pack_src = np.full((plan.n_chunks * P, self.n_lanes), -1, np.int64)
+        staged, base = [], 0
+        for wav, lens, row_index in dqsl.batches():
+            g, S = wav.shape
+            for r, i in enumerate(row_index):
+                if i < 0:
+                    continue
+                lane, f0 = dest0[int(i)]
+                F = int(by_sample[int(i)])
+                pack_src[f0 : f0 + F, lane] = base + np.arange(F, dtype=np.int64) * g + r
+            staged.append((wav, lens, base))
+            base += cfg.out_frames(S) * g
+        pack_src[pack_src < 0] = base  # the zero row, never written
+        self._staged = staged
+        t = lambda a: torch.from_numpy(a).to(dev)
+        self._chunk_lens = t(plan.chunk_lens)
+        self._resets = t(plan.resets)
+        self._src_idx = t(src_idx)
+        self._starts = t(starts_arr)
+        self._lane_f_lens = t(lane_f_lens)
+        self._pack_src = t(pack_src)
+        self._flat = torch.zeros((base + 1, cfg.out_feat), dtype=torch.float32, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)  # staging completes untimed
+        return plan
+
+    # -- the timed rep ----------------------------------------------------
+
+    def _features(self) -> torch.Tensor:
+        """Phase A: every staged batch featurized into the flat buffer, then
+        one row gather into the packed (T_pack, N, 240) buffer."""
+        flat = self._flat
+        for wav, lens, base in self._staged:
+            feats, _ = log_mel_features(wav.float() * (1.0 / 32768.0), lens, self.cfg)
+            rows = feats.reshape(-1, feats.shape[-1])  # row t g + r
+            flat[base : base + rows.shape[0]] = rows
+        return flat[self._pack_src]
+
+    def _encode(self, packed: torch.Tensor) -> torch.Tensor:
+        """Phase B: the encoder over the C chunks, its state zeroed on the
+        lanes where an utterance starts.  Returns (C P2, N, H) in f's type."""
+        C, N, P = self.plan.n_chunks, self.n_lanes, self.chunk_frames
+        xc = packed.reshape(C, P, N, packed.shape[-1])
+        est = model.init_encoder_state(N, self.params, self._enc_dtype, self.device)
+        outs = []
+        for c in range(C):
+            m = self._resets[c][None, :, None]
+            z = lambda a: a.masked_fill(m, 0)
+            est = model.EncoderState(pre_h=z(est.pre_h), pre_c=z(est.pre_c),
+                                     post_h=z(est.post_h), post_c=z(est.post_c))
+            f_c, est = model.transcription(self.weights, xc[c], self._chunk_lens[c], est,
+                                           self.params, self.impl)
+            outs.append(f_c.to(self._f_dtype))
+        return torch.cat(outs)
+
+    def _decode(self, f_all: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Phase C: compaction, then the packed decode in decode_chunk-frame
+        pieces.  Returns (res {N, R} int8, res_idx {N} int32)."""
+        N, dev, pp = self.n_lanes, self.device, self._params_pack
+        src = self._src_idx
+        f_packed = torch.gather(f_all, 0, src[:, :, None].expand(-1, -1, f_all.shape[-1]))
+        T2c = f_packed.shape[0]
+        DC = min(self.decode_chunk, T2c)
+        n_dc = -(-T2c // DC)
+        st = init_decode_state(N, pp, self._enc_dtype, self._pred_dtype, dev)
+        rb = torch.full((N,), -1, dtype=torch.int32, device=dev)
+        lanes = torch.arange(N, device=dev)
+        dw = decode_cuda.decode_weights(self.weights)
+        for k in range(n_dc):
+            off = k * DC
+            f_c = f_packed[off : off + DC]
+            starts_c = self._starts[off : off + DC]
+            if f_c.shape[0] < DC:  # the last piece, padded: its pad frames are never visited
+                pad = DC - f_c.shape[0]
+                f_c = torch.cat([f_c, f_c.new_zeros((pad,) + f_c.shape[1:])])
+                starts_c = torch.cat([starts_c, starts_c.new_zeros((pad, N))])
+            lens_c = torch.clamp(self._lane_f_lens - off, 0, DC)
+            if off > 0:
+                # an utterance that starts at the piece's first frame is not
+                # entered inside the piece: reset it and write its marker here
+                bmask = starts_c[0] & (off < self._lane_f_lens)
+                st = masked_reset_decode(st, bmask, pp, keep_res=True)
+                st.res_idx = st.res_idx + bmask.int()
+                keep = bmask & (st.res_idx < pp.max_res_len)
+                st.res[lanes[keep], st.res_idx[keep].long()] = PACK_BOUNDARY
+                rb = torch.where(bmask, st.res_idx, rb)
+            st, rb = greedy_decode_chunk_packed(self.weights, st, f_c, lens_c, pp, starts_c, rb,
+                                                self._utt_budget, self.impl, dw=dw)
+        return st.res, st.res_idx
+
+    def run_device(self) -> OfflineResult:
+        """One timed rep (phases A, B, C) over the staged set.  wall_seconds
+        covers dispatch and all device work (ended by a synchronize); the
+        token readback is timed apart as readback_seconds."""
+        if self._staged is None:
+            raise RuntimeError("call stage() first")
+        build_kernels(self.device, self.impl)
+        clock = PhaseClock(self.device)
+        before = launch_counts()
+        t0 = time.time()
+        with torch.inference_mode():
+            clock.mark("start")
+            packed = self._features()
+            clock.mark("features")
+            f_all = self._encode(packed)
+            clock.mark("encoder")
+            res, res_idx = self._decode(f_all)
+            clock.mark("decode")
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        wall = time.time() - t0
+        launches = launches_since(before)
+
+        t1 = time.time()
+        res_np, idx_np = res.cpu().numpy(), res_idx.cpu().numpy()
+        readback = time.time() - t1
+        return OfflineResult(
+            tokens=self.harvest(res_np, idx_np),
+            wall_seconds=wall,
+            batches=len(self._staged) + 1,
+            phase_seconds=clock.totals(),
+            readback_seconds=readback,
+            launches=launches,
+        )
+
+    def harvest(self, res: np.ndarray, res_idx: np.ndarray) -> List[np.ndarray]:
+        """Split each lane's tokens at the PACK_BOUNDARY markers into
+        per-utterance sequences, in the lane's order.  Returns the tokens in
+        sample-position order (the order of the staged indices)."""
+        out: dict = {}
+        for lane, order in enumerate(self._lane_order):
+            toks = res[lane, : int(res_idx[lane]) + 1].astype(np.int32)
+            segs = np.split(toks, np.flatnonzero(toks == PACK_BOUNDARY))
+            segs = [segs[0]] + [s[1:] for s in segs[1:]]  # drop the markers
+            if len(segs) != max(len(order), 1):
+                raise RuntimeError(f"lane {lane}: {len(segs)} segments for {len(order)} samples")
+            for pos, seg in zip(order, segs):
+                out[pos] = seg[: self.params.max_res_len]  # the standalone decode's cap
+        return [out[i] for i in sorted(out)]

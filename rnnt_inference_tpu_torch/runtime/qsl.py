@@ -95,23 +95,31 @@ class QuerySampleLibrary:
             out_lens[r] = L
         return feats, out_lens, T
 
-    def load_to_device(self, batch_size: int, device="cuda") -> "DeviceQSL":
-        """Stage the sample set in device memory, bucketed, length-sorted and
-        pre-split into batches, outside any timed window (MLPerf's
-        LoadSamplesToRam)."""
-        return DeviceQSL(self, batch_size, device)
+    def load_to_device(
+        self, batch_size: int, indices: Optional[Sequence[int]] = None, device="cuda"
+    ) -> "DeviceQSL":
+        """Stage the samples ``indices`` (all by default) in device memory,
+        bucketed, length-sorted and pre-split into batches, outside any
+        timed window (MLPerf's LoadSamplesToRam)."""
+        return DeviceQSL(self, batch_size, device, indices)
 
 
 def batch_plan(
-    qsl: QuerySampleLibrary, batch_size: int, min_tile: int = 32
+    qsl: QuerySampleLibrary,
+    batch_size: int,
+    indices: Optional[Sequence[int]] = None,
+    min_tile: int = 32,
 ) -> List[Tuple[int, List[int], int]]:
-    """Deterministic Offline batch plan: length-sort descending, group by wav
-    bucket, split each bucket into full batches, then a cascade of
-    power-of-two tail tiles down to min(min_tile, batch_size).  Returns
-    (S_bucket, rows, g): rows are sample indices, g the batch's row count
-    (the rows are padded to g with dead rows)."""
+    """Deterministic Offline batch plan over ``indices`` (all samples by
+    default): length-sort descending, group by wav bucket, split each
+    bucket into full batches, then a cascade of power-of-two tail tiles
+    down to min(min_tile, batch_size).  Returns (S_bucket, rows, g): rows
+    are sample indices, g the batch's row count (the rows are padded to g
+    with dead rows)."""
+    if indices is None:
+        indices = np.arange(len(qsl))
     by_bucket: dict = {}
-    for i in qsl.sort_desc(np.arange(len(qsl))):
+    for i in qsl.sort_desc(indices):
         s = qsl.store.samples[int(i)]
         S = qsl.wav_bucket_for(min(s.shape[0], qsl.wav_buckets[-1]))
         by_bucket.setdefault(S, []).append(int(i))
@@ -143,10 +151,16 @@ class DeviceQSL:
 
     MIN_TILE = 32
 
-    def __init__(self, qsl: QuerySampleLibrary, batch_size: int, device="cuda"):
+    def __init__(
+        self,
+        qsl: QuerySampleLibrary,
+        batch_size: int,
+        device="cuda",
+        indices: Optional[Sequence[int]] = None,
+    ):
         self.device = torch.device(device)
         self._batches = []
-        for S, rows, g in batch_plan(qsl, batch_size, self.MIN_TILE):
+        for S, rows, g in batch_plan(qsl, batch_size, indices, self.MIN_TILE):
             wav = np.zeros((g, S), np.int16)
             lens = np.zeros((g,), np.int32)
             row_index = np.full((g,), -1, np.int64)

@@ -1,0 +1,171 @@
+"""Server-scenario load generation and latency accounting (counterpart of
+rnnt_inference_tpu/runtime/scheduler.py; the native loadgen's Server run is
+not ported yet).
+
+Poisson arrivals at a target QPS, a FIFO issue queue, per-sample completion
+latency and the p50/p90/p99 summary.  QoS deferral: samples longer than
+qos_len waveform samples are parked and served only after the main stream
+drains, and their latencies are kept apart from the live percentiles.
+response_size: finished slots are responded in groups of at least
+response_size, except while the tail drains or the slot pool is starved.
+Queries loop over the sample set (query q -> sample q % n).
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Tuple
+
+import numpy as np
+
+from rnnt_inference_tpu_torch.data.dataset import SampleStore
+from rnnt_inference_tpu_torch.runtime.server import ServerRunner
+
+
+@dataclass
+class ServerMetrics:
+    latencies_ms: Dict[int, float] = field(default_factory=dict)
+    # QoS-deferred queries, kept out of the live percentiles
+    deferred_latencies_ms: Dict[int, float] = field(default_factory=dict)
+    issued: int = 0
+    completed: int = 0
+    wall_seconds: float = 0.0
+
+    def percentile(self, p: float) -> float:
+        if not self.latencies_ms:
+            return float("nan")
+        return float(np.percentile(list(self.latencies_ms.values()), p))
+
+    def summary(self) -> dict:
+        # None, not NaN, when every completion was deferred: NaN is not
+        # JSON, and validate_report calls a missing percentile INVALID
+        have_live = bool(self.latencies_ms)
+        d = dict(
+            scenario="Server",
+            completed=self.completed,
+            completed_live=len(self.latencies_ms),
+            wall_seconds=round(self.wall_seconds, 3),
+            qps=round(self.completed / self.wall_seconds, 2) if self.wall_seconds else 0,
+            latency_ms_p50=round(self.percentile(50), 1) if have_live else None,
+            latency_ms_p90=round(self.percentile(90), 1) if have_live else None,
+            latency_ms_p99=round(self.percentile(99), 1) if have_live else None,
+        )
+        if self.deferred_latencies_ms:
+            vals = list(self.deferred_latencies_ms.values())
+            d["deferred_completed"] = len(vals)
+            d["deferred_ms_mean"] = round(float(np.mean(vals)), 1)
+            d["deferred_ms_max"] = round(float(np.max(vals)), 1)
+        slow = sorted(((q, lat) for q, lat in self.latencies_ms.items() if lat > 1000.0),
+                      key=lambda kv: -kv[1])
+        if slow:
+            d["slow_sample_count"] = len(slow)
+            d["slow_samples"] = [{"query": int(q), "latency_ms": round(lat, 1)}
+                                 for q, lat in slow[:16]]
+        return d
+
+
+def poisson_schedule(n: int, target_qps: float, seed: int = 0) -> np.ndarray:
+    """Arrival offsets (seconds) of n samples at target_qps (exponential
+    gaps, as loadgen's Server mode)."""
+    rng = np.random.RandomState(seed)
+    return np.cumsum(rng.exponential(1.0 / target_qps, size=n))
+
+
+def run_server(
+    runner: ServerRunner,
+    store: SampleStore,
+    target_qps: float,
+    seed: int = 0,
+    qos_len: int = 233500,
+    max_wall_s: float = 600.0,
+    realtime: bool = True,
+    response_size: int = 1,
+    min_query_count: int = 0,
+    min_duration_s: float = 0.0,
+) -> Tuple[ServerMetrics, Dict[int, np.ndarray]]:
+    """Drive the slot pipeline against a Poisson arrival trace.
+
+    realtime=True keeps the wall-clock arrival times (Server latency);
+    realtime=False issues as fast as the pipeline accepts (latencies then
+    measure residency from the actual issue).  Returns (metrics, {query_id:
+    tokens}); query q is sample q % len(store)."""
+    n = len(store)
+    n_queries = max(n, min_query_count)
+    # twice the duration's arrivals: a sum of qps * dur exponential gaps
+    # has mean dur, so about half the seeds would run out before it
+    arrivals = poisson_schedule(
+        max(n_queries, int(target_qps * min_duration_s * 2) + 16), target_qps, seed)
+
+    metrics = ServerMetrics()
+    results: Dict[int, np.ndarray] = {}
+    issue_times: Dict[int, float] = {}
+    deferred: List[int] = []
+    deferred_set = set()
+
+    t_start = time.time()
+    next_i = 0
+    finished_backlog: List[int] = []
+
+    # issue until the count and the duration rules are both met
+    nq = n_queries
+    while nq < len(arrivals) and arrivals[nq - 1] < min_duration_s:
+        nq += 1
+
+    def respond(pairs):
+        now = time.time()
+        for query_id, tokens in pairs:
+            results[query_id] = tokens
+            pool = (metrics.deferred_latencies_ms if query_id in deferred_set
+                    else metrics.latencies_ms)
+            pool[query_id] = (now - issue_times[query_id]) * 1e3
+            metrics.completed += 1
+
+    def drain(force: bool) -> None:
+        # responses wait for >= response_size finished slots unless forced
+        # (tail drain, slot starvation)
+        tail = next_i >= nq and not deferred
+        starved = not runner.free_slots
+        if finished_backlog and (force or tail or starved
+                                 or len(finished_backlog) >= response_size):
+            respond(runner.extract(finished_backlog))
+            finished_backlog.clear()
+
+    while metrics.completed < nq and (time.time() - t_start) < max_wall_s:
+        now = time.time() - t_start
+        # 1. admit due arrivals into free slots (QoS: defer over-long samples)
+        batch: List[int] = []
+        while (next_i < nq and (not realtime or arrivals[next_i] <= now)
+               and len(batch) < runner.insert_batch and len(batch) < len(runner.free_slots)):
+            q = next_i
+            next_i += 1
+            issue_times[q] = t_start + arrivals[q] if realtime else time.time()
+            if store.samples[q % n].shape[0] > qos_len:
+                deferred.append(q)
+                deferred_set.add(q)
+                continue
+            batch.append(q)
+        # the deferred samples once the main stream is exhausted
+        if next_i >= nq and not batch and deferred:
+            while deferred and len(batch) < min(runner.insert_batch, len(runner.free_slots)):
+                q = deferred.pop(0)
+                if not realtime:
+                    issue_times[q] = time.time()
+                batch.append(q)
+        if batch:
+            runner.insert_samples([store.samples[q % n] for q in batch], batch)
+            metrics.issued += len(batch)
+
+        # 2. streaming steps, and their finish mask read back
+        if runner.n_active:
+            finished_backlog.extend(int(s) for s in runner.step())
+        elif next_i < nq and realtime:
+            wait = arrivals[next_i] - (time.time() - t_start)  # idle until the next arrival
+            if wait > 0:
+                time.sleep(min(wait, 0.01))
+
+        # 3. respond in response_size groups
+        drain(force=not runner.n_active and next_i >= nq)
+
+    metrics.wall_seconds = time.time() - t_start
+    return metrics, results

@@ -1,0 +1,252 @@
+"""Server scenario: slot-based dynamic batching with device-resident state
+(counterpart of rnnt_inference_tpu/runtime/server.py).
+
+A fixed number of slots holds the utterances in flight: a feature buffer F
+{T_max, slots, 240}, each slot's length and offset, and the carried encoder
+and decoder state of every slot.  New arrivals are featurized and placed
+into free slots (their state reset), and each streaming step encodes and
+decodes the next ``split_len`` frames of every active slot at the slot's
+own offset.  A slot whose frames are used up is finished: it stays inert
+(its window is empty, so its tokens do not change) until the host extracts
+its tokens and frees it.
+
+The step is decode_chunk, the streaming unit of the Offline path, so Server
+and Offline give the same tokens.  On the card a step runs kernel A (the
+int8 encoder) and kernel B (the decode) as the Offline runner does.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from rnnt_inference_tpu_torch.config import FeaturizerConfig, RNNTParams
+from rnnt_inference_tpu_torch.models.decoder import (
+    DecodeState,
+    decode_chunk,
+    init_decode_state,
+    masked_reset_decode,
+)
+from rnnt_inference_tpu_torch.ops import decode_cuda
+from rnnt_inference_tpu_torch.ops.features import log_mel_features
+from rnnt_inference_tpu_torch.runtime.offline import build_kernels
+from rnnt_inference_tpu_torch.runtime.qsl import DEFAULT_WAV_BUCKETS_S
+
+
+@dataclasses.dataclass
+class ServerState:
+    """The slot batch, on the device."""
+
+    F: torch.Tensor  # {T_max, N, C} feature buffer
+    F_lens: torch.Tensor  # {N} int32 frames per slot (0 = empty slot)
+    offsets: torch.Tensor  # {N} int32 frames already consumed
+    active: torch.Tensor  # {N} bool slot occupied and unfinished
+    decode: DecodeState  # carried encoder + decoder state per slot
+
+
+def init_server_state(
+    slots: int,
+    max_frames: int,
+    params: RNNTParams = RNNTParams(),
+    cfg: FeaturizerConfig = FeaturizerConfig(),
+    enc_dtype=torch.float32,
+    pred_dtype=torch.float32,
+    device="cuda",
+) -> ServerState:
+    return ServerState(
+        F=torch.zeros((max_frames, slots, cfg.out_feat), dtype=torch.float32, device=device),
+        F_lens=torch.zeros((slots,), dtype=torch.int32, device=device),
+        offsets=torch.zeros((slots,), dtype=torch.int32, device=device),
+        active=torch.zeros((slots,), dtype=torch.bool, device=device),
+        decode=init_decode_state(slots, params, enc_dtype, pred_dtype, device),
+    )
+
+
+def server_insert(
+    state: ServerState,
+    feats: torch.Tensor,
+    feat_lens: torch.Tensor,
+    slot_ids: torch.Tensor,
+    params: RNNTParams = RNNTParams(),
+) -> ServerState:
+    """Place K new samples into free slots: feats {T_new, K, C} (T_new <=
+    T_max), feat_lens {K} (0: no sample in that column), slot_ids {K}
+    (unique).  Writes their features (zeros past T_new), resets the slots'
+    decode state and activates them.  F, F_lens, offsets and active are
+    updated in place (F is the largest array of the state)."""
+    valid = feat_lens > 0
+    sel = slot_ids.to(feat_lens.device)[valid].long()
+    F = state.F
+    F[:, sel] = 0
+    F[: feats.shape[0], sel] = feats[:, valid]
+    state.F_lens[sel] = feat_lens[valid].int()
+    state.offsets[sel] = 0
+    state.active[sel] = True
+    reset = torch.zeros_like(state.active)
+    reset[sel] = True
+    return dataclasses.replace(
+        state, decode=masked_reset_decode(state.decode, reset, params, keep_res=False))
+
+
+def server_step(
+    weights,
+    state: ServerState,
+    split_len: int,
+    params: RNNTParams = RNNTParams(),
+    impl: Optional[str] = None,
+    dw: Optional[decode_cuda.DecodeWeights] = None,
+) -> Tuple[ServerState, torch.Tensor]:
+    """One streaming step: each slot's next split_len-frame window at its own
+    offset, encoded and decoded, offsets advanced.  Returns (state',
+    finished {N} bool: the slots that have just completed)."""
+    Tmax, N, C = state.F.shape
+    dev = state.F.device
+    t_idx = state.offsets[None, :] + torch.arange(split_len, device=dev, dtype=torch.int32)[:, None]
+    t_idx = torch.clamp(t_idx, max=Tmax - 1).long()
+    window = torch.gather(state.F, 0, t_idx[:, :, None].expand(-1, -1, C))  # {split, N, C}
+    remaining = torch.clamp(state.F_lens - state.offsets, min=0)
+    w_lens = torch.clamp(remaining, max=split_len) * state.active.int()
+    decode = decode_chunk(weights, state.decode, window, w_lens, params, impl, dw=dw)
+    offsets = state.offsets + w_lens
+    finished = state.active & (offsets >= state.F_lens)
+    return ServerState(F=state.F, F_lens=state.F_lens, offsets=offsets,
+                       active=state.active & ~finished, decode=decode), finished
+
+
+def server_multi_step(
+    weights,
+    state: ServerState,
+    split_len: int,
+    k: int,
+    params: RNNTParams = RNNTParams(),
+    impl: Optional[str] = None,
+    dw: Optional[decode_cuda.DecodeWeights] = None,
+) -> Tuple[ServerState, torch.Tensor]:
+    """k streaming steps; the returned mask is the OR of the k finish masks
+    (finished slots stay inert until the host extracts them)."""
+    fin_acc = torch.zeros_like(state.active)
+    for _ in range(k):
+        state, fin = server_step(weights, state, split_len, params, impl, dw)
+        fin_acc = fin_acc | fin
+    return state, fin_acc
+
+
+class ServerRunner:
+    """The host side of the slot pipeline: refill free slots from the
+    arrival queue, run streaming steps, extract finished slots."""
+
+    def __init__(
+        self,
+        weights,
+        params: RNNTParams = RNNTParams(),
+        cfg: FeaturizerConfig = FeaturizerConfig(),
+        slots: int = 128,
+        split_len: int = 24,
+        max_frames: Optional[int] = None,
+        insert_batch: int = 8,
+        steps_per_dispatch: int = 4,
+        device="cuda",
+        impl: Optional[str] = None,
+    ):
+        """impl=None runs the CUDA kernels on the card (the plain twins on
+        the CPU); impl="reference" runs the plain twins on the card too."""
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("ServerRunner(device='cuda') but CUDA is not available")
+        self.weights = weights.to(self.device)
+        self.params = params
+        self.cfg = cfg
+        self.slots = slots
+        self.split_len = split_len
+        self.max_frames = max_frames or cfg.out_frames(int(15.0 * cfg.sample_rate))
+        # a multiple of split_len: no window straddles the buffer's end
+        self.max_frames = -(-self.max_frames // split_len) * split_len
+        self.insert_batch = insert_batch
+        self.steps_per_dispatch = steps_per_dispatch
+        self.impl = impl
+        self.wav_buckets = tuple(int(s * cfg.sample_rate) for s in sorted(DEFAULT_WAV_BUCKETS_S))
+        self.state = init_server_state(
+            slots, self.max_frames, params, cfg, weights.pre_rnn[0].w_ih.dtype,
+            weights.pred_rnn[0].w_ih.dtype, self.device)
+        self.free_slots = list(range(slots))
+        self.slot_sample: dict = {}  # slot -> sample id
+        self._dw = decode_cuda.decode_weights(self.weights)
+
+    def _wav_bucket(self, s: int) -> int:
+        for b in self.wav_buckets:
+            if b >= s:
+                return b
+        return self.wav_buckets[-1]
+
+    def warmup(self) -> float:
+        """Build the kernels and stream one silent sample of the shortest
+        wav bucket through a slot (untimed; eager PyTorch compiles nothing
+        per shape, so one bucket is enough).  Returns its seconds."""
+        t0 = time.time()
+        build_kernels(self.device, self.impl)
+        self.insert_samples([np.zeros(self.wav_buckets[0], np.float32)], [-1])
+        while self.n_active:
+            finished = self.step()
+            if len(finished):
+                self.extract(finished)
+        return time.time() - t0
+
+    def insert_samples(self, wavs: List[np.ndarray], sample_ids: List[int]) -> None:
+        """Featurize up to insert_batch new samples (padded to a wav bucket)
+        and place them in free slots."""
+        if len(wavs) > len(self.free_slots) or len(wavs) > self.insert_batch:
+            raise ValueError(f"{len(wavs)} samples for {len(self.free_slots)} free slots "
+                             f"(insert_batch {self.insert_batch})")
+        K = self.insert_batch
+        S = self._wav_bucket(max(int(w.shape[0]) for w in wavs))
+        wav = np.zeros((K, S), np.float32)
+        lens = np.zeros((K,), np.int32)
+        for r, w in enumerate(wavs):
+            wav[r, : w.shape[0]] = w[:S]
+            lens[r] = min(w.shape[0], S)
+        with torch.inference_mode():
+            feats, feat_lens = log_mel_features(
+                torch.from_numpy(wav).to(self.device), torch.from_numpy(lens).to(self.device),
+                self.cfg)
+            # bucket padding can featurize past the slot buffer: crop (the
+            # true lengths come from the waveform lengths)
+            feats = feats[: self.max_frames]
+            feat_lens = torch.clamp(feat_lens, max=self.max_frames)
+            feat_lens[len(wavs):] = 0
+            slot_ids = np.full((K,), self.slots, np.int64)
+            for r in range(len(wavs)):
+                slot = self.free_slots.pop(0)
+                slot_ids[r] = slot
+                self.slot_sample[slot] = sample_ids[r]
+            self.state = server_insert(self.state, feats, feat_lens,
+                                       torch.from_numpy(slot_ids), self.params)
+
+    def step(self) -> np.ndarray:
+        """One dispatch of steps_per_dispatch streaming steps; returns the
+        indices of the slots that have just finished."""
+        with torch.inference_mode():
+            self.state, finished = server_multi_step(
+                self.weights, self.state, self.split_len, self.steps_per_dispatch, self.params,
+                self.impl, self._dw)
+        return np.nonzero(finished.cpu().numpy())[0]
+
+    def extract(self, finished_slots) -> List[Tuple[int, np.ndarray]]:
+        """The tokens of finished slots, which are freed."""
+        idx = torch.as_tensor(np.asarray(finished_slots, np.int64), device=self.device)
+        res = self.state.decode.res[idx].cpu().numpy()
+        res_lens = np.minimum(self.state.decode.res_idx[idx].cpu().numpy() + 1,
+                              self.params.max_res_len)
+        out = []
+        for k, slot in enumerate(finished_slots):
+            sample_id = self.slot_sample.pop(int(slot))
+            out.append((sample_id, res[k, : res_lens[k]].astype(np.int32)))
+            self.free_slots.append(int(slot))
+        return out
+
+    @property
+    def n_active(self) -> int:
+        return self.slots - len(self.free_slots)

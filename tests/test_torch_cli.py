@@ -148,12 +148,41 @@ def test_store_written_by_port_loads_in_jax(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--packed"], ["--native_loadgen"], ["--scenario", "Server"],
+    ["--packed", "--native_loadgen"], ["--native_loadgen"],
+    ["--scenario", "Server", "--native_loadgen"],
     ["--run_mode", "fake_quant"], ["--profiler_dir", "trace"], ["--model", "rnnt.pt"],
     ["--manifest", "m.json"],
 ])
 def test_unported_options_exit(flags):
     """Options whose code is not ported exit with an error naming the
-    ROADMAP item; none silently does something else."""
+    ROADMAP item; none silently does something else.  The packed runner
+    and the Server scenario are ported; under the native loadgen they are
+    not yet."""
     with pytest.raises(SystemExit, match=r"not yet ported .*ROADMAP queue 1\.\d"):
         tmain(flags + ["--benchmark", "--synthetic", "1", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("scenario", ["packed", "server"])
+def test_packed_and_server_runs_match_jax(staged, scenario):
+    """The CLI's sequence-packed Offline run (--packed --benchmark) and its
+    Server scenario (--accuracy: every query once, issued as fast as the
+    slots take them) on the JAX-quantized model: accuracy logs byte-equal
+    to the JAX CLI's."""
+    d, paths = staged
+    extra = ["--quant_in", paths["jquant"], "--sample_file", paths["store"], "--batch_size", "4"]
+    extra += (["--packed", "--benchmark", "--scenario", "Offline"] if scenario == "packed"
+              else ["--accuracy", "--scenario", "Server", "--server_slots", "4"])
+    logs = []
+    for main, tag, dev in ((jmain, "j", []), (tmain, "t", ["--device", "cpu"])):
+        out = str(d / f"{tag}_{scenario}")
+        main(extra + ["--output_dir", out] + dev)
+        with open(os.path.join(out, "accuracy_log.json")) as f:
+            logs.append(f.read())
+        with open(os.path.join(out, "summary.json")) as f:
+            summary = json.load(f)
+    assert logs[1] == logs[0]
+    assert len(json.loads(logs[1])) == 3
+    if scenario == "packed":
+        assert summary["pack_chunks"] > 0 and 0 < summary["packing_efficiency"] <= 1
+    else:
+        assert summary["completed"] == 3 and summary["latency_ms_p50"] is not None

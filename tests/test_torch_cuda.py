@@ -16,6 +16,7 @@ from rnnt_inference_tpu_torch.models.weights import init_weights
 from rnnt_inference_tpu_torch.ops import decode_cuda as dc
 from rnnt_inference_tpu_torch.ops import lstm_cuda
 from rnnt_inference_tpu_torch.ops.lstm_int8 import quant_lstm_layer
+from rnnt_inference_tpu_torch.tools.decode_divergence import decode_case, run_case
 
 pytestmark = pytest.mark.cuda
 
@@ -216,24 +217,7 @@ def test_float_pipeline_kernels_match_twins(dev, wdtype):
 def _decode_case(dev, wdtype, N, P=320, J=512, seed=12):
     """Full-width (P=320, J=512 by default) decode weights and N lanes in
     random states."""
-    params = RNNTParams(trans_hidden_size=256, pred_hidden_size=P, joint_hidden_size=J,
-                        max_res_len=128)
-    w = init_weights(params, torch.Generator().manual_seed(seed), dtype=wdtype, device=dev)
-    dw = dc.decode_weights(w)
-    T2, L, R = 6, params.pred_num_layers, params.max_res_len
-    rng = np.random.RandomState(seed)
-    f_lens = rng.randint(0, T2 + 1, N)
-    eos = np.maximum(f_lens - 1, 0)
-    lanes = np.stack([
-        rng.randint(-1, 28, N), np.minimum(rng.randint(0, T2, N), eos),
-        rng.choice([0, 3, 30], N), rng.choice([-1, 5, R - 1], N), f_lens == 0,
-        f_lens, eos, np.zeros(N),
-    ]).astype(np.int32)
-    fproj = torch.from_numpy(rng.randn(T2, N, J).astype(np.float32)).to(dev)
-    hg = torch.from_numpy(rng.randn(L, N, P).astype(np.float32) * 0.5).to(dev, wdtype)
-    cg = torch.from_numpy(rng.randn(L, N, P).astype(np.float32) * 0.5).to(dev)
-    res = torch.full((N, R), -1, dtype=torch.int8, device=dev)
-    return params, dw, fproj, [torch.from_numpy(lanes).to(dev), hg, cg, res]
+    return decode_case(dev, wdtype, N, P, J, seed)
 
 
 def _assert_decode_close(a, b, bf16):
@@ -368,3 +352,81 @@ def test_refused_shapes_raise(dev):
                                         f32(4, 1024), False)
     assert before == (lstm_scan_cuda.lstm_recurrence_cuda.launches, dc.decode_step_cuda.launches,
                       lstm_cuda.quant_lstm_layer_cuda.launches)
+
+
+def _packed_case(dev, wdtype, N, seed=21):
+    """``_decode_case``'s lanes on packed timelines: utterance starts on
+    about half the frames, and each lane's current utterance begun 0-9
+    tokens before its res_idx (res_base)."""
+    return decode_case(dev, wdtype, N, seed=seed, packed=True)
+
+
+@pytest.mark.parametrize("budget", [0, 4])
+@pytest.mark.parametrize("N", [1, 16, 64, 128, 200, 1024])
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_packed_mode(dev, wdtype, N, budget):
+    """Kernel B's packed mode against its twin at full width, 1 to 1,024
+    lanes, one iteration and one launch of K=8 from the same state (as the
+    bucketed mode's test): lanes, tokens, markers and res_base equal, hg
+    and cg within the per-step tolerances.  budget 4 binds on lanes whose
+    utterance already holds 4 tokens; budget 0 is the gate off.  One launch
+    per call."""
+    params, dw, fproj, state, starts, rb = _packed_case(dev, wdtype, N)
+    for steps in (1, 8):
+        a = [t.clone() for t in state]
+        b = [t.clone() for t in state]
+        ra, rr = rb.clone(), rb.clone()
+        before = dc.decode_step_cuda.launches
+        dc.decode_step_cuda(fproj, *a, dw, params, steps, starts, ra, budget)
+        assert dc.decode_step_cuda.launches == before + 1
+        for _ in range(steps):
+            dc.decode_step_reference(fproj, *b, dw, params, starts, rr, budget)
+        torch.cuda.synchronize()
+        _assert_decode_close(a, b, wdtype == torch.bfloat16)
+        assert torch.equal(ra, rr)
+    if N >= 16:  # some lane entered an utterance (its marker may lie past R)
+        assert bool((rr != rb).any())
+
+
+@pytest.mark.parametrize("mode", ["bucketed", 0, 4])
+@pytest.mark.parametrize("seed", [12, 21])
+@pytest.mark.parametrize("N", [64, 1024])
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_k64_launch_parts_only_at_near_ties(dev, wdtype, N, seed, mode):
+    """One launch of K = 64 iterations, the symbol loop's K, against 64
+    twin iterations from the same state (``_decode_case``'s lanes, seeds 12
+    and 21), bucketed and packed (budget gate off and at 4): two launches
+    agree bit for bit; every lane that never parts from the twin ends
+    within the per-step tolerances; and a lane parts only at a near-tie,
+    where its h and c drift is within those tolerances and the twin given
+    the kernel's own state chooses the kernel's symbol
+    (tools/decode_divergence.py, which also reports the logit gaps)."""
+    r = run_case(dev, wdtype, N, seed, mode)
+    assert r["deterministic"]
+    assert r["end_drift_within_tolerance"], r
+    assert all(lane["near_tie"] for lane in r["lanes"]), r["lanes"]
+
+
+def test_packed_runner_kernels_match_twins(dev, qweights):
+    """A small packed int8 run (3 lanes, 16-frame chunks, 8-frame decode
+    pieces) gives its impl="reference" run's tokens; kernel A launches five
+    times per chunk, kernel B at least once, and the reference run
+    launches nothing."""
+    from rnnt_inference_tpu_torch.data.dataset import SampleStore
+    from rnnt_inference_tpu_torch.runtime.packing import PackedOfflineRunner
+    from rnnt_inference_tpu_torch.runtime.qsl import QuerySampleLibrary
+
+    store = SampleStore.synthetic(n=7, seed=3, min_seconds=0.3, max_seconds=2.0,
+                                  mean_seconds=1.0)
+    qsl = QuerySampleLibrary(store, wav_buckets_s=(1.0, 2.0))
+    out = {}
+    for impl in (None, "reference"):
+        r = PackedOfflineRunner(qweights, P, n_lanes=3, chunk_frames=16, batch_size=4,
+                                decode_chunk=8, device=dev, impl=impl)
+        plan = r.stage(qsl)
+        out[impl] = r.run_device()
+    assert out[None].launches["quant_lstm_layer"] == 5 * plan.n_chunks
+    assert out[None].launches["decode_step"] > 0
+    assert not any(out["reference"].launches.values())
+    for a, b in zip(out[None].tokens, out["reference"].tokens, strict=True):
+        np.testing.assert_array_equal(a, b)

@@ -208,8 +208,19 @@ def test_single_stream_matches_jax(models):
 
 
 def test_packed_offline_not_ported(models):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1.1"):
-        tharness.run_offline(models["f32"][1], _stores(2, 1)[1], TP, packed=True, device="cpu")
+    """The packed Offline runner is ported now: run_offline(packed=True)
+    gives the JAX packed run's hypotheses; what it still does not serve is
+    a features store (neither package packs precomputed features)."""
+    jw, tw = models["f32"]
+    js, ts = _stores(2, 1)
+    jrep = jharness.run_offline(jw, js, JP, JFeaturizerConfig(), batch_size=4, warmup=False,
+                                packed=True)
+    trep = tharness.run_offline(tw, ts, TP, batch_size=4, packed=True, device="cpu")
+    assert trep.hypotheses == jrep.hypotheses
+    feats = SampleStore(kind="features", samples=[np.zeros((5, 240), np.float32)],
+                        transcripts=[""])
+    with pytest.raises(ValueError, match="waveform"):
+        tharness.run_offline(tw, feats, TP, packed=True, device="cpu")
 
 
 @pytest.mark.parametrize("scenario", ["Offline", "Server", "SingleStream"])
