@@ -5,8 +5,8 @@
 Builds the port's four CUDA kernels from rnnt_inference_tpu_torch/csrc
 (one nvcc per source, started together), holds each against its plain
 PyTorch twin on the card at full model width (kernel A bit for bit at N =
-16, 64, 128 lanes for the three int8 layer shapes, one launch per layer
-call; kernel B per step and over one launch of K iterations, at N = 16,
+16, 64, 128 lanes and T = 48, and at the bench's 1,024 lanes and T = 16,
+for the three int8 layer shapes, one launch per layer call; kernel B per step and over one launch of K iterations, at N = 16,
 64, 128 lanes, with its time per iteration at one and at K iterations per
 launch, its early exit, and the symbol loop's time by K; kernel C at N =
 16, 128 beside cuDNN's layer),
@@ -27,10 +27,26 @@ it and read just after:
   - server_int8: the Server slot pipeline (run_server over a ServerRunner
     of 32 slots, kernels A and B) on 32 utterances, as fast as it accepts
     them and then at half that rate in real time, its tokens against the
-    bucketed int8 runner's.
+    bucketed int8 runner's;
+  - fake_quant: ``main --run_mode fake_quant --calib_in ... --accuracy``
+    on a small store (eager fake-quant encoder, kernel B's f32
+    instantiation), on the card and with --device cpu (the twins);
+  - bench_blank_cap1 / bench_burst_cap30: the port's bench (``python -m
+    rnnt_inference_tpu_torch.bench``, a child process) at the JAX headline
+    configuration (int8, packed, cap 1, calibrated blank rate 0.8) and at
+    cap 30 with the calibrated burst model, BENCH_N and BENCH_MIN_S cut;
+  - bench_twins: both bench configurations in this process at the bench
+    run's shapes (its store, 1,024 lanes, the calibrated emission bias
+    replayed) through the packed runner on the kernels, on the twins and
+    on the twins summing in another order, then every kernel-B launch of
+    a rep against its twin;
+  - profile: the device's idle share over a timed rep from torch.profiler
+    traces, of ``main --packed --benchmark --profiler_dir`` and of the
+    bench's headline configuration at the bench phase's size.
 Kernel B's packed mode is held against its twin over one launch of K
 iterations at N = 16, 64, 128 (phase kernel_b_packed).  Token edit rates
-kernels vs twins are held to 1e-3.  Launches are counted
+kernels vs twins are held to 1e-3 (in bench_twins, to twice the rate at
+which two plain versions that sum in another order part).  Launches are counted
 per main call and per timed pass.  Each phase prints one JSON line; the
 last line is {"ok": true, "device": {...}}.  Any failure
 raises (exit code != 0); with no CUDA device it exits with code 2 before
@@ -40,7 +56,9 @@ printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -135,7 +153,8 @@ def phase_build() -> None:
 
 def phase_kernel_a(qweights, dev) -> dict:
     """Kernel A against its twin at H=1024 for the three layer shapes (IC =
-    240, 1024, 2048), T=48, N in {16 (the int8 runner's batch), 64, 128},
+    240, 1024, 2048), T=48 at N in {16 (the int8 runner's batch), 64, 128}
+    and T=16 (the packed runner's chunk) at N=1,024 (the bench's lanes),
     int8 and f32 y: y, h and c bit-equal, one launch per call.  Its time
     per call and per step beside the bound of each row."""
     from rnnt_inference_tpu_torch.ops import lstm_cuda
@@ -143,9 +162,8 @@ def phase_kernel_a(qweights, dev) -> dict:
 
     layers = (qweights.pre_rnn[0], qweights.post_rnn[1], qweights.post_rnn[0])
     g = torch.Generator().manual_seed(123)
-    T = 48
     rows, entries = [], {}
-    for N in (16, 64, 128):
+    for N, T in ((16, 48), (64, 48), (128, 48), (1024, 16)):
         for layer in layers:
             IC, H = layer.w_ih.shape[0], layer.w_hh.shape[0]
             x = torch.randint(-128, 128, (T, N, IC), generator=g, dtype=torch.int8).to(dev)
@@ -184,7 +202,7 @@ def phase_kernel_a(qweights, dev) -> dict:
     wide = max(layer.w_ih.shape[0] for layer in layers)
     e = entries[(64, wide)]
     layer, x, h = e["layer"], e["x"], e["h"]
-    IC, H, N = e["IC"], e["H"], e["N"]
+    IC, H, N, T = e["IC"], e["H"], e["N"], e["T"]
     # yardstick: torch._int_mm of cat(x_t, h)·W_cat for all T steps in one
     # call (the layer's int8 GEMM work without its recurrence)
     K = IC + H
@@ -195,7 +213,7 @@ def phase_kernel_a(qweights, dev) -> dict:
     xh[:, :IC] = x.reshape(T * N, IC)
     xh[:, IC:K] = h.repeat(T, 1)
     library_ms = cuda_ms(lambda: torch._int_mm(xh, w_t.t()), 10)
-    by_n = {n: entries[(n, wide)] for n in (16, 64, 128)}
+    by_n = {n: entries[(n, wide)] for n in (16, 64, 128, 1024)}
     return {
         "name": "quant_lstm_layer", "route": "cuda",
         "source": "rnnt_inference_tpu_torch/csrc/quant_lstm.cu",
@@ -205,7 +223,8 @@ def phase_kernel_a(qweights, dev) -> dict:
                            for r in rows),
         "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
         "bound_by": e["bound_by"], "library_ms": library_ms,
-        "by_n": {n: {k: r[k] for k in ("ms", "ms_per_step", "plain_ms", "bound_ms", "bound_by")}
+        "by_n": {n: {k: r[k] for k in ("T", "ms", "ms_per_step", "plain_ms", "bound_ms",
+                                        "bound_by")}
                  for n, r in by_n.items()},
     }
 
@@ -657,7 +676,6 @@ def phase_cli(mode: str, n: int, dev, card: str) -> dict:
     which must launch no kernel, and the token edit rate between the two.
     The launches of main's timed pass are the runner's own count
     (RunReport.launches)."""
-    import contextlib
     import tempfile
 
     from rnnt_inference_tpu_torch import main as cli
@@ -796,8 +814,6 @@ def phase_packed_int8(qweights, params, dev, card: str) -> dict:
     through the packed runner on the twins (no launch) and through the
     bucketed int8 runner on the kernels (device-resident, int16 staging as
     the packed runner's): token edit rates <= 1e-3 against both."""
-    import contextlib
-    import os
     import tempfile
 
     from rnnt_inference_tpu_torch import main as cli
@@ -953,6 +969,323 @@ def phase_server_int8(qweights, params, dev, seed: int, card: str) -> dict:
     return {"main": launches, "timed_pass": launches}
 
 
+# the bench phase's cuts from the JAX headline defaults (BENCH_N 8192,
+# BENCH_MIN_S 20): both runs together within about 240 s
+BENCH_CUTS = {"BENCH_N": "2048", "BENCH_MIN_S": "10"}
+BENCH_RUNS = {
+    "blank_cap1": {},  # the headline: int8, packed, cap 1, blank rate 0.8
+    "burst_cap30": {"BENCH_EMISSION": "burst", "BENCH_SYM_CAP": "30"},
+}
+
+
+def phase_bench(card: str) -> dict:
+    """The port's bench, ``python -m rnnt_inference_tpu_torch.bench`` in a
+    child process, at the JAX headline configuration (int8, packed, cap 1,
+    blank rate 0.8) and at cap 30 with the burst emission model, each with
+    BENCH_CUTS.  Each run must print one JSON line with a value > 0, log a
+    calibrated rate within 2x of its target (the JAX bench's band) and the
+    decode-iteration line, and launch kernels A and B in its timed rep.
+    Returns {run: (weights' replay values, payload)}."""
+    import re
+
+    torch.cuda.empty_cache()  # the card is the child's while it runs
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    for name, extra in BENCH_RUNS.items():
+        env = dict(os.environ, **BENCH_CUTS, **extra)
+        t0 = time.time()
+        r = subprocess.run([sys.executable, "-m", "rnnt_inference_tpu_torch.bench"], cwd=root,
+                           env=env, capture_output=True, text=True, timeout=600)
+        seconds = time.time() - t0
+        sys.stderr.write(r.stderr[-6000:])
+        lines = r.stdout.splitlines()
+        if r.returncode != 0 or len(lines) != 1:
+            raise AssertionError(f"bench {name}: rc {r.returncode}, stdout {r.stdout[-2000:]!r}")
+        payload = json.loads(lines[0])
+        proto = payload["protocol"]
+        m = re.search(r"(blank|burst)-bias: using amp=(\S+) delta=(\S+)(?: kappa=(\S+))? "
+                      r"\(([0-9.]+) sym", r.stderr)
+        if payload["value"] <= 0 or "error" in payload or m is None:
+            raise AssertionError(f"bench {name}: {payload}, calibration logged: {bool(m)}")
+        rate, target = float(m.group(5)), proto["calibration"]["target"]
+        if not 0.5 * target <= rate <= 2.0 * target:
+            raise AssertionError(f"bench {name}: calibrated rate {rate} outside 2x of {target}")
+        if ("decode iterations (model of the bucketed batch_plan):" not in r.stderr
+                or "decode iterations (timed rep):" not in r.stderr):
+            raise AssertionError(f"bench {name}: no decode-iteration lines in the log")
+        if not proto["launches"]["quant_lstm_layer"] or not proto["launches"]["decode_step"]:
+            raise AssertionError(f"bench {name}: the timed rep launched {proto['launches']}")
+        replay = ":".join(m.group(i) for i in (2, 3, 4) if m.group(i) is not None)
+        emit({"phase": f"bench_{name}", "card": card, "cuts": BENCH_CUTS, "env": extra,
+              "seconds": seconds, "value": payload["value"], "reps": proto["reps"],
+              "calibrated_rate": rate, "target_rate": target, "replay": replay,
+              "phase_ms": proto["phase_ms"],
+              "launched_decode_iterations": proto["launched_decode_iterations"],
+              "payload": payload})
+        out[name] = (replay, payload)
+    return out
+
+
+BENCH_LANES = 1024  # the bench's BENCH_BATCH default, not cut
+
+
+def _bench_model(name: str, replay: str, params, dev):
+    """The model of bench run ``name`` as bench.run builds it (seeded int8
+    weights from a synthetic calibration, max_res_len 512, the run's cap),
+    with the emission bias that the bench phase calibrated on the card
+    replayed.  Returns (weights, params, buckets)."""
+    import dataclasses
+
+    from rnnt_inference_tpu_torch import bench
+    from rnnt_inference_tpu_torch.config import FeaturizerConfig
+
+    cap = int(BENCH_RUNS[name].get("BENCH_SYM_CAP", bench.KNOB_DEFAULTS["BENCH_SYM_CAP"]))
+    bparams = dataclasses.replace(params, max_res_len=512, max_symbols_per_step=cap)
+    cfg = FeaturizerConfig()
+    w = bench.build_weights("quant", bparams, cfg, dev)
+    if BENCH_RUNS[name].get("BENCH_EMISSION", "blank") == "burst":
+        w, _ = bench.bias_joint_burst(w, bparams, cfg, fixed=replay)
+    else:
+        w, _ = bench.bias_joint_toward_blank(w, bparams, cfg, fixed_delta=replay)
+    buckets = tuple(float(x) for x in bench.KNOB_DEFAULTS["BENCH_SECONDS"].split(","))
+    return w, bparams, buckets
+
+
+def phase_bench_twins(params, dev, card: str, benches: dict, store) -> dict:
+    """Kernels A and B at the shapes of the bench's runs, against their
+    plain versions: each bench configuration (its calibrated bias replayed,
+    the bench phase's store of BENCH_N utterances, 1,024 lanes, 16-frame
+    chunks, 128-frame decode pieces) through PackedOfflineRunner on the
+    kernels (launch counts set to 0 just before, read just after; A five
+    times per chunk), on the twins (impl="reference", no launch) and on the
+    twins with kernel B's products summed in another order (two plain
+    versions of one function).  The bench's emission models put decisions
+    at logit ties, where plain versions that differ only in summation
+    order part: the kernel's token edit rate against the twins may be at
+    most twice that of the two plain versions (and 1e-3 where they
+    agree).  Then every
+    kernel-B launch of a timed rep against K twin iterations from the
+    state it starts from (tools/decode_divergence.compare_run_launches):
+    every lane that parts does so at a near-tie or a product tie, the other
+    lanes end within kernel B's per-step tolerances, and each launch
+    repeats bit for bit.  Returns {run: launches}."""
+    from rnnt_inference_tpu_torch.config import FeaturizerConfig
+    from rnnt_inference_tpu_torch.ops import decode_cuda, lstm_cuda
+    from rnnt_inference_tpu_torch.runtime.harness import run_offline
+    from rnnt_inference_tpu_torch.runtime.packing import PackedOfflineRunner
+    from rnnt_inference_tpu_torch.tools import decode_divergence
+
+    cfg = FeaturizerConfig()
+    counters = {"quant_lstm_layer": lstm_cuda.quant_lstm_layer_cuda,
+                "decode_step": decode_cuda.decode_step_cuda}
+    seq = lambda hyps: [np.frombuffer(h.encode(), np.uint8) for h in hyps]  # a char per token
+    out = {}
+    for name, (replay, _payload) in benches.items():
+        w, bparams, buckets = _bench_model(name, replay, params, dev)
+        runs, seconds, launches, runners = {}, {}, {}, {}
+        for tag, impl in (("kernels", None), ("twins", "reference"),
+                          ("twins_other_order", "reference")):
+            runners[tag] = PackedOfflineRunner(w, bparams, cfg, n_lanes=BENCH_LANES,
+                                               chunk_frames=16, decode_chunk=128,
+                                               batch_size=BENCH_LANES, device=dev, impl=impl)
+            order = (decode_divergence.summed_in_halves() if tag == "twins_other_order"
+                     else contextlib.nullcontext())
+            for c in counters.values():
+                c.launches = 0
+            t0 = time.time()
+            with order:
+                runs[tag] = run_offline(w, store, bparams, cfg, batch_size=BENCH_LANES,
+                                        runner=runners[tag], wav_buckets_s=buckets, packed=True,
+                                        warmup=impl is None, device=dev)
+            seconds[tag] = time.time() - t0
+            launches[tag] = {k: c.launches for k, c in counters.items()}
+        rk = runs["kernels"]
+        layers = bparams.pre_num_layers + bparams.post_num_layers
+        if (rk.launches["quant_lstm_layer"] != layers * rk.extra["pack_chunks"]
+                or not rk.launches["decode_step"]):
+            raise AssertionError(f"bench_twins {name}: the timed rep launched {rk.launches}")
+        if any(launches["twins"].values()) or any(launches["twins_other_order"].values()):
+            raise AssertionError(f"bench_twins {name}: the twins launched {launches}")
+        hyps = {tag: seq(r.hypotheses) for tag, r in runs.items()}
+        rate, n_tok, differ = _edit_rate(hyps["kernels"], hyps["twins"])
+        floor, _, differ_floor = _edit_rate(hyps["twins_other_order"], hyps["twins"])
+        rate_other, _, _ = _edit_rate(hyps["kernels"], hyps["twins_other_order"])
+        if n_tok == 0 or rate > max(1e-3, 2 * floor):
+            raise AssertionError(f"bench_twins {name}: token edit rate {rate} against the twins "
+                                 f"over {n_tok} tokens; two plain versions part by {floor}")
+        # every kernel-B launch of a timed rep against its twin
+        _, partings = decode_divergence.compare_run_launches(runners["kernels"].run_device)
+        if partings["faults"] or partings["launches"] != rk.launches["decode_step"]:
+            raise AssertionError(f"bench_twins {name}: kernel B parts from its twin outside a "
+                                 f"tie: {partings}")
+        emit({"phase": f"bench_twins_{name}", "card": card, "replay": replay,
+              "utterances": len(store), "audio_seconds": store.audio_seconds,
+              "lanes": BENCH_LANES, "max_symbols_per_step": bparams.max_symbols_per_step,
+              "tokens": n_tok, "token_edit_rate_vs_twins": rate,
+              "utterances_differing_vs_twins": len(differ),
+              "token_edit_rate_twins_other_order_vs_twins": floor,
+              "utterances_differing_twins_other_order_vs_twins": len(differ_floor),
+              "token_edit_rate_vs_twins_other_order": rate_other,
+              "kernel_b_launches_against_twin": partings,
+              "pack_chunks": rk.extra["pack_chunks"],
+              "launches": launches["kernels"], "launches_per_timed_rep": rk.launches,
+              "audio_seconds_per_second": rk.audio_seconds_per_second,
+              "ms": {k: v * 1e3 for k, v in rk.phase_seconds.items()},
+              "run_seconds": seconds})
+        out[name] = launches["kernels"]
+    return out
+
+
+def phase_fake_quant(dev, card: str) -> dict:
+    """The fake_quant run mode through the CLI: f32 weights (seed 5) and
+    their calibration saved, then ``main --run_mode fake_quant --calib_in
+    ... --accuracy`` on 8 synthetic utterances of 1-4 s, on the card
+    (kernel B's f32 instantiation; the encoder is eager PyTorch, no
+    kernel) and with --device cpu (the twins): token edit rate <= 1e-3."""
+    import tempfile
+
+    from rnnt_inference_tpu_torch import main as cli
+    from rnnt_inference_tpu_torch.config import RNNTParams
+    from rnnt_inference_tpu_torch.data.dataset import SampleStore
+    from rnnt_inference_tpu_torch.models import checkpoint
+    from rnnt_inference_tpu_torch.models.weights import init_weights
+    from rnnt_inference_tpu_torch.ops import decode_cuda, lstm_cuda, lstm_scan_cuda
+
+    counters = {"decode_step": decode_cuda.decode_step_cuda,
+                "quant_lstm_layer": lstm_cuda.quant_lstm_layer_cuda,
+                "lstm_recurrence": lstm_scan_cuda.lstm_recurrence_cuda}
+    logs, seconds = {}, {}
+    with tempfile.TemporaryDirectory() as d:
+        paths = {k: os.path.join(d, f"{k}.npz") for k in ("store", "weights", "calib")}
+        store = SampleStore.synthetic(n=8, seed=9, min_seconds=1.0, max_seconds=4.0,
+                                      mean_seconds=2.5)
+        store.save(paths["store"])
+        checkpoint.save_weights(paths["weights"], init_weights(
+            RNNTParams(), torch.Generator().manual_seed(5), device="cpu"))
+        common = ["--model", paths["weights"], "--batch_size", "8"]
+        with contextlib.redirect_stdout(sys.stderr):
+            cli.main(common + ["--run_mode", "f32", "--calibration", "--calib_file",
+                               paths["store"], "--calib_out", paths["calib"]])
+            for where in ("cuda", "cpu"):
+                out = os.path.join(d, where)
+                for c in counters.values():
+                    c.launches = 0
+                t0 = time.time()
+                cli.main(common + ["--run_mode", "fake_quant", "--calib_in", paths["calib"],
+                                   "--accuracy", "--sample_file", paths["store"],
+                                   "--output_dir", out, "--device", where])
+                seconds[where] = time.time() - t0
+                launches = {k: c.launches for k, c in counters.items()}
+                with open(os.path.join(out, "accuracy_log.json")) as f:
+                    logs[where] = {e["qsl_idx"]: np.frombuffer(bytes.fromhex(e["data"]), "<i4")
+                                   for e in json.load(f)}
+                if where == "cuda":
+                    card_launches = launches
+                    if (not launches["decode_step"] or launches["quant_lstm_layer"]
+                            or launches["lstm_recurrence"]):
+                        raise AssertionError(f"fake_quant on the card launched {launches}")
+                elif any(launches.values()):
+                    raise AssertionError(f"fake_quant with --device cpu launched {launches}")
+    n = len(store)
+    rate, n_tok, differ = _edit_rate([logs["cuda"][i] for i in range(n)],
+                                     [logs["cpu"][i] for i in range(n)])
+    if n_tok == 0 or rate > 1e-3:
+        raise AssertionError(f"fake_quant card vs twins token edit rate {rate} ({n_tok} tokens)")
+    emit({"phase": "fake_quant", "card": card, "utterances": n,
+          "audio_seconds": store.audio_seconds, "tokens": n_tok, "token_edit_rate": rate,
+          "utterances_differing": differ, "launches": card_launches,
+          "seconds": seconds})
+    return card_launches
+
+
+def _profile_row(trace: str, audio_seconds_per_second: float) -> dict:
+    """The idle share of the timed reps in a trace (the last rep's, and
+    each rep's): 1 - (union of kernel intervals) / (the rep's window), and
+    with copies and fills counted as busy; the kernels that took the most
+    device time."""
+    from rnnt_inference_tpu_torch.utils import profiler
+
+    events = profiler.load_trace(trace)
+    spans = profiler.device_idle_share(events)
+    if not spans or not any(s["busy_us"] for s in spans):
+        raise AssertionError(f"{trace}: no timed rep with device kernels ({len(spans)} spans)")
+    busy_all = profiler.device_idle_share(events, cats=profiler.DEVICE_CATS)
+    by_name: dict = {}
+    for e in events:
+        if e.get("cat") == "kernel" and e.get("ph") == "X":
+            by_name[e["name"][:60]] = by_name.get(e["name"][:60], 0.0) + float(e["dur"])
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"idle_share": spans[-1]["idle_share"],
+            "idle_share_by_rep": [sp["idle_share"] for sp in spans],
+            "idle_share_with_copies": busy_all[-1]["idle_share"],
+            "window_ms": spans[-1]["window_us"] / 1e3, "kernel_busy_ms": spans[-1]["busy_us"] / 1e3,
+            "timed_reps": len(spans), "trace_events": len(events),
+            "trace_mb": os.path.getsize(trace) / 2**20,
+            "profiled_audio_seconds_per_second": audio_seconds_per_second,
+            "top_kernels_us_whole_trace": {k: round(v, 1) for k, v in top}}
+
+
+def phase_profile(qweights, params, dev, card: str, blank_replay: str, store) -> dict:
+    """The device's idle share over a timed rep, from torch.profiler traces
+    (utils/profiler.py): ``main --run_mode quant --quant_in <int8 weights>
+    --packed --benchmark --synthetic 64 --batch_size 16 --profiler_dir``
+    (the packed_int8 cell, random weights at cap 30); then the bench's
+    headline configuration (int8 bench weights with the blank bias the
+    bench phase calibrated, cap 1, max_res_len 512, packed on 1,024 lanes,
+    the bench phase's store) through run_offline inside device_trace, for
+    at least 1 s of timed reps, every rep's tokens equal (a rep leaves no
+    state that changes the next)."""
+    import tempfile
+
+    from rnnt_inference_tpu_torch import main as cli
+    from rnnt_inference_tpu_torch.config import FeaturizerConfig
+    from rnnt_inference_tpu_torch.models import checkpoint
+    from rnnt_inference_tpu_torch.runtime.harness import run_offline
+    from rnnt_inference_tpu_torch.runtime.packing import PackedOfflineRunner
+    from rnnt_inference_tpu_torch.utils import profiler
+
+    rows = {}
+    with tempfile.TemporaryDirectory() as d:
+        quant = os.path.join(d, "rnnt_quant.npz")
+        checkpoint.save_quant_weights(quant, qweights)
+        trace_dir = os.path.join(d, "cli")
+        argv = ["--run_mode", "quant", "--quant_in", quant, "--packed", "--benchmark",
+                "--synthetic", "64", "--batch_size", "16", "--output_dir", d,
+                "--profiler_dir", trace_dir]
+        with contextlib.redirect_stdout(sys.stderr):
+            rep = cli.main(argv)
+        rows["packed_int8_cli"] = dict(
+            _profile_row(os.path.join(trace_dir, profiler.TRACE_FILE),
+                         rep.audio_seconds_per_second),
+            argv=argv[:3] + ["<tmp>"] + argv[4:-4] + ["--profiler_dir", "<tmp>"],
+            phase_ms={k: v * 1e3 for k, v in rep.phase_seconds.items()})
+
+        w, bparams, buckets = _bench_model("blank_cap1", blank_replay, params, dev)
+        cfg = FeaturizerConfig()
+        runner = PackedOfflineRunner(w, bparams, cfg, n_lanes=BENCH_LANES,
+                                     batch_size=BENCH_LANES, device=dev)
+        tokens, run_device = [], runner.run_device
+
+        def recorded():  # every rep's tokens, the untimed one included
+            r = run_device()
+            tokens.append(r.tokens)
+            return r
+
+        runner.run_device = recorded
+        with profiler.device_trace(os.path.join(d, "bench"), dev) as path:
+            rb = run_offline(w, store, bparams, cfg, batch_size=BENCH_LANES, runner=runner,
+                             wav_buckets_s=buckets, packed=True, device=dev, min_duration_s=1.0)
+        same = all(np.array_equal(a, b) for t in tokens[1:] for a, b in zip(t, tokens[0]))
+        if len(tokens) < 3 or not same:
+            raise AssertionError(f"{len(tokens)} packed reps, tokens equal across reps: {same}")
+        rows[f"bench_blank_cap1_n{len(store)}_lanes{BENCH_LANES}"] = dict(
+            _profile_row(path, rb.audio_seconds_per_second), blank_replay=blank_replay,
+            reps_with_equal_tokens=len(tokens),
+            phase_ms={k: v * 1e3 for k, v in rb.phase_seconds.items()})
+    emit({"phase": "profile", "card": card, **rows})
+    return rows
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1002,7 +1335,13 @@ def main() -> int:
         "f32": phase_cli("f32", 8, dev, card),
         "packed": phase_packed_int8(qweights, params, dev, card),
         "server": phase_server_int8(qweights, params, dev, args.seed, card),
+        "fake_quant": {"main": phase_fake_quant(dev, card)},
     }
+    benches = phase_bench(card)
+    # the bench's store (bench.run's: seed 0) at the bench phase's BENCH_N
+    bench_store = SampleStore.synthetic(n=int(BENCH_CUTS["BENCH_N"]), seed=0)
+    twins = phase_bench_twins(params, dev, card, benches, bench_store)
+    phase_profile(qweights, params, dev, card, benches["blank_cap1"][0], bench_store)
     # launches: A from the int8 Offline path (one pass); B and C from one
     # main call of the CLI's default run mode (bf16), this slice's main
     # path; D from its own entry point; per timed pass beside them
@@ -1012,12 +1351,19 @@ def main() -> int:
     c["launches"] = paths["bf16"]["main"]["lstm_recurrence"]
     d["launches_per_timed_pass"] = d["launches"]
     for e, name, ks in ((a, "quant_lstm_layer", ("int8", "packed", "server")),
-                        (b, "decode_step", tuple(paths)),
+                        (b, "decode_step", ("int8", "bf16", "f32", "packed", "server")),
                         (c, "lstm_recurrence", ("bf16", "f32"))):
         e["launches_per_timed_pass"] = paths["bf16" if e is not a else "int8"]["timed_pass"][name]
         e["launches_by_path"] = {k: paths[k]["main"][name] for k in ks}
         e["launches_per_timed_pass_by_path"] = {k: paths[k]["timed_pass"][name] for k in ks}
     d["launches_by_path"] = {"features_fused": d["launches"]}
+    b["launches_by_path"]["fake_quant"] = paths["fake_quant"]["main"]["decode_step"]
+    # the bench's runs, counted in their own process: the last timed rep;
+    # and the same configurations in this process (bench_twins: one run)
+    for e, name in ((a, "quant_lstm_layer"), (b, "decode_step")):
+        e["launches_per_timed_rep_by_bench_run"] = {
+            k: p["protocol"]["launches"][name] for k, (_, p) in benches.items()}
+        e["launches_by_path"].update({f"bench_{k}": v[name] for k, v in twins.items()})
     b["f32"] = {k: b32[k] for k in ("ms", "ms_one_iteration_per_launch", "ms_by_n", "plain_ms",
                                     "bound_ms", "bound_by", "bound_ms_one_iteration_per_launch",
                                     "bound_by_one_iteration_per_launch", "max_abs_err")}

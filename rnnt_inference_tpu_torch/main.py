@@ -16,7 +16,9 @@
 Weights, calibration, quantized models and sample stores are the JAX
 package's npz files, so either package reads what the other wrote.  Run
 modes: bf16 (the default: every weight cast to bf16), f32, quant (int8
-encoder from --quant_in).  Scenarios: Offline (bucketed, or sequence-packed
+encoder from --quant_in), fake_quant (f32 with the int8 rounding simulated;
+needs --calib_in).  --profiler_dir writes a torch.profiler trace of the
+benchmark/accuracy stage there.  Scenarios: Offline (bucketed, or sequence-packed
 with --packed and by the JAX CLI's auto rule at symbol cap 1), Server (the
 slot pipeline under Poisson arrivals) and SingleStream.  Everything runs on
 the card unless --device cpu is given, where the plain PyTorch twins of the
@@ -80,7 +82,8 @@ def parse_args(argv=None):
     p.add_argument("--mlperf_conf", type=str, default=None)
     p.add_argument("--user_conf", type=str, default=None)
     p.add_argument("--output_dir", type=str, default="output")
-    p.add_argument("--profiler_dir", type=str, default=None)
+    p.add_argument("--profiler_dir", type=str, default=None,
+                   help="write a torch.profiler chrome trace of the run here")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
                    help="cuda runs the CUDA kernels; cpu their plain PyTorch twins")
@@ -92,12 +95,8 @@ def _not_ported(what: str, item: str):
 
 
 def _refuse_unported(args) -> None:
-    if args.run_mode == "fake_quant":
-        _not_ported("--run_mode fake_quant", "1.3")
     if args.native_loadgen:
         _not_ported("--native_loadgen", "1.6")
-    if args.profiler_dir:
-        _not_ported("--profiler_dir", "1.7")
     if args.manifest:
         _not_ported("--manifest", "1.7")
     if args.model is not None and not args.model.endswith(".npz"):
@@ -115,6 +114,14 @@ def load_model_weights(args, params, device):
         w = init_weights(params, torch.Generator().manual_seed(args.seed), device=device)
     else:
         w = ckpt.load_weights(args.model, params, device)
+    if args.run_mode == "fake_quant":
+        # the quantization-error triage mode needs the calibrated amaxes
+        from rnnt_inference_tpu_torch.models.quant import fake_quantize_weights
+
+        if not args.calib_in:
+            raise SystemExit("--run_mode fake_quant requires --calib_in")
+        calib = ckpt.load_calib(args.calib_in, device)
+        return fake_quantize_weights(w.to(dtype=torch.float32), calib, params), "fake_quant"
     if args.run_mode == "bf16":
         w = w.to(dtype=torch.bfloat16)
     return w, args.run_mode
@@ -188,8 +195,11 @@ def main(argv=None):
 
     # -- stage: benchmark / accuracy ----------------------------------------
     if args.benchmark or args.accuracy:
+        from rnnt_inference_tpu_torch.utils.profiler import device_trace
+
         store = load_store(args, args.sample_file)
-        return _run_scenario(args, weights, store, params, cfg, device)
+        with device_trace(args.profiler_dir, device):
+            return _run_scenario(args, weights, store, params, cfg, device)
     return None
 
 

@@ -10,6 +10,9 @@
     takes the first post layer's in_scale); the last post layer emits f32,
     marked by the sentinel out_scale = 0
   - the prediction net, embedding and joint are cast to bf16
+
+and, as in the JAX package, the iLinear quantized linear (dormant: no
+serving path uses it) and the fake_quant model (FakeQuantRNNTWeights).
 """
 
 from __future__ import annotations
@@ -25,10 +28,18 @@ from rnnt_inference_tpu_torch.models.weights import (
     RNNTWeights,
     map_tensors,
 )
-from rnnt_inference_tpu_torch.ops.lstm import lstm_layer, stack_time
+from rnnt_inference_tpu_torch.ops.lstm import dot_f32, lstm_layer, stack_time
 
 MAX_BOUND = 127.0
 MIN_BOUND = -128.0
+
+
+def scale_for(amax: torch.Tensor) -> torch.Tensor:
+    """127 / amax, as one f32 division.  (torch's ``scalar / tensor``
+    multiplies by the reciprocal, which rounds twice and can land one ulp
+    from the JAX package's scale.)"""
+    amax = amax.float()
+    return torch.full_like(amax, MAX_BOUND) / amax
 
 
 def quantize(x: torch.Tensor, scale) -> torch.Tensor:
@@ -167,8 +178,8 @@ def quantize_lstm_layer(
     layer: LSTMLayerWeights, act_amax: torch.Tensor, out_scale: torch.Tensor
 ) -> QuantLSTMLayerWeights:
     w_amax = torch.max(torch.abs(torch.cat([layer.w_ih, layer.w_hh], dim=0))).float()
-    w_scale = MAX_BOUND / w_amax
-    in_scale = MAX_BOUND / act_amax.float()
+    w_scale = scale_for(w_amax)
+    in_scale = scale_for(act_amax)
     return QuantLSTMLayerWeights(
         w_ih=quantize(layer.w_ih.float(), w_scale),
         w_hh=quantize(layer.w_hh.float(), w_scale),
@@ -187,8 +198,8 @@ def quantize_weights(
 ) -> QuantRNNTWeights:
     """The int8 model with propagated scales; the prediction net, embedding
     and joint are cast to ``compute_dtype``."""
-    pre_in = [MAX_BOUND / a for a in calib.pre_amax]
-    post_in = [MAX_BOUND / a for a in calib.post_amax]
+    pre_in = [scale_for(a) for a in calib.pre_amax]
+    post_in = [scale_for(a) for a in calib.post_amax]
     # out_scale[l] = in_scale[l+1]; pre[-1] ties across StackTime to post[0];
     # post[-1] emits f32 (sentinel 0.0)
     pre_out = pre_in[1:] + [post_in[0]]
@@ -208,4 +219,130 @@ def quantize_weights(
         embed=cast(weights.embed),
         pred_rnn=cast(weights.pred_rnn),
         joint=cast(weights.joint),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Quantized linear (iLinear) and the fake_quant model
+# ---------------------------------------------------------------------------
+#
+# As in the JAX package, iLinear exists with the reference's semantics
+# (per-tensor int8 weight, calibrated per-tensor input scale, int32
+# products, o_scale dequantization) and a joint wiring helper, but nothing
+# on the serving path uses it.
+
+
+def _fake_quant(v: torch.Tensor, scale) -> torch.Tensor:
+    """clip(round(v*s), -128, 127) / s in f32: quantize, then dequantize by
+    a division (the JAX expression, not a multiply by 1/s)."""
+    return torch.clamp(torch.round(v * scale), MIN_BOUND, MAX_BOUND) / scale
+
+
+@dataclasses.dataclass
+class QuantLinearWeights:
+    """int8 linear: y = q(x) @ w_i8 * o_scale + b.
+
+    w_i8 int8 (IN, OUT), in the x @ W layout; b f32 (OUT,) in the float
+    domain; in_scale, w_scale 0-d f32."""
+
+    w_i8: torch.Tensor
+    b: torch.Tensor
+    in_scale: torch.Tensor
+    w_scale: torch.Tensor
+
+    @property
+    def o_scale(self) -> torch.Tensor:
+        return 1.0 / (self.in_scale * self.w_scale)
+
+
+def quantize_linear(
+    w: torch.Tensor, b: torch.Tensor, act_amax: torch.Tensor
+) -> QuantLinearWeights:
+    """w_scale = 127 / max|W| per tensor, in_scale = 127 / act_amax."""
+    w_scale = scale_for(torch.max(torch.abs(w.float())))
+    return QuantLinearWeights(
+        w_i8=quantize(w.float(), w_scale),
+        b=b.float(),
+        in_scale=scale_for(torch.as_tensor(act_amax, device=w.device)),
+        w_scale=w_scale,
+    )
+
+
+def quant_linear_apply(ql: QuantLinearWeights, x: torch.Tensor) -> torch.Tensor:
+    """Quantize x with the calibrated scale, int8 x int8 products summed
+    exactly (in f64, which holds any int32 sum of these products, on either
+    device), dequantize with o_scale, add the bias.  Returns f32."""
+    x_i8 = quantize(x.float(), ql.in_scale)
+    acc = torch.matmul(x_i8.double(), ql.w_i8.double()).float()
+    return acc * ql.o_scale + ql.b
+
+
+def fake_quant_linear_apply(
+    w: torch.Tensor, b: torch.Tensor, act_amax: torch.Tensor, x: torch.Tensor
+) -> torch.Tensor:
+    """Weight and activation quantize-dequantized in f32, then an f32 GEMM."""
+    w_scale = scale_for(torch.max(torch.abs(w)))
+    in_scale = scale_for(torch.as_tensor(act_amax, device=w.device))
+    return torch.matmul(_fake_quant(x, in_scale), _fake_quant(w, w_scale)) + b
+
+
+def quantize_joint_fc1_trans(weights, act_amax: torch.Tensor) -> QuantLinearWeights:
+    """The joint's transcription-side fc1 as iLinear (zero bias; the joint
+    adds b1 once).  act_amax calibrates over the encoder output f."""
+    w = weights.joint.w1_trans.float()
+    return quantize_linear(w, torch.zeros((w.shape[1],), device=w.device), act_amax)
+
+
+def joint_quant_fc1(weights, ql: QuantLinearWeights, f: torch.Tensor, g: torch.Tensor):
+    """The joint with its transcription-side fc1 in int8; the prediction
+    side, bias, relu and fc2 as in ``rnnt.joint``."""
+    w = weights.joint
+    y = quant_linear_apply(ql, f) + dot_f32(g.to(w.w1_pred.dtype), w.w1_pred) + w.b1.float()
+    y = torch.clamp(y, min=0.0).to(w.w2.dtype)
+    return dot_f32(y, w.w2) + w.b2.float()
+
+
+@dataclasses.dataclass
+class FakeQuantRNNTWeights:
+    """The fake_quant run mode: f32 execution with int8 rounding simulated
+    where the int8 path rounds.  Encoder weights are quantize-dequantized
+    at build time; at every step the layer's input pair cat(x_t, h_{t-1})
+    is quantize-dequantized with the layer's calibrated scale
+    (ops/lstm.py fake_quant_lstm_stack).  Prediction net and joint stay
+    f32 (kernel B's f32 instantiation on the card)."""
+
+    pre_rnn: List[LSTMLayerWeights]  # weights already fake-quantized
+    post_rnn: List[LSTMLayerWeights]
+    pre_in_scale: torch.Tensor  # (PRE_L,) 127 / act_amax per layer
+    post_in_scale: torch.Tensor  # (POST_L,)
+    embed: torch.Tensor
+    pred_rnn: List[LSTMLayerWeights]
+    joint: object  # JointWeights
+
+    def to(self, device=None) -> "FakeQuantRNNTWeights":
+        return map_tensors(self, lambda t: t.to(device=device))
+
+
+def fake_quantize_weights(
+    weights: RNNTWeights,
+    calib: CalibState,
+    params: RNNTParams = RNNTParams(),
+) -> FakeQuantRNNTWeights:
+    """The fake_quant model from f32 weights: encoder weights fake-quantized
+    with the amax of cat(w_ih, w_hh) per layer, and the calibrated
+    activation scales of the per-step fake quantization."""
+
+    def fq_layer(layer: LSTMLayerWeights) -> LSTMLayerWeights:
+        scale = scale_for(torch.max(torch.abs(torch.cat([layer.w_ih, layer.w_hh], dim=0))))
+        return LSTMLayerWeights(w_ih=_fake_quant(layer.w_ih, scale),
+                                w_hh=_fake_quant(layer.w_hh, scale), b=layer.b)
+
+    return FakeQuantRNNTWeights(
+        pre_rnn=[fq_layer(l) for l in weights.pre_rnn],
+        post_rnn=[fq_layer(l) for l in weights.post_rnn],
+        pre_in_scale=scale_for(calib.pre_amax),
+        post_in_scale=scale_for(calib.post_amax),
+        embed=weights.embed,
+        pred_rnn=weights.pred_rnn,
+        joint=weights.joint,
     )

@@ -9,8 +9,14 @@ from typing import Optional, Tuple
 import torch
 
 from rnnt_inference_tpu_torch.config import RNNTParams
-from rnnt_inference_tpu_torch.models.quant import QuantRNNTWeights
-from rnnt_inference_tpu_torch.ops.lstm import dot_f32, lstm_single_step, lstm_stack, stack_time
+from rnnt_inference_tpu_torch.models.quant import FakeQuantRNNTWeights, QuantRNNTWeights
+from rnnt_inference_tpu_torch.ops.lstm import (
+    dot_f32,
+    fake_quant_lstm_stack,
+    lstm_single_step,
+    lstm_stack,
+    stack_time,
+)
 from rnnt_inference_tpu_torch.ops.lstm_int8 import quant_lstm_stack
 
 
@@ -49,8 +55,9 @@ def transcription(
 
     x: {T, N, 240}, x_lens: {N} valid frames within this chunk.  Returns
     f {ceil(T/2), N, 1024} and the carried state.  QuantRNNTWeights run the
-    int8 path (kernel A on CUDA tensors), float weights the float path
-    (kernel C on CUDA tensors); impl="reference" takes the plain twins.
+    int8 path (kernel A on CUDA tensors), FakeQuantRNNTWeights the
+    fake_quant path (eager PyTorch, no kernel), float weights the float
+    path (kernel C on CUDA tensors); impl="reference" takes the plain twins.
     """
     if isinstance(weights, QuantRNNTWeights):
         y, pre_h, pre_c = quant_lstm_stack(
@@ -59,6 +66,14 @@ def transcription(
         y = stack_time(y, x_lens, params.stack_time_factor)
         f, post_h, post_c = quant_lstm_stack(
             weights.post_rnn, y, state.post_h, state.post_c, skip_quant_y=True, impl=impl
+        )
+    elif isinstance(weights, FakeQuantRNNTWeights):
+        y, pre_h, pre_c = fake_quant_lstm_stack(
+            weights.pre_rnn, weights.pre_in_scale, x, state.pre_h, state.pre_c
+        )
+        y = stack_time(y, x_lens, params.stack_time_factor)
+        f, post_h, post_c = fake_quant_lstm_stack(
+            weights.post_rnn, weights.post_in_scale, y, state.post_h, state.post_c
         )
     else:
         y, pre_h, pre_c = lstm_stack(weights.pre_rnn, x, state.pre_h, state.pre_c, impl)

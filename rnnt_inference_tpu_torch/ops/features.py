@@ -111,8 +111,16 @@ def _frontend_constants(cfg: FeaturizerConfig):
 
 
 def preemphasis(x: torch.Tensor, x_lens: torch.Tensor, coeff: float = 0.97) -> torch.Tensor:
-    """y[t] = x[t] - coeff*x[t-1], zeroed past each waveform's length."""
-    y = x - coeff * F.pad(x[:, :-1], (1, 0))
+    """y[t] = x[t] - coeff*x[t-1], zeroed past each waveform's length.
+
+    Rounded once to f32, as XLA fuses the JAX function: the product of two
+    f32 values is exact in f64, so forming the difference in f64 and
+    casting gives the singly rounded result (an f32 multiply, then an f32
+    subtract, would round twice).  coeff is taken as float32(coeff), the
+    value JAX's weakly typed constant takes in an f32 product."""
+    c = float(np.float32(coeff))
+    xd = x.double()
+    y = (xd - c * F.pad(xd[:, :-1], (1, 0))).float()
     t = torch.arange(x.shape[1], device=x.device)[None, :]
     return y.masked_fill(t >= x_lens[:, None], 0.0)
 

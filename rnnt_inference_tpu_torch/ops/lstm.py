@@ -10,7 +10,8 @@ the JAX package's Pallas _lstm_scan_kernel) on CUDA tensors; its plain twin
 ``lstm_recurrence`` is the counterpart of the default XLA scan, and runs on
 CPU tensors or when impl="reference" is asked for.  The float encoder (run
 modes f32 and bf16) and calibration go through here; the int8 serving path
-runs ops/lstm_int8.py.
+runs ops/lstm_int8.py.  The fake_quant encoder (``fake_quant_lstm_stack``)
+runs here as eager PyTorch on either device.
 """
 
 from __future__ import annotations
@@ -106,6 +107,51 @@ def lstm_stack(
     y = x
     for l, layer in enumerate(layers):
         y, h, c = lstm_layer(layer, y, hs[l], cs[l], impl)
+        new_h.append(h)
+        new_c.append(c)
+    return y, torch.stack(new_h), torch.stack(new_c)
+
+
+def fake_quant_lstm_layer(
+    layer: LSTMLayerWeights,
+    in_scale: torch.Tensor,
+    x: torch.Tensor,
+    h0: torch.Tensor,
+    c0: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One fake_quant LSTM layer: f32 cell math with the layer's input pair
+    cat(x_t, h_{t-1}) quantize-dequantized at every step with one
+    calibrated scale.  The fake quantization is elementwise with a shared
+    scale, so x is fake-quantized once for the chunk and its projection
+    hoisted; only fq(h) runs per step.  The carried h stays raw f32, and the
+    output sequence is the raw h.  Eager PyTorch on either device, as the
+    JAX package runs it as an XLA scan (no kernel)."""
+
+    def fq(v):
+        return torch.clamp(torch.round(v * in_scale), -128.0, 127.0) / in_scale
+
+    xw = dot_f32(fq(x.float()), layer.w_ih) + layer.b.float()
+    h, c = h0.float(), c0.float()
+    ys = []
+    for t in range(xw.shape[0]):
+        h, c = lstm_cell(xw[t], fq(h), c, layer.w_hh)
+        ys.append(h)
+    y = torch.stack(ys) if ys else xw.new_zeros((0,) + h.shape)
+    return y, h, c
+
+
+def fake_quant_lstm_stack(
+    layers: Sequence[LSTMLayerWeights],
+    in_scales: torch.Tensor,
+    x: torch.Tensor,
+    hs: torch.Tensor,
+    cs: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Multi-layer fake_quant LSTM; hs/cs are stacked (L, N, H)."""
+    new_h, new_c = [], []
+    y = x
+    for l, layer in enumerate(layers):
+        y, h, c = fake_quant_lstm_layer(layer, in_scales[l], y, hs[l], cs[l])
         new_h.append(h)
         new_c.append(c)
     return y, torch.stack(new_h), torch.stack(new_c)

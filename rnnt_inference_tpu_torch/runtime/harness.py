@@ -22,8 +22,9 @@ import torch
 from rnnt_inference_tpu_torch.config import FeaturizerConfig, RNNTParams
 from rnnt_inference_tpu_torch.data.dataset import SampleStore
 from rnnt_inference_tpu_torch.runtime.offline import OfflineRunner
-from rnnt_inference_tpu_torch.runtime.qsl import QuerySampleLibrary
+from rnnt_inference_tpu_torch.runtime.qsl import DEFAULT_WAV_BUCKETS_S, QuerySampleLibrary
 from rnnt_inference_tpu_torch.utils.labels import seq_to_sen
+from rnnt_inference_tpu_torch.utils.profiler import TIMED_REP
 from rnnt_inference_tpu_torch.utils.wer import word_error_rate
 
 
@@ -90,20 +91,27 @@ def run_offline(
     device="cuda",
     chunk_frames: int = 16,
     decode_chunk: int = 128,
+    min_duration_s: float = 0.0,
+    wav_buckets_s=None,
 ) -> RunReport:
     """Offline scenario: the whole sample set as one query, end-to-end
     throughput.  device_resident=True stages a waveform store in device
     memory untimed and times only the serve loop (run_device), after one
     untimed priming pass.  packed=True serves it through the sequence-packed
     runner (runtime/packing.py, staged untimed, one untimed rep before the
-    timed one) on min(batch_size, len(store)) lanes.  ``runner`` replaces the
+    timed ones) on min(batch_size, len(store)) lanes.  ``runner`` replaces the
     default OfflineRunner or PackedOfflineRunner (for example one with
-    impl="reference")."""
-    qsl = QuerySampleLibrary(store, cfg)
+    impl="reference").
+
+    Timed reps repeat until their walls sum to ``min_duration_s`` (at least
+    one); ``extra`` lists every rep's wall, and the tokens, phase seconds
+    and launches are the last rep's.  ``wav_buckets_s`` sets the QSL's
+    waveform bucket ladder in seconds (the default ladder when None)."""
+    qsl = QuerySampleLibrary(store, cfg, wav_buckets_s or DEFAULT_WAV_BUCKETS_S)
     packing = {}
     if packed:
-        result, packing = _run_packed(weights, store, qsl, params, cfg, batch_size, warmup,
-                                      runner, device, chunk_frames, decode_chunk)
+        rep, packing = _packed_rep(weights, store, qsl, params, cfg, batch_size, warmup,
+                                   runner, device, chunk_frames, decode_chunk)
     else:
         runner = runner or OfflineRunner(weights, params, cfg, batch_size, split_len, device)
         if device_resident and store.kind == "waveform":
@@ -111,26 +119,31 @@ def run_offline(
             if warmup:
                 runner.warmup_device(dqsl)
                 runner.run_device(dqsl)  # untimed priming pass
-            result = runner.run_device(dqsl)
+            rep = lambda: runner.run_device(dqsl)
         else:
             if warmup:
                 runner.warmup(qsl, waveform_mode=(store.kind == "waveform"))
-            result = runner.run(qsl)
+            rep = lambda: runner.run(qsl)
+    rep_walls, result = [], None
+    while result is None or sum(rep_walls) < min_duration_s:
+        with torch.profiler.record_function(TIMED_REP):  # read by utils/profiler.py
+            result = rep()
+        rep_walls.append(result.wall_seconds)
 
-    wall = result.wall_seconds
+    reps, wall = len(rep_walls), sum(rep_walls)
     report = RunReport(
         scenario="Offline",
-        samples=len(store),
+        samples=len(store) * reps,
         wall_seconds=wall,
-        samples_per_second=len(store) / wall,
-        audio_seconds_per_second=store.audio_seconds / wall,
+        samples_per_second=len(store) * reps / wall,
+        audio_seconds_per_second=store.audio_seconds * reps / wall,
         extra=dict(
             batches=result.batches,
-            reps=1,
+            reps=reps,
             batch_size=batch_size,
-            rep_wall_seconds=[round(wall, 3)],
-            # the bulk token transfer (device-resident and packed runs,
-            # outside wall_seconds)
+            rep_wall_seconds=[round(w, 3) for w in rep_walls],
+            # the bulk token transfer of the last rep (device-resident and
+            # packed runs, outside wall_seconds)
             readback_seconds=round(result.readback_seconds, 3),
             **packing,
         ),
@@ -145,10 +158,10 @@ def run_offline(
     return report
 
 
-def _run_packed(weights, store, qsl, params, cfg, batch_size, warmup, runner, device,
+def _packed_rep(weights, store, qsl, params, cfg, batch_size, warmup, runner, device,
                 chunk_frames, decode_chunk):
-    """The timed rep of the packed runner (staged untimed, after one untimed
-    rep) and the report's packing keys."""
+    """(the packed runner's timed rep, as a function; the report's packing
+    keys): staged untimed, after one untimed rep."""
     from rnnt_inference_tpu_torch.runtime.packing import PackedOfflineRunner
 
     if store.kind != "waveform":
@@ -162,9 +175,9 @@ def _run_packed(weights, store, qsl, params, cfg, batch_size, warmup, runner, de
     plan = runner.stage(qsl)
     if warmup:
         runner.run_device()  # builds the kernels and pays one-off costs, untimed
-    return runner.run_device(), dict(packing_efficiency=round(plan.packing_efficiency, 4),
-                                     pack_chunks=plan.n_chunks,
-                                     chunk_frames=runner.chunk_frames)
+    return runner.run_device, dict(packing_efficiency=round(plan.packing_efficiency, 4),
+                                   pack_chunks=plan.n_chunks,
+                                   chunk_frames=runner.chunk_frames)
 
 
 def eval_accuracy_log(log_path: str, references: List[str]) -> float:

@@ -32,14 +32,21 @@ runs part only because the twin's own choice was that close.  Any other
 parting is a fault.  Lanes that never part report their end drift, which
 must be within the same tolerances.  Prints one JSON object per case and
 exits 1 if any case holds a fault.
+
+compare_run_launches does the same for every launch of a whole run (a
+runner's run_device), and counts a second kind of tie: a parting from
+the same state whose twin gap is within the product tie tolerance.
+summed_in_halves gives a second plain version of the twin, summing in
+another order, to measure how far two plain versions part on a model.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -174,6 +181,96 @@ def run_case(dev, wdtype, N, seed, mode, K=DEFAULT_STEPS_PER_CHECK) -> dict:
         return compare_k_launch(fproj, state, dw, params, K)
     params, dw, fproj, state, starts, rb = decode_case(dev, wdtype, N, seed=seed, packed=True)
     return compare_k_launch(fproj, state, dw, params, K, starts, rb, mode)
+
+
+def product_tie_tolerance(wdtype: torch.dtype) -> float:
+    """The largest twin logit gap at which kernel B may choose the other
+    symbol from the same state: its products sum in another order than the
+    twin's, and in bf16 one flipped rounding of the joint's hidden z moves
+    a logit by about |w2| ulp(z) (0.044 x 2**-9 at full width)."""
+    return 1e-4 if wdtype == torch.bfloat16 else 1e-5
+
+
+@contextlib.contextmanager
+def summed_in_halves():
+    """Inside the block, kernel B's twin sums each product's K terms in two
+    halves: a second plain version of the same function that differs from
+    the twin only in summation order, to measure how far two plain
+    versions part on a given model."""
+    plain = dc.dot_f32
+
+    def halves(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        k = a.shape[-1] // 2
+        return (torch.matmul(a[..., :k].float(), b[:k].float())
+                + torch.matmul(a[..., k:].float(), b[k:].float()))
+
+    dc.dot_f32 = halves
+    try:
+        yield
+    finally:
+        dc.dot_f32 = plain
+
+
+def compare_run_launches(run: Callable[[], object]) -> dict:
+    """Calls ``run()`` (for example a runner's run_device on the card) with
+    every kernel-B launch it makes first compared with K twin iterations
+    from the state that launch starts from (compare_k_launch; the run goes
+    on along the kernel's own states).  Returns (run's result, summary):
+    the launches compared, the lanes that parted in each, how many of
+    those partings were near-ties and how many product ties (drift within
+    tolerance, the twin on the kernel's state keeps its own symbol, and its
+    logit gap within product_tie_tolerance: the two sums of the same
+    products rank the two symbols apart), the largest gap and logit shift
+    at a parting, the largest end drift of the lanes that did not part,
+    and the faults (any other parting, a launch that does not repeat bit
+    for bit, an end drift out of tolerance)."""
+    from rnnt_inference_tpu_torch.models import decoder
+
+    reports, tie = [], {}
+    launch = decoder.dc.decode_step
+
+    def compared(fproj, lanes, hg, cg, res, dw, params, steps=1, impl=None, starts=None,
+                 res_base=None, utt_budget=0):
+        if impl is None and lanes.is_cuda:
+            reports.append(compare_k_launch(fproj, [lanes, hg, cg, res], dw, params, steps,
+                                            starts, res_base, utt_budget))
+            tie["tolerances"] = tolerances(dw.embed.dtype)
+            tie["gap"] = product_tie_tolerance(dw.embed.dtype)
+        launch(fproj, lanes, hg, cg, res, dw, params, steps, impl, starts=starts,
+               res_base=res_base, utt_budget=utt_budget)
+
+    decoder.dc.decode_step = compared
+    try:
+        result = run()
+    finally:
+        decoder.dc.decode_step = launch
+    parted = [lane for r in reports for lane in r["lanes"]]
+    tol_h, tol_c = tie.get("tolerances", (0.0, 0.0))
+    for lane in parted:
+        lane["product_tie"] = bool(
+            not lane["near_tie"] and lane["twin_symbol"] != lane["kernel_symbol"]
+            and lane["hg_drift"] <= tol_h and lane["cg_drift"] <= tol_c
+            and lane["twin_on_kernel_state"] == lane["twin_symbol"]
+            and abs(lane["gap"]) <= tie["gap"])
+    unexplained = [lane for lane in parted if not (lane["near_tie"] or lane["product_tie"])]
+    return result, dict(
+        launches=len(reports), lanes_parted=len(parted),
+        near_ties=sum(lane["near_tie"] for lane in parted),
+        product_ties=sum(lane["product_tie"] for lane in parted),
+        product_tie_tolerance=tie.get("gap"),
+        lanes_parted_by_launch=[r["lanes_parted"] for r in reports],
+        max_gap=max((abs(lane["gap"]) for lane in parted), default=0.0),
+        logit_shift_range=[min((lane["logit_shift"] for lane in parted), default=0.0),
+                           max((lane["logit_shift"] for lane in parted), default=0.0)],
+        gap_under_shift=sum(abs(lane["gap"]) <= lane["logit_shift"] for lane in parted),
+        end_hg_drift_kept_lanes=max((r["end_hg_drift_kept_lanes"] for r in reports),
+                                    default=0.0),
+        end_cg_drift_kept_lanes=max((r["end_cg_drift_kept_lanes"] for r in reports),
+                                    default=0.0),
+        faults=len(unexplained) + sum((not r["end_drift_within_tolerance"])
+                                      + (not r["deterministic"]) for r in reports),
+        partings_unexplained=unexplained[:20],
+    )
 
 
 def main() -> int:

@@ -150,16 +150,51 @@ def test_store_written_by_port_loads_in_jax(tmp_path):
 @pytest.mark.parametrize("flags", [
     ["--packed", "--native_loadgen"], ["--native_loadgen"],
     ["--scenario", "Server", "--native_loadgen"],
-    ["--run_mode", "fake_quant"], ["--profiler_dir", "trace"], ["--model", "rnnt.pt"],
-    ["--manifest", "m.json"],
+    ["--model", "rnnt.pt"], ["--manifest", "m.json"],
 ])
 def test_unported_options_exit(flags):
     """Options whose code is not ported exit with an error naming the
-    ROADMAP item; none silently does something else.  The packed runner
-    and the Server scenario are ported; under the native loadgen they are
-    not yet."""
+    ROADMAP item; none silently does something else.  The packed runner,
+    the Server scenario, --run_mode fake_quant and --profiler_dir are
+    ported (test_fake_quant_run_matches_jax, test_profiler_dir_writes_a_
+    cpu_trace); under the native loadgen the first two are not yet."""
     with pytest.raises(SystemExit, match=r"not yet ported .*ROADMAP queue 1\.\d"):
         tmain(flags + ["--benchmark", "--synthetic", "1", "--device", "cpu"])
+
+
+def test_fake_quant_run_matches_jax(staged):
+    """--run_mode fake_quant --calib_in on the same weights, calibration and
+    store (--accuracy: every utterance once): the accuracy log byte-equal
+    to the JAX CLI's; without --calib_in both refuse."""
+    d, paths = staged
+    extra = ["--model", paths["weights"], "--run_mode", "fake_quant", "--calib_in",
+             paths["jcalib"], "--accuracy"]
+    jlog, _ = _run(jmain, paths, str(d / "j_fake_quant"), extra)
+    tlog, tsum = _run(tmain, paths, str(d / "t_fake_quant"), extra + ["--device", "cpu"])
+    assert tlog == jlog and len(json.loads(tlog)) == 3 and tsum["samples"] == 3
+    for main in (jmain, tmain):
+        with pytest.raises(SystemExit, match="requires --calib_in"):
+            main(["--model", paths["weights"], "--run_mode", "fake_quant", "--accuracy",
+                  "--sample_file", paths["store"], "--output_dir", str(d / "no_calib")]
+                 + (["--device", "cpu"] if main is tmain else []))
+
+
+def test_profiler_dir_writes_a_cpu_trace(staged, tmp_path):
+    """--profiler_dir on the CPU: a chrome trace of the benchmark stage with
+    the host's operators and one timed-rep span, from which the idle share
+    of a category can be read (on the card, of its kernels)."""
+    from rnnt_inference_tpu_torch.utils import profiler
+
+    _, paths = staged
+    trace_dir = tmp_path / "trace"
+    _run(tmain, paths, str(tmp_path / "out"),
+         ["--model", paths["weights"], "--run_mode", "f32", "--benchmark",
+          "--profiler_dir", str(trace_dir), "--device", "cpu"])
+    events = profiler.load_trace(str(trace_dir / profiler.TRACE_FILE))
+    assert any(e.get("cat") == "cpu_op" for e in events)
+    spans = profiler.device_idle_share(events, cats=("cpu_op",))
+    assert len(spans) == 1 and spans[0]["window_us"] > 0
+    assert 0.0 <= spans[0]["idle_share"] < 1.0
 
 
 @pytest.mark.parametrize("scenario", ["packed", "server"])

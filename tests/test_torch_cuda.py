@@ -430,3 +430,138 @@ def test_packed_runner_kernels_match_twins(dev, qweights):
     assert not any(out["reference"].launches.values())
     for a, b in zip(out[None].tokens, out["reference"].tokens, strict=True):
         np.testing.assert_array_equal(a, b)
+
+
+def test_fake_quant_on_card_matches_twins(dev):
+    """The fake_quant model (no kernel in its encoder: an eager per-step
+    loop, as the JAX package's XLA scan) on the card: the encoder output
+    within 1e-5 of the CPU's (f32 products, TF32 off), and the greedy
+    decode through kernel B's f32 instantiation gives the CPU twins'
+    tokens."""
+    from rnnt_inference_tpu_torch.models import rnnt
+    from rnnt_inference_tpu_torch.models.quant import fake_quantize_weights
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    w = init_weights(P, torch.Generator().manual_seed(3), device="cpu")
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn((16, 4, 240), generator=g)
+    lens = torch.tensor([16, 13, 9, 16], dtype=torch.int32)
+    fq = fake_quantize_weights(w, calibrate(w, [(x, lens)], P), P)
+    fq_dev = fq.to(dev)
+    f_cpu, _ = rnnt.transcription(fq, x, lens, rnnt.init_encoder_state(4, P, device="cpu"))
+    f_dev, _ = rnnt.transcription(fq_dev, x.to(dev), lens.to(dev),
+                                  rnnt.init_encoder_state(4, P, device=dev))
+    assert float((f_dev.cpu() - f_cpu).abs().max()) <= 1e-5
+    before = dc.decode_step_cuda.launches
+    res, n = greedy_decode(fq_dev, x.to(dev), lens.to(dev), P)
+    assert dc.decode_step_cuda.launches > before
+    want, want_n = greedy_decode(fq, x, lens, P)
+    assert torch.equal(n.cpu(), want_n) and torch.equal(res.cpu(), want) and int(want_n.sum()) > 0
+
+
+def test_quant_linear_on_card_is_exact(dev):
+    """iLinear on the card: the int8 products summed exactly (f64) give the
+    CPU's result bit for bit; the int8 joint within 1e-5 of the CPU's."""
+    from rnnt_inference_tpu_torch.models import quant
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(5)
+    w, b, xs = torch.randn((1024, 512), generator=g), torch.randn(512, generator=g), \
+        torch.randn((64, 1024), generator=g)
+    ql = quant.quantize_linear(w, b, xs.abs().max())
+    ql_dev = quant.quantize_linear(w.to(dev), b.to(dev), xs.abs().max().to(dev))
+    assert torch.equal(ql_dev.w_i8.cpu(), ql.w_i8)
+    assert torch.equal(quant.quant_linear_apply(ql_dev, xs.to(dev)).cpu(),
+                       quant.quant_linear_apply(ql, xs))
+    wts = init_weights(P, torch.Generator().manual_seed(6), device="cpu")
+    f = torch.randn((8, P.trans_hidden_size), generator=g)
+    gg = torch.randn((8, P.pred_hidden_size), generator=g)
+    jq = quant.quantize_joint_fc1_trans(wts, f.abs().max())
+    jq_dev = quant.quantize_joint_fc1_trans(wts.to(dev), f.abs().max().to(dev))
+    got = quant.joint_quant_fc1(wts.to(dev), jq_dev, f.to(dev), gg.to(dev)).cpu()
+    assert float((got - quant.joint_quant_fc1(wts, jq, f, gg)).abs().max()) <= 1e-5
+
+
+def test_device_trace_records_the_card(dev, tmp_path):
+    """device_trace on the card: the chrome trace holds the kernels of a
+    timed-rep span, so its idle share can be read."""
+    from rnnt_inference_tpu_torch.utils import profiler
+
+    a = torch.randn((2048, 2048), device=dev)
+    with profiler.device_trace(str(tmp_path), dev) as path:
+        with torch.profiler.record_function(profiler.TIMED_REP):
+            for _ in range(4):
+                a = a @ a / 64
+            torch.cuda.synchronize()
+    (span,) = profiler.device_idle_share(profiler.load_trace(path))
+    assert span["busy_us"] > 0 and 0.0 <= span["idle_share"] < 1.0
+
+
+BENCH_KNOB_CASES = {
+    "default": {},
+    "unpacked": dict(BENCH_PACKED="0"),
+    "bf16": dict(BENCH_DTYPE="bf16"),
+    "f32_unpacked": dict(BENCH_DTYPE="f32", BENCH_PACKED="0"),
+    "uniform": dict(BENCH_EMISSION="uniform"),
+    "chunks_res_len_buckets": dict(BENCH_PACK_CHUNK="8", BENCH_PACK_DECODE_CHUNK="32",
+                                   BENCH_RES_LEN="64", BENCH_SECONDS="2,4,8,15"),
+    "burst_targets": dict(BENCH_EMISSION="burst", BENCH_SYM_CAP="30", BENCH_BURST_RATE="0.6",
+                          BENCH_BURST_FACTOR="1.2"),
+    "burst_replay": dict(BENCH_EMISSION="burst", BENCH_SYM_CAP="30",
+                         BENCH_BURST_DELTA="4:0.5:1"),
+}
+
+
+@pytest.mark.parametrize("case", list(BENCH_KNOB_CASES))
+def test_bench_knob_values_on_card(dev, monkeypatch, case):
+    """The bench on the card at full width with each knob value (64
+    utterances on 32 lanes or batch rows, at least 0.05 s of timed reps,
+    the emission model calibrated on the card unless replayed): a positive
+    value, the calibrated rate within 2x of its target, and the kernels of
+    its path launched in the timed rep (A and B for int8, C and B for the
+    float types)."""
+    from rnnt_inference_tpu_torch import bench
+
+    knobs = dict(BENCH_N="64", BENCH_BATCH="32", BENCH_MIN_S="0.05", **BENCH_KNOB_CASES[case])
+    for k in list(bench.KNOB_DEFAULTS) + ["BENCH_BLANK_DELTA", "BENCH_BURST_DELTA"]:
+        monkeypatch.delenv(k, raising=False)
+    for k, v in knobs.items():
+        monkeypatch.setenv(k, v)
+    payload = bench.run(dev)
+    proto = payload["protocol"]
+    assert payload["value"] > 0
+    assert proto["packed"] == (knobs.get("BENCH_PACKED", "1") == "1")
+    assert proto["max_res_len"] == int(knobs.get("BENCH_RES_LEN", "512"))
+    encoder = "quant_lstm_layer" if proto["dtype"] == "quant" else "lstm_recurrence"
+    assert proto["launches"][encoder] > 0 and proto["launches"]["decode_step"] > 0
+    assert proto["launched_decode_iterations"] == 64 * proto["launches"]["decode_step"]
+    calib = proto["calibration"]
+    if "target" in calib:
+        assert 0.5 * calib["target"] <= calib["sym_per_frame"] <= 2.0 * calib["target"], calib
+    if case == "burst_targets":
+        assert calib["target"] == 0.6 and calib["target_burst"] == 1.2
+
+
+def test_packed_runner_launches_part_only_at_ties(dev, qweights):
+    """Every kernel-B launch of a packed int8 run on 64 lanes against K twin
+    iterations from the state it starts from
+    (tools/decode_divergence.compare_run_launches): each lane that parts
+    does so at a near-tie or a product tie, the others end within kernel
+    B's per-step tolerances, each launch repeats bit for bit, and the run's
+    tokens equal those of the same rep without the comparisons."""
+    from rnnt_inference_tpu_torch.data.dataset import SampleStore
+    from rnnt_inference_tpu_torch.runtime.packing import PackedOfflineRunner
+    from rnnt_inference_tpu_torch.runtime.qsl import QuerySampleLibrary
+    from rnnt_inference_tpu_torch.tools.decode_divergence import compare_run_launches
+
+    store = SampleStore.synthetic(n=96, seed=5, min_seconds=0.5, max_seconds=3.0,
+                                  mean_seconds=1.5)
+    r = PackedOfflineRunner(qweights, P, n_lanes=64, chunk_frames=16, batch_size=64,
+                            decode_chunk=32, device=dev)
+    r.stage(QuerySampleLibrary(store, wav_buckets_s=(1.0, 2.0, 3.0)))
+    plain = r.run_device()
+    got, summary = compare_run_launches(r.run_device)
+    assert summary["launches"] == plain.launches["decode_step"] > 0
+    assert summary["faults"] == 0, summary
+    for a, b in zip(got.tokens, plain.tokens, strict=True):
+        np.testing.assert_array_equal(a, b)

@@ -320,3 +320,29 @@ def test_kernel_phase_probes_match_sources():
         for anchor, stamped in edits:  # the stamps only add lines or a prefix
             kept = [l for l in stamped.split("\n") if not any(w in l for w in probe)]
             assert stamped.endswith(anchor) or kept == anchor.split("\n"), anchor
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_twin_summed_in_halves_is_the_same_function(dtype):
+    """tools/decode_divergence.summed_in_halves (the twin's products summed
+    in two halves of K: a second plain version of kernel B's function) is
+    the same product within f32 rounding (2 K eps sum|a||b|) and the same greedy
+    decode at these widths; the plain sum is back after the block."""
+    from rnnt_inference_tpu_torch.tools.decode_divergence import summed_in_halves
+
+    _, tw = _both(3, dtype)
+    rng = np.random.RandomState(4)
+    feats = torch.from_numpy(rng.randn(24, 4, 240).astype(np.float32))
+    flens = torch.tensor([24, 17, 9, 0], dtype=torch.int32)
+    a, b = torch.from_numpy(rng.randn(8, 320).astype(np.float32)), \
+        torch.from_numpy(rng.randn(320, 64).astype(np.float32))
+    want = greedy_decode(tw, feats, flens, TP)
+    plain = dc.dot_f32
+    with summed_in_halves():
+        assert dc.dot_f32 is not plain
+        # two f32 sums of the same K terms: within 2 K eps sum|a||b| of each other
+        bound = 2 * a.shape[1] * torch.finfo(torch.float32).eps * (a.abs() @ b.abs())
+        assert bool(((dc.dot_f32(a, b) - plain(a, b)).abs() <= bound).all())
+        got = greedy_decode(tw, feats, flens, TP)
+    assert dc.dot_f32 is plain
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])

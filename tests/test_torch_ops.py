@@ -122,6 +122,35 @@ def test_log_mel_features_match_jax(pad_mode):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
 
 
+def _preemphasis_pairs():
+    """(waveforms, lengths) of the golden store's utterances, each alone,
+    and of 40 random batches of 100-700 samples (numpy seed 0)."""
+    from rnnt_inference_tpu.data.dataset import SampleStore as JSampleStore
+    from rnnt_inference_tpu.utils import golden as jgolden
+
+    store = JSampleStore.synthetic(n=jgolden.N_SAMPLES, seed=jgolden.SEED_STORE, min_seconds=0.4,
+                                   max_seconds=2.0, mean_seconds=1.0)
+    for s in store.samples:
+        yield s[None], np.array([len(s)], np.int32)
+    rng = np.random.RandomState(0)
+    for _ in range(40):
+        S = rng.randint(100, 701)
+        x = (rng.randn(3, S) * rng.choice([0.01, 0.1, 1.0])).astype(np.float32)
+        yield x, rng.randint(1, S + 1, 3).astype(np.int32)
+
+
+def test_preemphasis_is_bit_equal_to_jax():
+    """Preemphasis rounds once, as XLA fuses the JAX function inside the
+    jitted featurizer: bit-equal on the golden store and on random lengths
+    of 100-700 samples.  (The eager two-rounding form differs from it in
+    the last bit of some samples.)"""
+    jpre = jax.jit(jf.preemphasis)
+    for x, lens in _preemphasis_pairs():
+        want = np.asarray(jpre(jnp.asarray(x), jnp.asarray(lens)))
+        got = tf.preemphasis(torch.from_numpy(x), torch.from_numpy(lens)).numpy()
+        np.testing.assert_array_equal(got, want)
+
+
 def test_frontend_constants_match_jax():
     """The numpy-built DFT, window and mel constants are the same arrays."""
     got = tf._frontend_constants(FeaturizerConfig())
@@ -131,8 +160,9 @@ def test_frontend_constants_match_jax():
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port loads no jax and nothing of the
-    JAX package (a fresh interpreter)."""
+    """Importing every module of the port, the bench and the profiler
+    included, loads no jax and nothing of the JAX package (a fresh
+    interpreter)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import rnnt_inference_tpu_torch as p\n"
@@ -140,6 +170,8 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'rnnt_inference_tpu'))\n"
         "assert not bad, bad\n"
+        "assert {'rnnt_inference_tpu_torch.bench', 'rnnt_inference_tpu_torch.utils.profiler'} "
+        "<= set(sys.modules)\n"
         "print('ok')\n"
     )
     out = subprocess.run(

@@ -170,12 +170,17 @@ def test_golden_packed_mode(monkeypatch):
 
     The runner's featurizer is the JAX package's for the token-for-token
     check (fed the same int16 batches, its features carried over as
-    numpy): the two featurizers' f32 DFT sums differ in the last bits
-    (within the 1e-4 of tests/test_torch_ops.py), which moves an int8
+    numpy).  Preemphasis is bit-equal between the two featurizers
+    (tests/test_torch_ops.py); their f32 DFT products are not: XLA:CPU
+    sums a dot in an order that depends on its row count, so JAX's own
+    features of an utterance move with the batch it is featurized in, by
+    as much as they differ from the port's
+    (test_jax_featurizer_depends_on_batch_rows).  That moves an int8
     rounding of the encoder input and one of the eight golden utterances
-    (ROADMAP.md section 3).  Everything after the features (packing,
-    chunked int8 encoder, packed decode, harvest) is the port's.  With the
-    port's own featurizer at least seven of the eight are equal."""
+    at a near-tie (the next test; ROADMAP.md section 3, "Not a fault").
+    Everything after the features (packing, chunked int8 encoder, packed
+    decode, harvest) is the port's.  With the port's own featurizer at
+    least seven of the eight are equal."""
     from rnnt_inference_tpu.ops.features import log_mel_features as jlog_mel
     from rnnt_inference_tpu.utils import golden as jgolden
     from rnnt_inference_tpu_torch.runtime import packing
@@ -217,11 +222,13 @@ def test_golden_packed_port_featurizer_flip_is_a_near_tie(monkeypatch):
     the twin's logits recorded.  The port's features reproduce the port's
     packed tokens and the JAX package's reproduce golden; the features
     differ by at most 1e-4 (tests/test_torch_ops.py's tolerance for the
-    featurizer, whose f32 DFT sums differ in order); the two decodes agree
-    up to one iteration, where the prediction state is the same (it
-    depends on the tokens only) and the symbols part by a logit gap no
-    larger than the shift the features' difference makes in the logits
-    there, and at most 1e-3."""
+    featurizer: with preemphasis bit-equal, the f32 DFT sums differ in
+    order, and XLA:CPU's order moves with the batch's row count,
+    test_jax_featurizer_depends_on_batch_rows); the two decodes agree up
+    to one iteration, where the prediction state is the same (it depends
+    on the tokens only) and the symbols part by a logit gap no larger
+    than the shift the features' difference makes in the logits there,
+    and at most 1e-3."""
     from rnnt_inference_tpu.ops.features import log_mel_features as jlog_mel
     from rnnt_inference_tpu.utils import golden as jgolden
     from rnnt_inference_tpu_torch.models.decoder import greedy_decode
@@ -275,6 +282,50 @@ def test_golden_packed_port_featurizer_flip_is_a_near_tie(monkeypatch):
             print(f"utterance {u}: parts at iteration {k}, symbols {int(sym_p[k])} (port "
                   f"features) / {int(sym_j[k])} (JAX), gap {gap:.3g}, logit shift {shift:.3g}")
             assert 0 <= gap <= shift and gap <= 1e-3
+
+
+def test_jax_featurizer_depends_on_batch_rows():
+    """The summation order of XLA:CPU's f32 GEMMs changes with the number of
+    rows in the dot, so no fixed order in the port could reproduce JAX's
+    features bit for bit.  (a) Rows 0-6 of a (M, 320) x (320, 257)
+    jnp.dot computed with M = 7 and with M = 600 agree bit for bit in under
+    half of their entries; torch's rows do not depend on M.  (b) JAX's own
+    log_mel_features of the golden store's utterances, featurized alone and
+    inside the packed runner's 4-row batches, differ by more than 1e-5 on
+    some utterance: as much as the port's features differ from JAX's, all
+    within tests/test_torch_ops.py's 1e-4."""
+    from rnnt_inference_tpu.ops.features import log_mel_features as jlog_mel
+    from rnnt_inference_tpu.utils import golden as jgolden
+    from rnnt_inference_tpu_torch.ops.features import log_mel_features
+
+    rng = np.random.RandomState(0)
+    a = rng.randn(600, 320).astype(np.float32)
+    b = rng.randn(320, 257).astype(np.float32)
+    dot = jax.jit(jnp.dot)
+    j7, j600 = np.asarray(dot(a[:7], b)), np.asarray(dot(a, b))[:7]
+    assert (j7 == j600).mean() < 0.5 and np.abs(j7 - j600).max() > 0
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    assert torch.equal(ta[:7] @ tb, (ta @ tb)[:7])
+
+    store = SampleStore.synthetic(n=jgolden.N_SAMPLES, seed=jgolden.SEED_STORE, min_seconds=0.4,
+                                  max_seconds=2.0, mean_seconds=1.0)
+    qsl = QuerySampleLibrary(store, FeaturizerConfig(), wav_buckets_s=(1.0, 2.0))
+    feat = jax.jit(jlog_mel, static_argnames="cfg")
+    jax_moves, port_vs_jax = [], []
+    for wav, lens, rows in qsl.load_to_device(4, device="cpu").batches():
+        x, L = (wav.float() * (1.0 / 32768.0)).numpy(), lens.numpy()
+        batched = np.asarray(feat(jnp.asarray(x), jnp.asarray(L), JFeaturizerConfig())[0])
+        port = log_mel_features(torch.from_numpy(x), torch.from_numpy(L))[0].numpy()
+        for r in [r for r, i in enumerate(rows) if i >= 0]:
+            n, F = int(L[r]), FeaturizerConfig().out_frames(int(L[r]))
+            alone = np.asarray(feat(jnp.asarray(x[r : r + 1, :n]), jnp.asarray(L[r : r + 1]),
+                                    JFeaturizerConfig())[0])[:F, 0]
+            jax_moves.append(float(np.abs(alone - batched[:F, r]).max()))
+            port_vs_jax.append(float(np.abs(port[:F, r] - batched[:F, r]).max()))
+    print(f"JAX alone vs batched: max {max(jax_moves):.3g}; port vs JAX: "
+          f"{min(port_vs_jax):.3g} to {max(port_vs_jax):.3g}")
+    assert len(jax_moves) == jgolden.N_SAMPLES
+    assert 1e-5 < max(jax_moves) <= 1e-4 and max(port_vs_jax) <= 1e-4
 
 
 def _packed_chunk_inputs(rng, N, T2, H, R):

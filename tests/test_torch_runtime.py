@@ -6,6 +6,7 @@ parsing, WER, sample stores and checkpoints.
 Tokens and accuracy logs must be equal; floats as stated per test.
 """
 
+import dataclasses
 import os
 
 import jax
@@ -35,6 +36,7 @@ from rnnt_inference_tpu_torch.models.weights import weights_from_numpy_leaves
 from rnnt_inference_tpu_torch.runtime import config as tconfig
 from rnnt_inference_tpu_torch.runtime import harness as tharness
 from rnnt_inference_tpu_torch.runtime.offline import OfflineRunner
+from rnnt_inference_tpu_torch.runtime.packing import PackedOfflineRunner
 from rnnt_inference_tpu_torch.runtime.qsl import QuerySampleLibrary, batch_plan
 from rnnt_inference_tpu_torch.utils import labels as tlabels
 from rnnt_inference_tpu_torch.utils import wer as twer
@@ -221,6 +223,61 @@ def test_packed_offline_not_ported(models):
                         transcripts=[""])
     with pytest.raises(ValueError, match="waveform"):
         tharness.run_offline(tw, feats, TP, packed=True, device="cpu")
+
+
+@pytest.mark.parametrize("path", ["host", "device_resident", "packed"])
+def test_run_offline_min_duration_repeats_reps(models, monkeypatch, path):
+    """min_duration_s: timed reps repeat until their walls sum to it (JAX
+    harness.py:167-175), on the host-assembled, device-resident and packed
+    paths; every rep gives the same tokens (a rep leaves no state behind);
+    samples and audio count every rep.  The runner's walls are set to 1 s
+    each, so 2.5 s takes exactly three reps."""
+    _, tw = models["quant"]
+    _, ts = _stores(5, 2)
+    cls = PackedOfflineRunner if path == "packed" else OfflineRunner
+    name = "run" if path == "host" else "run_device"
+    real, reps = getattr(cls, name), []
+
+    def one_second(self, *a, **k):
+        r = real(self, *a, **k)
+        reps.append(r.tokens)
+        return dataclasses.replace(r, wall_seconds=1.0)
+
+    monkeypatch.setattr(cls, name, one_second)
+    kw = dict(batch_size=4, device="cpu", warmup=False, device_resident=path != "host",
+              packed=path == "packed")
+    rep = tharness.run_offline(tw, ts, TP, min_duration_s=2.5, **kw)
+    assert rep.extra["reps"] == 3 and rep.extra["rep_wall_seconds"] == [1.0] * 3
+    assert rep.samples == 3 * len(ts) and rep.wall_seconds == 3.0
+    assert rep.audio_seconds_per_second == pytest.approx(ts.audio_seconds)
+    assert len(reps) == 3 and sum(len(t) for t in reps[0]) > 0
+    for later in reps[1:]:
+        for a, b in zip(later, reps[0], strict=True):
+            np.testing.assert_array_equal(a, b)
+    assert tharness.run_offline(tw, ts, TP, **kw).hypotheses == rep.hypotheses
+
+
+def test_run_offline_wav_buckets_match_jax(models, monkeypatch):
+    """wav_buckets_s sets the QSL's bucket ladder as in JAX run_offline: the
+    runner gets a QSL with the same wav_buckets, and the runs give the same
+    batches and hypotheses."""
+    jw, tw = models["f32"]
+    js, ts = _stores(6, 7)
+    seen = {}
+    for pkg, cls in (("jax", JOfflineRunner), ("port", OfflineRunner)):
+        def run(self, qsl, *a, real=cls.run, pkg=pkg, **k):
+            seen[pkg] = qsl.wav_buckets
+            return real(self, qsl, *a, **k)
+
+        monkeypatch.setattr(cls, "run", run)
+    buckets = (1.5, 0.5, 1.0)
+    jrep = jharness.run_offline(jw, js, JP, JFeaturizerConfig(), batch_size=2, warmup=False,
+                                wav_buckets_s=buckets)
+    trep = tharness.run_offline(tw, ts, TP, batch_size=2, warmup=False, device="cpu",
+                                wav_buckets_s=buckets)
+    assert seen["port"] == seen["jax"] == (8000, 16000, 24000)
+    assert trep.extra["batches"] == jrep.extra["batches"]
+    assert trep.hypotheses == jrep.hypotheses
 
 
 @pytest.mark.parametrize("scenario", ["Offline", "Server", "SingleStream"])
