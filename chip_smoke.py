@@ -5,11 +5,12 @@
 Builds the port's four CUDA kernels from rnnt_inference_tpu_torch/csrc
 (one nvcc per source, started together), holds each against its plain
 PyTorch twin on the card at full model width (kernel A bit for bit at N =
-16, 64, 128 lanes and T = 48, and at the bench's 1,024 lanes and T = 16,
-for the three int8 layer shapes, one launch per layer call; kernel B per step and over one launch of K iterations, at N = 16,
-64, 128 lanes, with its time per iteration at one and at K iterations per
-launch, its early exit, and the symbol loop's time by K; kernel C at N =
-16, 128 beside cuDNN's layer),
+16, 64, 128 lanes and T = 48, at the bench's 1,024 lanes and T = 16, and
+at one lane over a whole SingleStream utterance, for the three int8 layer
+shapes, one launch per layer call; kernel B per step and over one launch
+of K iterations, at N = 1, 16, 64, 128 lanes, with its time per iteration
+at one and at K iterations per launch, its early exit, and the symbol
+loop's time by K; kernel C at N = 16, 128 beside cuDNN's layer),
 then drives each path with the kernel launch counts set to 0 just before
 it and read just after:
   - end_to_end: the bucketed Offline int8 pipeline (waveform -> log-mel ->
@@ -31,6 +32,16 @@ it and read just after:
   - fake_quant: ``main --run_mode fake_quant --calib_in ... --accuracy``
     on a small store (eager fake-quant encoder, kernel B's f32
     instantiation), on the card and with --device cpu (the twins);
+  - native: ``main --native_loadgen --benchmark`` on the int8 model in
+    Offline (bucketed and --packed, 64 utterances), Server (at the real-time
+    rate of server_int8) and SingleStream, timed on the native mini-loadgen
+    (g++ build), min_duration cut to 6 s by a user.conf; each against the
+    same store's non-native run_offline on the kernels, and SingleStream
+    also against its utterances through the one-lane runner on the twins;
+  - product_chain: scripts/run.sh stages 3-5 through the CLI: a zenodo-layout
+    rnnt.pt -> --calibration -> --save_quant -> --accuracy --packed
+    --manifest (WER) -> native Offline performance, against the same chain
+    from an npz of the same weights; a broken loadgen source must raise;
   - bench_blank_cap1 / bench_burst_cap30: the port's bench (``python -m
     rnnt_inference_tpu_torch.bench``, a child process) at the JAX headline
     configuration (int8, packed, cap 1, calibrated blank rate 0.8) and at
@@ -151,50 +162,68 @@ def phase_build() -> None:
     emit({"phase": "build", "seconds": time.time() - t0, "ptxas": ptxas})
 
 
-def phase_kernel_a(qweights, dev) -> dict:
+def single_stream_frames(params) -> tuple:
+    """(T of the pre-net layers, T of the post-net layers) of the longest
+    utterance of phase native's SingleStream run, padded to its waveform
+    bucket as that run pads it."""
+    from rnnt_inference_tpu_torch.config import FeaturizerConfig
+    from rnnt_inference_tpu_torch.data.dataset import SampleStore
+    from rnnt_inference_tpu_torch.runtime.qsl import QuerySampleLibrary
+
+    cfg = FeaturizerConfig()
+    store = SampleStore.synthetic(n=NATIVE_N, seed=0).select(np.arange(NATIVE_SS))
+    t_pre = cfg.out_frames(QuerySampleLibrary(store, cfg).wav_bucket_for(int(store.lengths.max())))
+    return t_pre, -(-t_pre // params.stack_time_factor)
+
+
+def phase_kernel_a(qweights, dev, ss_frames) -> dict:
     """Kernel A against its twin at H=1024 for the three layer shapes (IC =
-    240, 1024, 2048), T=48 at N in {16 (the int8 runner's batch), 64, 128}
-    and T=16 (the packed runner's chunk) at N=1,024 (the bench's lanes),
-    int8 and f32 y: y, h and c bit-equal, one launch per call.  Its time
-    per call and per step beside the bound of each row."""
+    240, 1024, 2048), T=48 at N in {16 (the int8 runner's batch), 64, 128},
+    T=16 (the packed runner's chunk) at N=1,024 (the bench's lanes), and at
+    N=1 over a whole SingleStream utterance (``ss_frames``: the pre-net
+    layer at its stacked frames, the post-net layers after the time
+    reduction), int8 and f32 y: y, h and c bit-equal, one launch per call.
+    Its time per call and per step beside the bound of each row."""
     from rnnt_inference_tpu_torch.ops import lstm_cuda
     from rnnt_inference_tpu_torch.ops.lstm_int8 import quant_lstm_layer
 
     layers = (qweights.pre_rnn[0], qweights.post_rnn[1], qweights.post_rnn[0])
     g = torch.Generator().manual_seed(123)
     rows, entries = [], {}
-    for N, T in ((16, 48), (64, 48), (128, 48), (1024, 16)):
-        for layer in layers:
-            IC, H = layer.w_ih.shape[0], layer.w_hh.shape[0]
-            x = torch.randint(-128, 128, (T, N, IC), generator=g, dtype=torch.int8).to(dev)
-            h = torch.randint(-128, 128, (N, H), generator=g, dtype=torch.int8).to(dev)
-            c = (torch.randn((N, H), generator=g) * 0.5).to(dev)
-            for emit_f32 in (False, True):
-                before = lstm_cuda.quant_lstm_layer_cuda.launches
-                got = lstm_cuda.quant_lstm_layer_cuda(layer, x, h, c, emit_f32)
-                launches = lstm_cuda.quant_lstm_layer_cuda.launches - before
-                want = quant_lstm_layer(layer, x, h, c, emit_f32)
-                torch.cuda.synchronize()
-                row = {"IC": IC, "H": H, "N": N, "T": T, "emit_f32": emit_f32,
-                       "launches_per_call": launches}
-                for name, a, b in zip(("y", "h", "c"), got, want):
-                    d = (a.double() - b.double()).abs()
-                    row[f"{name}_max_abs_diff"] = float(d.max())
-                    row[f"{name}_share_diff"] = float((d != 0).double().mean())
-                if launches != 1 or any(row[f"{k}_max_abs_diff"] != 0 for k in "yhc"):
-                    raise AssertionError(f"kernel A is not its twin bit for bit: {row}")
-                ms = cuda_ms(lambda: lstm_cuda.quant_lstm_layer_cuda(layer, x, h, c, emit_f32), 20)
-                plain_ms = cuda_ms(lambda: quant_lstm_layer(layer, x, h, c, emit_f32), 2, 1)
-                y_es = 4 if emit_f32 else 1
-                bytes_moved = ((IC + H) * 4 * H + T * N * IC + N * H * (1 + 4)
-                               + T * N * H * y_es + N * H * (1 + 4))
-                ops = 2 * T * N * (IC + H) * 4 * H
-                bound_ms, bound_by = bound(bytes_moved, ops, PEAK_INT8_OPS)
-                row.update(ms=ms, ms_per_step=ms / T, plain_ms=plain_ms,
-                           plain_ms_per_step=plain_ms / T, bound_ms=bound_ms, bound_by=bound_by)
-                rows.append(row)
-                if not emit_f32:
-                    entries[(N, IC)] = dict(row, x=x, h=h, layer=layer)
+    cases = [(N, T, layer) for N, T in ((16, 48), (64, 48), (128, 48), (1024, 16))
+             for layer in layers]
+    cases += [(1, ss_frames[0] if layer is layers[0] else ss_frames[1], layer) for layer in layers]
+    for N, T, layer in cases:
+        IC, H = layer.w_ih.shape[0], layer.w_hh.shape[0]
+        x = torch.randint(-128, 128, (T, N, IC), generator=g, dtype=torch.int8).to(dev)
+        h = torch.randint(-128, 128, (N, H), generator=g, dtype=torch.int8).to(dev)
+        c = (torch.randn((N, H), generator=g) * 0.5).to(dev)
+        for emit_f32 in (False, True):
+            before = lstm_cuda.quant_lstm_layer_cuda.launches
+            got = lstm_cuda.quant_lstm_layer_cuda(layer, x, h, c, emit_f32)
+            launches = lstm_cuda.quant_lstm_layer_cuda.launches - before
+            want = quant_lstm_layer(layer, x, h, c, emit_f32)
+            torch.cuda.synchronize()
+            row = {"IC": IC, "H": H, "N": N, "T": T, "emit_f32": emit_f32,
+                   "launches_per_call": launches}
+            for name, a, b in zip(("y", "h", "c"), got, want):
+                d = (a.double() - b.double()).abs()
+                row[f"{name}_max_abs_diff"] = float(d.max())
+                row[f"{name}_share_diff"] = float((d != 0).double().mean())
+            if launches != 1 or any(row[f"{k}_max_abs_diff"] != 0 for k in "yhc"):
+                raise AssertionError(f"kernel A is not its twin bit for bit: {row}")
+            ms = cuda_ms(lambda: lstm_cuda.quant_lstm_layer_cuda(layer, x, h, c, emit_f32), 20)
+            plain_ms = cuda_ms(lambda: quant_lstm_layer(layer, x, h, c, emit_f32), 2, 1)
+            y_es = 4 if emit_f32 else 1
+            bytes_moved = ((IC + H) * 4 * H + T * N * IC + N * H * (1 + 4)
+                           + T * N * H * y_es + N * H * (1 + 4))
+            ops = 2 * T * N * (IC + H) * 4 * H
+            bound_ms, bound_by = bound(bytes_moved, ops, PEAK_INT8_OPS)
+            row.update(ms=ms, ms_per_step=ms / T, plain_ms=plain_ms,
+                       plain_ms_per_step=plain_ms / T, bound_ms=bound_ms, bound_by=bound_by)
+            rows.append(row)
+            if not emit_f32:
+                entries[(N, IC)] = dict(row, x=x, h=h, layer=layer)
     emit({"phase": "kernel_a", "tolerance": "bit-equal: y, h, c (and f32 y) max |d| = 0",
           "rows": rows})
 
@@ -213,7 +242,7 @@ def phase_kernel_a(qweights, dev) -> dict:
     xh[:, :IC] = x.reshape(T * N, IC)
     xh[:, IC:K] = h.repeat(T, 1)
     library_ms = cuda_ms(lambda: torch._int_mm(xh, w_t.t()), 10)
-    by_n = {n: entries[(n, wide)] for n in (16, 64, 128, 1024)}
+    by_n = {n: entries[(n, wide)] for n in (1, 16, 64, 128, 1024)}
     return {
         "name": "quant_lstm_layer", "route": "cuda",
         "source": "rnnt_inference_tpu_torch/csrc/quant_lstm.cu",
@@ -247,7 +276,8 @@ def _decode_lanes(rng, N, T2, V, R, long=False):
 
 def phase_kernel_b(weights, params, dev, phase: str) -> dict:
     """Kernel B against its twin at full width with the weights' type (bf16
-    from the int8 model, or f32), N in {16, 64, 128} lanes in random states:
+    from the int8 model, or f32), N in {1 (SingleStream's one lane), 16, 64,
+    128} lanes in random states:
     per step from the same state, and one launch of K iterations from a
     fresh state against K twin steps; then its time per iteration with one
     iteration per launch and with K per launch (lanes that cannot finish
@@ -286,11 +316,13 @@ def phase_kernel_b(weights, params, dev, phase: str) -> dict:
             raise AssertionError(f"kernel B off ({what}, N={row['N']}): {got}")
 
     rows = []
-    for N in (16, 64, 128):
-        fproj = torch.from_numpy(rng.randn(T2, N, J).astype(np.float32)).to(dev)
-        lanes0 = _decode_lanes(rng, N, T2, V, R)
-        hg0 = torch.from_numpy(rng.randn(L, N, P).astype(np.float32) * 0.5).to(dev, wdt)
-        cg0 = torch.from_numpy(rng.randn(L, N, P).astype(np.float32) * 0.5).to(dev)
+    # the one-lane row draws from a generator of its own: the other rows'
+    # states do not depend on it
+    for N, r in ((1, np.random.RandomState(1)), (16, rng), (64, rng), (128, rng)):
+        fproj = torch.from_numpy(r.randn(T2, N, J).astype(np.float32)).to(dev)
+        lanes0 = _decode_lanes(r, N, T2, V, R)
+        hg0 = torch.from_numpy(r.randn(L, N, P).astype(np.float32) * 0.5).to(dev, wdt)
+        cg0 = torch.from_numpy(r.randn(L, N, P).astype(np.float32) * 0.5).to(dev)
         res0 = torch.full((N, R), -1, dtype=torch.int8, device=dev)
         fresh = lambda: [torch.from_numpy(lanes0).to(dev), hg0.clone(), cg0.clone(), res0.clone()]
         row = {"N": N, "weights": str(wdt), "K": K}
@@ -309,8 +341,8 @@ def phase_kernel_b(weights, params, dev, phase: str) -> dict:
 
         # timing on lanes that cannot finish within the timed iterations
         TL = 1024
-        fl = torch.from_numpy(rng.randn(TL, N, J).astype(np.float32)).to(dev)
-        lanes_l = torch.from_numpy(_decode_lanes(rng, N, TL, V, R, long=True)).to(dev)
+        fl = torch.from_numpy(r.randn(TL, N, J).astype(np.float32)).to(dev)
+        lanes_l = torch.from_numpy(_decode_lanes(r, N, TL, V, R, long=True)).to(dev)
         st = [lanes_l, hg0.clone(), cg0.clone(), res0.clone()]
         ms1 = cuda_ms(lambda: dc.decode_step_cuda(fl, *st, dw, params, 1), 100, 5)
         st = [lanes_l.clone(), hg0.clone(), cg0.clone(), res0.clone()]
@@ -966,7 +998,295 @@ def phase_server_int8(qweights, params, dev, seed: int, card: str) -> dict:
                          token_edit_rate_vs_twins=rt_rate_ref,
                          token_edit_rate_vs_bucketed=rt_rate),
     })
-    return {"main": launches, "timed_pass": launches}
+    return {"main": launches, "timed_pass": launches, "realtime_qps": issue_qps / 2}
+
+
+# min_duration of the native runs, cut from the MLPerf conf's 600 s
+NATIVE_MIN_DURATION_MS = 6000
+# the native runs' store (the CLI's --synthetic NATIVE_N) and SingleStream's
+# sample set, its first NATIVE_SS utterances
+NATIVE_N, NATIVE_SS = 64, 8
+
+
+def _write_conf(path: str, scenario: str, psc: int, **keys) -> str:
+    """A user.conf: performance_sample_count_override and the scenario's keys."""
+    lines = [f"rnnt.*.performance_sample_count_override = {psc}"]
+    lines += [f"rnnt.{scenario}.{k} = {v}" for k, v in keys.items()]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def _cli_run(argv, counters):
+    """(main's return value, the wrapper launch counts of the call, its
+    seconds): the counts set to 0 just before main and read just after."""
+    from rnnt_inference_tpu_torch import main as cli
+
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.time()
+    with contextlib.redirect_stdout(sys.stderr):  # main prints its summary
+        ret = cli.main(argv)
+    return ret, {k: c.launches for k, c in counters.items()}, time.time() - t0
+
+
+def _check_native(name, completed, issued, n_queries, per_run, per_timed):
+    if not completed == issued >= n_queries:
+        raise AssertionError(f"{name}: completed {completed}, issued {issued}, "
+                             f"{n_queries} queries asked for")
+    for k in ("quant_lstm_layer", "decode_step"):
+        if not per_run[k] or not per_timed[k]:
+            raise AssertionError(f"{name} never launched {k}: main {per_run}, "
+                                 f"the runner's count {per_timed}")
+
+
+def phase_native(qweights, params, dev, card: str, server_qps: float) -> dict:
+    """The CLI's --native_loadgen --benchmark runs on the int8 model (saved
+    and loaded with --quant_in), full width, the timing on the native
+    mini-loadgen's clock (runtime/native.py, built with g++), each with a
+    user.conf that cuts min_duration to NATIVE_MIN_DURATION_MS:
+      - Offline bucketed (--synthetic 64 --batch_size 16; target_qps the
+        same store's non-native rate, min_query_count 2 x 64) and --packed
+        (16 lanes);
+      - Server (the same 64 utterances on 32 slots; Poisson at the real-time
+        rate of phase server_int8; min_query_count 128);
+      - SingleStream (its first 8 utterances; min_query_count 16).
+    The launch counts are set to 0 just before each main call and read just
+    after.  Each run: completed == issued >= the queries asked for, kernels
+    A and B launched in the call and by the runner's own count, and its
+    tokens within edit rate 1e-3 of the same store's non-native run on the
+    kernels (run_offline, bucketed or packed as the run; Server and
+    SingleStream against the bucketed one, query q as sample q % n).
+    SingleStream's tokens are also held to edit rate 1e-3 against the same
+    utterances through the one-lane runner on the twins (impl="reference",
+    int16 staging as SingleStream's), which must launch nothing: kernels A
+    and B at SingleStream's shapes against their plain versions."""
+    import tempfile
+
+    from rnnt_inference_tpu_torch.config import FeaturizerConfig
+    from rnnt_inference_tpu_torch.data.dataset import SampleStore
+    from rnnt_inference_tpu_torch.models import checkpoint
+    from rnnt_inference_tpu_torch.ops import decode_cuda, lstm_cuda
+    from rnnt_inference_tpu_torch.runtime.harness import run_offline
+    from rnnt_inference_tpu_torch.runtime.offline import OfflineRunner
+    from rnnt_inference_tpu_torch.utils.labels import seq_to_sen
+
+    counters = {"quant_lstm_layer": lstm_cuda.quant_lstm_layer_cuda,
+                "decode_step": decode_cuda.decode_step_cuda}
+    cfg, n, lanes = FeaturizerConfig(), NATIVE_N, 16
+    store = SampleStore.synthetic(n=n, seed=0)  # the CLI's --synthetic 64 (--seed 0)
+    seq = lambda hyps: [np.frombuffer(h.encode(), np.uint8) for h in hyps]  # a char per token
+    refs = {packed: run_offline(qweights, store, params, cfg, batch_size=lanes,
+                                device_resident=not packed, packed=packed, device=dev,
+                                min_duration_s=2.0)
+            for packed in (False, True)}
+    paths, out = {}, {"phase": "native", "card": card, "utterances": n,
+                      "audio_seconds": store.audio_seconds,
+                      "min_duration_ms": NATIVE_MIN_DURATION_MS}
+    with tempfile.TemporaryDirectory() as d:
+        quant = os.path.join(d, "rnnt_quant.npz")
+        checkpoint.save_quant_weights(quant, qweights)
+        base = ["--run_mode", "quant", "--quant_in", quant, "--benchmark", "--native_loadgen",
+                "--synthetic", str(n), "--batch_size", str(lanes)]
+        for packed in (False, True):
+            ref = refs[packed]
+            key = "native_packed" if packed else "native_offline"
+            conf = _write_conf(os.path.join(d, f"{key}.conf"), "Offline", n,
+                               min_query_count=2 * n, min_duration=NATIVE_MIN_DURATION_MS,
+                               target_qps=ref.samples_per_second)
+            argv = base + ["--scenario", "Offline", "--packed" if packed else "--no_packed",
+                           "--user_conf", conf, "--output_dir", os.path.join(d, key)]
+            rk, launches, seconds = _cli_run(argv, counters)
+            if rk.extra.get("timing") != "native":
+                raise AssertionError(f"{key}: timing {rk.extra.get('timing')!r}")
+            _check_native(key, rk.extra["completed"], rk.extra["issued"], rk.extra["queries"],
+                          launches, rk.launches)
+            rate, n_tok, differ = _edit_rate(seq(rk.hypotheses), seq(ref.hypotheses))
+            if n_tok == 0 or rate > 1e-3:
+                raise AssertionError(f"{key}: token edit rate {rate} against run_offline")
+            out[key] = {
+                "argv": argv[:3] + ["<tmp>"] + argv[4:-4], "main_seconds": seconds,
+                "summary": rk.summary(), "token_edit_rate": rate, "tokens": n_tok,
+                "utterances_differing": differ, "launches": launches,
+                "launches_native_loop": rk.launches,
+                "audio_seconds_per_second": rk.audio_seconds_per_second,
+                "run_offline_audio_seconds_per_second": ref.audio_seconds_per_second,
+                "run_offline_rep_wall_seconds": ref.extra["rep_wall_seconds"],
+                "native_over_run_offline": rk.audio_seconds_per_second
+                / ref.audio_seconds_per_second,
+            }
+            paths[key] = {"main": launches, "timed_pass": rk.launches}
+
+        ref_hyps = refs[False].hypotheses
+        conf = _write_conf(os.path.join(d, "server.conf"), "Server", n, target_qps=server_qps,
+                           min_query_count=2 * n, min_duration=NATIVE_MIN_DURATION_MS)
+        argv = base + ["--scenario", "Server", "--server_slots", "32", "--user_conf", conf,
+                       "--output_dir", os.path.join(d, "server")]
+        (rep, results), launches, seconds = _cli_run(argv, counters)
+        _check_native("native_server", rep["completed"], rep["issued"], 2 * n, launches,
+                      rep["launches"])
+        qs = sorted(results)
+        if len(qs) != rep["completed"]:
+            raise AssertionError(f"native_server: {len(qs)} results, {rep['completed']} completed")
+        rate, n_tok, _ = _edit_rate(seq([seq_to_sen(results[q]) for q in qs]),
+                                    seq([ref_hyps[q % n] for q in qs]))
+        if n_tok == 0 or rate > 1e-3:
+            raise AssertionError(f"native_server: token edit rate {rate} against run_offline")
+        out["native_server"] = {
+            "argv": argv[:3] + ["<tmp>"] + argv[4:-4], "target_qps": server_qps,
+            "main_seconds": seconds, "summary": {k: v for k, v in rep.items() if k != "launches"},
+            "token_edit_rate": rate, "tokens": n_tok, "launches": launches,
+            "launches_native_loop": rep["launches"]}
+        paths["native_server"] = {"main": launches, "timed_pass": rep["launches"]}
+
+        n_ss = NATIVE_SS
+        conf = _write_conf(os.path.join(d, "single_stream.conf"), "SingleStream", n_ss,
+                           min_query_count=2 * n_ss, min_duration=NATIVE_MIN_DURATION_MS,
+                           target_latency_percentile=90)
+        argv = base + ["--scenario", "SingleStream", "--user_conf", conf,
+                       "--output_dir", os.path.join(d, "single_stream")]
+        rs, launches, seconds = _cli_run(argv, counters)
+        _check_native("native_single_stream", rs.extra["completed"], rs.extra["issued"],
+                      2 * n_ss, launches, rs.launches)
+        rate, n_tok, _ = _edit_rate(seq(rs.hypotheses), seq(ref_hyps[:n_ss]))
+        if n_tok == 0 or rate > 1e-3:
+            raise AssertionError(f"native_single_stream: token edit rate {rate}")
+        ss_store = store.select(np.arange(n_ss))
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.time()
+        twin = run_offline(qweights, ss_store, params, cfg, batch_size=1, warmup=False,
+                           device_resident=True, device=dev,
+                           runner=OfflineRunner(qweights, params, cfg, 1, device=dev,
+                                                impl="reference"))
+        twin_seconds = time.time() - t0
+        if any(c.launches for c in counters.values()) or any(twin.launches.values()):
+            raise AssertionError(f"native_single_stream: impl='reference' launched a kernel: "
+                                 f"{twin.launches}")
+        twin_rate, twin_tok, twin_differ = _edit_rate(seq(rs.hypotheses), seq(twin.hypotheses))
+        if twin_tok == 0 or twin_rate > 1e-3:
+            raise AssertionError(f"native_single_stream: token edit rate {twin_rate} against "
+                                 "the one-lane runner on the twins")
+        out["native_single_stream"] = {
+            "argv": argv[:3] + ["<tmp>"] + argv[4:-4], "main_seconds": seconds,
+            "utterances": n_ss, "audio_seconds": ss_store.audio_seconds,
+            "summary": rs.summary(), "token_edit_rate": rate, "tokens": n_tok,
+            "token_edit_rate_vs_twins_one_lane": twin_rate, "tokens_twins": twin_tok,
+            "utterances_differing_vs_twins": twin_differ, "twins_seconds": twin_seconds,
+            "launches": launches, "launches_native_loop": rs.launches}
+        paths["native_single_stream"] = {"main": launches, "timed_pass": rs.launches}
+    emit(out)
+    return paths
+
+
+def phase_product_chain(params, dev, card: str, seed: int) -> dict:
+    """scripts/run.sh stages 3-5 through the port's CLI on the card: a
+    zenodo-layout rnnt.pt of seeded f32 weights (torch.save), ``--model
+    rnnt.pt --calibration``, then ``--save_quant``, then ``--accuracy
+    --packed --manifest m.json`` (the manifest's transcripts for the WER),
+    then the native Offline performance run on the quantized model.  The
+    same chain from the same weights saved as an npz must give the same
+    calibration, int8 model and accuracy log, byte for byte; the native
+    run's tokens sit within edit rate 1e-3 of the accuracy log's; and a
+    loadgen source that does not compile raises."""
+    import tempfile
+    from pathlib import Path
+
+    from rnnt_inference_tpu_torch import main as cli
+    from rnnt_inference_tpu_torch.data.dataset import SampleStore
+    from rnnt_inference_tpu_torch.models import checkpoint
+    from rnnt_inference_tpu_torch.models.weights import (
+        init_weights, read_npz, torch_state_dict_from_weights,
+    )
+    from rnnt_inference_tpu_torch.ops import decode_cuda, lstm_cuda, lstm_scan_cuda
+    from rnnt_inference_tpu_torch.runtime import native
+    from rnnt_inference_tpu_torch.utils.labels import seq_to_sen
+
+    counters = {"quant_lstm_layer": lstm_cuda.quant_lstm_layer_cuda,
+                "decode_step": decode_cuda.decode_step_cuda,
+                "lstm_recurrence": lstm_scan_cuda.lstm_recurrence_cuda}
+    rng = np.random.RandomState(seed + 13)
+    words = "the a of speech model reads seven quiet rivers under bright stones".split()
+    out = {"phase": "product_chain", "card": card}
+    with tempfile.TemporaryDirectory() as d:
+        p = lambda name: os.path.join(d, name)
+        weights = init_weights(params, torch.Generator().manual_seed(seed + 11), device="cpu")
+        torch.save({"state_dict": torch_state_dict_from_weights(weights), "epoch": 0},
+                   p("rnnt.pt"))
+        checkpoint.save_weights(p("weights.npz"), weights)
+        SampleStore.synthetic(n=8, seed=seed + 12, min_seconds=2.0, max_seconds=8.0,
+                              mean_seconds=5.0).save(p("calib.npz"))
+        store = SampleStore.synthetic(n=16, seed=seed + 14, max_seconds=14.0)
+        store.save(p("store.npz"))
+        with open(p("m.json"), "w") as f:
+            json.dump([{"audio_filepath": name, "duration": len(s) / 16000.0,
+                        "transcript": " ".join(rng.choice(words, size=rng.randint(3, 9)))}
+                       for name, s in zip(store.names, store.samples)], f)
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.time()
+        logs, wer = {}, {}
+        with contextlib.redirect_stdout(sys.stderr):  # main prints its summaries
+            for src, model in (("pt", p("rnnt.pt")), ("npz", p("weights.npz"))):
+                cli.main(["--model", model, "--run_mode", "f32", "--calibration", "--calib_file",
+                          p("calib.npz"), "--calib_out", p(f"calib_{src}.npz"),
+                          "--batch_size", "8"])
+                cli.main(["--model", model, "--run_mode", "f32", "--save_quant", "--calib_in",
+                          p(f"calib_{src}.npz"), "--quant_out", p(f"quant_{src}.npz")])
+                cli.main(["--quant_in", p(f"quant_{src}.npz"), "--accuracy", "--packed",
+                          "--manifest", p("m.json"), "--sample_file", p("store.npz"),
+                          "--batch_size", "16", "--output_dir", p(f"acc_{src}")])
+                with open(p(f"acc_{src}/accuracy_log.json")) as f:
+                    logs[src] = f.read()
+                with open(p(f"acc_{src}/summary.json")) as f:
+                    wer[src] = json.load(f)["wer_percent"]
+            chain_seconds = time.time() - t0
+            conf = _write_conf(p("offline.conf"), "Offline", len(store),
+                               min_query_count=2 * len(store), min_duration=0)
+            perf = cli.main(["--quant_in", p("quant_pt.npz"), "--benchmark", "--native_loadgen",
+                             "--sample_file", p("store.npz"), "--batch_size", "16",
+                             "--user_conf", conf, "--output_dir", p("perf")])
+        launches = {k: c.launches for k, c in counters.items()}
+        for kind in ("calib", "quant"):
+            a, b = read_npz(p(f"{kind}_pt.npz"))[1], read_npz(p(f"{kind}_npz.npz"))[1]
+            if len(a) != len(b) or any(x.tobytes() != y.tobytes() for x, y in zip(a, b)):
+                raise AssertionError(f"product_chain: the .pt and .npz chains' {kind} differ")
+        if logs["pt"] != logs["npz"]:
+            raise AssertionError("product_chain: the .pt chain's accuracy log differs from "
+                                 "the .npz chain's")
+        acc = {e["qsl_idx"]: np.frombuffer(bytes.fromhex(e["data"]), "<i4")
+               for e in json.loads(logs["pt"])}
+        if sorted(acc) != list(range(len(store))) or wer["pt"] is None:
+            raise AssertionError(f"product_chain: accuracy log of {len(acc)} utterances, "
+                                 f"WER {wer['pt']}")
+        _check_native("product_chain", perf.extra["completed"], perf.extra["issued"],
+                      2 * len(store), launches, perf.launches)
+        seq = lambda h: np.frombuffer(h.encode(), np.uint8)  # a char per token
+        rate, n_tok, _ = _edit_rate([seq(h) for h in perf.hypotheses],
+                                    [seq(seq_to_sen(acc[i])) for i in range(len(store))])
+        if n_tok == 0 or rate > 1e-3:
+            raise AssertionError(f"product_chain: native vs accuracy-log edit rate {rate}")
+        if perf.extra["timing"] != "native" or not launches["lstm_recurrence"]:
+            raise AssertionError(f"product_chain: timing {perf.extra['timing']}, launches "
+                                 f"{launches} (calibration runs kernel C)")
+
+        broken = Path(p("rnnt_loadgen.cpp"))
+        broken.write_text(native.SRC.read_text().replace("int lg_poll(", "int lg_poll(((", 1))
+        try:
+            native.build_lib(broken, Path(p("broken_build")))
+        except RuntimeError as e:
+            broken_error = str(e).splitlines()[0]
+        else:
+            raise AssertionError("product_chain: a broken loadgen source built")
+    out.update({
+        "utterances": len(store), "audio_seconds": store.audio_seconds,
+        "chain_seconds": chain_seconds, "wer_percent": wer["pt"],
+        "accuracy_log_equal_npz_chain": True, "native_vs_accuracy_edit_rate": rate,
+        "native_offline": perf.summary(), "launches": launches,
+        "launches_native_loop": perf.launches, "broken_loadgen_build": broken_error,
+    })
+    emit(out)
+    return {"main": launches, "timed_pass": perf.launches}
 
 
 # the bench phase's cuts from the JAX headline defaults (BENCH_N 8192,
@@ -1322,7 +1642,7 @@ def main() -> int:
           "pre_amax": calib.pre_amax.tolist(), "post_amax": calib.post_amax.tolist()})
 
     card = device["nvidia_smi"]
-    a = phase_kernel_a(qweights, dev)
+    a = phase_kernel_a(qweights, dev, single_stream_frames(params))
     b = phase_kernel_b(qweights, params, dev, "kernel_b")
     b32 = phase_kernel_b(weights, params, dev, "kernel_b_f32")
     bp = phase_kernel_b_packed(qweights, params, dev)
@@ -1337,6 +1657,8 @@ def main() -> int:
         "server": phase_server_int8(qweights, params, dev, args.seed, card),
         "fake_quant": {"main": phase_fake_quant(dev, card)},
     }
+    paths.update(phase_native(qweights, params, dev, card, paths["server"]["realtime_qps"]))
+    paths["product_chain"] = phase_product_chain(params, dev, card, args.seed)
     benches = phase_bench(card)
     # the bench's store (bench.run's: seed 0) at the bench phase's BENCH_N
     bench_store = SampleStore.synthetic(n=int(BENCH_CUTS["BENCH_N"]), seed=0)
@@ -1350,9 +1672,11 @@ def main() -> int:
     b["launches"] = paths["bf16"]["main"]["decode_step"]
     c["launches"] = paths["bf16"]["main"]["lstm_recurrence"]
     d["launches_per_timed_pass"] = d["launches"]
-    for e, name, ks in ((a, "quant_lstm_layer", ("int8", "packed", "server")),
-                        (b, "decode_step", ("int8", "bf16", "f32", "packed", "server")),
-                        (c, "lstm_recurrence", ("bf16", "f32"))):
+    native = ("native_offline", "native_packed", "native_server", "native_single_stream",
+              "product_chain")
+    for e, name, ks in ((a, "quant_lstm_layer", ("int8", "packed", "server") + native),
+                        (b, "decode_step", ("int8", "bf16", "f32", "packed", "server") + native),
+                        (c, "lstm_recurrence", ("bf16", "f32", "product_chain"))):
         e["launches_per_timed_pass"] = paths["bf16" if e is not a else "int8"]["timed_pass"][name]
         e["launches_by_path"] = {k: paths[k]["main"][name] for k in ks}
         e["launches_per_timed_pass_by_path"] = {k: paths[k]["timed_pass"][name] for k in ks}

@@ -1,9 +1,9 @@
 """CLI entry point: calibrate -> quantize -> benchmark/accuracy
 (counterpart of rnnt_inference_tpu/main.py, same flags and staged flow):
 
-  python -m rnnt_inference_tpu_torch.main --model rnnt_weights.npz --calibration \
+  python -m rnnt_inference_tpu_torch.main --model rnnt.pt --calibration \
       --calib_file train.npz --calib_out rnnt_calib.npz
-  python -m rnnt_inference_tpu_torch.main --model rnnt_weights.npz --save_quant \
+  python -m rnnt_inference_tpu_torch.main --model rnnt.pt --save_quant \
       --calib_in rnnt_calib.npz --quant_out rnnt_quant.npz
   python -m rnnt_inference_tpu_torch.main --quant_in rnnt_quant.npz --benchmark \
       --scenario Offline --sample_file dev-clean.npz --accuracy
@@ -11,19 +11,26 @@
   python -m rnnt_inference_tpu_torch.main --quant_in rnnt_quant.npz --benchmark --packed \
       --synthetic 64
   python -m rnnt_inference_tpu_torch.main --quant_in rnnt_quant.npz --accuracy \
-      --scenario Server --sample_file dev-clean.npz
+      --scenario Server --sample_file dev-clean.npz --manifest dev-clean.json
+  python -m rnnt_inference_tpu_torch.main --quant_in rnnt_quant.npz --benchmark \
+      --native_loadgen --scenario Server --sample_file dev-clean.npz --user_conf user.conf
 
-Weights, calibration, quantized models and sample stores are the JAX
-package's npz files, so either package reads what the other wrote.  Run
+--model takes the MLPerf zenodo checkpoint (rnnt.pt, read with torch.load)
+or the JAX package's weights npz.  Weights, calibration, quantized models
+and sample stores are the JAX package's npz files, so either package reads
+what the other wrote.  --manifest replaces the store's transcripts with a
+manifest's (utterances up to 15 s), for WER.  Run
 modes: bf16 (the default: every weight cast to bf16), f32, quant (int8
 encoder from --quant_in), fake_quant (f32 with the int8 rounding simulated;
 needs --calib_in).  --profiler_dir writes a torch.profiler trace of the
 benchmark/accuracy stage there.  Scenarios: Offline (bucketed, or sequence-packed
 with --packed and by the JAX CLI's auto rule at symbol cap 1), Server (the
-slot pipeline under Poisson arrivals) and SingleStream.  Everything runs on
+slot pipeline under Poisson arrivals) and SingleStream.  --native_loadgen
+times performance runs of every scenario (SingleStream also with
+--accuracy) on the native mini-loadgen's clock (runtime/native.py, built
+with g++ on first use) under the conf's TestSettings.  Everything runs on
 the card unless --device cpu is given, where the plain PyTorch twins of the
-kernels run.  Options whose code is not ported yet exit with an error that
-names the ROADMAP item.
+kernels run.
 """
 
 from __future__ import annotations
@@ -40,7 +47,8 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser("rnnt_inference_tpu_torch")
     # model artifacts
     p.add_argument("--model", type=str, default=None,
-                   help="f32 weights .npz (the JAX package's container)")
+                   help="f32 checkpoint: zenodo rnnt.pt (torch) or weights .npz "
+                        "(the JAX package's container)")
     p.add_argument("--calib_in", type=str, default=None)
     p.add_argument("--calib_out", type=str, default="rnnt_calib.npz")
     p.add_argument("--quant_in", type=str, default=None)
@@ -78,7 +86,9 @@ def parse_args(argv=None):
                    help="decode grain over the packed timeline, in post-stack frames")
     p.add_argument("--server_slots", type=int, default=128)
     p.add_argument("--response_size", type=int, default=9)
-    p.add_argument("--native_loadgen", action="store_true")
+    p.add_argument("--native_loadgen", action="store_true",
+                   help="time performance runs with the C++ mini-loadgen (native "
+                        "issue thread and latency recorder)")
     p.add_argument("--mlperf_conf", type=str, default=None)
     p.add_argument("--user_conf", type=str, default=None)
     p.add_argument("--output_dir", type=str, default="output")
@@ -90,30 +100,19 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _not_ported(what: str, item: str):
-    raise SystemExit(f"{what} is not yet ported to rnnt_inference_tpu_torch (ROADMAP queue {item})")
-
-
-def _refuse_unported(args) -> None:
-    if args.native_loadgen:
-        _not_ported("--native_loadgen", "1.6")
-    if args.manifest:
-        _not_ported("--manifest", "1.7")
-    if args.model is not None and not args.model.endswith(".npz"):
-        _not_ported("a .pt checkpoint (the rnnt.pt importer)", "1.4")
-
-
 def load_model_weights(args, params, device):
     """(weights, kind) from the CLI flags, on ``device``."""
     from rnnt_inference_tpu_torch.models import checkpoint as ckpt
-    from rnnt_inference_tpu_torch.models.weights import init_weights
+    from rnnt_inference_tpu_torch.models.weights import init_weights, load_torch_checkpoint
 
     if args.quant_in:
         return ckpt.load_quant_weights(args.quant_in, params, device), "quant"
     if args.model is None:
         w = init_weights(params, torch.Generator().manual_seed(args.seed), device=device)
-    else:
+    elif args.model.endswith(".npz"):
         w = ckpt.load_weights(args.model, params, device)
+    else:
+        w = load_torch_checkpoint(args.model, params, device)
     if args.run_mode == "fake_quant":
         # the quantization-error triage mode needs the calibrated amaxes
         from rnnt_inference_tpu_torch.models.quant import fake_quantize_weights
@@ -139,10 +138,10 @@ def load_store(args, path):
 
 def main(argv=None):
     """Run the stages the flags ask for; returns the scenario's RunReport,
-    for Server (ServerMetrics, {query: tokens}) (None without
+    for Server (ServerMetrics, {query: tokens}), with --native_loadgen (the
+    native report dict, {query: tokens}) (None without
     --benchmark/--accuracy)."""
     args = parse_args(argv)
-    _refuse_unported(args)
     from rnnt_inference_tpu_torch.config import FeaturizerConfig, RNNTParams
 
     params = RNNTParams()
@@ -198,6 +197,10 @@ def main(argv=None):
         from rnnt_inference_tpu_torch.utils.profiler import device_trace
 
         store = load_store(args, args.sample_file)
+        if args.manifest:
+            from rnnt_inference_tpu_torch.data.manifest import Manifest
+
+            store.transcripts = Manifest([args.manifest], max_duration=15.0).transcripts
         with device_trace(args.profiler_dir, device):
             return _run_scenario(args, weights, store, params, cfg, device)
     return None
@@ -234,6 +237,28 @@ def _run_scenario(args, weights, store, params, cfg, device):
             packed = store.kind == "waveform" and params.max_symbols_per_step == 1
         elif packed and store.kind != "waveform":
             raise SystemExit("--packed requires a waveform sample store")
+        if args.native_loadgen and not args.accuracy:
+            from rnnt_inference_tpu_torch.runtime.harness import run_offline_native
+
+            report = run_offline_native(
+                weights, store, params, cfg,
+                batch_size=args.batch_size,
+                split_len=args.split_len,
+                target_qps=settings.target_qps,
+                min_query_count=settings.min_query_count,
+                min_duration_s=settings.min_duration_ms / 1e3,
+                samples_per_query=settings.samples_per_query,
+                # 0: the whole store when no MLPerf conf was given (the
+                # trim rule above)
+                performance_sample_count=(settings.performance_sample_count
+                                          if args.mlperf_conf or args.user_conf else 0),
+                packed=packed,
+                chunk_frames=args.pack_chunk,
+                decode_chunk=args.pack_decode_chunk,
+                device=device,
+            )
+            _write_summary(args, validate_report(settings, report.summary()))
+            return report
         report = run_offline(
             weights, store, params, cfg,
             batch_size=args.batch_size,
@@ -261,26 +286,49 @@ def _run_scenario(args, weights, store, params, cfg, device):
         runner.warmup()
         # accuracy runs cover the set once; performance runs keep the
         # conf's min_duration / min_query_count rules
-        metrics, results = run_server(
-            runner, store, target_qps=settings.target_qps,
-            realtime=not args.accuracy,
-            response_size=args.response_size,
-            min_query_count=0 if args.accuracy else settings.min_query_count,
-            min_duration_s=0.0 if args.accuracy else settings.min_duration_ms / 1e3,
-        )
-        _write_summary(args, validate_report(settings, metrics.summary()))
+        if args.native_loadgen and not args.accuracy:
+            from rnnt_inference_tpu_torch.runtime.scheduler import run_server_native
+
+            metrics, results = run_server_native(
+                runner, store, target_qps=settings.target_qps,
+                response_size=args.response_size,
+                min_query_count=settings.min_query_count,
+                min_duration_s=settings.min_duration_ms / 1e3,
+            )
+            summary = dict(metrics, scenario="Server")
+        else:
+            metrics, results = run_server(
+                runner, store, target_qps=settings.target_qps,
+                realtime=not args.accuracy,
+                response_size=args.response_size,
+                min_query_count=0 if args.accuracy else settings.min_query_count,
+                min_duration_s=0.0 if args.accuracy else settings.min_duration_ms / 1e3,
+            )
+            summary = metrics.summary()
+        _write_summary(args, validate_report(settings, summary))
         if args.accuracy:
             n = len(store)
             acc = [{"qsl_idx": q % n, "data": tokens_to_hex(results[q])} for q in sorted(results)]
             with open(os.path.join(args.output_dir, "accuracy_log.json"), "w") as f:
                 json.dump(acc, f)
         return metrics, results
-    else:  # SingleStream
-        from rnnt_inference_tpu_torch.runtime.harness import run_single_stream
-
-        report = run_single_stream(
-            weights, store, params, cfg, split_len=args.split_len, device=device
+    else:  # SingleStream, on the native loadgen's clock with --native_loadgen
+        from rnnt_inference_tpu_torch.runtime.harness import (
+            run_single_stream,
+            run_single_stream_native,
         )
+
+        if args.native_loadgen:
+            report = run_single_stream_native(
+                weights, store, params, cfg,
+                min_query_count=settings.min_query_count,
+                min_duration_s=settings.min_duration_ms / 1e3,
+                device=device,
+            )
+        else:
+            report = run_single_stream(
+                weights, store, params, cfg, split_len=args.split_len, device=device
+            )
         _write_summary(args, validate_report(settings, report.summary()))
     return report
 

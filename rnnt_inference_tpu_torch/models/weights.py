@@ -11,13 +11,14 @@ arrays:
 The bridge (``weights_from_numpy_leaves`` / ``load_jax_npz``) reads the
 leaves in ``jax.tree.flatten`` order, the order rnnt_inference_tpu's
 checkpoint container writes, with bf16 stored as its uint16 bit pattern.
+``load_torch_checkpoint`` imports the MLPerf zenodo ``rnnt.pt``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Callable, List, Sequence
+from typing import Any, Callable, Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -237,3 +238,110 @@ def load_jax_npz(path: str, params: RNNTParams = RNNTParams(), device="cuda"):
     (``rnnt_weights`` or ``rnnt_quant_weights``) without JAX."""
     meta, leaves = read_npz(path)
     return weights_from_numpy_leaves(leaves, meta["kind"], params, device)
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint import (zenodo rnnt.pt -> RNNTWeights)
+# ---------------------------------------------------------------------------
+
+
+def _get(sd: Dict[str, Any], key: str) -> np.ndarray:
+    v = sd[key]
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu().float().numpy()
+    return np.asarray(v, dtype=np.float32)
+
+
+def _lstm_from_torch(sd: Dict[str, Any], prefix: str, num_layers: int, device):
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return [
+        LSTMLayerWeights(
+            w_ih=t(_get(sd, f"{prefix}.weight_ih_l{l}").T),  # (4H, IC) -> (IC, 4H)
+            w_hh=t(_get(sd, f"{prefix}.weight_hh_l{l}").T),
+            b=t(_get(sd, f"{prefix}.bias_ih_l{l}") + _get(sd, f"{prefix}.bias_hh_l{l}")),
+        )
+        for l in range(num_layers)
+    ]
+
+
+def weights_from_torch_state_dict(
+    state_dict: Dict[str, Any], params: RNNTParams = RNNTParams(), device="cuda"
+) -> RNNTWeights:
+    """Import the MLPerf RNN-T checkpoint (the JAX package's
+    weights_from_torch_state_dict, leaf for leaf).
+
+    Accepts the raw zenodo keys (encoder.pre_rnn.lstm.*, joint_net.0.*) or
+    the migrated ones (transcription.pre_rnn.*, joint.linear1_trans.*), bare
+    or under a "state_dict" entry; the key migration mirrors the reference's
+    models/utils.py:60-81.  The joint's first linear is split at
+    trans_hidden_size, its bias going to the prediction half (the
+    transcription half's bias is zero).  Featurizer buffers are ignored.
+    """
+    sd = dict(state_dict)
+    if "state_dict" in sd:
+        sd = dict(sd["state_dict"])
+
+    migrated: Dict[str, Any] = {}
+    for key, value in sd.items():
+        if key == "joint_net.0.weight":
+            w = _get(sd, key)  # (J, H + P)
+            migrated["joint.linear1_trans.weight"] = w[:, : params.trans_hidden_size]
+            migrated["joint.linear1_pred.weight"] = w[:, params.trans_hidden_size :]
+            continue
+        if key == "joint_net.0.bias":
+            migrated["joint.linear1_trans.bias"] = np.zeros(params.joint_hidden_size, np.float32)
+            migrated["joint.linear1_pred.bias"] = value
+            continue
+        key = key.replace("encoder.pre_rnn.lstm", "transcription.pre_rnn")
+        key = key.replace("encoder.post_rnn.lstm", "transcription.post_rnn")
+        key = key.replace("dec_rnn.lstm", "pred_rnn")
+        key = key.replace("joint_net.0", "joint.linear1")
+        key = key.replace("joint_net.3", "joint.linear2")
+        migrated[key] = value
+    sd = migrated
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return RNNTWeights(
+        pre_rnn=_lstm_from_torch(sd, "transcription.pre_rnn", params.pre_num_layers, device),
+        post_rnn=_lstm_from_torch(sd, "transcription.post_rnn", params.post_num_layers, device),
+        embed=t(_get(sd, "prediction.embed.weight")),
+        pred_rnn=_lstm_from_torch(sd, "prediction.pred_rnn", params.pred_num_layers, device),
+        joint=JointWeights(
+            w1_trans=t(_get(sd, "joint.linear1_trans.weight").T),
+            w1_pred=t(_get(sd, "joint.linear1_pred.weight").T),
+            b1=t(_get(sd, "joint.linear1_trans.bias") + _get(sd, "joint.linear1_pred.bias")),
+            w2=t(_get(sd, "joint.linear2.weight").T),
+            b2=t(_get(sd, "joint.linear2.bias")),
+        ),
+    )
+
+
+def torch_state_dict_from_weights(weights: RNNTWeights) -> Dict[str, torch.Tensor]:
+    """The float weights under the zenodo checkpoint's keys and layouts, on
+    the CPU (the inverse of weights_from_torch_state_dict: each folded bias
+    as bias_ih with a zero bias_hh, the joint's first linear joined).  For
+    writing checkpoints of seeded weights."""
+    w = weights.to(device="cpu", dtype=torch.float32)
+    sd: Dict[str, torch.Tensor] = {}
+    for prefix, layers in (("encoder.pre_rnn.lstm", w.pre_rnn),
+                           ("encoder.post_rnn.lstm", w.post_rnn),
+                           ("prediction.dec_rnn.lstm", w.pred_rnn)):
+        for l, layer in enumerate(layers):
+            sd[f"{prefix}.weight_ih_l{l}"] = layer.w_ih.T.contiguous()
+            sd[f"{prefix}.weight_hh_l{l}"] = layer.w_hh.T.contiguous()
+            sd[f"{prefix}.bias_ih_l{l}"] = layer.b.clone()
+            sd[f"{prefix}.bias_hh_l{l}"] = torch.zeros_like(layer.b)
+    sd["prediction.embed.weight"] = w.embed.clone()
+    sd["joint_net.0.weight"] = torch.cat([w.joint.w1_trans.T, w.joint.w1_pred.T], dim=1)
+    sd["joint_net.0.bias"] = w.joint.b1.clone()
+    sd["joint_net.3.weight"] = w.joint.w2.T.contiguous()
+    sd["joint_net.3.bias"] = w.joint.b2.clone()
+    return sd
+
+
+def load_torch_checkpoint(path: str, params: RNNTParams = RNNTParams(), device="cuda"):
+    """Load the zenodo rnnt.pt on the CPU and import it.  weights_only=False
+    as the JAX importer: a real zenodo file holds non-tensor entries that
+    torch's weights-only loader may refuse."""
+    return weights_from_torch_state_dict(
+        torch.load(path, map_location="cpu", weights_only=False), params, device)

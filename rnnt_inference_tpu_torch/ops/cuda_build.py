@@ -3,7 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
 first use into ``build/torch_kernels/lib<name>-<hash>.so`` at the repository
 root (the hash is of the source, the shared headers ``csrc/*.cuh`` and the
-flags, so an edited source or header rebuilds).
+flags, so an edited source or header rebuilds).  ``compile_libs`` is the
+one build step, also for the native loadgen's g++ build
+(runtime/native.py).
 Nothing is compiled when a module is imported.  A failed build raises.
 
 Flags: ``sm_90a`` (Hopper), no fast math, and ``--fmad=false`` so that the
@@ -21,7 +23,7 @@ import subprocess
 import time
 import weakref
 from pathlib import Path
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Sequence, Tuple
 
 import torch
 
@@ -48,38 +50,57 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def hashed_lib_path(stem: str, sources: Sequence[Path], flags: Sequence[str],
+                    build_dir: Path = BUILD_DIR) -> Path:
+    """``build_dir/lib<stem>-<hash>.so``, the hash of the sources' bytes and
+    the flags: an edited source, header or flag builds a new library."""
+    src = b"".join(f.read_bytes() for f in sources)
+    digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:12]
+    return build_dir / f"lib{stem}-{digest}.so"
+
+
 def _lib_path(name: str) -> Path:
-    src = b"".join(f.read_bytes() for f in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return hashed_lib_path(name, [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))], NVCC_FLAGS)
 
 
-def build(names: Sequence[str]) -> Dict[str, dict]:
-    """Compile the named sources that are not built yet, one nvcc process
-    per source, all started together.  Raises if any build fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def compile_libs(jobs: Dict[str, Tuple[Sequence[str], Path, Path]]) -> Dict[str, dict]:
+    """Run each job ``name -> (compiler and flags, source, output)``, one
+    process per job, all started together.  Each writes a temporary file of
+    its own (the process id in its name) that is renamed onto the output
+    only when the compiler succeeds, so processes that build the same
+    library at once never load a partial file.  Records each job's seconds
+    and compiler output in BUILD_INFO; raises with the output of every job
+    that failed."""
     procs = {}
     t0 = time.time()
-    for name in names:
-        out = _lib_path(name)
-        if out.exists():
-            continue
+    for name, (compiler, src, out) in jobs.items():
+        out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            [*compiler, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ), tmp, out)
     failed = []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         BUILD_INFO[name] = {"seconds": time.time() - t0, "log": log}
         if proc.returncode != 0:
-            failed.append(f"{name}:\n{log}")
+            failed.append(f"{name} ({jobs[name][0][0]} exit {proc.returncode}):\n{log}")
+            tmp.unlink(missing_ok=True)
             continue
         os.replace(tmp, out)
     if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        raise RuntimeError("build failed for " + "\n".join(failed))
     return BUILD_INFO
+
+
+def build(names: Sequence[str]) -> Dict[str, dict]:
+    """Compile the named CUDA sources that are not built yet, one nvcc
+    process per source, all started together.  Raises if any build fails."""
+    return compile_libs({
+        name: ([nvcc_path(), *NVCC_FLAGS], CSRC / f"{name}.cu", _lib_path(name))
+        for name in names if not _lib_path(name).exists()
+    })
 
 
 def load(name: str) -> ctypes.CDLL:

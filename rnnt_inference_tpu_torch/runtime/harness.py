@@ -1,7 +1,8 @@
 """Benchmark/accuracy harness, the mlperf-loadgen-shaped front door
 (counterpart of rnnt_inference_tpu/runtime/harness.py: the bucketed Offline
 run, host-assembled or device-resident, the sequence-packed Offline run,
-SingleStream, and the accuracy log).
+SingleStream, the accuracy log, and the Offline and SingleStream runs timed
+by the native mini-loadgen, runtime/native.py).
 
 Artifacts are the JAX package's, byte for byte in format:
   - accuracy log JSON [{qsl_idx, data: <hex of int32 little-endian tokens>}]
@@ -21,8 +22,12 @@ import torch
 
 from rnnt_inference_tpu_torch.config import FeaturizerConfig, RNNTParams
 from rnnt_inference_tpu_torch.data.dataset import SampleStore
-from rnnt_inference_tpu_torch.runtime.offline import OfflineRunner
-from rnnt_inference_tpu_torch.runtime.qsl import DEFAULT_WAV_BUCKETS_S, QuerySampleLibrary
+from rnnt_inference_tpu_torch.runtime.offline import OfflineRunner, launch_counts, launches_since
+from rnnt_inference_tpu_torch.runtime.qsl import (
+    DEFAULT_WAV_BUCKETS_S,
+    QuerySampleLibrary,
+    to_int16_pcm,
+)
 from rnnt_inference_tpu_torch.utils.labels import seq_to_sen
 from rnnt_inference_tpu_torch.utils.profiler import TIMED_REP
 from rnnt_inference_tpu_torch.utils.wer import word_error_rate
@@ -110,8 +115,9 @@ def run_offline(
     qsl = QuerySampleLibrary(store, cfg, wav_buckets_s or DEFAULT_WAV_BUCKETS_S)
     packing = {}
     if packed:
-        rep, packing = _packed_rep(weights, store, qsl, params, cfg, batch_size, warmup,
-                                   runner, device, chunk_frames, decode_chunk)
+        prunner, packing = _packed_runner(weights, store, qsl, params, cfg, batch_size, warmup,
+                                          runner, device, chunk_frames, decode_chunk)
+        rep = prunner.run_device
     else:
         runner = runner or OfflineRunner(weights, params, cfg, batch_size, split_len, device)
         if device_resident and store.kind == "waveform":
@@ -158,10 +164,10 @@ def run_offline(
     return report
 
 
-def _packed_rep(weights, store, qsl, params, cfg, batch_size, warmup, runner, device,
-                chunk_frames, decode_chunk):
-    """(the packed runner's timed rep, as a function; the report's packing
-    keys): staged untimed, after one untimed rep."""
+def _packed_runner(weights, store, qsl, params, cfg, batch_size, warmup, runner, device,
+                   chunk_frames, decode_chunk):
+    """(the packed runner, staged untimed and after one untimed rep; the
+    report's packing keys)."""
     from rnnt_inference_tpu_torch.runtime.packing import PackedOfflineRunner
 
     if store.kind != "waveform":
@@ -175,9 +181,162 @@ def _packed_rep(weights, store, qsl, params, cfg, batch_size, warmup, runner, de
     plan = runner.stage(qsl)
     if warmup:
         runner.run_device()  # builds the kernels and pays one-off costs, untimed
-    return runner.run_device, dict(packing_efficiency=round(plan.packing_efficiency, 4),
-                                   pack_chunks=plan.n_chunks,
-                                   chunk_frames=runner.chunk_frames)
+    return runner, dict(packing_efficiency=round(plan.packing_efficiency, 4),
+                        pack_chunks=plan.n_chunks, chunk_frames=runner.chunk_frames)
+
+
+# Cycles a native Offline run dispatches before it reads the oldest back.
+# ``dispatch`` returns only after the decode loop's last finish-mask read,
+# so the queue overlaps little more than the readback and harvest with the
+# next cycles' trailing work; reading each cycle back at once measured
+# about 1% slower packed on an H100 (PERF.md).
+NATIVE_INFLIGHT_CYCLES = 4
+
+
+def _native_offline_loop(store, cfg, n, n_queries, dispatch, harvest, max_wall_s,
+                         extra) -> RunReport:
+    """The native-clock Offline serve loop over whole cycles of the sample
+    set: ``dispatch()`` enqueues one cycle and returns its results on the
+    device (tensors, with host arrays passed through), ``harvest(*host)``
+    turns them, read back, into per-sample token lists in store order.
+    Query q is sample q % n; a query completes once its cycle's tokens are
+    on the host.  The wall is first issue -> last completion on the native
+    loadgen's clock, the bulk token readback included.  Up to
+    NATIVE_INFLIGHT_CYCLES cycles are dispatched before the oldest is read
+    back."""
+    from rnnt_inference_tpu_torch.runtime.native import NativeLoadGen
+
+    n_cycles = -(-n_queries // n)
+    sample_lens = store.lengths
+    tokens_first_cycle: dict = {}
+    completed_audio_samples = 0
+    polled = 0
+    before = launch_counts()
+    lg = NativeLoadGen(n, 1.0, mode="Offline", min_query_count=n_queries)
+    t_host0 = time.time()
+
+    def poll_until(q_max: int) -> None:
+        # drain the issuer's bounded queue at least past query q_max (ids
+        # arrive in order; the issuer blocks while the queue is full)
+        nonlocal polled
+        while polled <= q_max:
+            got = lg.poll(max_n=4096, timeout_us=100000)
+            polled += len(got)
+            if not got and lg.done_issuing:
+                break
+
+    def complete_cycle(cycle: int, results) -> None:
+        nonlocal completed_audio_samples
+        host = [r.cpu().numpy() if isinstance(r, torch.Tensor) else r
+                for r in results]  # the bulk readback, timed
+        for i, toks in enumerate(harvest(*host)):
+            q = cycle * n + i
+            if q >= n_queries:
+                continue  # the last cycle's surplus is dead work
+            poll_until(q)
+            if cycle == 0:
+                tokens_first_cycle[i] = toks
+            # audio by the completed query's own sample (after a max_wall_s
+            # break the completed queries need not be a prefix of the set)
+            completed_audio_samples += int(sample_lens[i])
+            lg.complete(q)
+
+    try:
+        inflight = []  # (cycle, device results)
+        for cycle in range(n_cycles):
+            if time.time() - t_host0 > max_wall_s:
+                break
+            inflight.append((cycle, dispatch()))
+            while len(inflight) >= NATIVE_INFLIGHT_CYCLES:
+                complete_cycle(*inflight.pop(0))
+        while inflight:
+            complete_cycle(*inflight.pop(0))
+        rep = lg.report()
+    finally:
+        lg.close()
+
+    wall = rep["wall_seconds"]
+    report = RunReport(
+        scenario="Offline",
+        samples=rep["completed"],
+        wall_seconds=wall,
+        samples_per_second=rep["completed"] / wall if wall else 0.0,
+        audio_seconds_per_second=completed_audio_samples / cfg.sample_rate / wall if wall else 0.0,
+        hypotheses=[seq_to_sen(t, len(t)) for _, t in sorted(tokens_first_cycle.items())],
+        extra=dict(
+            completed=rep["completed"],
+            issued=rep["issued"],
+            qps=rep["qps"],
+            performance_sample_count=n,
+            queries=n_queries,
+            cycles=n_cycles,
+            timing="native",
+            **extra,
+        ),
+    )
+    report.launches = launches_since(before)
+    return report
+
+
+def run_offline_native(
+    weights,
+    store: SampleStore,
+    params: RNNTParams = RNNTParams(),
+    cfg: FeaturizerConfig = FeaturizerConfig(),
+    batch_size: int = 128,
+    split_len: int = -1,
+    target_qps: float = 1.0,
+    min_query_count: int = 0,
+    min_duration_s: float = 0.0,
+    samples_per_query: int = 1,
+    performance_sample_count: int = 0,
+    warmup: bool = True,
+    max_wall_s: float = 700.0,
+    packed: bool = False,
+    chunk_frames: int = 16,
+    decode_chunk: int = 128,
+    device="cuda",
+) -> RunReport:
+    """Offline performance run with the native mini-loadgen as the one
+    timing authority, the clock Server and SingleStream use too (reference:
+    loadgen owns all timing, csrc/main.cpp:108-147).
+
+    MLPerf Offline rules:
+      - the QSL holds exactly ``performance_sample_count`` samples (0: the
+        whole store) and queries cycle over them (query q -> sample q % psc);
+      - the query count is max(min_query_count, ceil(target_qps *
+        min_duration), samples_per_query, psc) (loadgen sizes its one
+        Offline query as target_qps * min_duration);
+      - the native issuer issues every query at t=0; a query completes only
+        once its tokens are on the host, and the wall is first issue -> last
+        completion on the native clock.
+
+    Each cycle serves the whole staged set: bucketed through a DeviceQSL and
+    ``OfflineRunner.dispatch_device``, or with packed=True through
+    ``PackedOfflineRunner.dispatch``.  Staging and warm-up (the kernels'
+    build and one untimed pass) happen before the issuer starts (loadgen's
+    untimed LoadSamplesToRam and warm-up)."""
+    psc = performance_sample_count or len(store)
+    if len(store) > psc:
+        store = store.select(np.arange(psc))
+    n = len(store)
+    n_queries = max(min_query_count, int(np.ceil(target_qps * min_duration_s)),
+                    samples_per_query, n)
+    if store.kind != "waveform":
+        raise ValueError("the native Offline run serves waveform stores")
+    qsl = QuerySampleLibrary(store, cfg)
+    loop = lambda dispatch, harvest, extra: _native_offline_loop(
+        store, cfg, n, n_queries, dispatch, harvest, max_wall_s, extra)
+    if packed:
+        prunner, packing = _packed_runner(weights, store, qsl, params, cfg, batch_size, warmup,
+                                          None, device, chunk_frames, decode_chunk)
+        return loop(prunner.dispatch, prunner.harvest, dict(packed=True, **packing))
+    runner = OfflineRunner(weights, params, cfg, batch_size, split_len, device)
+    dqsl = qsl.load_to_device(batch_size, device=runner.device)
+    if warmup:
+        runner.warmup_device(dqsl)
+        runner.run_device(dqsl)  # untimed priming pass
+    return loop(lambda: runner.dispatch_device(dqsl), OfflineRunner.harvest, {})
 
 
 def eval_accuracy_log(log_path: str, references: List[str]) -> float:
@@ -192,21 +351,95 @@ def eval_accuracy_log(log_path: str, references: List[str]) -> float:
     return wer
 
 
+def run_single_stream_native(
+    weights,
+    store: SampleStore,
+    params: RNNTParams = RNNTParams(),
+    cfg: FeaturizerConfig = FeaturizerConfig(),
+    min_query_count: int = 0,
+    min_duration_s: float = 0.0,
+    warmup: bool = True,
+    max_wall_s: float = 700.0,
+    device="cuda",
+) -> RunReport:
+    """SingleStream driven by the native mini-loadgen's issue-after-complete
+    mode: the next query is issued only once the previous completed, the
+    latencies are stamped on the native clock, and the conf's
+    min_query_count / min_duration rules are kept by the issuer.  Each
+    query runs ``_pipeline_i16`` on one waveform (int16 PCM, as DeviceQSL
+    stages it) and reads its tokens back once.  The kernels are built by
+    the warm-up, before the issuer starts."""
+    from rnnt_inference_tpu_torch.runtime.native import NativeLoadGen
+    from rnnt_inference_tpu_torch.runtime.offline import PhaseClock
+
+    qsl = QuerySampleLibrary(store, cfg)
+    runner = OfflineRunner(weights, params, cfg, 1, device=device)
+    if warmup:
+        runner.warmup(qsl, waveform_mode=(store.kind == "waveform"))
+    dev = runner.device
+    clock = PhaseClock(dev)
+    hyps: dict = {}
+    audio_s = 0.0
+    before = launch_counts()
+    lg = NativeLoadGen(len(store), target_qps=0.0, mode="SingleStream",
+                       min_query_count=min_query_count, min_duration_s=min_duration_s)
+    t_all = time.time()
+    try:
+        while not lg.drained and time.time() - t_all < max_wall_s:
+            for q in lg.poll(max_n=1, timeout_us=100000):
+                i = lg.sample_of(q)
+                wav, lens, _ = qsl.assemble_waveforms([i])
+                with torch.inference_mode():
+                    packed = runner._pipeline_i16(
+                        torch.from_numpy(to_int16_pcm(wav)).to(dev),
+                        torch.from_numpy(lens).to(dev), clock
+                    ).cpu().numpy()  # tokens and their count: one readback
+                res, res_lens = OfflineRunner._unpack(packed)
+                lg.complete(q)
+                audio_s += store.samples[i].shape[0] / float(cfg.sample_rate)
+                if i not in hyps:
+                    hyps[i] = seq_to_sen(res[0, : res_lens[0]].astype(np.int32), int(res_lens[0]))
+        rep = lg.report()
+    finally:
+        lg.close()
+
+    wall = time.time() - t_all
+    report = RunReport(
+        scenario="SingleStream",
+        samples=rep["completed"],
+        wall_seconds=wall,
+        samples_per_second=rep["completed"] / wall if wall else 0.0,
+        audio_seconds_per_second=audio_s / wall if wall else 0.0,
+        hypotheses=[hyps[i] for i in sorted(hyps)],
+        extra={k: rep[k] for k in ("latency_ms_mean", "latency_ms_p50", "latency_ms_p90",
+                                   "latency_ms_p99", "latency_ms_max", "completed", "issued")},
+        launches=launches_since(before),
+    )
+    if any(store.transcripts) and len(hyps) == len(store):
+        report.wer, _, _ = word_error_rate([hyps[i] for i in range(len(store))],
+                                           store.transcripts)
+    return report
+
+
 def run_single_stream(
     weights,
     store: SampleStore,
     params: RNNTParams = RNNTParams(),
     cfg: FeaturizerConfig = FeaturizerConfig(),
     split_len: int = -1,
+    max_samples: Optional[int] = None,
+    warmup: bool = True,
     device="cuda",
 ) -> RunReport:
     """SingleStream scenario: one waveform at a time, the next issued only
-    after the previous completed; the metric is the 90th-percentile latency."""
+    after the previous completed, over the first ``max_samples`` samples
+    (all when None); the metric is the 90th-percentile latency."""
     qsl = QuerySampleLibrary(store, cfg)
     runner = OfflineRunner(weights, params, cfg, 1, split_len, device)
-    runner.warmup(qsl, waveform_mode=(store.kind == "waveform"))
+    if warmup:
+        runner.warmup(qsl, waveform_mode=(store.kind == "waveform"))
 
-    n = len(store)
+    n = min(max_samples or len(store), len(store))
     latencies, hyps = [], []
     t_all = time.time()
     for i in range(n):

@@ -180,20 +180,41 @@ class OfflineRunner:
                 self._pipeline_i16(wav, lens, PhaseClock(self.device))[:1, -2:].cpu()
         return time.time() - t0
 
-    def run_device(self, dqsl: DeviceQSL) -> OfflineResult:
-        """The timed Offline loop over a device-resident QSL.  wall_seconds
-        covers dispatch and all device work of every batch (ended by a
-        synchronize); the one packed token readback of the whole run is
-        timed apart as readback_seconds."""
-        clock = PhaseClock(self.device)
+    def dispatch_device(
+        self, dqsl: DeviceQSL, clock: Optional[PhaseClock] = None
+    ) -> Tuple[torch.Tensor, np.ndarray]:
+        """Enqueue every batch of a device-resident QSL and return (the
+        packed token rows of all batches on the device, each row's sample
+        index, -1 for padding), with no token readback (``harvest`` takes
+        both)."""
+        clock = clock or PhaseClock(self.device)
         pending, row_indices = [], []
-        before = launch_counts()
-        t0 = time.time()
         with torch.inference_mode():
             for wav, lens, row_index in dqsl.batches():
                 pending.append(self._pipeline_i16(wav, lens, clock))
                 row_indices.append(row_index)
-            packed = torch.cat(pending, dim=0)
+            return torch.cat(pending, dim=0), np.concatenate(row_indices)
+
+    @classmethod
+    def harvest(cls, packed: np.ndarray, row_index: np.ndarray) -> List[np.ndarray]:
+        """Each sample's tokens from ``dispatch_device``'s rows, read back,
+        in sample-index order."""
+        results: dict = {}
+        res_all, lens_all = cls._unpack(packed)
+        for r, i in enumerate(row_index):
+            if i >= 0:
+                results[int(i)] = res_all[r, : lens_all[r]].astype(np.int32)
+        return [results[i] for i in sorted(results)]
+
+    def run_device(self, dqsl: DeviceQSL) -> OfflineResult:
+        """The timed Offline loop over a device-resident QSL
+        (``dispatch_device``).  wall_seconds covers dispatch and all device
+        work of every batch (ended by a synchronize); the one packed token
+        readback of the whole run is timed apart as readback_seconds."""
+        clock = PhaseClock(self.device)
+        before = launch_counts()
+        t0 = time.time()
+        packed, row_index = self.dispatch_device(dqsl, clock)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         wall = time.time() - t0
@@ -202,16 +223,10 @@ class OfflineRunner:
         t1 = time.time()
         packed_all = packed.cpu().numpy()
         readback = time.time() - t1
-
-        results: dict = {}
-        res_all, lens_all = self._unpack(packed_all)
-        for r, i in enumerate(np.concatenate(row_indices)):
-            if i >= 0:
-                results[int(i)] = res_all[r, : lens_all[r]].astype(np.int32)
         return OfflineResult(
-            tokens=[results[i] for i in sorted(results)],
+            tokens=self.harvest(packed_all, row_index),
             wall_seconds=wall,
-            batches=len(pending),
+            batches=len(dqsl),
             phase_seconds=clock.totals(),
             readback_seconds=readback,
             launches=launches,

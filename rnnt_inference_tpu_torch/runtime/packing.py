@@ -317,16 +317,15 @@ class PackedOfflineRunner:
                                                 self._utt_budget, self.impl, dw=dw)
         return st.res, st.res_idx
 
-    def run_device(self) -> OfflineResult:
-        """One timed rep (phases A, B, C) over the staged set.  wall_seconds
-        covers dispatch and all device work (ended by a synchronize); the
-        token readback is timed apart as readback_seconds."""
+    def dispatch(self, clock: Optional[PhaseClock] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Enqueue one whole rep (phases A, B, C) over the staged set and
+        return the device tensors ``harvest`` takes, (res {N, R} int8,
+        res_idx {N} int32), with no token readback.  The decode's host loop
+        still reads one finish mask per kernel-B launch, so this returns
+        only once the last decode launch has been enqueued."""
         if self._staged is None:
             raise RuntimeError("call stage() first")
-        build_kernels(self.device, self.impl)
-        clock = PhaseClock(self.device)
-        before = launch_counts()
-        t0 = time.time()
+        clock = clock or PhaseClock(self.device)
         with torch.inference_mode():
             clock.mark("start")
             packed = self._features()
@@ -335,6 +334,17 @@ class PackedOfflineRunner:
             clock.mark("encoder")
             res, res_idx = self._decode(f_all)
             clock.mark("decode")
+        return res, res_idx
+
+    def run_device(self) -> OfflineResult:
+        """One timed rep (``dispatch``).  wall_seconds covers dispatch and
+        all device work (ended by a synchronize); the token readback is
+        timed apart as readback_seconds."""
+        build_kernels(self.device, self.impl)
+        clock = PhaseClock(self.device)
+        before = launch_counts()
+        t0 = time.time()
+        res, res_idx = self.dispatch(clock)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         wall = time.time() - t0

@@ -140,13 +140,18 @@ def batch_plan(
     return plan
 
 
+def to_int16_pcm(wav: np.ndarray) -> np.ndarray:
+    """float PCM in [-1, 1) -> int16 PCM: round(wav * 32768) half to even,
+    clipped to [-32768, 32767] (the runners scale it back by 1/32768)."""
+    return np.clip(np.round(wav * 32768.0), -32768, 32767).astype(np.int16)
+
+
 class DeviceQSL:
     """The sample set in device memory, bucketed, for the timed Offline loop.
 
     One batch per entry of ``batch_plan``: waveforms {g, S_bucket} int16,
     lengths {g} int32, and the sample index of each row (-1 for dead rows).
-    Audio is staged as int16 PCM, round(s * 32768) half to even, clipped to
-    [-32768, 32767]; the runner scales it back by 1/32768.
+    Audio is staged as int16 PCM (``to_int16_pcm``).
     """
 
     MIN_TILE = 32
@@ -166,9 +171,7 @@ class DeviceQSL:
             row_index = np.full((g,), -1, np.int64)
             for r, i in enumerate(rows):
                 s = qsl.store.samples[i][:S]
-                wav[r, : s.shape[0]] = np.clip(np.round(s * 32768.0), -32768, 32767).astype(
-                    np.int16
-                )
+                wav[r, : s.shape[0]] = to_int16_pcm(s)
                 lens[r] = s.shape[0]
                 row_index[r] = i
             self._batches.append((
@@ -178,6 +181,9 @@ class DeviceQSL:
             ))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)  # staging completes untimed
+
+    def __len__(self):
+        return len(self._batches)
 
     def batches(self):
         """Yield (wav_i16 {g, S} on the device, lens {g} on the device,

@@ -1,6 +1,5 @@
 """Server-scenario load generation and latency accounting (counterpart of
-rnnt_inference_tpu/runtime/scheduler.py; the native loadgen's Server run is
-not ported yet).
+rnnt_inference_tpu/runtime/scheduler.py).
 
 Poisson arrivals at a target QPS, a FIFO issue queue, per-sample completion
 latency and the p50/p90/p99 summary.  QoS deferral: samples longer than
@@ -9,6 +8,9 @@ drains, and their latencies are kept apart from the live percentiles.
 response_size: finished slots are responded in groups of at least
 response_size, except while the tail drains or the slot pool is starved.
 Queries loop over the sample set (query q -> sample q % n).
+``run_server`` keeps its own Poisson schedule on the Python clock;
+``run_server_native`` takes arrivals and latencies from the native
+mini-loadgen (runtime/native.py).
 """
 
 from __future__ import annotations
@@ -169,3 +171,78 @@ def run_server(
 
     metrics.wall_seconds = time.time() - t_start
     return metrics, results
+
+
+def run_server_native(
+    runner: ServerRunner,
+    store: SampleStore,
+    target_qps: float,
+    seed: int = 0,
+    qos_len: int = 233500,
+    max_wall_s: float = 600.0,
+    response_size: int = 1,
+    min_query_count: int = 0,
+    min_duration_s: float = 0.0,
+) -> Tuple[dict, Dict[int, np.ndarray]]:
+    """Server run driven by the native mini-loadgen: a C++ thread issues
+    Poisson arrivals on a steady clock and completions are stamped there, so
+    latencies are free of Python jitter and charged from the scheduled
+    arrival (loadgen's rule).  The issuer keeps the min_query_count and
+    min_duration rules.  Each step's finish mask is read at once
+    (ServerRunner.step), so there is no pipeline depth to set.
+
+    Returns (the native latency report, with the kernel launches of the
+    run under "launches"; {query_id: tokens})."""
+    from rnnt_inference_tpu_torch.runtime.native import NativeLoadGen
+    from rnnt_inference_tpu_torch.runtime.offline import launch_counts, launches_since
+
+    results: Dict[int, np.ndarray] = {}
+    deferred: List[int] = []
+    finished_backlog: List[int] = []
+    before = launch_counts()
+    lg = NativeLoadGen(len(store), target_qps, mode="Server", seed=seed,
+                       min_query_count=min_query_count, min_duration_s=min_duration_s)
+    t_start = time.time()
+    try:
+        while not lg.drained and time.time() - t_start < max_wall_s:
+            # 1. admit arrivals into free slots (QoS: park over-long samples)
+            room = min(runner.insert_batch, len(runner.free_slots))
+            batch: List[int] = []
+            if room:
+                for q in lg.poll(max_n=room, timeout_us=500):
+                    if store.samples[lg.sample_of(q)].shape[0] > qos_len:
+                        lg.mark_deferred(q)  # kept out of the live percentiles
+                        deferred.append(q)
+                    else:
+                        batch.append(q)
+            # the deferred queries once the issue stream is exhausted; not
+            # only on an idle pipeline: finished slots are freed by extract,
+            # which may wait for response_size finishers, so waiting for
+            # n_active == 0 here could wait forever
+            if lg.pending == 0 and lg.done_issuing and not batch and deferred:
+                while deferred and len(batch) < room:
+                    batch.append(deferred.pop(0))
+            if batch:
+                runner.insert_samples([store.samples[lg.sample_of(q)] for q in batch], batch)
+
+            # 2. streaming steps and their finish mask
+            if runner.n_active:
+                finished_backlog.extend(int(s) for s in runner.step())
+
+            # 3. respond in response_size groups, unless the tail drains,
+            # the stream is exhausted or the slot pool is starved
+            tail = lg.done_issuing and lg.pending == 0 and not deferred
+            force = not runner.n_active and lg.pending == 0 and lg.done_issuing
+            starved = not runner.free_slots
+            if finished_backlog and (force or tail or starved
+                                     or len(finished_backlog) >= response_size):
+                for query_id, tokens in runner.extract(finished_backlog):
+                    results[query_id] = tokens
+                    if query_id >= 0:  # not a warm-up sample
+                        lg.complete(query_id)
+                finished_backlog.clear()
+        report = lg.report()
+    finally:
+        lg.close()
+    report["launches"] = launches_since(before)
+    return report, results

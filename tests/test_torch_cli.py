@@ -1,8 +1,9 @@
 """The port's CLI (rnnt_inference_tpu_torch.main) against the JAX package's
 (rnnt_inference_tpu.main): the staged flow calibrate -> quantize -> Offline
 run, at full model dims on a tiny synthetic store, both packages reading the
-same JAX-written weights npz.  The port runs with --device cpu (the plain
-twins of its kernels).
+same JAX-written weights npz (or the same zenodo-layout rnnt.pt), and the
+--manifest and --native_loadgen options.  The port runs with --device cpu
+(the plain twins of its kernels).
 
 Tolerances: calibration amaxes within 1e-5 relative (f32 encoder, matmul
 summation order); f32 and quant accuracy logs byte-equal; bf16 hypotheses
@@ -147,21 +148,6 @@ def test_store_written_by_port_loads_in_jax(tmp_path):
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("flags", [
-    ["--packed", "--native_loadgen"], ["--native_loadgen"],
-    ["--scenario", "Server", "--native_loadgen"],
-    ["--model", "rnnt.pt"], ["--manifest", "m.json"],
-])
-def test_unported_options_exit(flags):
-    """Options whose code is not ported exit with an error naming the
-    ROADMAP item; none silently does something else.  The packed runner,
-    the Server scenario, --run_mode fake_quant and --profiler_dir are
-    ported (test_fake_quant_run_matches_jax, test_profiler_dir_writes_a_
-    cpu_trace); under the native loadgen the first two are not yet."""
-    with pytest.raises(SystemExit, match=r"not yet ported .*ROADMAP queue 1\.\d"):
-        tmain(flags + ["--benchmark", "--synthetic", "1", "--device", "cpu"])
-
-
 def test_fake_quant_run_matches_jax(staged):
     """--run_mode fake_quant --calib_in on the same weights, calibration and
     store (--accuracy: every utterance once): the accuracy log byte-equal
@@ -221,3 +207,104 @@ def test_packed_and_server_runs_match_jax(staged, scenario):
         assert summary["pack_chunks"] > 0 and 0 < summary["packing_efficiency"] <= 1
     else:
         assert summary["completed"] == 3 and summary["latency_ms_p50"] is not None
+
+
+def test_pt_checkpoint_run_matches_jax(staged):
+    """--model rnnt.pt (f32 --benchmark; the accuracy log is written too) on
+    a zenodo-layout checkpoint of the staged weights: the accuracy log
+    byte-equal to the JAX CLI's on the same file."""
+    from rnnt_inference_tpu_torch.models.weights import torch_state_dict_from_weights
+
+    d, paths = staged
+    pt = str(d / "rnnt.pt")
+    w = tckpt.load_weights(paths["weights"], RNNTParams(), device="cpu")
+    torch.save({"state_dict": torch_state_dict_from_weights(w)}, pt)
+    extra = ["--model", pt, "--run_mode", "f32", "--benchmark"]
+    jlog, _ = _run(jmain, paths, str(d / "j_pt"), extra)
+    tlog, tsum = _run(tmain, paths, str(d / "t_pt"), extra + ["--device", "cpu"])
+    assert tlog == jlog and len(json.loads(tlog)) == 3 and tsum["samples"] == 3
+
+
+def test_manifest_wer_matches_jax(staged):
+    """--manifest replaces the store's transcripts (utterances up to 15 s,
+    normalized): the WER of a packed --accuracy run (scripts/run.sh stage
+    5) equals the JAX CLI's, and moves from the store's own transcripts'
+    (the first manifest transcript is the first hypothesis, upper-cased, so
+    it scores no error)."""
+    from rnnt_inference_tpu_torch.runtime.harness import hex_to_tokens
+    from rnnt_inference_tpu_torch.utils.labels import seq_to_sen
+
+    d, paths = staged
+    base = ["--quant_in", paths["jquant"], "--accuracy", "--packed"]
+    own_log, own = _run(tmain, paths, str(d / "t_no_manifest"), base + ["--device", "cpu"])
+    first = next(e for e in json.loads(own_log) if e["qsl_idx"] == 0)
+    hyp0 = seq_to_sen(hex_to_tokens(first["data"]))
+    assert hyp0.strip()
+    manifest = d / "m.json"
+    manifest.write_text(json.dumps([
+        {"audio_filepath": f"u{i}.wav", "duration": 0.5, "transcript": t}
+        for i, t in enumerate([hyp0.upper(), "the 3rd of may", "it's DR. SMITH"])]))
+    extra = base + ["--manifest", str(manifest)]
+    _, jsum = _run(jmain, paths, str(d / "j_manifest"), extra)
+    _, tsum = _run(tmain, paths, str(d / "t_manifest"), extra + ["--device", "cpu"])
+    assert tsum["wer_percent"] == jsum["wer_percent"] != own["wer_percent"]
+
+
+NATIVE_SUMMARY_KEYS = ["scenario", "samples", "completed", "issued", "performance_sample_count",
+                       "queries", "cycles", "timing", "result_validity"]
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["bucketed", "packed"])
+def test_native_offline_summary_matches_jax(staged, packed):
+    """--native_loadgen --benchmark Offline under tests/test_main.py's conf
+    (performance_sample_count 3, min_query_count 7, min_duration 0, qps 10)
+    on the JAX-quantized model: the summary's query accounting equals the
+    JAX CLI's (timings aside), bucketed and --packed."""
+    d, paths = staged
+    conf = d / "native_offline.conf"
+    conf.write_text("rnnt.*.performance_sample_count_override = 3\n"
+                    "rnnt.Offline.min_query_count = 7\n"
+                    "rnnt.Offline.min_duration = 0\n"
+                    "rnnt.Offline.target_qps = 10\n")
+    extra = ["--quant_in", paths["jquant"], "--benchmark", "--native_loadgen", "--user_conf",
+             str(conf), "--sample_file", paths["store"], "--batch_size", "4"]
+    extra += ["--packed"] if packed else []
+    keys = NATIVE_SUMMARY_KEYS + (["packed", "pack_chunks", "chunk_frames",
+                                   "packing_efficiency"] if packed else [])
+    summaries = []
+    for main, tag, dev in ((jmain, "j", []), (tmain, "t", ["--device", "cpu"])):
+        out = str(d / f"{tag}_native_{packed}")
+        main(extra + ["--output_dir", out] + dev)
+        with open(os.path.join(out, "summary.json")) as f:
+            summaries.append(json.load(f))
+    assert {k: summaries[1][k] for k in keys} == {k: summaries[0][k] for k in keys}
+    assert summaries[1]["completed"] == 7 and summaries[1]["timing"] == "native"
+
+
+@pytest.mark.parametrize("scenario", ["Server", "SingleStream"])
+def test_native_latency_scenarios_run(staged, scenario):
+    """--native_loadgen --benchmark in Server (Poisson at 50 QPS) and
+    SingleStream (issue after complete), min_query_count 4 over the
+    3-utterance store: a valid summary with every issued query completed
+    and the live latency percentiles."""
+    d, paths = staged
+    conf = d / f"native_{scenario}.conf"
+    conf.write_text(f"rnnt.{scenario}.min_query_count = 4\n"
+                    f"rnnt.{scenario}.min_duration = 0\n"
+                    f"rnnt.{scenario}.target_qps = 50\n"
+                    f"rnnt.{scenario}.target_latency = 60000\n")
+    out = str(d / f"t_native_{scenario}")
+    ret = tmain(["--quant_in", paths["jquant"], "--benchmark", "--native_loadgen", "--scenario",
+                 scenario, "--user_conf", str(conf), "--sample_file", paths["store"],
+                 "--server_slots", "4", "--output_dir", out, "--device", "cpu"])
+    with open(os.path.join(out, "summary.json")) as f:
+        summary = json.load(f)
+    assert summary["scenario"] == scenario and summary["result_validity"] == "VALID"
+    assert summary["completed"] >= 4
+    assert 0 < summary["latency_ms_p50"] <= summary["latency_ms_p90"] <= summary["latency_ms_p99"]
+    if scenario == "Server":
+        report, results = ret
+        assert report["issued"] == report["completed"] == len(results)
+        assert report["launches"]["quant_lstm_layer"] == 0  # the CPU runs the twins
+    else:
+        assert ret.extra["completed"] == ret.extra["issued"] == 4 and len(ret.hypotheses) == 3

@@ -565,3 +565,42 @@ def test_packed_runner_launches_part_only_at_ties(dev, qweights):
     assert summary["faults"] == 0, summary
     for a, b in zip(got.tokens, plain.tokens, strict=True):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["bucketed", "packed"])
+def test_native_offline_on_card_matches_run_offline(dev, qweights, packed):
+    """run_offline_native on the card (the native loadgen's clock, g++
+    build), psc 6 cycled to 14 queries: its tokens equal run_offline's on
+    the same store and runner kind, and kernels A and B launched in the
+    native loop."""
+    from rnnt_inference_tpu_torch.data.dataset import SampleStore
+    from rnnt_inference_tpu_torch.runtime.harness import run_offline, run_offline_native
+
+    store = SampleStore.synthetic(n=6, seed=31, min_seconds=0.5, max_seconds=3.0,
+                                  mean_seconds=1.5)
+    kw = dict(batch_size=4, packed=packed, device=dev)
+    rep = run_offline_native(qweights, store, P, min_query_count=14, **kw)
+    ref = run_offline(qweights, store, P, device_resident=not packed, **kw)
+    assert rep.extra["timing"] == "native"
+    assert rep.extra["completed"] == rep.extra["issued"] == rep.extra["queries"] == 14
+    assert rep.extra["cycles"] == 3 and rep.samples == 14
+    assert rep.launches["quant_lstm_layer"] > 0 and rep.launches["decode_step"] > 0
+    assert rep.hypotheses == ref.hypotheses and any(rep.hypotheses)
+
+
+def test_native_single_stream_on_card(dev, qweights):
+    """run_single_stream_native on the card: every query completes with
+    run_offline's tokens, the latencies come from the native clock, and A
+    and B launched."""
+    from rnnt_inference_tpu_torch.data.dataset import SampleStore
+    from rnnt_inference_tpu_torch.runtime.harness import run_offline, run_single_stream_native
+
+    store = SampleStore.synthetic(n=3, seed=32, min_seconds=0.5, max_seconds=2.0,
+                                  mean_seconds=1.0)
+    rep = run_single_stream_native(qweights, store, P, min_query_count=5, device=dev)
+    ref = run_offline(qweights, store, P, batch_size=4, device=dev)
+    s = rep.summary()
+    assert s["completed"] == s["issued"] == 5
+    assert 0 < s["latency_ms_p50"] <= s["latency_ms_p90"] <= s["latency_ms_p99"]
+    assert rep.launches["quant_lstm_layer"] > 0 and rep.launches["decode_step"] > 0
+    assert rep.hypotheses == ref.hypotheses

@@ -160,9 +160,9 @@ def test_frontend_constants_match_jax():
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port, the bench and the profiler
-    included, loads no jax and nothing of the JAX package (a fresh
-    interpreter)."""
+    """Importing every module of the port, the bench, the profiler, the
+    native loadgen's bindings and the text and manifest modules included,
+    loads no jax and nothing of the JAX package (a fresh interpreter)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import rnnt_inference_tpu_torch as p\n"
@@ -170,8 +170,9 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'rnnt_inference_tpu'))\n"
         "assert not bad, bad\n"
-        "assert {'rnnt_inference_tpu_torch.bench', 'rnnt_inference_tpu_torch.utils.profiler'} "
-        "<= set(sys.modules)\n"
+        "assert {'rnnt_inference_tpu_torch.bench', 'rnnt_inference_tpu_torch.utils.profiler', "
+        "'rnnt_inference_tpu_torch.runtime.native', 'rnnt_inference_tpu_torch.data.text', "
+        "'rnnt_inference_tpu_torch.data.manifest'} <= set(sys.modules)\n"
         "print('ok')\n"
     )
     out = subprocess.run(
