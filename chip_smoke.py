@@ -42,6 +42,17 @@ it and read just after:
     rnnt.pt -> --calibration -> --save_quant -> --accuracy --packed
     --manifest (WER) -> native Offline performance, against the same chain
     from an npz of the same weights; a broken loadgen source must raise;
+  - multi_device: the int8 runners with mesh= over every visible card
+    (tokens equal the runs without it), on two shards of one card (packed
+    at 1,024 lanes, bucketed at batch 32, Server-dp on 32 slots; launches
+    per shard; tokens held to the single-device run), the multihost probe
+    with two gloo ranks on the card and a one-rank NCCL group; with two or
+    more cards, a mesh over two cards and two NCCL ranks (else a line says
+    it did not run);
+  - transcribe: wav and FLAC copies of 8 utterances through
+    convert_librispeech (bit-equal), compute_features_store on the card,
+    and the Transcriber on product_chain's rnnt.pt in bf16 (kernels C and
+    B) against the twins;
   - bench_blank_cap1 / bench_burst_cap30: the port's bench (``python -m
     rnnt_inference_tpu_torch.bench``, a child process) at the JAX headline
     configuration (int8, packed, cap 1, calibrated blank rate 0.8) and at
@@ -70,6 +81,7 @@ import argparse
 import contextlib
 import json
 import os
+import socket
 import subprocess
 import sys
 import time
@@ -83,7 +95,13 @@ PEAK_BF16_FLOPS = 989e12  # dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12  # f32 FMA on the CUDA cores (no tensor cores)
 
 
+T_START = time.time()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the seconds since start."""
+    if "phase" in obj:
+        obj = dict(obj, elapsed_seconds=round(time.time() - T_START, 1))
     print(json.dumps(obj), flush=True)
 
 
@@ -1289,6 +1307,364 @@ def phase_product_chain(params, dev, card: str, seed: int) -> dict:
     return {"main": launches, "timed_pass": perf.launches}
 
 
+MD_PACKED_LANES = 1024  # the bench's lanes, 512 per shard on the two-shard mesh
+MD_PROBE_N = 32  # utterances the multihost probe stripes over its two ranks
+
+
+def _hold_sharded(name: str, got, want, rerun=None) -> dict:
+    """Sharded tokens against the single-device run's: equal, or (kernel
+    B sums its products in an order that depends on the lanes of a pass)
+    parting only at near-ties, edit rate <= 1e-3, with every kernel-B
+    launch of ``rerun()`` (the sharded run again) parting from its twin
+    only at a tie (tools/decode_divergence.compare_run_launches)."""
+    from rnnt_inference_tpu_torch.tools import decode_divergence
+
+    rate, n_tok, differ = _edit_rate(got, want)
+    out = {"tokens": n_tok, "token_edit_rate_vs_single_device": rate,
+           "utterances_differing": differ, "verdict": "equal"}
+    if n_tok == 0:
+        raise AssertionError(f"{name}: no tokens")
+    if rate or any(len(a) != len(b) for a, b in zip(got, want)):
+        out["verdict"] = "near-ties"
+        if rate > 1e-3 or rerun is None:
+            raise AssertionError(f"{name}: sharded vs single-device edit rate {rate}")
+        _, partings = decode_divergence.compare_run_launches(rerun)
+        out["kernel_b_launches_against_twin"] = partings
+        if partings["faults"]:
+            raise AssertionError(f"{name}: kernel B parts from its twin outside a tie: "
+                                 f"{partings}")
+    return out
+
+
+def phase_multi_device(qweights, params, dev, card: str, seed: int) -> dict:
+    """Data parallelism on the card (parallel/mesh.py, the runners' mesh=,
+    the slot-sharded Server, tools/multihost_probe.py), the int8 model at
+    full width.  (a) A mesh over every visible card: the bucketed runner
+    (batch 32) and the packed runner (16 lanes) on 64 utterances, tokens
+    equal to the runs without mesh=.  (b) A two-shard mesh [cuda:0,
+    cuda:0]: the packed runner at 1,024 lanes (512 per shard) on 2,048
+    utterances of 1-4 s, the bucketed runner at batch 32 (16 per shard) on
+    the 64, and Server-dp on 32 slots (server_multi_step_dp against
+    server_multi_step on the same inserted state): launches per shard;
+    tokens held to the single-device run (_hold_sharded), the Server's
+    tokens and res_idx equal.  (c) The multihost probe with 2 ranks on
+    cuda:0 over gloo (indices a disjoint cover, the merged report the sum
+    of the ranks', each rank's tokens equal a single-process run on its
+    indices) and a 1-rank NCCL group that runs all_hosts_report.  (d)
+    With two or more cards, the two-shard mesh over cuda:0 and cuda:1 and
+    the probe over 2 NCCL ranks; with one card a line says it did not
+    run.  Launch counts are set to 0 just before each run and read just
+    after.  Returns {path: {"main": launches}}."""
+    import tempfile
+
+    import torch.distributed as tdist
+
+    from rnnt_inference_tpu_torch.config import FeaturizerConfig
+    from rnnt_inference_tpu_torch.data.dataset import SampleStore
+    from rnnt_inference_tpu_torch.models import checkpoint
+    from rnnt_inference_tpu_torch.ops import decode_cuda, lstm_cuda
+    from rnnt_inference_tpu_torch.ops.features import log_mel_features
+    from rnnt_inference_tpu_torch.parallel import distributed
+    from rnnt_inference_tpu_torch.parallel.mesh import make_mesh, weight_shardings
+    from rnnt_inference_tpu_torch.runtime.harness import hex_to_tokens, run_offline
+    from rnnt_inference_tpu_torch.runtime.offline import OfflineRunner
+    from rnnt_inference_tpu_torch.runtime.packing import PackedOfflineRunner
+    from rnnt_inference_tpu_torch.runtime.qsl import QuerySampleLibrary
+    from rnnt_inference_tpu_torch.runtime.server import (
+        init_server_state, server_insert, server_multi_step, server_multi_step_dp,
+    )
+    from rnnt_inference_tpu_torch.tools import multihost_probe
+
+    t_phase = time.time()
+    cfg = FeaturizerConfig()
+    counters = {"quant_lstm_layer": lstm_cuda.quant_lstm_layer_cuda,
+                "decode_step": decode_cuda.decode_step_cuda}
+    paths, out = {}, {"phase": "multi_device", "card": card, "cards": torch.cuda.device_count()}
+
+    def counted(path, fn):
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.time()
+        r = fn()
+        paths[path] = {"main": {k: c.launches for k, c in counters.items()}}
+        if not all(paths[path]["main"].values()):
+            raise AssertionError(f"multi_device {path}: launched {paths[path]['main']}")
+        return r, time.time() - t0
+
+    store = SampleStore.synthetic(n=64, seed=seed + 20, min_seconds=1.0, max_seconds=15.0)
+    qsl = QuerySampleLibrary(store, cfg)
+    single = OfflineRunner(qweights, params, cfg, batch_size=32, device=dev)
+    single.warmup(qsl)
+    ref_bucketed = single.run(qsl)
+    packed_single = PackedOfflineRunner(qweights, params, cfg, n_lanes=16, batch_size=16,
+                                        device=dev)
+    packed_single.stage(qsl)
+    ref_packed = packed_single.run_device()
+
+    def same(name, got, want):
+        if len(got) != len(want) or not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"multi_device {name}: tokens differ from the run without mesh=")
+
+    # (a) every visible card
+    mesh_all = make_mesh()
+    r, sec = counted("multi_device_all_cards_bucketed", lambda: OfflineRunner(
+        qweights, params, cfg, batch_size=32, mesh=mesh_all).run(qsl))
+    same("all-cards bucketed", r.tokens, ref_bucketed.tokens)
+    rp = PackedOfflineRunner(qweights, params, cfg, n_lanes=16, batch_size=16, mesh=mesh_all)
+    rp.stage(qsl)
+    rpr, sec_p = counted("multi_device_all_cards_packed", rp.run_device)
+    same("all-cards packed", rpr.tokens, ref_packed.tokens)
+    out["all_cards"] = {"mesh": repr(mesh_all), "bucketed_seconds": sec,
+                        "packed_seconds": sec_p, "tokens_equal": True,
+                        "shard_launches": {"bucketed": r.shard_launches,
+                                           "packed": rpr.shard_launches}}
+
+    # (b) two shards on one card
+    two = [torch.device("cuda", 0)] * 2
+    mesh2 = make_mesh(devices=two)
+    big = SampleStore.synthetic(n=2 * MD_PACKED_LANES, seed=seed + 21, min_seconds=1.0,
+                                max_seconds=4.0, mean_seconds=2.0)
+    bqsl = QuerySampleLibrary(big, cfg)
+    pk = dict(n_lanes=MD_PACKED_LANES, chunk_frames=16, batch_size=MD_PACKED_LANES,
+              decode_chunk=128)
+    p1 = PackedOfflineRunner(qweights, params, cfg, device=dev, **pk)
+    p1.stage(bqsl)
+    p1.run_device()  # one-off costs, untimed
+    t0 = time.time()
+    w1 = p1.run_device()
+    pm = PackedOfflineRunner(qweights, params, cfg, mesh=mesh2, **pk)
+    pm.stage(bqsl)
+    pm.run_device()
+    wm, sec_pm = counted("multi_device_two_shard_packed", pm.run_device)
+    out["two_shards_packed"] = dict(
+        _hold_sharded("two-shard packed", wm.tokens, w1.tokens, pm.run_device),
+        utterances=len(big), audio_seconds=big.audio_seconds, lanes=MD_PACKED_LANES,
+        single_wall_seconds=w1.wall_seconds, sharded_wall_seconds=wm.wall_seconds,
+        launches=paths["multi_device_two_shard_packed"]["main"],
+        shard_launches=wm.shard_launches, run_seconds=time.time() - t0)
+    bm = OfflineRunner(qweights, params, cfg, batch_size=32, mesh=mesh2)
+    rb, sec_b = counted("multi_device_two_shard_bucketed", lambda: bm.run(qsl))
+    out["two_shards_bucketed"] = dict(
+        _hold_sharded("two-shard bucketed", rb.tokens, ref_bucketed.tokens,
+                      lambda: bm.run(qsl)),
+        utterances=len(store), batch_size=32, run_seconds=sec_b,
+        launches=paths["multi_device_two_shard_bucketed"]["main"],
+        shard_launches=rb.shard_launches)
+
+    slots, split = 32, 24
+    max_frames = -(-cfg.out_frames(int(15.0 * cfg.sample_rate)) // split) * split
+    wav, lens, _ = qsl.assemble_waveforms(np.arange(slots))
+    with torch.inference_mode():
+        feats, flens = log_mel_features(torch.from_numpy(wav).to(dev),
+                                        torch.from_numpy(lens).to(dev), cfg)
+        feats, flens = feats[:max_frames], torch.clamp(flens, max=max_frames)
+
+        def inserted():
+            st = init_server_state(slots, max_frames, params, cfg,
+                                   qweights.pre_rnn[0].w_ih.dtype,
+                                   qweights.pred_rnn[0].w_ih.dtype, dev)
+            return server_insert(st, feats, flens, torch.arange(slots), params)
+
+        k = max_frames // split
+        s1, f1 = server_multi_step(qweights, inserted(), split, k, params)
+        shard_w = weight_shardings(mesh2, qweights)
+        per_shard = [{}, {}]
+        (sm, fm), sec_s = counted("multi_device_server_dp", lambda: server_multi_step_dp(
+            mesh2, shard_w, inserted(), split, k, params, shard_launches=per_shard))
+    if not bool(f1.all()) or not torch.equal(fm, f1):
+        raise AssertionError("multi_device server-dp: slots left unfinished or finish masks differ")
+    res_equal = torch.equal(sm.decode.res, s1.decode.res)
+    idx_equal = torch.equal(sm.decode.res_idx, s1.decode.res_idx)
+    n1 = (s1.decode.res_idx + 1).clamp(max=params.max_res_len).cpu().numpy()
+    nm = (sm.decode.res_idx + 1).clamp(max=params.max_res_len).cpu().numpy()
+    toks = lambda st, n: [st.decode.res[i, : n[i]].cpu().numpy() for i in range(slots)]
+    rate, n_tok, differ = _edit_rate(toks(sm, nm), toks(s1, n1))
+    out["server_dp"] = dict(slots=slots, split_len=split, steps=k, run_seconds=sec_s,
+                            tokens=n_tok, res_equal=res_equal, res_idx_equal=idx_equal,
+                            token_edit_rate_vs_single_device=rate, slots_differing=differ,
+                            launches=paths["multi_device_server_dp"]["main"],
+                            shard_launches=per_shard)
+    if not (res_equal and idx_equal) or n_tok == 0:
+        emit(out)
+        raise AssertionError(f"multi_device server-dp: res/res_idx differ from the single slot "
+                             f"set (edit rate {rate}, slots {differ})")
+
+    # (c) the multihost probe: 2 ranks on one card over gloo; a 1-rank NCCL group
+    with tempfile.TemporaryDirectory() as d:
+        quant = os.path.join(d, "rnnt_quant.npz")
+        checkpoint.save_quant_weights(quant, qweights)
+        t0 = time.time()
+        rep = multihost_probe.run_cluster(2, MD_PROBE_N, batch=16, hidden=1024, device="cuda",
+                                          backend="gloo", quant_in=quant,
+                                          out_dir=os.path.join(d, "probe"), min_s=0.0,
+                                          timeout=600)
+        probe_seconds = time.time() - t0
+        ranks = rep["ranks"]
+        idx = [r["indices"] for r in ranks]
+        if sorted(idx[0] + idx[1]) != list(range(MD_PROBE_N)) or set(idx[0]) & set(idx[1]):
+            raise AssertionError(f"multihost probe: rank indices {idx} do not cover the store")
+        if (rep["samples"] != sum(r["samples"] for r in ranks) or rep["hosts"] != 2
+                or abs(rep["audio_seconds_per_second"]
+                       - sum(r["audio_seconds_per_second"] for r in ranks)) > 1e-9 * max(
+                           rep["audio_seconds_per_second"], 1.0)):
+            raise AssertionError(f"multihost probe: merged {rep} is not the ranks' sum")
+        pstore = multihost_probe.probe_store(MD_PROBE_N)
+        for r, mine in enumerate(idx):
+            with open(os.path.join(d, "probe", f"rank{r}", "accuracy_log.json")) as f:
+                got = [hex_to_tokens(e["data"]) for e in json.load(f)]
+            one = os.path.join(d, f"one{r}")
+            run_offline(qweights, pstore.select(mine), params, cfg, batch_size=16,
+                        warmup=False, device=dev, output_dir=one)
+            with open(os.path.join(one, "accuracy_log.json")) as f:
+                want = [hex_to_tokens(e["data"]) for e in json.load(f)]
+            if len(got) != len(want) or not all(np.array_equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"multihost probe: rank {r}'s tokens differ from a "
+                                     f"single-process run on its indices")
+            if not (ranks[r]["launches"]["quant_lstm_layer"]
+                    and ranks[r]["launches"]["decode_step"]):
+                raise AssertionError(f"multihost probe: rank {r} launched {ranks[r]['launches']}")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    tdist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    try:
+        local = {"audio_seconds_per_second": 123.25, "samples": 7}
+        merged = distributed.all_hosts_report(local)
+        backend = tdist.get_backend()
+    finally:
+        tdist.destroy_process_group()
+    if merged != dict(local, hosts=1) or backend != "nccl":
+        raise AssertionError(f"1-rank NCCL all_hosts_report gave {merged} on {backend}")
+    out["multihost_probe"] = dict(
+        ranks=2, backend="gloo", device="cuda:0", utterances=MD_PROBE_N, seconds=probe_seconds,
+        merged={k: rep[k] for k in ("audio_seconds_per_second", "samples", "hosts",
+                                    "per_host_wall_seconds", "load_balance_efficiency")},
+        rank_launches=[r["launches"] for r in ranks], rank_tokens_equal_single_process=True,
+        nccl_one_rank_report=merged)
+
+    # (d) two or more cards
+    if torch.cuda.device_count() >= 2:
+        meshk = make_mesh(devices=[torch.device("cuda", i) for i in range(2)])
+        bk = OfflineRunner(qweights, params, cfg, batch_size=32, mesh=meshk)
+        rk, sec_k = counted("multi_device_two_cards_bucketed", lambda: bk.run(qsl))
+        repk = multihost_probe.run_cluster(2, MD_PROBE_N, batch=16, hidden=1024,
+                                           device="cuda", backend="nccl", min_s=0.0,
+                                           quant_in=None, timeout=600)
+        if repk["samples"] != MD_PROBE_N or repk["hosts"] != 2:
+            raise AssertionError(f"multihost probe over NCCL: {repk}")
+        out["two_cards"] = dict(_hold_sharded("two-card bucketed", rk.tokens,
+                                              ref_bucketed.tokens, lambda: bk.run(qsl)),
+                                run_seconds=sec_k, shard_launches=rk.shard_launches,
+                                probe_nccl={k: repk[k] for k in ("samples", "hosts",
+                                                                 "load_balance_efficiency")})
+    else:
+        out["two_cards"] = {"run": False, "why": f"{torch.cuda.device_count()} visible card: "
+                            "the mesh over cuda:0..k-1 and 2 NCCL ranks need two or more"}
+        print("multi_device (d): not run: one visible card; a mesh over two cards and two "
+              "NCCL ranks need two or more", flush=True)
+    out["seconds"] = time.time() - t_phase
+    emit(out)
+    return paths
+
+
+def phase_transcribe(params, dev, card: str, seed: int) -> dict:
+    """The conversion chain and the Transcriber on the card: 8 synthetic
+    utterances of 1-4 s written as 16-bit .wav and, through the port's
+    encode_flac, as .flac, each with a manifest; convert_librispeech on
+    both (samples bit-equal); compute_features_store on the card (frame
+    counts equal to the CPU's, finite, max abs difference to the CPU's
+    under 1e-3); Transcriber.from_checkpoint of product_chain's seeded
+    rnnt.pt at full width in bf16 (kernels C and B; launch counts set to 0
+    just before, read just after) and on the twins (impl="reference", no
+    launch): transcripts within edit rate 1e-3.  Wall time per step."""
+    import tempfile
+    import wave
+
+    from rnnt_inference_tpu_torch.data.dataset import (
+        SampleStore, compute_features_store, convert_librispeech,
+    )
+    from rnnt_inference_tpu_torch.data.flac import encode_flac
+    from rnnt_inference_tpu_torch.models.weights import init_weights, torch_state_dict_from_weights
+    from rnnt_inference_tpu_torch.ops import decode_cuda, lstm_cuda, lstm_scan_cuda
+    from rnnt_inference_tpu_torch.transcribe import Transcriber
+
+    counters = {"quant_lstm_layer": lstm_cuda.quant_lstm_layer_cuda,
+                "decode_step": decode_cuda.decode_step_cuda,
+                "lstm_recurrence": lstm_scan_cuda.lstm_recurrence_cuda}
+    t_phase = time.time()
+    seconds = {}
+    src = SampleStore.synthetic(n=8, seed=seed + 30, min_seconds=1.0, max_seconds=4.0,
+                                mean_seconds=2.5)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.time()
+        entries = []
+        for name, x in zip(src.names, src.samples):
+            pcm = np.clip(np.round(x * 32768.0), -32768, 32767).astype(np.int32)
+            stem = name[: -len(".wav")]
+            with wave.open(os.path.join(d, stem + ".wav"), "wb") as w:
+                w.setnchannels(1)
+                w.setsampwidth(2)
+                w.setframerate(16000)
+                w.writeframes(pcm.astype("<i2").tobytes())
+            with open(os.path.join(d, stem + ".flac"), "wb") as f:
+                f.write(encode_flac(pcm, 16000))
+            entries.append({"audio_filepath": stem + ".flac", "duration": len(x) / 16000.0,
+                            "transcript": "utterance " + stem})
+        for ext in ("flac", "wav"):
+            with open(os.path.join(d, f"m_{ext}.json"), "w") as f:
+                json.dump([dict(e, audio_filepath=e["audio_filepath"].replace(".flac", "." + ext))
+                           for e in entries], f)
+        seconds["write"] = time.time() - t0
+        t0 = time.time()
+        s_flac = convert_librispeech(d, os.path.join(d, "m_flac.json"), "")
+        s_wav = convert_librispeech(d, os.path.join(d, "m_wav.json"), os.path.join(d, "s.npz"))
+        seconds["convert"] = time.time() - t0
+        if len(s_wav) != 8 or not all(np.array_equal(a, b) for a, b in
+                                      zip(s_flac.samples, s_wav.samples)):
+            raise AssertionError("transcribe: FLAC and wav stores differ")
+        t0 = time.time()
+        feats = compute_features_store(s_wav, device=dev)
+        torch.cuda.synchronize()
+        seconds["features_card"] = time.time() - t0
+        feats_cpu = compute_features_store(s_wav, device="cpu")
+        diff = max(float(np.abs(a - b).max()) for a, b in zip(feats.samples, feats_cpu.samples))
+        if (any(a.shape != b.shape for a, b in zip(feats.samples, feats_cpu.samples))
+                or not all(np.isfinite(a).all() for a in feats.samples) or diff >= 1e-3):
+            raise AssertionError(f"transcribe: card features differ from the CPU's by {diff}")
+        weights = init_weights(params, torch.Generator().manual_seed(seed + 11), device="cpu")
+        pt = os.path.join(d, "rnnt.pt")
+        torch.save({"state_dict": torch_state_dict_from_weights(weights), "epoch": 0}, pt)
+        t0 = time.time()
+        tk = Transcriber.from_checkpoint(pt, params, device=dev)
+        seconds["load"] = time.time() - t0
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.time()
+        texts = tk.transcribe_batch(s_wav.samples)
+        seconds["transcribe_kernels"] = time.time() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        if launches["quant_lstm_layer"] or not launches["decode_step"] or not launches[
+                "lstm_recurrence"]:
+            raise AssertionError(f"transcribe: bf16 Transcriber launched {launches}")
+        twins = Transcriber.from_checkpoint(pt, params, device=dev, impl="reference")
+        t0 = time.time()
+        ref = twins.transcribe_batch(s_wav.samples)
+        seconds["transcribe_twins"] = time.time() - t0
+        if any(c.launches != launches[k] for k, c in counters.items()):
+            raise AssertionError("transcribe: the twins launched a kernel")
+    seq = lambda hyps: [np.frombuffer(h.encode(), np.uint8) for h in hyps]  # a char per token
+    rate, n_tok, differ = _edit_rate(seq(texts), seq(ref))
+    if n_tok == 0 or rate > 1e-3:
+        raise AssertionError(f"transcribe: kernels vs twins edit rate {rate} over {n_tok}")
+    emit({"phase": "transcribe", "card": card, "utterances": len(s_wav),
+          "audio_seconds": s_wav.audio_seconds, "weights": "rnnt.pt, bf16",
+          "flac_equals_wav": True, "features_max_abs_diff_card_vs_cpu": diff,
+          "tokens": n_tok, "token_edit_rate_vs_twins": rate, "utterances_differing": differ,
+          "launches": launches, "seconds": dict(seconds, phase=time.time() - t_phase)})
+    return {"transcribe": {"main": launches}}
+
+
 # the bench phase's cuts from the JAX headline defaults (BENCH_N 8192,
 # BENCH_MIN_S 20): both runs together within about 240 s
 BENCH_CUTS = {"BENCH_N": "2048", "BENCH_MIN_S": "10"}
@@ -1659,6 +2035,8 @@ def main() -> int:
     }
     paths.update(phase_native(qweights, params, dev, card, paths["server"]["realtime_qps"]))
     paths["product_chain"] = phase_product_chain(params, dev, card, args.seed)
+    paths.update(phase_multi_device(qweights, params, dev, card, args.seed))
+    paths.update(phase_transcribe(params, dev, card, args.seed))
     benches = phase_bench(card)
     # the bench's store (bench.run's: seed 0) at the bench phase's BENCH_N
     bench_store = SampleStore.synthetic(n=int(BENCH_CUTS["BENCH_N"]), seed=0)
@@ -1681,6 +2059,12 @@ def main() -> int:
         e["launches_by_path"] = {k: paths[k]["main"][name] for k in ks}
         e["launches_per_timed_pass_by_path"] = {k: paths[k]["timed_pass"][name] for k in ks}
     d["launches_by_path"] = {"features_fused": d["launches"]}
+    # the data-parallel paths (A, B) and the Transcriber (B, C), each counted alone
+    for e, name in ((a, "quant_lstm_layer"), (b, "decode_step")):
+        e["launches_by_path"].update({k: v["main"][name] for k, v in paths.items()
+                                      if k.startswith("multi_device_")})
+    b["launches_by_path"]["transcribe"] = paths["transcribe"]["main"]["decode_step"]
+    c["launches_by_path"]["transcribe"] = paths["transcribe"]["main"]["lstm_recurrence"]
     b["launches_by_path"]["fake_quant"] = paths["fake_quant"]["main"]["decode_step"]
     # the bench's runs, counted in their own process: the last timed rep;
     # and the same configurations in this process (bench_twins: one run)

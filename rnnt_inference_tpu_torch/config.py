@@ -1,6 +1,7 @@
 """Model and featurizer hyper-parameters.
 
-A copy of ``rnnt_inference_tpu/config.py`` (RNNTParams, FeaturizerConfig):
+A copy of ``rnnt_inference_tpu/config.py`` (RNNTParams, FeaturizerConfig,
+load_featurizer_config):
 the port keeps its own copy so that it imports nothing of the JAX package.
 Dims mirror the MLPerf RNN-T checkpoint; featurizer params mirror
 configs/rnnt.toml [input_eval].
@@ -84,3 +85,24 @@ class FeaturizerConfig:
     def out_frames(self, num_samples: int) -> int:
         """Frames after x frame_splicing downsampling."""
         return -(-self.num_frames(num_samples) // self.frame_splicing)
+
+
+def load_featurizer_config(toml_path: str, section: str = "input_eval") -> FeaturizerConfig:
+    """A FeaturizerConfig from an rnnt.toml-style file (reference:
+    configs/rnnt.toml, models/pytorch_sut.py:25-35)."""
+    import tomllib
+
+    with open(toml_path, "rb") as f:
+        sec = tomllib.load(f)[section]
+    return FeaturizerConfig(
+        sample_rate=sec["sample_rate"],
+        window_size=sec["window_size"],
+        window_stride=sec["window_stride"],
+        window=sec["window"],
+        normalize=sec["normalize"],
+        n_fft=sec["n_fft"],
+        n_mels=sec["features"],
+        dither=sec["dither"],
+        frame_splicing=sec.get("frame_splicing", 1),
+        max_duration=sec.get("max_duration", 16.7),
+    )

@@ -1,7 +1,8 @@
-"""Sample store: the RAM-resident utterance set the QSL serves
-(the parts of rnnt_inference_tpu/data/dataset.py the runners and the CLI
-need).  ``save``/``load`` use the JAX package's npz container, so a store
-written by either package loads in the other."""
+"""Sample store: the RAM-resident utterance set the QSL serves, and the
+LibriSpeech conversion chain (counterpart of
+rnnt_inference_tpu/data/dataset.py).  ``save``/``load`` use the JAX
+package's npz container, so a store written by either package loads in the
+other."""
 
 from __future__ import annotations
 
@@ -87,6 +88,18 @@ class SampleStore:
         )
 
     @classmethod
+    def from_manifest(cls, manifest, target_sr: int = 16000) -> "SampleStore":
+        """Load the waveform of every manifest entry (wav or FLAC)."""
+        from rnnt_inference_tpu_torch.data.audio import load_audio
+
+        return cls(
+            kind="waveform",
+            samples=[load_audio(e["audio_filepath"], target_sr) for e in manifest],
+            transcripts=[e["transcript"] for e in manifest],
+            names=[os.path.basename(e["audio_filepath"]) for e in manifest],
+        )
+
+    @classmethod
     def synthetic(
         cls,
         n: int = 256,
@@ -123,3 +136,111 @@ def speechlike_noise(
     x = x * env
     x *= rms / max(float(np.sqrt(np.mean(x**2))), 1e-12)
     return x.astype(np.float32)
+
+
+def _load_and_perturb(job):
+    """(path, [factors]) -> [waveforms]: one decode feeds every speed factor
+    (the decode is the expensive part).  Module-level for Pool pickling."""
+    from rnnt_inference_tpu_torch.data.audio import load_audio, speed_perturb
+
+    path, factors = job
+    wav = load_audio(path)
+    return [speed_perturb(wav, s) for s in factors]
+
+
+def convert_librispeech(
+    data_dir: str,
+    manifest_path: str,
+    output_path: str,
+    max_duration: float = 15.0,
+    file_list: str = None,
+    speeds=None,
+    workers: int = 0,
+) -> SampleStore:
+    """One-shot conversion: manifest + wav or FLAC files -> a waveform
+    SampleStore (saved to ``output_path`` when given).
+
+    file_list keeps only the listed utterances (one path per line, matched
+    by basename).  speeds adds speed-perturbed copies (factor s: a copy
+    named ``{stem}-{s}{ext}`` with ~1/s the duration; 1.0, the original, is
+    always included); with both, the list is matched against the perturbed
+    names.  workers > 1 decodes the files in that many processes."""
+    from rnnt_inference_tpu_torch.data.manifest import Manifest
+
+    entries = list(Manifest([manifest_path], data_dir=data_dir, max_duration=max_duration))
+    factors = sorted({float(s) for s in (speeds or [])} | {1.0})
+    wanted = None
+    if file_list:
+        with open(file_list) as f:
+            wanted = {os.path.basename(line.strip()) for line in f if line.strip()}
+
+    jobs = []  # (path, [factors], [transcripts], [out names]): one decode per file
+    for e in entries:
+        base = os.path.basename(e["audio_filepath"])
+        stem, ext = os.path.splitext(base)
+        fs, ts, ns = [], [], []
+        for s in factors:
+            out_name = base if s == 1.0 else f"{stem}-{s}{ext}"
+            if wanted is not None and out_name not in wanted:
+                continue
+            fs.append(s)
+            ts.append(e["transcript"])
+            ns.append(out_name)
+        if fs:
+            jobs.append((e["audio_filepath"], fs, ts, ns))
+
+    if workers and workers > 1 and len(jobs) > 1:
+        from multiprocessing import get_context
+
+        with get_context("spawn").Pool(workers) as pool:
+            decoded = pool.map(_load_and_perturb, [(j[0], j[1]) for j in jobs])
+    else:
+        decoded = [_load_and_perturb((j[0], j[1])) for j in jobs]
+    store = SampleStore(
+        kind="waveform",
+        samples=[w for ws in decoded for w in ws],
+        transcripts=[t for j in jobs for t in j[2]],
+        names=[n for j in jobs for n in j[3]],
+    )
+    if output_path:
+        store.save(output_path)
+    return store
+
+
+def compute_features_store(
+    store: SampleStore,
+    cfg: FeaturizerConfig = FeaturizerConfig(),
+    batch_size: int = 32,
+    device="cuda",
+) -> SampleStore:
+    """Log-mel features of a waveform store -> a features store (the
+    reference's ``{name}-input.pt``, per-utterance {T, 240}).  Featurized
+    on ``device`` with ops/features.py log_mel_features, in batches over
+    the QSL's wav buckets (longest first), each utterance trimmed to its
+    own frame count."""
+    import torch
+
+    from rnnt_inference_tpu_torch.ops.features import log_mel_features
+    from rnnt_inference_tpu_torch.runtime.qsl import QuerySampleLibrary
+
+    if store.kind != "waveform":
+        raise ValueError("compute_features_store takes a waveform store")
+    dev = torch.device(device)
+    qsl = QuerySampleLibrary(store, cfg)
+    order = qsl.sort_desc(np.arange(len(store)))
+    feats_by_idx: dict = {}
+    with torch.inference_mode():
+        for s in range(0, len(order), batch_size):
+            batch_idx = order[s : s + batch_size]
+            wav, lens, _ = qsl.assemble_waveforms(batch_idx, pad_n=batch_size)
+            feats, out_lens = log_mel_features(torch.from_numpy(wav).to(dev),
+                                               torch.from_numpy(lens).to(dev), cfg)
+            feats, out_lens = feats.cpu().numpy(), out_lens.cpu().numpy()  # {T, N, C}
+            for r, i in enumerate(batch_idx):
+                feats_by_idx[int(i)] = feats[: out_lens[r], r, :].copy()
+    return SampleStore(
+        kind="features",
+        samples=[feats_by_idx[i] for i in range(len(store))],
+        transcripts=list(store.transcripts),
+        names=list(store.names),
+    )

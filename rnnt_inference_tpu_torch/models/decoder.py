@@ -17,6 +17,12 @@ lanes that have already finished change nothing, and the tokens are the
 same at any K.  The cap ``it < max_iters`` is checked for every iteration,
 not once per trip.
 
+Each loop is written once, as a step generator (``*_steps``) that yields
+just before it reads a finish mask; the plain functions run one to its end
+(``drain``).  A data-parallel runner advances one generator per shard in
+turn (runtime/offline.py ``lockstep``), so every shard's launch is enqueued
+before any shard's mask is read.
+
 Packed mode (runtime/packing.py): a lane's timeline holds several
 utterances back to back.  Advancing into an utterance's first frame
 (``starts``) resets the lane's prediction state to what a standalone decode
@@ -28,7 +34,8 @@ algebra inside its K-iteration launch (ops/decode_cuda.py).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+import functools
+from typing import Callable, Generator, Optional, Tuple
 
 import torch
 
@@ -105,7 +112,30 @@ def masked_reset_decode(
     )
 
 
-def greedy_decode_chunk(
+def drain(steps: Generator):
+    """Run a step generator to its end, with no autograd, and return its
+    value.  (A step generator opens no context of its own: one left open
+    across a yield would leak into the other shards' turns.)"""
+    with torch.no_grad():
+        while True:
+            try:
+                next(steps)
+            except StopIteration as stop:
+                return stop.value
+
+
+def drained(steps_fn):
+    """The plain function of a step generator function: same arguments,
+    run to its end (``drain``)."""
+
+    @functools.wraps(steps_fn)
+    def run(*args, **kwargs):
+        return drain(steps_fn(*args, **kwargs))
+
+    return run
+
+
+def greedy_decode_chunk_steps(
     weights,
     state: DecodeState,
     f: torch.Tensor,
@@ -114,13 +144,14 @@ def greedy_decode_chunk(
     impl: Optional[str] = None,
     steps_per_check: int = DEFAULT_STEPS_PER_CHECK,
     dw: Optional[dc.DecodeWeights] = None,
-) -> DecodeState:
+) -> Generator[None, None, DecodeState]:
     """Run the symbol loop over one encoded chunk.
     f: {T2, N, 1024}, f_lens: {N} valid post-stack frames."""
-    return _symbol_loop(weights, state, f, f_lens, params, impl, steps_per_check, dw, {})
+    return (yield from _symbol_loop(weights, state, f, f_lens, params, impl, steps_per_check,
+                                    dw, {}))
 
 
-def greedy_decode_chunk_packed(
+def greedy_decode_chunk_packed_steps(
     weights,
     state: DecodeState,
     f: torch.Tensor,
@@ -132,7 +163,7 @@ def greedy_decode_chunk_packed(
     impl: Optional[str] = None,
     steps_per_check: int = DEFAULT_STEPS_PER_CHECK,
     dw: Optional[dc.DecodeWeights] = None,
-) -> Tuple[DecodeState, torch.Tensor]:
+) -> Generator[None, None, Tuple[DecodeState, torch.Tensor]]:
     """The packed symbol loop over one piece of the lanes' timelines.
     starts {T2, N} bool marks utterance-start frames, res_base {N} each
     lane's marker position of its current utterance (-1 before the first),
@@ -141,7 +172,8 @@ def greedy_decode_chunk_packed(
     rb = res_base.to(device=f.device, dtype=torch.int32).clone()
     packed = dict(starts=starts.to(device=f.device, dtype=torch.bool).contiguous(),
                   res_base=rb, utt_budget=utt_budget)
-    state = _symbol_loop(weights, state, f, f_lens, params, impl, steps_per_check, dw, packed)
+    state = yield from _symbol_loop(weights, state, f, f_lens, params, impl, steps_per_check,
+                                    dw, packed)
     return state, rb
 
 
@@ -164,7 +196,10 @@ def _symbol_loop(weights, state, f, f_lens, params, impl, steps_per_check, dw, p
 
     max_iters = T2 * (params.max_symbols_per_step + 1) + 1
     it = 0
-    while it < max_iters and not bool(lanes[dc.FINISH].all()):
+    while it < max_iters:
+        yield  # the other shards enqueue their launches before this read
+        if bool(lanes[dc.FINISH].all()):
+            break
         steps = min(steps_per_check, max_iters - it)
         dc.decode_step(fproj, lanes, hg, cg, res, dw, params, steps, impl, **packed)
         it += steps
@@ -178,7 +213,7 @@ def _symbol_loop(weights, state, f, f_lens, params, impl, steps_per_check, dw, p
     )
 
 
-def decode_chunk(
+def decode_chunk_steps(
     weights,
     state: DecodeState,
     x: torch.Tensor,
@@ -188,7 +223,7 @@ def decode_chunk(
     steps_per_check: int = DEFAULT_STEPS_PER_CHECK,
     dw: Optional[dc.DecodeWeights] = None,
     mark: Optional[Callable[[str], None]] = None,
-) -> DecodeState:
+) -> Generator[None, None, DecodeState]:
     """Encode one feature chunk and decode it.  ``mark(phase)`` is called
     after the encoder and after the symbol loop (phase timing)."""
     f, enc = model.transcription(weights, x, x_lens, state.enc, params, impl)
@@ -196,13 +231,14 @@ def decode_chunk(
         mark("encoder")
     f_lens = -(-x_lens // params.stack_time_factor)
     state = dataclasses.replace(state, enc=enc)
-    out = greedy_decode_chunk(weights, state, f, f_lens, params, impl, steps_per_check, dw)
+    out = yield from greedy_decode_chunk_steps(weights, state, f, f_lens, params, impl,
+                                               steps_per_check, dw)
     if mark is not None:
         mark("decode")
     return out
 
 
-def greedy_decode(
+def greedy_decode_steps(
     weights,
     x: torch.Tensor,
     x_lens: torch.Tensor,
@@ -211,7 +247,7 @@ def greedy_decode(
     impl: Optional[str] = None,
     steps_per_check: int = DEFAULT_STEPS_PER_CHECK,
     mark: Optional[Callable[[str], None]] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+) -> Generator[None, None, Tuple[torch.Tensor, torch.Tensor]]:
     """Full-utterance batched greedy decode.
 
     x: {T, N, 240} features, x_lens: {N} valid frames.  split_len > 0
@@ -225,18 +261,24 @@ def greedy_decode(
     state = init_decode_state(N, params, enc_dtype, pred_dtype, dev)
     x_lens = x_lens.to(device=dev, dtype=torch.int32)
     dw = dc.decode_weights(weights)
-    with torch.no_grad():
-        if split_len == -1:
-            state = decode_chunk(weights, state, x, x_lens, params, impl, steps_per_check, dw, mark)
-        else:
-            n_chunks = -(-T // split_len)
-            xc = torch.cat([x, x.new_zeros((n_chunks * split_len - T, N, C))])
-            for k in range(n_chunks):
-                start = k * split_len
-                chunk_lens = torch.clamp(x_lens - start, 0, split_len)
-                state = decode_chunk(
-                    weights, state, xc[start : start + split_len], chunk_lens,
-                    params, impl, steps_per_check, dw, mark,
-                )
+    if split_len == -1:
+        state = yield from decode_chunk_steps(weights, state, x, x_lens, params, impl,
+                                              steps_per_check, dw, mark)
+    else:
+        n_chunks = -(-T // split_len)
+        xc = torch.cat([x, x.new_zeros((n_chunks * split_len - T, N, C))])
+        for k in range(n_chunks):
+            start = k * split_len
+            chunk_lens = torch.clamp(x_lens - start, 0, split_len)
+            state = yield from decode_chunk_steps(
+                weights, state, xc[start : start + split_len], chunk_lens,
+                params, impl, steps_per_check, dw, mark,
+            )
     # res_idx counts emissions dropped past the buffer too: clamp the length
     return state.res, torch.clamp(state.res_idx + 1, max=params.max_res_len)
+
+
+greedy_decode_chunk = drained(greedy_decode_chunk_steps)
+greedy_decode_chunk_packed = drained(greedy_decode_chunk_packed_steps)
+decode_chunk = drained(decode_chunk_steps)
+greedy_decode = drained(greedy_decode_steps)

@@ -388,19 +388,20 @@ def decode_step_cuda(
     whh, w1, w2, wout, eproj = _operands(dw, P, J, V, L)
     if whh.device != dev:
         raise ValueError(f"kernel B: weights on {whh.device}, state on {dev}")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    _, scratch = _scratch(dev, stream, N, P, J, L, wdt)
     lib = _lib()
-    err = lib.rnnt_decode_steps(
-        int(wdt == torch.bfloat16), UP, steps, fproj.data_ptr(), lanes.data_ptr(),
-        hg.data_ptr(), cg.data_ptr(), res.data_ptr(), whh.data_ptr(), w1.data_ptr(),
-        w2.data_ptr(), dw.b.data_ptr(), dw.b1.data_ptr(), wout.data_ptr(), dw.b2.data_ptr(),
-        eproj.data_ptr(), *scratch,
-        None if starts is None else starts.data_ptr(),
-        None if starts is None else res_base.data_ptr(),
-        N, P, J, V, R, params.BLANK, params.SOS, params.max_symbols_per_step, utt_budget,
-        stream,
-    )
+    with torch.cuda.device(dev):  # the C side launches on the current device
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _, scratch = _scratch(dev, stream, N, P, J, L, wdt)
+        err = lib.rnnt_decode_steps(
+            int(wdt == torch.bfloat16), UP, steps, fproj.data_ptr(), lanes.data_ptr(),
+            hg.data_ptr(), cg.data_ptr(), res.data_ptr(), whh.data_ptr(), w1.data_ptr(),
+            w2.data_ptr(), dw.b.data_ptr(), dw.b1.data_ptr(), wout.data_ptr(), dw.b2.data_ptr(),
+            eproj.data_ptr(), *scratch,
+            None if starts is None else starts.data_ptr(),
+            None if starts is None else res_base.data_ptr(),
+            N, P, J, V, R, params.BLANK, params.SOS, params.max_symbols_per_step, utt_budget,
+            stream,
+        )
     cuda_build.check(lib, err, "decode_step kernel")
     decode_step_cuda.launches += 1
 

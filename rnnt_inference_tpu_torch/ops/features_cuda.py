@@ -51,11 +51,12 @@ def log_mel_cuda(
     if N == 0 or n_frames <= 0:
         return out
     lib = _lib()
-    err = lib.rnnt_log_mel(
-        x.data_ptr(), cos_m.data_ptr(), sin_m.data_ptr(), fbt.data_ptr(), out.data_ptr(),
-        N, S, n_frames, hop, K, M, float(dither2),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    with torch.cuda.device(x.device):  # the C side sets its attribute on the current device
+        err = lib.rnnt_log_mel(
+            x.data_ptr(), cos_m.data_ptr(), sin_m.data_ptr(), fbt.data_ptr(), out.data_ptr(),
+            N, S, n_frames, hop, K, M, float(dither2),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
     cuda_build.check(lib, err, "log_mel kernel")
     log_mel_cuda.launches += 1
     return out

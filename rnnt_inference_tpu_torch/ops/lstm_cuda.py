@@ -132,16 +132,17 @@ def quant_lstm_layer_cuda(
     cuda_build.require(bias, "bias", torch.float32, (4 * H,))
     if w_op.device != dev:
         raise ValueError(f"kernel A: weights on {w_op.device}, x on {dev}")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    hbuf, bar = _scratch(dev, stream, N, H)
-    hT = torch.empty((N, H), dtype=torch.int8, device=dev)
-    cT = torch.empty((N, H), dtype=torch.float32, device=dev)
     lib = _lib()
-    err = lib.rnnt_quant_lstm_layer(
-        x_i8.data_ptr(), w_op.data_ptr(), bias.data_ptr(), h_i8.data_ptr(), c.data_ptr(),
-        y.data_ptr(), hT.data_ptr(), cT.data_ptr(), hbuf.data_ptr(), bar.data_ptr(),
-        T, N, IC, H, rb, in_scale, out_scale, int(emit_f32), stream,
-    )
+    with torch.cuda.device(dev):  # the C side launches on the current device
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        hbuf, bar = _scratch(dev, stream, N, H)
+        hT = torch.empty((N, H), dtype=torch.int8, device=dev)
+        cT = torch.empty((N, H), dtype=torch.float32, device=dev)
+        err = lib.rnnt_quant_lstm_layer(
+            x_i8.data_ptr(), w_op.data_ptr(), bias.data_ptr(), h_i8.data_ptr(), c.data_ptr(),
+            y.data_ptr(), hT.data_ptr(), cT.data_ptr(), hbuf.data_ptr(), bar.data_ptr(),
+            T, N, IC, H, rb, in_scale, out_scale, int(emit_f32), stream,
+        )
     cuda_build.check(lib, err, "quant_lstm kernel")
     quant_lstm_layer_cuda.launches += 1
     return y, hT, cT

@@ -89,14 +89,15 @@ def lstm_recurrence_cuda(
     cuda_build.require(w_op, "w_hh operand", dt, w_op.shape)
     if w_op.device != dev:
         raise ValueError(f"kernel C: W_hh on {w_op.device}, xw on {dev}")
-    hT = torch.empty((N, H), dtype=dt, device=dev)
-    cT = torch.empty((N, H), dtype=torch.float32, device=dev)
     lib = _lib()
-    err = lib.rnnt_lstm_scan(
-        int(dt == torch.bfloat16), U, xw.data_ptr(), w_op.data_ptr(), h0.data_ptr(),
-        c0.data_ptr(), y.data_ptr(), hT.data_ptr(), cT.data_ptr(), T, N, H,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):  # the C side launches on the current device
+        hT = torch.empty((N, H), dtype=dt, device=dev)
+        cT = torch.empty((N, H), dtype=torch.float32, device=dev)
+        err = lib.rnnt_lstm_scan(
+            int(dt == torch.bfloat16), U, xw.data_ptr(), w_op.data_ptr(), h0.data_ptr(),
+            c0.data_ptr(), y.data_ptr(), hT.data_ptr(), cT.data_ptr(), T, N, H,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     cuda_build.check(lib, err, "lstm_scan kernel")
     lstm_recurrence_cuda.launches += 1
     return y, hT, cT

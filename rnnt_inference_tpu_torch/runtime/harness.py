@@ -165,9 +165,11 @@ def run_offline(
 
 
 def _packed_runner(weights, store, qsl, params, cfg, batch_size, warmup, runner, device,
-                   chunk_frames, decode_chunk):
+                   chunk_frames, decode_chunk, mesh=None):
     """(the packed runner, staged untimed and after one untimed rep; the
-    report's packing keys)."""
+    report's packing keys).  Without a mesh the lanes are capped at the
+    store's size; with one, n_lanes is batch_size (it must divide by the
+    data-parallel degree)."""
     from rnnt_inference_tpu_torch.runtime.packing import PackedOfflineRunner
 
     if store.kind != "waveform":
@@ -176,8 +178,9 @@ def _packed_runner(weights, store, qsl, params, cfg, batch_size, warmup, runner,
         raise ValueError("the packed Offline runner needs at least one utterance")
     # one lane per utterance at most: a lane with no utterance would idle
     runner = runner or PackedOfflineRunner(
-        weights, params, cfg, n_lanes=min(batch_size, len(store)), chunk_frames=chunk_frames,
-        batch_size=batch_size, decode_chunk=decode_chunk, device=device)
+        weights, params, cfg, n_lanes=min(batch_size, len(store)) if mesh is None else batch_size,
+        chunk_frames=chunk_frames, batch_size=batch_size, decode_chunk=decode_chunk,
+        device=device, mesh=mesh)
     plan = runner.stage(qsl)
     if warmup:
         runner.run_device()  # builds the kernels and pays one-off costs, untimed
@@ -296,6 +299,7 @@ def run_offline_native(
     chunk_frames: int = 16,
     decode_chunk: int = 128,
     device="cuda",
+    mesh=None,
 ) -> RunReport:
     """Offline performance run with the native mini-loadgen as the one
     timing authority, the clock Server and SingleStream use too (reference:
@@ -315,7 +319,10 @@ def run_offline_native(
     ``OfflineRunner.dispatch_device``, or with packed=True through
     ``PackedOfflineRunner.dispatch``.  Staging and warm-up (the kernels'
     build and one untimed pass) happen before the issuer starts (loadgen's
-    untimed LoadSamplesToRam and warm-up)."""
+    untimed LoadSamplesToRam and warm-up).  ``mesh`` (parallel/mesh.py)
+    shards each batch's lanes, or the packed lanes, over its data devices;
+    the report's ``shard_launches`` holds each shard's kernel launches of
+    the last cycle."""
     psc = performance_sample_count or len(store)
     if len(store) > psc:
         store = store.select(np.arange(psc))
@@ -329,14 +336,19 @@ def run_offline_native(
         store, cfg, n, n_queries, dispatch, harvest, max_wall_s, extra)
     if packed:
         prunner, packing = _packed_runner(weights, store, qsl, params, cfg, batch_size, warmup,
-                                          None, device, chunk_frames, decode_chunk)
-        return loop(prunner.dispatch, prunner.harvest, dict(packed=True, **packing))
-    runner = OfflineRunner(weights, params, cfg, batch_size, split_len, device)
-    dqsl = qsl.load_to_device(batch_size, device=runner.device)
-    if warmup:
-        runner.warmup_device(dqsl)
-        runner.run_device(dqsl)  # untimed priming pass
-    return loop(lambda: runner.dispatch_device(dqsl), OfflineRunner.harvest, {})
+                                          None, device, chunk_frames, decode_chunk, mesh)
+        report = loop(prunner.dispatch, prunner.harvest, dict(packed=True, **packing))
+        runner = prunner
+    else:
+        runner = OfflineRunner(weights, params, cfg, batch_size, split_len, device, mesh=mesh)
+        dqsl = qsl.load_to_device(batch_size, device=runner.device)
+        if warmup:
+            runner.warmup_device(dqsl)
+            runner.run_device(dqsl)  # untimed priming pass
+        report = loop(lambda: runner.dispatch_device(dqsl), OfflineRunner.harvest, {})
+    if mesh is not None:
+        report.extra["shard_launches"] = runner.shard_launches
+    return report
 
 
 def eval_accuracy_log(log_path: str, references: List[str]) -> float:

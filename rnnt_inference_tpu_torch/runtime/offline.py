@@ -1,25 +1,30 @@
 """Offline scenario runner: sort -> bucket-batch -> featurize + encode +
 decode on the card (counterpart of rnnt_inference_tpu/runtime/offline.py,
-bucketed path, one device).
+bucketed path).
 
 ``run`` assembles batches on the host from a waveform or features store;
 ``run_device`` serves a DeviceQSL staged in device memory and reads every
 batch's tokens back in one packed transfer, timed apart from the serve loop.
+With a ``mesh`` (parallel/mesh.py) every batch's lanes are cut into one
+contiguous shard per data device, the shards run in ``lockstep`` and their
+tokens join in lane order.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Generator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from rnnt_inference_tpu_torch.config import FeaturizerConfig, RNNTParams
-from rnnt_inference_tpu_torch.models.decoder import greedy_decode
+from rnnt_inference_tpu_torch.models.decoder import drain, greedy_decode_steps
 from rnnt_inference_tpu_torch.ops import cuda_build, decode_cuda, lstm_cuda, lstm_scan_cuda
 from rnnt_inference_tpu_torch.ops.features import log_mel_features
+from rnnt_inference_tpu_torch.parallel.mesh import join, shard, weight_shardings
 from rnnt_inference_tpu_torch.runtime.qsl import DeviceQSL, QuerySampleLibrary
 
 
@@ -35,6 +40,8 @@ class OfflineResult:
     readback_seconds: float = 0.0
     # kernel launches of the timed loop, by wrapper (_KERNELS)
     launches: Dict[str, int] = field(default_factory=dict)
+    # with a mesh: the same, per data shard (they sum to ``launches``)
+    shard_launches: List[Dict[str, int]] = field(default_factory=list)
 
 
 # the CUDA kernels a runner can launch: each wrapper counts its launches
@@ -60,8 +67,40 @@ def launches_since(before: Dict[str, int]) -> Dict[str, int]:
     return {name: n - before[name] for name, n in launch_counts().items()}
 
 
+def lockstep(
+    steps: Sequence[Generator], devices: Sequence[torch.device],
+    shard_launches: Optional[List[Dict[str, int]]] = None,
+) -> list:
+    """Run one step generator per data shard (models/decoder.py) to its end,
+    advancing each in turn to its next yield under its device's context.  A
+    step generator yields just before it reads a finish mask, so in every
+    round each shard's launches are enqueued before any shard's mask is
+    read, and shards on k cards overlap.  Returns the generators' values in
+    shard order; each shard's kernel launches are added to
+    ``shard_launches[s]`` when it is given."""
+    values = [None] * len(steps)
+    live = list(range(len(steps)))
+    with torch.no_grad():
+        while live:
+            for s in list(live):
+                before = launch_counts()
+                dev = torch.device(devices[s])
+                try:
+                    with (torch.cuda.device(dev) if dev.type == "cuda"
+                          else contextlib.nullcontext()):
+                        next(steps[s])
+                except StopIteration as stop:
+                    values[s] = stop.value
+                    live.remove(s)
+                if shard_launches is not None:
+                    for k, n in launches_since(before).items():
+                        shard_launches[s][k] = shard_launches[s].get(k, 0) + n
+    return values
+
+
 class PhaseClock:
-    """Time between consecutive marks, charged to the later mark's phase."""
+    """Time between consecutive marks, charged to the later mark's phase.
+    On the card each mark is an event on the current device's stream."""
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
@@ -96,9 +135,21 @@ class OfflineRunner:
         split_len: int = -1,
         device="cuda",
         impl: Optional[str] = None,
+        mesh=None,
     ):
         """impl=None runs the CUDA kernels on the card (the plain twins on
-        the CPU); impl="reference" runs the plain twins on the card too."""
+        the CPU); impl="reference" runs the plain twins on the card too.
+
+        mesh: a parallel/mesh.py Mesh.  The weights replicate over its data
+        devices and each batch's lanes are cut into dp contiguous shards
+        (batch_size % dp == 0), which run in ``lockstep``; the runner's
+        device, where results join, is then the mesh's first data device."""
+        if mesh is not None:
+            dp = mesh.shape["data"]
+            if batch_size % dp:
+                raise ValueError(f"batch_size {batch_size} not divisible by data-parallel "
+                                 f"degree {dp}")
+            device = mesh.data_devices[0]
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("OfflineRunner(device='cuda') but CUDA is not available")
@@ -108,17 +159,45 @@ class OfflineRunner:
         self.split_len = split_len
         self.impl = impl
         self.weights = weights.to(self.device)
+        self.mesh = mesh
+        self._shard_weights = None if mesh is None else weight_shardings(mesh, self.weights)
+        self.reset_shard_launches()
+
+    def _decode_steps(self, weights, feats, lens, mark):
+        return greedy_decode_steps(weights, feats, lens, self.params, self.split_len, self.impl,
+                                   mark=mark)
+
+    def _pipeline_steps(self, weights, wav, lens, mark):
+        feats, feat_lens = log_mel_features(wav, lens, self.cfg)
+        mark("features")
+        return (yield from self._decode_steps(weights, feats, feat_lens, mark))
+
+    def _sharded(self, make_steps, clock: PhaseClock, *batch):
+        """One batch through ``make_steps(weights, *tensors, mark)``: on the
+        runner's device, or with a mesh cut into lane shards (``batch``
+        holds (tensor, lane axis) pairs) that run in lockstep and join in
+        lane order on the runner's device.  The first shard keeps the
+        phase clock."""
+        if self.mesh is None:
+            return drain(make_steps(self.weights, *(t for t, _ in batch), clock.mark))
+        parts = zip(*(shard(self.mesh, t, axis) for t, axis in batch))
+        marks = [clock.mark] + [lambda _name: None] * (self.mesh.shape["data"] - 1)
+        outs = lockstep([make_steps(w, *p, m) for w, p, m in zip(self._shard_weights, parts, marks)],
+                        self.mesh.data_devices, self.shard_launches)
+        return tuple(join([o[k] for o in outs], 0, self.device) for k in range(2))
+
+    def reset_shard_launches(self) -> None:
+        """With a mesh, ``shard_launches`` counts each shard's kernel
+        launches from here on (a run resets it as it begins)."""
+        self.shard_launches: List[Dict[str, int]] = (
+            [{} for _ in range(self.mesh.shape["data"])] if self.mesh else [])
 
     def _decode(self, feats: torch.Tensor, lens: torch.Tensor, clock: PhaseClock):
-        return greedy_decode(
-            self.weights, feats, lens, self.params, self.split_len, self.impl, mark=clock.mark
-        )
+        return self._sharded(self._decode_steps, clock, (feats, 1), (lens, 0))
 
     def _pipeline(self, wav: torch.Tensor, lens: torch.Tensor, clock: PhaseClock):
         clock.mark("start")
-        feats, feat_lens = log_mel_features(wav, lens, self.cfg)
-        clock.mark("features")
-        return self._decode(feats, feat_lens, clock)
+        return self._sharded(self._pipeline_steps, clock, (wav, 0), (lens, 0))
 
     def _pipeline_i16(
         self, wav_i16: torch.Tensor, lens: torch.Tensor, clock: PhaseClock
@@ -188,6 +267,7 @@ class OfflineRunner:
         index, -1 for padding), with no token readback (``harvest`` takes
         both)."""
         clock = clock or PhaseClock(self.device)
+        self.reset_shard_launches()
         pending, row_indices = [], []
         with torch.inference_mode():
             for wav, lens, row_index in dqsl.batches():
@@ -230,6 +310,7 @@ class OfflineRunner:
             phase_seconds=clock.totals(),
             readback_seconds=readback,
             launches=launches,
+            shard_launches=self.shard_launches,
         )
 
     def run(
@@ -242,6 +323,7 @@ class OfflineRunner:
         waveform_mode = qsl.store.kind == "waveform"
         order = qsl.sort_desc(indices)
         clock = PhaseClock(self.device)
+        self.reset_shard_launches()
         results: dict = {}
         before = launch_counts()
         t0 = time.time()
@@ -278,4 +360,5 @@ class OfflineRunner:
             batches=n_batches,
             phase_seconds=clock.totals(),
             launches=launches_since(before),
+            shard_launches=self.shard_launches,
         )

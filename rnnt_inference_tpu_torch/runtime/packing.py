@@ -1,5 +1,5 @@
 """Sequence-packed Offline runner (counterpart of
-rnnt_inference_tpu/runtime/packing.py, one device, no mesh).
+rnnt_inference_tpu/runtime/packing.py).
 
 Instead of padding every utterance to a wav bucket, packing lays the
 utterances end to end along time in ``n_lanes`` timelines on a
@@ -26,6 +26,15 @@ give each utterance a fresh state, compaction feeds the decode the same
 frames in the same order, and each utterance keeps at most max_res_len
 tokens (the standalone decode's truncation), enforced by the per-utterance
 budget.  ``harvest`` splits each lane's tokens at the markers.
+
+With a ``mesh`` (parallel/mesh.py) the lane axis of every table (the pack
+gather table, chunk lengths, resets, compaction tables) is cut into one
+contiguous shard per data device; the flat feature buffer is replicated on
+each device for the gather (each staged batch is featurized on one device
+and copied to the others).  Phases B and C run per shard in ``lockstep``
+and the token buffers join in lane order.  The pack plan, the result
+capacity and the budget gate stay global, so each lane decodes exactly as
+it does unsharded.
 """
 
 from __future__ import annotations
@@ -42,18 +51,21 @@ from rnnt_inference_tpu_torch.config import FeaturizerConfig, RNNTParams
 from rnnt_inference_tpu_torch.models import rnnt as model
 from rnnt_inference_tpu_torch.models.decoder import (
     PACK_BOUNDARY,
-    greedy_decode_chunk_packed,
+    drain,
+    greedy_decode_chunk_packed_steps,
     init_decode_state,
     masked_reset_decode,
 )
 from rnnt_inference_tpu_torch.ops import decode_cuda
 from rnnt_inference_tpu_torch.ops.features import log_mel_features
+from rnnt_inference_tpu_torch.parallel.mesh import join, lane_bounds, weight_shardings
 from rnnt_inference_tpu_torch.runtime.offline import (
     OfflineResult,
     PhaseClock,
     build_kernels,
     launch_counts,
     launches_since,
+    lockstep,
 )
 
 
@@ -127,12 +139,21 @@ class PackedOfflineRunner:
         decode_chunk: int = 128,
         device="cuda",
         impl: Optional[str] = None,
+        mesh=None,
     ):
         """impl=None runs the CUDA kernels on the card (the plain twins on
-        the CPU); impl="reference" runs the plain twins on the card too."""
+        the CPU); impl="reference" runs the plain twins on the card too.
+        mesh: a parallel/mesh.py Mesh whose data devices each take a
+        contiguous n_lanes / dp lanes (n_lanes % dp == 0; module
+        docstring); the runner's device is then its first data device."""
         if chunk_frames % params.stack_time_factor:
             raise ValueError(f"chunk_frames {chunk_frames} must be a multiple of the "
                              f"stack_time factor {params.stack_time_factor}")
+        if mesh is not None:
+            dp = mesh.shape["data"]
+            if n_lanes % dp:
+                raise ValueError(f"n_lanes {n_lanes} not divisible by data-parallel degree {dp}")
+            device = mesh.data_devices[0]
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("PackedOfflineRunner(device='cuda') but CUDA is not available")
@@ -144,8 +165,14 @@ class PackedOfflineRunner:
         self.decode_chunk = decode_chunk
         self.impl = impl
         self.weights = weights.to(self.device)
+        self.mesh = mesh
+        self._shard_weights = [self.weights] if mesh is None else weight_shardings(
+            mesh, self.weights)
+        self._shard_devices = [self.device] if mesh is None else mesh.data_devices
         self.plan: Optional[PackPlan] = None
         self._staged = None  # [(wav_i16 {g, S}, lens {g}, flat base row)]
+        self._shards: List[dict] = []  # per data shard: its lanes' device tables
+        self.shard_launches: List[dict] = []  # with a mesh: per shard, last dispatch
         self._enc_dtype = weights.pre_rnn[0].w_ih.dtype
         self._pred_dtype = weights.pred_rnn[0].w_ih.dtype
         # f in the joint's input type is bit-exact: the decode's hoisted
@@ -226,10 +253,13 @@ class PackedOfflineRunner:
         dqsl = qsl.load_to_device(self.batch_size, idx_arr, device=dev)
         # flat feature buffer: a staged batch's (T_b, g, 240) features land
         # at rows base + t g + r; pack_src[t, lane] is the flat row of packed
-        # frame t, and pad positions point at the zero row after the last
+        # frame t, and pad positions point at the zero row after the last.
+        # One buffer per distinct device; batch b is featurized on the
+        # (b mod k)-th of the k distinct devices
+        flat_devs = list(dict.fromkeys(self._shard_devices))
         pack_src = np.full((plan.n_chunks * P, self.n_lanes), -1, np.int64)
         staged, base = [], 0
-        for wav, lens, row_index in dqsl.batches():
+        for b, (wav, lens, row_index) in enumerate(dqsl.batches()):
             g, S = wav.shape
             for r, i in enumerate(row_index):
                 if i < 0:
@@ -237,56 +267,66 @@ class PackedOfflineRunner:
                 lane, f0 = dest0[int(i)]
                 F = int(by_sample[int(i)])
                 pack_src[f0 : f0 + F, lane] = base + np.arange(F, dtype=np.int64) * g + r
-            staged.append((wav, lens, base))
+            on = flat_devs[b % len(flat_devs)]
+            staged.append((wav.to(on), lens.to(on), base))
             base += cfg.out_frames(S) * g
         pack_src[pack_src < 0] = base  # the zero row, never written
         self._staged = staged
-        t = lambda a: torch.from_numpy(a).to(dev)
-        self._chunk_lens = t(plan.chunk_lens)
-        self._resets = t(plan.resets)
-        self._src_idx = t(src_idx)
-        self._starts = t(starts_arr)
-        self._lane_f_lens = t(lane_f_lens)
-        self._pack_src = t(pack_src)
-        self._flat = torch.zeros((base + 1, cfg.out_feat), dtype=torch.float32, device=dev)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)  # staging completes untimed
+        self._flats = {d: torch.zeros((base + 1, cfg.out_feat), dtype=torch.float32, device=d)
+                       for d in flat_devs}
+        self._shards = []
+        for (lo, hi), d in zip(lane_bounds(self.mesh, self.n_lanes) if self.mesh else
+                               [(0, self.n_lanes)], self._shard_devices):
+            t = lambda a: torch.from_numpy(np.ascontiguousarray(a[..., lo:hi])).to(d)
+            self._shards.append(dict(
+                device=d, chunk_lens=t(plan.chunk_lens), resets=t(plan.resets),
+                src_idx=t(src_idx), starts=t(starts_arr), lane_f_lens=t(lane_f_lens),
+                pack_src=t(pack_src)))
+        for d in flat_devs:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)  # staging completes untimed
         return plan
 
     # -- the timed rep ----------------------------------------------------
 
-    def _features(self) -> torch.Tensor:
-        """Phase A: every staged batch featurized into the flat buffer, then
-        one row gather into the packed (T_pack, N, 240) buffer."""
-        flat = self._flat
+    def _features(self) -> List[torch.Tensor]:
+        """Phase A: every staged batch featurized into the flat buffer of
+        each distinct device, then each shard's row gather of its lanes'
+        packed features (C P, N_shard, 240) from its device's buffer."""
         for wav, lens, base in self._staged:
             feats, _ = log_mel_features(wav.float() * (1.0 / 32768.0), lens, self.cfg)
             rows = feats.reshape(-1, feats.shape[-1])  # row t g + r
-            flat[base : base + rows.shape[0]] = rows
-        return flat[self._pack_src]
+            for flat in self._flats.values():
+                flat[base : base + rows.shape[0]] = rows
+        return [self._flats[sh["device"]][sh["pack_src"]] for sh in self._shards]
 
-    def _encode(self, packed: torch.Tensor) -> torch.Tensor:
-        """Phase B: the encoder over the C chunks, its state zeroed on the
-        lanes where an utterance starts.  Returns (C P2, N, H) in f's type."""
-        C, N, P = self.plan.n_chunks, self.n_lanes, self.chunk_frames
+    def _encode_steps(self, sh: dict, weights, packed: torch.Tensor):
+        """Phase B on one shard's lanes: the encoder over the C chunks, its
+        state zeroed on the lanes where an utterance starts; a step (yield)
+        after each chunk.  Returns (C P2, N_shard, H) in f's type."""
+        C, P = self.plan.n_chunks, self.chunk_frames
+        N = packed.shape[1]
         xc = packed.reshape(C, P, N, packed.shape[-1])
-        est = model.init_encoder_state(N, self.params, self._enc_dtype, self.device)
+        est = model.init_encoder_state(N, self.params, self._enc_dtype, sh["device"])
         outs = []
         for c in range(C):
-            m = self._resets[c][None, :, None]
+            m = sh["resets"][c][None, :, None]
             z = lambda a: a.masked_fill(m, 0)
             est = model.EncoderState(pre_h=z(est.pre_h), pre_c=z(est.pre_c),
                                      post_h=z(est.post_h), post_c=z(est.post_c))
-            f_c, est = model.transcription(self.weights, xc[c], self._chunk_lens[c], est,
+            f_c, est = model.transcription(weights, xc[c], sh["chunk_lens"][c], est,
                                            self.params, self.impl)
             outs.append(f_c.to(self._f_dtype))
+            yield
         return torch.cat(outs)
 
-    def _decode(self, f_all: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Phase C: compaction, then the packed decode in decode_chunk-frame
-        pieces.  Returns (res {N, R} int8, res_idx {N} int32)."""
-        N, dev, pp = self.n_lanes, self.device, self._params_pack
-        src = self._src_idx
+    def _decode_steps(self, sh: dict, weights, f_all: torch.Tensor):
+        """Phase C on one shard's lanes: compaction, then the packed decode
+        in decode_chunk-frame pieces.  Returns (res {N_shard, R} int8,
+        res_idx {N_shard} int32)."""
+        dev, pp = sh["device"], self._params_pack
+        src, starts, lane_f_lens = sh["src_idx"], sh["starts"], sh["lane_f_lens"]
+        N = src.shape[1]
         f_packed = torch.gather(f_all, 0, src[:, :, None].expand(-1, -1, f_all.shape[-1]))
         T2c = f_packed.shape[0]
         DC = min(self.decode_chunk, T2c)
@@ -294,28 +334,36 @@ class PackedOfflineRunner:
         st = init_decode_state(N, pp, self._enc_dtype, self._pred_dtype, dev)
         rb = torch.full((N,), -1, dtype=torch.int32, device=dev)
         lanes = torch.arange(N, device=dev)
-        dw = decode_cuda.decode_weights(self.weights)
+        dw = decode_cuda.decode_weights(weights)
         for k in range(n_dc):
             off = k * DC
             f_c = f_packed[off : off + DC]
-            starts_c = self._starts[off : off + DC]
+            starts_c = starts[off : off + DC]
             if f_c.shape[0] < DC:  # the last piece, padded: its pad frames are never visited
                 pad = DC - f_c.shape[0]
                 f_c = torch.cat([f_c, f_c.new_zeros((pad,) + f_c.shape[1:])])
                 starts_c = torch.cat([starts_c, starts_c.new_zeros((pad, N))])
-            lens_c = torch.clamp(self._lane_f_lens - off, 0, DC)
+            lens_c = torch.clamp(lane_f_lens - off, 0, DC)
             if off > 0:
                 # an utterance that starts at the piece's first frame is not
                 # entered inside the piece: reset it and write its marker here
-                bmask = starts_c[0] & (off < self._lane_f_lens)
+                bmask = starts_c[0] & (off < lane_f_lens)
                 st = masked_reset_decode(st, bmask, pp, keep_res=True)
                 st.res_idx = st.res_idx + bmask.int()
                 keep = bmask & (st.res_idx < pp.max_res_len)
                 st.res[lanes[keep], st.res_idx[keep].long()] = PACK_BOUNDARY
                 rb = torch.where(bmask, st.res_idx, rb)
-            st, rb = greedy_decode_chunk_packed(self.weights, st, f_c, lens_c, pp, starts_c, rb,
-                                                self._utt_budget, self.impl, dw=dw)
+            st, rb = yield from greedy_decode_chunk_packed_steps(
+                weights, st, f_c, lens_c, pp, starts_c, rb, self._utt_budget, self.impl, dw=dw)
         return st.res, st.res_idx
+
+    def _shard_steps(self, sh: dict, weights, packed: torch.Tensor, mark):
+        """Phases B and C of one shard, from its packed features."""
+        f_all = yield from self._encode_steps(sh, weights, packed)
+        mark("encoder")
+        out = yield from self._decode_steps(sh, weights, f_all)
+        mark("decode")
+        return out
 
     def dispatch(self, clock: Optional[PhaseClock] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Enqueue one whole rep (phases A, B, C) over the staged set and
@@ -330,11 +378,16 @@ class PackedOfflineRunner:
             clock.mark("start")
             packed = self._features()
             clock.mark("features")
-            f_all = self._encode(packed)
-            clock.mark("encoder")
-            res, res_idx = self._decode(f_all)
-            clock.mark("decode")
-        return res, res_idx
+            if self.mesh is None:
+                return drain(self._shard_steps(self._shards[0], self.weights, packed[0],
+                                               clock.mark))
+            # the first shard keeps the phase clock
+            marks = [clock.mark] + [lambda _name: None] * (len(self._shards) - 1)
+            self.shard_launches = [{} for _ in self._shards]
+            outs = lockstep([self._shard_steps(*a) for a in
+                             zip(self._shards, self._shard_weights, packed, marks)],
+                            self._shard_devices, self.shard_launches)
+            return tuple(join([o[k] for o in outs], 0, self.device) for k in range(2))
 
     def run_device(self) -> OfflineResult:
         """One timed rep (``dispatch``).  wall_seconds covers dispatch and
@@ -360,6 +413,7 @@ class PackedOfflineRunner:
             phase_seconds=clock.totals(),
             readback_seconds=readback,
             launches=launches,
+            shard_launches=self.shard_launches,
         )
 
     def harvest(self, res: np.ndarray, res_idx: np.ndarray) -> List[np.ndarray]:

@@ -13,6 +13,11 @@ its tokens and frees it.
 The step is decode_chunk, the streaming unit of the Offline path, so Server
 and Offline give the same tokens.  On the card a step runs kernel A (the
 int8 encoder) and kernel B (the decode) as the Offline runner does.
+
+``server_multi_step_dp`` runs the steps on a slot-sharded state: the slot
+axis cut over a mesh's data devices (parallel/mesh.py
+``server_state_sharding``), the shards in lockstep, each with its own
+masked resets, offsets and ``res_idx``.
 """
 
 from __future__ import annotations
@@ -27,13 +32,19 @@ import torch
 from rnnt_inference_tpu_torch.config import FeaturizerConfig, RNNTParams
 from rnnt_inference_tpu_torch.models.decoder import (
     DecodeState,
-    decode_chunk,
+    decode_chunk_steps,
+    drained,
     init_decode_state,
     masked_reset_decode,
 )
 from rnnt_inference_tpu_torch.ops import decode_cuda
 from rnnt_inference_tpu_torch.ops.features import log_mel_features
-from rnnt_inference_tpu_torch.runtime.offline import build_kernels
+from rnnt_inference_tpu_torch.parallel.mesh import (
+    join,
+    join_server_state,
+    server_state_sharding,
+)
+from rnnt_inference_tpu_torch.runtime.offline import build_kernels, lockstep
 from rnnt_inference_tpu_torch.runtime.qsl import DEFAULT_WAV_BUCKETS_S
 
 
@@ -92,7 +103,7 @@ def server_insert(
         state, decode=masked_reset_decode(state.decode, reset, params, keep_res=False))
 
 
-def server_step(
+def server_step_steps(
     weights,
     state: ServerState,
     split_len: int,
@@ -110,14 +121,15 @@ def server_step(
     window = torch.gather(state.F, 0, t_idx[:, :, None].expand(-1, -1, C))  # {split, N, C}
     remaining = torch.clamp(state.F_lens - state.offsets, min=0)
     w_lens = torch.clamp(remaining, max=split_len) * state.active.int()
-    decode = decode_chunk(weights, state.decode, window, w_lens, params, impl, dw=dw)
+    decode = yield from decode_chunk_steps(weights, state.decode, window, w_lens, params, impl,
+                                           dw=dw)
     offsets = state.offsets + w_lens
     finished = state.active & (offsets >= state.F_lens)
     return ServerState(F=state.F, F_lens=state.F_lens, offsets=offsets,
                        active=state.active & ~finished, decode=decode), finished
 
 
-def server_multi_step(
+def server_multi_step_steps(
     weights,
     state: ServerState,
     split_len: int,
@@ -130,9 +142,43 @@ def server_multi_step(
     (finished slots stay inert until the host extracts them)."""
     fin_acc = torch.zeros_like(state.active)
     for _ in range(k):
-        state, fin = server_step(weights, state, split_len, params, impl, dw)
+        state, fin = yield from server_step_steps(weights, state, split_len, params, impl, dw)
         fin_acc = fin_acc | fin
     return state, fin_acc
+
+
+server_step = drained(server_step_steps)
+server_multi_step = drained(server_multi_step_steps)
+
+
+def server_multi_step_dp(
+    mesh,
+    shard_weights: list,
+    state: ServerState,
+    split_len: int,
+    k: int,
+    params: RNNTParams = RNNTParams(),
+    impl: Optional[str] = None,
+    shard_launches: Optional[List[dict]] = None,
+) -> Tuple[ServerState, torch.Tensor]:
+    """``server_multi_step`` on the slot-sharded state: ``state`` cut along
+    its slot axis over the mesh's data devices, k steps per shard in
+    lockstep on ``shard_weights[s]``, then joined in slot order on the
+    state's device.  ``shard_weights`` is ``weight_shardings(mesh,
+    weights)``, made once by the caller, so a serving loop replicates the
+    weights (and builds each replica's kernel operands) once and not per
+    call.  Each shard's kernel launches are added to ``shard_launches[s]``
+    when it is given."""
+    if len(shard_weights) != mesh.shape["data"]:
+        raise ValueError(f"{len(shard_weights)} weight shards for data-parallel degree "
+                         f"{mesh.shape['data']}: pass weight_shardings(mesh, weights)")
+    shards = server_state_sharding(mesh, state)
+    steps = [server_multi_step_steps(w, s, split_len, k, params, impl)
+             for w, s in zip(shard_weights, shards)]
+    outs = lockstep(steps, mesh.data_devices, shard_launches)
+    dev = state.F.device
+    return (join_server_state([o[0] for o in outs], dev),
+            join([o[1] for o in outs], 0, dev))
 
 
 class ServerRunner:

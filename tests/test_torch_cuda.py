@@ -604,3 +604,151 @@ def test_native_single_stream_on_card(dev, qweights):
     assert 0 < s["latency_ms_p50"] <= s["latency_ms_p90"] <= s["latency_ms_p99"]
     assert rep.launches["quant_lstm_layer"] > 0 and rep.launches["decode_step"] > 0
     assert rep.hypotheses == ref.hypotheses
+
+
+def _edit_distance(a, b) -> int:
+    prev = list(range(len(b) + 1))
+    for i, x in enumerate(a, 1):
+        cur = [i]
+        for j, y in enumerate(b, 1):
+            cur.append(min(prev[j] + 1, cur[j - 1] + 1, prev[j - 1] + (x != y)))
+        prev = cur
+    return prev[-1]
+
+
+def _tokens_within_near_ties(got, want, rerun):
+    """Sharded tokens against the single-device run's: equal, or parting
+    (kernel B sums its products in an order that depends on the lanes of a
+    pass) at edit rate <= 1e-3 with every kernel-B launch of ``rerun()``
+    parting from its twin only at a tie."""
+    from rnnt_inference_tpu_torch.tools.decode_divergence import compare_run_launches
+
+    edits = sum(_edit_distance(list(a), list(b)) for a, b in zip(got, want, strict=True))
+    if edits:
+        assert edits / max(sum(len(t) for t in want), 1) <= 1e-3
+        _, summary = compare_run_launches(rerun)
+        assert summary["faults"] == 0, summary
+
+
+@pytest.mark.parametrize("kind", ["bucketed", "packed"])
+def test_two_shard_mesh_on_one_card(dev, qweights, kind):
+    """OfflineRunner and PackedOfflineRunner on the mesh [cuda:0, cuda:0]
+    against the unsharded runner: kernel A and B launches on both shards
+    (they sum to the run's), tokens equal or parting only at ties."""
+    from rnnt_inference_tpu_torch.data.dataset import SampleStore
+    from rnnt_inference_tpu_torch.parallel.mesh import make_mesh
+    from rnnt_inference_tpu_torch.runtime.offline import OfflineRunner
+    from rnnt_inference_tpu_torch.runtime.packing import PackedOfflineRunner
+    from rnnt_inference_tpu_torch.runtime.qsl import QuerySampleLibrary
+
+    mesh = make_mesh(devices=[torch.device("cuda", 0)] * 2)
+    store = SampleStore.synthetic(n=24, seed=41, min_seconds=0.5, max_seconds=3.0,
+                                  mean_seconds=1.5)
+    qsl = QuerySampleLibrary(store, wav_buckets_s=(1.0, 2.0, 3.0))
+    if kind == "bucketed":
+        single = OfflineRunner(qweights, P, batch_size=8, device=dev).run(qsl)
+        runner = OfflineRunner(qweights, P, batch_size=8, mesh=mesh)
+        rerun = lambda: runner.run(qsl)
+    else:
+        kw = dict(n_lanes=8, chunk_frames=16, batch_size=8, decode_chunk=32)
+        r1 = PackedOfflineRunner(qweights, P, device=dev, **kw)
+        r1.stage(qsl)
+        single = r1.run_device()
+        runner = PackedOfflineRunner(qweights, P, mesh=mesh, **kw)
+        runner.stage(qsl)
+        rerun = runner.run_device
+    got = rerun()
+    assert len(got.shard_launches) == 2
+    for name in ("quant_lstm_layer", "decode_step"):
+        assert all(s[name] > 0 for s in got.shard_launches)
+        assert sum(s[name] for s in got.shard_launches) == got.launches[name]
+    _tokens_within_near_ties(got.tokens, single.tokens, rerun)
+
+
+def test_server_dp_on_one_card(dev, qweights):
+    """server_multi_step_dp on [cuda:0, cuda:0] against server_multi_step
+    on the same inserted 16-slot state: every slot finishes, and res and
+    res_idx are equal or part only where kernel B parts at a tie."""
+    from rnnt_inference_tpu_torch.parallel.mesh import make_mesh, weight_shardings
+    from rnnt_inference_tpu_torch.runtime import server
+
+    slots, split, max_frames = 16, 8, 48
+    feats = torch.randn((max_frames, slots, 240), generator=torch.Generator().manual_seed(6))
+    flens = torch.tensor([5 + (11 * i) % (max_frames - 5) for i in range(slots)],
+                         dtype=torch.int32)
+
+    def run(mesh):
+        st = server.init_server_state(slots, max_frames, P, enc_dtype=torch.int8,
+                                      pred_dtype=torch.bfloat16, device=dev)
+        st = server.server_insert(st, feats.to(dev), flens.to(dev), torch.arange(slots), P)
+        k = max_frames // split
+        with torch.inference_mode():
+            if mesh is None:
+                return server.server_multi_step(qweights, st, split, k, P)
+            shard_launches = [{}, {}]
+            out = server.server_multi_step_dp(mesh, weight_shardings(mesh, qweights), st,
+                                              split, k, P, shard_launches=shard_launches)
+            assert all(s["decode_step"] > 0 and s["quant_lstm_layer"] > 0
+                       for s in shard_launches)
+            return out
+
+    s1, f1 = run(None)
+    sm, fm = run(make_mesh(devices=[torch.device("cuda", 0)] * 2))
+    assert bool(f1.all()) and torch.equal(fm, f1)
+    n1 = (s1.decode.res_idx + 1).clamp(max=P.max_res_len).cpu()
+    nm = (sm.decode.res_idx + 1).clamp(max=P.max_res_len).cpu()
+    got = [sm.decode.res[i, : nm[i]].cpu().numpy() for i in range(slots)]
+    want = [s1.decode.res[i, : n1[i]].cpu().numpy() for i in range(slots)]
+    _tokens_within_near_ties(got, want, lambda: run(make_mesh(
+        devices=[torch.device("cuda", 0)] * 2)))
+
+
+def test_dryrun_multichip_on_card(dev):
+    """tools/dryrun_multichip.py on two shards of the card: every phase
+    equal to its single-device run on the kernels."""
+    from rnnt_inference_tpu_torch.tools.dryrun_multichip import dryrun_multichip
+
+    out = dryrun_multichip(2, devices=[torch.device("cuda", 0)] * 2, log=lambda _: None)
+    assert "ROADMAP item 2.8" in out["quant_tp"]
+
+
+def test_kernels_launch_on_the_tensors_card(dev, qweights):
+    """With two or more cards: kernels A and B given tensors on cuda:1 while
+    the current device is cuda:0 launch on cuda:1 (each wrapper runs under
+    its tensor's device) and equal their twins there; the current device
+    is left as it was; a mesh over cuda:0 and cuda:1 gives the unsharded
+    tokens."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from rnnt_inference_tpu_torch.data.dataset import SampleStore
+    from rnnt_inference_tpu_torch.ops.lstm_int8 import quant_lstm_layer_op
+    from rnnt_inference_tpu_torch.parallel.mesh import make_mesh
+    from rnnt_inference_tpu_torch.runtime.offline import OfflineRunner
+    from rnnt_inference_tpu_torch.runtime.qsl import QuerySampleLibrary
+
+    d1 = torch.device("cuda", 1)
+    w1 = qweights.to(d1)
+    layer = w1.post_rnn[0]
+    IC, H = layer.w_ih.shape[0], layer.w_hh.shape[0]
+    g = torch.Generator().manual_seed(7)
+    x = torch.randint(-128, 128, (9, 20, IC), generator=g, dtype=torch.int8).to(d1)
+    h = torch.randint(-128, 128, (20, H), generator=g, dtype=torch.int8).to(d1)
+    c = torch.randn((20, H), generator=g).to(d1)
+    with torch.cuda.device(0):
+        before = lstm_cuda.quant_lstm_layer_cuda.launches
+        got = quant_lstm_layer_op(layer, x, h, c, False)
+        assert lstm_cuda.quant_lstm_layer_cuda.launches == before + 1
+        assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(d1)
+    _assert_quant_layer_equal(got, quant_lstm_layer(layer, x, h, c, False))
+    assert all(t.device == d1 for t in got)
+
+    store = SampleStore.synthetic(n=8, seed=42, min_seconds=0.5, max_seconds=2.0,
+                                  mean_seconds=1.0)
+    qsl = QuerySampleLibrary(store)
+    single = OfflineRunner(qweights, P, batch_size=8, device=dev).run(qsl)
+    runner = OfflineRunner(qweights, P, batch_size=8,
+                           mesh=make_mesh(devices=[torch.device("cuda", 0), d1]))
+    got = runner.run(qsl)
+    assert all(s["decode_step"] > 0 for s in got.shard_launches)
+    _tokens_within_near_ties(got.tokens, single.tokens, lambda: runner.run(qsl))

@@ -161,8 +161,10 @@ def test_frontend_constants_match_jax():
 
 def test_port_imports_no_jax():
     """Importing every module of the port, the bench, the profiler, the
-    native loadgen's bindings and the text and manifest modules included,
-    loads no jax and nothing of the JAX package (a fresh interpreter)."""
+    native loadgen's bindings, the text, manifest, audio and FLAC modules,
+    the mesh and distributed modules, the Transcriber, the golden module
+    and the tools included, loads no jax and nothing of the JAX package (a
+    fresh interpreter)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import rnnt_inference_tpu_torch as p\n"
@@ -172,7 +174,12 @@ def test_port_imports_no_jax():
         "assert not bad, bad\n"
         "assert {'rnnt_inference_tpu_torch.bench', 'rnnt_inference_tpu_torch.utils.profiler', "
         "'rnnt_inference_tpu_torch.runtime.native', 'rnnt_inference_tpu_torch.data.text', "
-        "'rnnt_inference_tpu_torch.data.manifest'} <= set(sys.modules)\n"
+        "'rnnt_inference_tpu_torch.data.manifest', 'rnnt_inference_tpu_torch.data.audio', "
+        "'rnnt_inference_tpu_torch.data.flac', 'rnnt_inference_tpu_torch.parallel.mesh', "
+        "'rnnt_inference_tpu_torch.parallel.distributed', 'rnnt_inference_tpu_torch.transcribe', "
+        "'rnnt_inference_tpu_torch.utils.golden', 'rnnt_inference_tpu_torch.tools.multihost_probe', "
+        "'rnnt_inference_tpu_torch.tools.dryrun_multichip', "
+        "'rnnt_inference_tpu_torch.tools.convert_librispeech'} <= set(sys.modules)\n"
         "print('ok')\n"
     )
     out = subprocess.run(
