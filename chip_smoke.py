@@ -16,7 +16,15 @@ it and read just after:
   - end_to_end: the bucketed Offline int8 pipeline (waveform -> log-mel ->
     int8 encoder (kernel A) -> greedy decode (kernel B)) through
     OfflineRunner, once on the kernels and once on the twins;
-  - features_fused: the fused featurizer entry point (kernel D);
+  - features_fused: the fused featurizer entry point (kernel D, 3xTF32
+    tensor-core products), on 16 utterances of 14-15 s: raw log-mel within
+    1e-4 of its twin, normalized features within 5e-4, their drift from
+    eager log_mel_features printed, and the int8 model's tokens on D's
+    features held to the twin's (edit rate <= max(1e-3, twice the twin's
+    rate against log_mel_features or against the twin summing in another
+    order), as calibrated and with the bench's blank bias at cap 1, each
+    with a token buffer no utterance fills); timed also at the largest wav
+    batch the cut bench's packed runner stages;
   - cli_bf16 / cli_f32: the CLI, ``main --run_mode bf16|f32 --benchmark
     --scenario Offline --synthetic N`` (float encoder on kernel C, decode on
     kernel B), then the same store through run_offline on the twins;
@@ -92,6 +100,7 @@ import torch
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_INT8_OPS = 1979e12  # dense int8 tensor-core rate
 PEAK_BF16_FLOPS = 989e12  # dense bf16 tensor-core rate
+PEAK_TF32_FLOPS = 495e12  # dense TF32 tensor-core rate
 PEAK_F32_FLOPS = 67e12  # f32 FMA on the CUDA cores (no tensor cores)
 
 
@@ -653,14 +662,34 @@ def phase_kernel_c(weights, dev) -> dict:
     }
 
 
-def phase_kernel_d(dev) -> dict:
+def phase_kernel_d(qweights, params, dev, bench_store) -> dict:
     """The fused featurizer path (log_mel_features_fused, kernel D) on 16
     utterances of up to 15 s, with the launch count set to 0 just before it
-    and read just after; then kernel D against its twin on the same input."""
+    and read just after; then kernel D against its twin on the same input.
+    Prints the drift of D's normalized features from eager
+    log_mel_features (TF32 off) and holds D's tokens on the int8 model
+    (encoder, then greedy decode) against the twin's: edit rate <= max(1e-3,
+    twice the rate at which the twin's tokens part from those of
+    log_mel_features or of the twin summing in another order, whichever is
+    larger; the rule bench_twins applies to ties), in two decodes: the
+    model as calibrated, and with the bench's blank bias at cap 1.  Each
+    decode's token buffer holds max_symbols_per_step tokens for every
+    encoder step, so no utterance fills it and the tokens depend on every
+    frame.  The rates against the f64 evaluation are printed.  Times D's
+    entry point against log_mel_features also at the largest wav batch the
+    cut bench's packed runner stages (bench_store, batch 1,024, the bench's
+    buckets)."""
+    import dataclasses
+
+    from rnnt_inference_tpu_torch.bench import KNOB_DEFAULTS, bias_joint_toward_blank
     from rnnt_inference_tpu_torch.config import FeaturizerConfig
     from rnnt_inference_tpu_torch.data.dataset import SampleStore
+    from rnnt_inference_tpu_torch.models.decoder import greedy_decode
     from rnnt_inference_tpu_torch.ops import features as tf
     from rnnt_inference_tpu_torch.ops import features_cuda
+    from rnnt_inference_tpu_torch.runtime.qsl import (
+        QuerySampleLibrary, batch_plan, to_int16_pcm,
+    )
 
     cfg = FeaturizerConfig()
     store = SampleStore.synthetic(n=16, seed=11, min_seconds=14.0, max_seconds=15.0)
@@ -680,40 +709,148 @@ def phase_kernel_d(dev) -> dict:
     feat_diff = float((got - want).abs().max())
     if not (torch.equal(got_lens, want_lens) and feat_diff <= 5e-4):
         raise AssertionError(f"fused features off: {feat_diff}")
+    plain, plain_lens = tf.log_mel_features(wav, lens, cfg)
+    if not torch.equal(got_lens, plain_lens):
+        raise AssertionError("fused and eager feature lengths differ")
 
-    # the kernel alone, on the padded, preemphasized waveform the entry
-    # point hands it
+    def quantiles(a, b):
+        d = (a - b).abs().flatten().double()
+        return {"p50": float(d.quantile(0.5)), "p99": float(d.quantile(0.99)),
+                "max": float(d.max())}
+
+    drift = {"kernel_vs_log_mel_features": quantiles(got, plain),
+             "twin_vs_log_mel_features": quantiles(want, plain)}
+
+    # the padded, preemphasized waveform the entry point hands the kernel
     x = tf.pad_both(tf.preemphasis(wav, lens.long(), cfg.preemph), cfg.n_fft // 2,
                     cfg.pad_mode)[:, tf._frontend_constants(cfg)[3][0]:].contiguous()
     T = S // cfg.hop_length + 1
+    frame_lens = lens.long() // cfg.hop_length + 1
+
+    # The token gate's baselines: log_mel_features runs the twin's GEMMs
+    # (its features equal the twin's), so also a plain f32 version that
+    # sums each frame's DFT in two halves of the frame (another order); and
+    # the f64 evaluation, the exact value the f32 versions round.
+    def raw_mel(dtype, halves):
+        cos_m, sin_m, fbt = (c.to(dtype) for c in tf.device_constants(cfg, str(x.device))[:3])
+        fr = tf.frames_at(x.to(dtype), T, cfg.hop_length, cos_m.shape[0])
+        h = cos_m.shape[0] // halves
+        re = sum(fr[..., i:i + h] @ cos_m[i:i + h] for i in range(0, cos_m.shape[0], h))
+        im = sum(fr[..., i:i + h] @ sin_m[i:i + h] for i in range(0, cos_m.shape[0], h))
+        return torch.log((re * re + im * im + cfg.dither ** 2) @ fbt + 1e-20).float()
+
+    features = {"kernel_d": (got, got_lens), "twin": (want, want_lens),
+                "log_mel_features": (plain, plain_lens),
+                "twin_other_order": tf._finish(raw_mel(torch.float32, 2), frame_lens, cfg),
+                "f64": tf._finish(raw_mel(torch.float64, 1), frame_lens, cfg)}
+
+    # two decodes, each with a token buffer no utterance can fill: the int8
+    # model as calibrated (it emits its cap of max_symbols_per_step tokens
+    # at nearly every step) and with the bench's blank bias at cap 1 (about
+    # 0.8 symbols per step, emission decided by the frame, many near-ties)
+    steps = -(-int(got_lens.max()) // params.stack_time_factor)  # the longest encoder output
+    cap1 = dataclasses.replace(params, max_res_len=steps + 1, max_symbols_per_step=1)
+    decodes = {
+        "calibrated": (qweights, dataclasses.replace(
+            params, max_res_len=params.max_symbols_per_step * steps + 1)),
+        "blank_cap1": (bias_joint_toward_blank(qweights, cap1, cfg)[0], cap1),
+    }
+
+    def tokens(w, p, feats, flens):
+        res, rlens = greedy_decode(w, feats, flens, p)
+        if int(rlens.max()) >= p.max_res_len:
+            raise AssertionError(f"an utterance filled the {p.max_res_len}-token buffer")
+        return [res[i, : rlens[i]].cpu().numpy() for i in range(res.shape[0])]
+
+    pairs = (("kernel_d", "twin"), ("twin", "log_mel_features"), ("twin", "twin_other_order"),
+             ("kernel_d", "f64"), ("twin", "f64"))
+    token_gates = {}
+    for name, (w, p) in decodes.items():
+        toks = {k: tokens(w, p, *f) for k, f in features.items()}
+        rates = {f"{a}_vs_{b}": _edit_rate(toks[a], toks[b]) for a, b in pairs}
+        baseline = max(rates["twin_vs_log_mel_features"][0], rates["twin_vs_twin_other_order"][0])
+        gate = max(1e-3, 2 * baseline)
+        rate_d, n_tok, _ = rates["kernel_d_vs_twin"]
+        token_gates[name] = {
+            "tokens": n_tok, "token_buffer": p.max_res_len,
+            "longest_utterance_tokens": max(map(len, toks["twin"])),
+            "edit_rates": {k: {"rate": r, "utterances_differing": d} for k, (r, _, d) in
+                           rates.items()}, "gate": gate}
+        if n_tok == 0 or rate_d > gate:
+            raise AssertionError(f"{name}: kernel D's token edit rate {rate_d} against the twin "
+                                 f"over {n_tok} tokens, gate {gate}: {token_gates[name]}")
+    rate_d = max(g["edit_rates"]["kernel_d_vs_twin"]["rate"] for g in token_gates.values())
+
+    # the kernel alone, on that waveform
     a, b = tf.fused_mel(x, T, cfg), tf.fused_mel(x, T, cfg, impl="reference")
     torch.cuda.synchronize()
     mel_diff = float((a - b).abs().max())
     if not mel_diff <= 1e-4:
-        raise AssertionError(f"kernel D off: {mel_diff}")
+        worst = np.unravel_index(int((a - b).abs().argmax()), a.shape)
+        raise AssertionError(f"kernel D off: {mel_diff} at (utterance, frame, mel) {worst}")
     ms = cuda_ms(lambda: tf.fused_mel(x, T, cfg), 20)
     plain_ms = cuda_ms(lambda: tf.fused_mel(x, T, cfg, impl="reference"), 10)
     entry_ms = cuda_ms(lambda: tf.log_mel_features_fused(wav, lens, cfg), 10)
     plain_entry_ms = cuda_ms(lambda: tf.log_mel_features(wav, lens, cfg), 10)
     N, K, M, flen = x.shape[0], 257, cfg.n_mels, 2 * cfg.hop_length
     bytes_moved = x.numel() * 4 + N * T * M * 4 + (2 * flen * K + K * M) * 4
-    ops = N * T * (2 * 2 * flen * K + 3 * K + 2 * K * M + 2 * M)
-    bound_ms, bound_by = bound(bytes_moved, ops, PEAK_F32_FLOPS)
+    products = N * T * (2 * 2 * flen * K + 2 * K * M)
+    ops = products + N * T * (3 * K + 2 * M)
+    # the floor of D's own arithmetic: three tf32 products per f32 product
+    # on the tensor cores; beside it, f32 on the CUDA cores (a design without them)
+    bound_ms, bound_by = bound(bytes_moved, 3 * products, PEAK_TF32_FLOPS)
+    bound_f32, bound_f32_by = bound(bytes_moved, ops, PEAK_F32_FLOPS)
+
+    # the largest wav batch the cut bench's packed runner stages
+    qsl = QuerySampleLibrary(bench_store, cfg, wav_buckets_s=tuple(
+        float(v) for v in KNOB_DEFAULTS["BENCH_SECONDS"].split(",")))
+    Sb, rows, g = max(batch_plan(qsl, int(KNOB_DEFAULTS["BENCH_BATCH"]), None, 32),
+                      key=lambda e: e[0] * e[2])
+    wb = np.zeros((g, Sb), np.int16)
+    lb = np.zeros((g,), np.int32)
+    for r, i in enumerate(rows):
+        smp = bench_store.samples[i][:Sb]
+        wb[r, : len(smp)] = to_int16_pcm(smp)
+        lb[r] = len(smp)
+    wb = torch.from_numpy(wb).to(dev).float() * (1.0 / 32768.0)  # as the packed runner scales
+    lb = torch.from_numpy(lb).to(dev)
+    gb, gbl = tf.log_mel_features_fused(wb, lb, cfg)
+    pb, pbl = tf.log_mel_features(wb, lb, cfg)
+    batch_diff = float((gb - pb).abs().max())
+    if not (torch.equal(gbl, pbl) and batch_diff <= 5e-4):
+        raise AssertionError(f"fused features off at the bench's batch: {batch_diff}")
+    packed_batch = {
+        "utterances": g, "samples": Sb, "frames": Sb // cfg.hop_length + 1,
+        "features_max_abs_diff_vs_log_mel_features": batch_diff,
+        "entry_ms": cuda_ms(lambda: tf.log_mel_features_fused(wb, lb, cfg), 5),
+        "log_mel_features_ms": cuda_ms(lambda: tf.log_mel_features(wb, lb, cfg), 5),
+    }
+    del wb, gb, pb
     emit({"phase": "kernel_d", "utterances": N, "frames": T, "launches": launches,
           "tolerance": "normalized features <= 5e-4 (tests/test_features.py's bound), "
-                       "raw log-mel <= 1e-4",
-          "features_max_abs_diff": feat_diff, "log_mel_max_abs_diff": mel_diff, "ms": ms,
-          "plain_ms": plain_ms, "entry_ms": entry_ms, "log_mel_features_ms": plain_entry_ms,
-          "bound_ms": bound_ms, "bound_by": bound_by})
+                       "raw log-mel <= 1e-4; tokens, per decode: edit rate against the "
+                       "twin <= max(1e-3, 2 x the larger of twin against log_mel_features "
+                       "and twin against the twin summing in another order)",
+          "features_max_abs_diff": feat_diff, "log_mel_max_abs_diff": mel_diff,
+          "normalized_feature_drift": drift, "token_gates": token_gates,
+          "ms": ms, "plain_ms": plain_ms, "entry_ms": entry_ms,
+          "log_mel_features_ms": plain_entry_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+          "bound_ms_f32_cuda_cores": bound_f32, "bound_by_f32_cuda_cores": bound_f32_by,
+          "packed_runner_batch": packed_batch})
     return {
         "name": "log_mel", "route": "cuda",
         "source": "rnnt_inference_tpu_torch/csrc/mel.cu",
         "replaces": "rnnt_inference_tpu/ops/features_pallas.py:47",
-        "shape": f"N={N} T={T} frames of 320 samples, 257 bins, {M} mels; one call = 1 launch",
+        "shape": f"N={N} T={T} frames of 320 samples, 257 bins, {M} mels; one call = 1 launch; "
+                 "3xTF32 tensor-core products; bound_ms at the TF32 tensor-core rate "
+                 "(3 products each), bound_ms_f32_cuda_cores at the f32 CUDA-core rate",
         "launches": launches, "max_abs_err": mel_diff, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "bound_ms": bound_ms, "bound_by": bound_by, "bound_ms_f32_cuda_cores": bound_f32,
+        "bound_by_f32_cuda_cores": bound_f32_by, "library_ms": None,
         "library_note": "no single PyTorch call computes frames -> windowed DFT -> "
                         "power -> mel -> log (torch.stft + matmul + log is several calls)",
+        "entry_ms": entry_ms, "log_mel_features_ms": plain_entry_ms,
+        "packed_runner_batch": packed_batch, "token_edit_rate_vs_twin": rate_d,
     }
 
 
@@ -2023,7 +2160,9 @@ def main() -> int:
     b32 = phase_kernel_b(weights, params, dev, "kernel_b_f32")
     bp = phase_kernel_b_packed(qweights, params, dev)
     c = phase_kernel_c(weights, dev)
-    d = phase_kernel_d(dev)
+    # the bench's store (bench.run's: seed 0) at the bench phase's BENCH_N
+    bench_store = SampleStore.synthetic(n=int(BENCH_CUTS["BENCH_N"]), seed=0)
+    d = phase_kernel_d(qweights, params, dev, bench_store)
     # each path driven with the launch counts set to 0 just before it
     paths = {
         "int8": phase_end_to_end(qweights, params, dev, args.seed, card),
@@ -2038,8 +2177,6 @@ def main() -> int:
     paths.update(phase_multi_device(qweights, params, dev, card, args.seed))
     paths.update(phase_transcribe(params, dev, card, args.seed))
     benches = phase_bench(card)
-    # the bench's store (bench.run's: seed 0) at the bench phase's BENCH_N
-    bench_store = SampleStore.synthetic(n=int(BENCH_CUTS["BENCH_N"]), seed=0)
     twins = phase_bench_twins(params, dev, card, benches, bench_store)
     phase_profile(qweights, params, dev, card, benches["blank_cap1"][0], bench_store)
     # launches: A from the int8 Offline path (one pass); B and C from one

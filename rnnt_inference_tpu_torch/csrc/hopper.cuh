@@ -1,9 +1,10 @@
 // Device helpers shared by the persistent kernels A (quant_lstm.cu), B
-// (decode_step.cu) and C (lstm_scan.cu), for Hopper (sm_90a): 16-byte
-// cp.async copies into shared memory, the tensor-core products mma.sync
-// m16n8k16 (bf16, f32 sums) and m16n8k32 (int8, s32 sums), the f32 FMA
-// product on the CUDA cores, the rounding helpers, and a grid barrier split
-// into arrive and wait.
+// (decode_step.cu) and C (lstm_scan.cu), and by kernel D (mel.cu), for
+// Hopper (sm_90a): 16-byte cp.async copies into shared memory, the
+// tensor-core products mma.sync m16n8k16 (bf16, f32 sums), m16n8k32 (int8,
+// s32 sums) and m16n8k8 (tf32, f32 sums), the f32 FMA product on the CUDA
+// cores, the rounding helpers, and a grid barrier split into arrive and
+// wait.
 //
 // pass_products (below) runs one product for up to 128 lane rows with
 // every warp busy; the two product routines under it compute a warp's
@@ -80,6 +81,36 @@ __device__ __forceinline__ void mma_k32bytes(int (&c)[4], const unsigned (&a)[4]
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+// f32 rounded to tf32 (10 explicit mantissa bits, the low 13 bits zero):
+// to nearest, ties away from zero, as cvt.rna.tf32.f32 and ops/features.py
+// tf32_split round.  Adding half of the dropped range to the magnitude bits
+// and clearing them rounds a finite value so (a carry into the exponent is
+// the rounding up it should be); two integer instructions, where cvt also
+// sorts out inf and NaN, which finite data never holds.
+__device__ __forceinline__ unsigned to_tf32(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
+}
+
+// One k-step (8 inputs) of a 16 x 8 tile in tf32 with f32 sums: c += a b.
+// A fragment, lane 4 g + t: a[0] (row g, col t), a[1] (g + 8, t), a[2]
+// (g, t + 4), a[3] (g + 8, t + 4); B: b0 (row t, col g), b1 (t + 4, g); C
+// as for bf16 (rows g and g + 8, columns 2 t and 2 t + 1).
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// The same product into fresh sums: d = a b.
+__device__ __forceinline__ void mma_tf32_fresh(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                               unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.0f));
 }
 
 // Partial sums of a 16-row tile A of bf16 (f32 sums) or int8 (s32 sums)

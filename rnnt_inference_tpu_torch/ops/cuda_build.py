@@ -208,12 +208,13 @@ def gate_columns(U: int, dtype: torch.dtype) -> torch.Tensor:
 
 
 def b_fragments(w: torch.Tensor) -> torch.Tensor:
-    """bf16 or int8 operand B {..., K, NC} in mma.sync fragment order, a
-    k-step of KS = 32 bytes of inputs (bf16 m16n8k16: KS = 16; int8
-    m16n8k32: KS = 32): {..., K/KS, NC/8, 32, KS/4}, where for k-step s and
-    n-tile j lane 4g + t holds B[KS s + (KS/8) t + (0 .. KS/8 - 1) +
-    (0, KS/2), 8j + g]: bf16 rows 16s + 2t + (0, 1, 8, 9), int8 rows
-    32s + 4t + (0..3, 16..19) (csrc/hopper.cuh)."""
+    """bf16, int8 or f32 (tf32 pieces) operand B {..., K, NC} in mma.sync
+    fragment order, a k-step of KS = 32 bytes of inputs (bf16 m16n8k16: KS
+    = 16; int8 m16n8k32: KS = 32; tf32 m16n8k8: KS = 8): {..., K/KS, NC/8,
+    32, KS/4}, where for k-step s and n-tile j lane 4g + t holds B[KS s +
+    (KS/8) t + (0 .. KS/8 - 1) + (0, KS/2), 8j + g]: bf16 rows 16s + 2t +
+    (0, 1, 8, 9), int8 rows 32s + 4t + (0..3, 16..19), tf32 rows 8s + t +
+    (0, 4) (csrc/hopper.cuh)."""
     *lead, K, NC = w.shape
     ks = 32 // w.element_size()
     d = len(lead)

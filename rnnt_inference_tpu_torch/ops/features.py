@@ -18,21 +18,24 @@ drift gate of tests/test_features.py), so a CUDA call with
 rnnt_inference_tpu/ops/features_pallas.py log_mel_features_pallas) runs
 steps 2-4 as one kernel (kernel D, ops/features_cuda.py) on CUDA tensors;
 its plain twin ``fused_mel_reference`` is the composition of the functions
-below.  Like the JAX package, no runner calls it.
+below.  Like the JAX package, no runner calls it.  The kernel computes its
+products on the tensor cores from tf32 pieces of the operands
+(``tf32_split``: 3xTF32); ``device_constants`` lays the constants' pieces
+out in the order its fragments read them (``MelOperands``).
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from rnnt_inference_tpu_torch.config import FeaturizerConfig
-from rnnt_inference_tpu_torch.ops import features_cuda
+from rnnt_inference_tpu_torch.ops import cuda_build, features_cuda
 
 
 def _hz_to_mel(f: np.ndarray) -> np.ndarray:
@@ -205,13 +208,82 @@ def _check_f32_matmuls(x: torch.Tensor) -> None:
         )
 
 
+def tf32_split(t: torch.Tensor, pieces: int = 2) -> Tuple[torch.Tensor, ...]:
+    """f32 t -> (hi, lo) or, with pieces=3, (hi, lo, lo2): hi is t rounded to
+    tf32 as ``cvt.rna.tf32.f32`` rounds (to nearest, ties away from zero, 10
+    explicit mantissa bits), lo = tf32(t - hi), lo2 = tf32(t - hi - lo).
+    Two pieces hold about 22 significant bits of t; three hold t exactly
+    (finite values above the subnormal range)."""
+    out, rest = [], t.float().contiguous()
+    for _ in range(pieces):
+        bits = rest.view(torch.int32)
+        mag = ((bits & 0x7FFFFFFF) + 0x1000) & 0x7FFFE000
+        p = (mag | (bits & -0x80000000)).view(torch.float32)
+        out.append(p)
+        rest = rest - p  # exact: p is rest's leading bits
+    return tuple(out)
+
+
+# the first bin tiles (8 bins each) whose products in kernel D take three
+# tf32 pieces of each operand (csrc/mel.cu takes the count from dft3)
+BIN_TILES_3WAY = 2
+
+
+class MelOperands(NamedTuple):
+    """Kernel D's constants (csrc/mel.cu), f32 pieces in mma.sync m16n8k8
+    fragment order (``cuda_build.b_fragments``; per k-step s of 8 inputs and
+    tile j of 8 columns, lane 4g + t holds rows 8s + t and 8s + t + 4 of
+    column 8j + g).  The K bins are padded with zero columns to NBT = ceil(K
+    / 8) bin tiles (264 bins at K = 257); the filterbank's padded rows are
+    zeros, so the padded bins add nothing to the mel sums."""
+
+    dft: torch.Tensor  # (NBT, flen/8, 2, 32, 4): cos, sin; hi, lo of both rows
+    dft3: torch.Tensor  # (min(NBT, BIN_TILES_3WAY), flen/8, 32, 4): lo2 of cos, sin
+    fb: torch.Tensor  # (NBT, MP/8, 32, 4): fbT padded to (8 NBT, MP) with zeros; hi, lo
+    fb_steps: torch.Tensor  # (MP/8, 2) int32: k-steps [lo, hi) of each mel tile's nonzero rows
+    fb_frags: int  # the k-steps of fb_steps summed: the fragments the kernel stages
+    n_bins: int  # K
+    n_mels: int  # M
+
+
+def _fragments(pieces) -> torch.Tensor:
+    """Equal (R, C) f32 pieces (R, C multiples of 8) -> (R/8, C/8, 32,
+    2 len(pieces)): each piece's two rows of a lane side by side."""
+    return torch.cat([cuda_build.b_fragments(p) for p in pieces], dim=-1).contiguous()
+
+
+def mel_operands(cos_m: torch.Tensor, sin_m: torch.Tensor, fbt: torch.Tensor) -> MelOperands:
+    """Kernel D's operands from cos, sin (flen, K) and fbT (K, M), on their
+    device."""
+    K, M = fbt.shape
+    kp, mp = -(-K // 8) * 8, -(-M // 8) * 8
+    parts = [tf32_split(F.pad(c, (0, kp - K)), 3) for c in (cos_m, sin_m)]
+    dft = torch.stack([_fragments(p[:2]) for p in parts], dim=2)  # (flen/8, NBT, 2, 32, 4)
+    n3 = min(kp // 8, BIN_TILES_3WAY) * 8
+    dft3 = _fragments([p[2][:, :n3] for p in parts])  # (flen/8, n3/8, 32, 4)
+    fb = F.pad(fbt, (0, mp - M, 0, kp - K))
+    nz = fb.reshape(kp // 8, 8, mp // 8, 8).ne(0).any(dim=3).any(dim=1)  # (k-steps, mel tiles)
+    steps = torch.arange(kp // 8, device=fbt.device)[:, None]
+    lo = torch.where(nz, steps, kp // 8).amin(dim=0)
+    hi = torch.where(nz, steps + 1, 0).amax(dim=0)
+    fb_steps = torch.stack([lo, torch.maximum(hi, lo)], dim=1).to(torch.int32)
+    return MelOperands(
+        dft.transpose(0, 1).contiguous(), dft3.transpose(0, 1).contiguous(),
+        _fragments(tf32_split(fb)), fb_steps.contiguous(),
+        int((fb_steps[:, 1] - fb_steps[:, 0]).sum()), K, M,
+    )
+
+
 @functools.lru_cache(maxsize=8)
 def device_constants(cfg: FeaturizerConfig, device: str):
-    """(cos (flen, K), sin (flen, K), fbT (K, n_mels)) as contiguous f32
-    tensors on ``device``, K = n_fft//2 + 1."""
+    """(cos (flen, K), sin (flen, K), fbT (K, n_mels), kernel D's
+    ``MelOperands``) as contiguous tensors on ``device``, K = n_fft//2 + 1."""
     cos_m, sin_m, fb, _ = _frontend_constants(cfg)
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-    return t(cos_m), t(sin_m), t(fb.T)
+    cos_m, sin_m, fbt = (torch.from_numpy(np.ascontiguousarray(a)) for a in (cos_m, sin_m, fb.T))
+    ops = mel_operands(cos_m, sin_m, fbt)
+    to = lambda t: t.to(device)
+    return (to(cos_m), to(sin_m), to(fbt),
+            ops._replace(**{k: to(getattr(ops, k)) for k in ops._fields[:4]}))
 
 
 def log_mel_features(
@@ -223,7 +295,7 @@ def log_mel_features(
     the encoder takes them) and lengths {N} int32."""
     _check_f32_matmuls(x)
     dev = x.device
-    cos_m, sin_m, fbt = device_constants(cfg, str(dev))
+    cos_m, sin_m, fbt, _ = device_constants(cfg, str(dev))
     x_lens = x_lens.to(device=dev, dtype=torch.int64)
 
     x = preemphasis(x.float(), x_lens, cfg.preemph)
@@ -243,7 +315,7 @@ def fused_mel_reference(x: torch.Tensor, n_frames: int, cfg: FeaturizerConfig) -
     """Kernel D's plain twin: x {N, S'} (preemphasized, padded, trimmed to
     the window support) -> log(|DFT(frame t)|^2 + dither^2) . fb + 1e-20)
     {N, n_frames, n_mels}, frame t = x[:, t*hop : t*hop + flen]."""
-    cos_m, sin_m, fbt = device_constants(cfg, str(x.device))
+    cos_m, sin_m, fbt, _ = device_constants(cfg, str(x.device))
     frames = frames_at(x, n_frames, cfg.hop_length, cos_m.shape[0])
     spec = power_spectrum(frames, cos_m, sin_m) + float(cfg.dither) ** 2
     return torch.log(torch.matmul(spec, fbt) + 1e-20)
@@ -258,10 +330,8 @@ def fused_mel(
         raise ValueError(f"unknown impl {impl!r}")
     if impl == "reference" or not x.is_cuda:
         return fused_mel_reference(x, n_frames, cfg)
-    cos_m, sin_m, fbt = device_constants(cfg, str(x.device))
-    return features_cuda.log_mel_cuda(
-        x, n_frames, cos_m, sin_m, fbt, cfg.hop_length, float(cfg.dither) ** 2
-    )
+    ops = device_constants(cfg, str(x.device))[3]
+    return features_cuda.log_mel_cuda(x, n_frames, ops, cfg.hop_length, float(cfg.dither) ** 2)
 
 
 def log_mel_features_fused(

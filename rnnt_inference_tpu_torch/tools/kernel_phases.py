@@ -1,14 +1,31 @@
-"""Where the time goes inside the persistent kernels A, B and C, on the card.
+"""Where the time goes inside the kernels A, B, C and D, on the card.
 
     python -m rnnt_inference_tpu_torch.tools.kernel_phases
 
-Copies csrc/quant_lstm.cu, csrc/decode_step.cu, csrc/lstm_scan.cu and
-csrc/hopper.cuh into build/kernel_phases/, inserts %globaltimer stamps
-(thread 0 of block 0) at the phase boundaries below, builds them with the
-port's nvcc flags, runs each at the main path's shapes (random weights,
-MLPerf widths) and prints, per shape, the mean microseconds of one
-iteration (B) or step (A, C) and of each segment between two stamps,
-averaged over the steady iterations.
+Copies csrc/quant_lstm.cu, csrc/decode_step.cu, csrc/lstm_scan.cu,
+csrc/mel.cu and csrc/hopper.cuh into build/kernel_phases/, inserts
+%globaltimer stamps (thread 0 of block 0) at the phase boundaries below,
+builds them with the port's nvcc flags, runs each at the main path's
+shapes (random weights, MLPerf widths) and prints, per shape, the mean
+microseconds of one iteration (B) or step (A, C) and of each segment
+between two stamps, averaged over the steady iterations.
+
+Kernel D (not persistent: a block per 64 frames of an utterance, as its
+``rnnt_log_mel_frames_per_block()`` says) is stamped in every block by
+thread 0, which runs warp 0's share (the heaviest: bin tile 0 takes three
+tf32 pieces): SM cycles (clock64) of
+  stage       the block's samples and filterbank pieces into shared
+              memory, and the samples' split into tf32 pieces
+  dft_mma     warp 0's DFT products (its passes' k-step loops)
+  power       its power epilogues
+  dft_wait    the barrier after the DFT: waiting for the other warps
+  mel_mma     warp 0's mel products (its mel tile x m-tile units)
+  log_store   + 1e-20, log and the stores
+converted to microseconds by the blocks' cycles per %globaltimer
+nanosecond, averaged over the blocks; with the mel phase (the barrier
+after the DFT to the block's end), the kernel's span (first block start
+to last block end), the blocks' mean span, and the most blocks one SM
+ran, at chip_smoke.py kernel_d's shape (16 utterances x 1,501 frames).
 
 Kernel B segments, one iteration:
   lanes     the lane arrays read after the iteration's first barrier
@@ -137,6 +154,46 @@ QUANT = [
      "      grid_wait(a.bar, old);\n      STAMP(7);"),
     ("const char* rnnt_cuda_error_string(int err) {", READ),
 ]
+DPROBE = """__device__ unsigned long long g_dprof[65536 * 16];  // gtime(): the patched hopper.cuh
+__device__ __forceinline__ unsigned smid() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%smid;" : "=r"(r));
+  return r;
+}
+#define DPROF_BEGIN unsigned long long dp_c0 = clock64(), dp_t = 0, dp_acc[16] = {0}; \\
+  unsigned long long* dp = g_dprof + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) % 65536 * 16; \\
+  if (threadIdx.x == 0) { dp[0] = gtime(); dp[2] = smid(); }
+#define DMARK(i) do { if (threadIdx.x == 0) dp[i] = clock64() - dp_c0; } while (0)
+#define DSTART do { if (threadIdx.x == 0) dp_t = clock64(); } while (0)
+#define DADD(i) do { if (threadIdx.x == 0) { const unsigned long long u = clock64(); \\
+  dp_acc[i] += u - dp_t; dp_t = u; } } while (0)
+#define DPROF_END do { if (threadIdx.x == 0) { dp[11] = clock64() - dp_c0; dp[1] = gtime(); \\
+  dp[5] = dp_acc[5]; dp[6] = dp_acc[6]; dp[9] = dp_acc[9]; dp[10] = dp_acc[10]; } } while (0)
+"""
+DREAD = """int rnnt_dprof_read(void* host) {
+  return (int)cudaMemcpyFromSymbol(host, g_dprof, sizeof(g_dprof));
+}
+
+const char* rnnt_cuda_error_string(int err) {"""
+MEL = [
+    ("namespace {\n\nusing hopper::cp_async16;", DPROBE + "namespace {\n\nusing hopper::cp_async16;"),
+    ("  const float* xn = a.x + (size_t)n * a.S;\n",
+     "  const float* xn = a.x + (size_t)n * a.S;\n  DPROF_BEGIN;\n"),
+    ("  moff -= mlen;\n  __syncthreads();\n", "  moff -= mlen;\n  __syncthreads();\n  DMARK(3);\n"),
+    ("    for (int s0 = 0; s0 < SK; s0 += AHEAD) {",
+     "    DSTART;\n    for (int s0 = 0; s0 < SK; s0 += AHEAD) {"),
+    ("    // power of the pass's bins:", "    DADD(5);\n    // power of the pass's bins:"),
+    ("  };\n  for (int p = 0; p < npass; ++p) {", "    DADD(6);\n  };\n  for (int p = 0; p < npass; ++p) {"),
+    ("  }\n  __syncthreads();  // the power spectrum is complete\n",
+     "  }\n  DMARK(7);\n  __syncthreads();  // the power spectrum is complete\n  DMARK(8);\n"),
+    ("    for (int s = 0; s < len; ++s) {", "    DSTART;\n    for (int s = 0; s < len; ++s) {"),
+    ("#pragma unroll\n    for (int e = 0; e < 4; ++e) {\n      const int row = 16 * m + g",
+     "    DADD(9);\n#pragma unroll\n    for (int e = 0; e < 4; ++e) {\n      const int row = 16 * m + g"),
+    ("logf(__fadd_rn(acc[e], 1e-20f));\n    }\n  }\n}",
+     "logf(__fadd_rn(acc[e], 1e-20f));\n    }\n    DADD(10);\n  }\n  DPROF_END;\n}"),
+    ("const char* rnnt_cuda_error_string(int err) {", DREAD),
+]
+D_SEGMENTS = ("stage", "dft_mma", "power", "dft_wait", "mel_mma", "log_store")
 A_SEGMENTS = ("h_in", "h_mma", "epi", "arrive", "x_in", "x_mma", "wait")
 B_SEGMENTS = ("lanes", "l0", "sync1", "l1_in", "l1_mma", "l1_epi", "sync2", "j_in", "j_mma",
               "j_epi", "sync3", "o_in", "o_mma", "o_argmax", "sync4")
@@ -160,11 +217,12 @@ def _build(out: Path):
     (out / "decode_step.cu").write_text(_patch((src / "decode_step.cu").read_text(), DECODE))
     (out / "lstm_scan.cu").write_text(_patch((src / "lstm_scan.cu").read_text(), SCAN))
     (out / "quant_lstm.cu").write_text(_patch((src / "quant_lstm.cu").read_text(), QUANT))
+    (out / "mel.cu").write_text(_patch((src / "mel.cu").read_text(), MEL))
     procs = {
         n: subprocess.Popen([cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-o",
                              str(out / f"lib{n}.so"), str(out / f"{n}.cu")],
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for n in ("decode_step", "lstm_scan", "quant_lstm")
+        for n in ("decode_step", "lstm_scan", "quant_lstm", "mel")
     }
     logs = {n: p.communicate()[0] for n, p in procs.items()}  # every nvcc ends
     libs = {}
@@ -193,6 +251,40 @@ def _segments(lib, steps: int, stamps: int, first: int, last: int):
     return float(per), [float(x) for x in seg]
 
 
+def _mel_phases(lib, dev) -> None:
+    """Kernel D at chip_smoke.py kernel_d's shape: the segments of warp 0
+    in every block (see the module's docstring)."""
+    import numpy as np
+    import torch
+
+    from rnnt_inference_tpu_torch.config import FeaturizerConfig
+    from rnnt_inference_tpu_torch.ops import features as tf
+    from rnnt_inference_tpu_torch.tools.mel_precision import kernel_d_input
+
+    cfg = FeaturizerConfig()
+    x, T = kernel_d_input(cfg)
+    x = torch.from_numpy(x).to(dev)
+    for _ in range(3):
+        tf.fused_mel(x, T, cfg)
+    torch.cuda.synchronize()
+    buf = np.zeros(65536 * 16, np.uint64)
+    lib.rnnt_dprof_read.argtypes = [ctypes.c_void_p]
+    if lib.rnnt_dprof_read(buf.ctypes.data) != 0:
+        raise SystemExit("kernel_phases: could not read kernel D's stamps")
+    blocks = x.shape[0] * -(-T // lib.rnnt_log_mel_frames_per_block())
+    r = buf.reshape(65536, 16)[:blocks].astype(np.int64)
+    span_ns = r[:, 1] - r[:, 0]
+    ns_per_cycle = span_ns.sum() / r[:, 11].sum()
+    seg = np.stack([r[:, 3], r[:, 5], r[:, 6], r[:, 8] - r[:, 7], r[:, 9], r[:, 10]],
+                   axis=1).mean(axis=0) * ns_per_cycle / 1e3
+    per_sm = np.bincount(r[:, 2]).max()
+    print(f"D N={x.shape[0]} T={T}: kernel {(r[:, 1].max() - r[:, 0].min()) / 1e3:.2f} us, "
+          f"{blocks} blocks, at most {per_sm} on one SM, block mean {span_ns.mean() / 1e3:.2f} us "
+          f"({1 / ns_per_cycle:.3f} cycles/ns); warp 0: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in zip(D_SEGMENTS, seg))
+          + f", mel phase {(r[:, 11] - r[:, 8]).mean() * ns_per_cycle / 1e3:.2f} us", flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -217,6 +309,7 @@ def main() -> int:
     dev = torch.device("cuda")
     params = RNNTParams()
     rng = np.random.RandomState(0)
+    _mel_phases(libs["mel"], dev)
     for dt in (torch.bfloat16, torch.float32):
         dw = dc.decode_weights(init_weights(params, torch.Generator().manual_seed(0), dtype=dt,
                                             device=dev))

@@ -177,27 +177,43 @@ def test_lstm_scan_kernel_matches_twin(dev, wdtype, N):
 
 
 def test_log_mel_kernel_matches_twin(dev):
-    """Kernel D, and the fused entry point, against their twins: raw log-mel
-    within 1e-4, normalized features within 5e-4, lengths equal."""
+    """Kernel D, and the fused entry point, against their twins at N = 1, 3
+    and 17 utterances: the kernel alone at T = 1, BM - 1, BM, BM + 1 and
+    1,501 frames (BM = 64 frames a block; the last block ragged or full),
+    on a waveform that ends inside the last frames, on one shorter than a
+    frame, on rows of 101 samples and on rows of 24,001 samples that start
+    off a 16-byte boundary (the wrapper pads such rows), raw log-mel within
+    1e-4; the entry point on waveforms of 24,000 and 24,001 samples
+    (S' = S + 416: a multiple of 4 or not) with lengths of 24,000, 17,000,
+    300 and 0 samples, normalized features within 5e-4, lengths equal;
+    exactly one launch per call."""
     from rnnt_inference_tpu_torch.config import FeaturizerConfig
     from rnnt_inference_tpu_torch.ops import features as tf
     from rnnt_inference_tpu_torch.ops import features_cuda
 
     cfg = FeaturizerConfig()
     rng = np.random.RandomState(8)
-    x = torch.from_numpy(rng.randn(3, 5000).astype(np.float32)).to(dev)
-    for T in (1, 31, 33):
-        a, b = tf.fused_mel(x, T, cfg), tf.fused_mel(x, T, cfg, impl="reference")
-        torch.cuda.synchronize()
-        assert a.shape == b.shape == (3, T, cfg.n_mels)
-        assert float((a - b).abs().max()) <= 1e-4
-    wav = torch.from_numpy((rng.randn(4, 24000) * 0.1).astype(np.float32)).to(dev)
-    lens = torch.tensor([24000, 17000, 300, 0], device=dev)
-    before = features_cuda.log_mel_cuda.launches
-    got, gl = tf.log_mel_features_fused(wav, lens, cfg)
-    assert features_cuda.log_mel_cuda.launches == before + 1
-    want, wl = tf.log_mel_features_fused(wav, lens, cfg, impl="reference")
-    assert torch.equal(gl, wl) and float((got - want).abs().max()) <= 5e-4
+    for N in (1, 3, 17):
+        x = torch.from_numpy(rng.randn(N, 160 * 1501 + 100).astype(np.float32)).to(dev)
+        off = x.reshape(-1)[3 : 3 + N * 24001].view(N, 24001)  # 12 bytes past a boundary
+        cases = [(x, T) for T in (1, 63, 64, 65, 1501)] + [
+            (x[:, :100].contiguous(), 2), (x[:, :101].contiguous(), 2), (off, 151)]
+        for xs, T in cases:
+            before = features_cuda.log_mel_cuda.launches
+            a = tf.fused_mel(xs, T, cfg)
+            assert features_cuda.log_mel_cuda.launches == before + 1
+            b = tf.fused_mel(xs, T, cfg, impl="reference")
+            torch.cuda.synchronize()
+            assert a.shape == b.shape == (N, T, cfg.n_mels)
+            assert float((a - b).abs().max()) <= 1e-4, (N, T, xs.shape)
+        for S in (24000, 24001):
+            wav = torch.from_numpy((rng.randn(N, S) * 0.1).astype(np.float32)).to(dev)
+            lens = torch.tensor([24000, 17000, 300, 0] * 5, device=dev)[:N]
+            before = features_cuda.log_mel_cuda.launches
+            got, gl = tf.log_mel_features_fused(wav, lens, cfg)
+            assert features_cuda.log_mel_cuda.launches == before + 1
+            want, wl = tf.log_mel_features_fused(wav, lens, cfg, impl="reference")
+            assert torch.equal(gl, wl) and float((got - want).abs().max()) <= 5e-4, (N, S)
 
 
 @pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
