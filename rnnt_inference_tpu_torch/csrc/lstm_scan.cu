@@ -46,6 +46,17 @@
 // intrinsics and the file is built with --fmad=false, so it rounds as the
 // plain twin (ops/lstm.py lstm_recurrence) does; only the summation order
 // differs.
+//
+// Rank mode (tensor parallelism, parallel/tensor.py): model rank r of k
+// holds units [j_base, j_base + Hl), Hl = H / k (its W_hh slice, H x 4Hl,
+// and its columns of xw, (N, 4Hl)), and one launch runs one step of Hl / U
+// blocks, each doing exactly the work of one-card block (j_base / U + b)
+// with the same code and U (the one-card plan's, fixed at 8).  It reads
+// the full-width h_{t-1} (N, H) that every rank wrote, keeps c (N, Hl) in
+// device memory between launches, and stores its slice of h_t into each of
+// the nr ranks' full-width y_t (peer pointers across cards): the exchange,
+// done by the kernel.  The one-card launch is the same code with nr = 1,
+// Hl = H, j_base = 0.
 
 #include <cooperative_groups.h>
 
@@ -55,32 +66,41 @@ namespace {
 
 using namespace hopper;
 
+struct Args {
+  const void* xw;   // (T, N, 4 Hl) projection, bias included, WT
+  const void* wop;  // per block: W_hh columns in kernel order
+  const void* h0;   // (N, H) WT
+  const float* c0;  // (N, Hl)
+  void* y[MAXR];    // (T, N, H) WT, each rank's, [0] this rank's: read back after each barrier
+  void* hT;         // (N, H) WT, or null (rank mode)
+  float* cT;        // (N, Hl)
+  int T, N, H, ring_cap;
+  int Hl, j_base, nr;  // units of this launch, the first one's index, ranks written
+};
+
 template <typename WT, int U>
-__global__ void __launch_bounds__(THREADS, 1)
-lstm_scan(const WT* __restrict__ xw,     // (T, N, 4H) projection, bias included
-          const void* __restrict__ wop,  // per block: W_hh columns in kernel order
-          const WT* __restrict__ h0,     // (N, H)
-          const float* __restrict__ c0,  // (N, H)
-          WT* y,                         // (T, N, H); read back after each barrier
-          WT* __restrict__ hT,           // (N, H)
-          float* __restrict__ cT,        // (N, H)
-          int T, int N, int H, int ring_cap) {
+__global__ void __launch_bounds__(THREADS, 1) lstm_scan(const Args a) {
   constexpr int NC = 4 * U, MT = Rows<WT>::MT, RMAX = Rows<WT>::RMAX;
+  const WT* xw = static_cast<const WT*>(a.xw);
+  const WT* h0 = static_cast<const WT*>(a.h0);
+  const WT* y = static_cast<const WT*>(a.y[0]);
+  const int T = a.T, N = a.N, H = a.H, Hl = a.Hl, ring_cap = a.ring_cap;
   constexpr bool BF16 = sizeof(WT) == 2;
   extern __shared__ __align__(16) unsigned char smem[];
   const size_t wbytes = (size_t)H * NC * sizeof(WT);
   float* c_s = reinterpret_cast<float*>(smem + wbytes);                // (N, U)
   WT* ring = reinterpret_cast<WT*>(c_s + ((N * U + 3) & ~3));          // ring_cap elements
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int j0 = blockIdx.x * U;
+  // jl0: the block's first unit in this launch's slice; j0: in the layer
+  const int jl0 = blockIdx.x * U, j0 = a.j_base + jl0;
   const size_t NH = (size_t)N * H;
 
   {  // the block's W_hh columns and c, for the whole call
     const uint4* src =
-        reinterpret_cast<const uint4*>(static_cast<const char*>(wop) + blockIdx.x * wbytes);
+        reinterpret_cast<const uint4*>(static_cast<const char*>(a.wop) + blockIdx.x * wbytes);
     uint4* dst = reinterpret_cast<uint4*>(smem);
     for (int i = tid; i < (int)(wbytes / 16); i += THREADS) dst[i] = src[i];
-    for (int i = tid; i < N * U; i += THREADS) c_s[i] = c0[(size_t)(i / U) * H + j0 + i % U];
+    for (int i = tid; i < N * U; i += THREADS) c_s[i] = a.c0[(size_t)(i / U) * Hl + jl0 + i % U];
   }
   __syncthreads();
 
@@ -108,7 +128,7 @@ lstm_scan(const WT* __restrict__ xw,     // (T, N, 4H) projection, bias included
 #pragma unroll
         for (int g = 0; g < 4; ++g)
           xv[k][g] = q < rows * U
-                         ? to_f(xw[((size_t)t * N + n) * 4 * H + (size_t)g * H + j0 + u])
+                         ? to_f(xw[((size_t)t * N + n) * 4 * Hl + (size_t)g * Hl + jl0 + u])
                          : 0.0f;
       }
       PassAcc<WT, NC> acc;
@@ -145,20 +165,20 @@ lstm_scan(const WT* __restrict__ xw,     // (T, N, 4H) projection, bias included
         *cp = cn;
         const WT h = store_as<WT>(__fmul_rn(og, tanhf(cn)));
         const size_t off = (size_t)n * H + j0 + u;
-        y[(size_t)t * NH + off] = h;
-        if (t == T - 1) hT[off] = h;
+        for (int r = 0; r < a.nr; ++r) static_cast<WT*>(a.y[r])[(size_t)t * NH + off] = h;
+        if (t == T - 1 && a.hT) static_cast<WT*>(a.hT)[off] = h;
       }
       __syncthreads();  // the ring is staged over next
     }
     if (t + 1 < T) cooperative_groups::this_grid().sync();  // y_t complete across the grid
   }
   __syncthreads();
-  for (int i = tid; i < N * U; i += THREADS) cT[(size_t)(i / U) * H + j0 + i % U] = c_s[i];
+  for (int i = tid; i < N * U; i += THREADS) a.cT[(size_t)(i / U) * Hl + jl0 + i % U] = c_s[i];
 }
 
 template <typename WT, int U>
-cudaError_t launch(const void* xw, const void* wop, const void* h0, const void* c0, void* y,
-                   void* hT, void* cT, int T, int N, int H, cudaStream_t stream) {
+cudaError_t launch(Args a, cudaStream_t stream) {
+  const int N = a.N, H = a.H;
   // the staging ring takes what the block's other arrays leave
   int dev = 0, limit = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -167,13 +187,13 @@ cudaError_t launch(const void* xw, const void* wop, const void* h0, const void* 
   if (err != cudaSuccess) return err;
   const size_t fixed = (size_t)H * 4 * U * sizeof(WT) + (size_t)((N * U + 3) & ~3) * 4;
   if (fixed + (size_t)ring_min<WT>() * sizeof(WT) > (size_t)limit) return cudaErrorInvalidValue;
-  int ring_cap = (int)(((size_t)limit - fixed) / sizeof(WT)) & ~7;
-  const size_t smem = fixed + (size_t)ring_cap * sizeof(WT);
+  a.ring_cap = (int)(((size_t)limit - fixed) / sizeof(WT)) & ~7;
+  const size_t smem = fixed + (size_t)a.ring_cap * sizeof(WT);
   auto kern = lstm_scan<WT, U>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  void* args[] = {&xw, &wop, &h0, &c0, &y, &hT, &cT, &T, &N, &H, &ring_cap};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kern), dim3(H / U),
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kern), dim3(a.Hl / U),
                                     dim3(THREADS), args, smem, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
@@ -193,11 +213,33 @@ int rnnt_lstm_scan(int weight_bf16, int U, const void* xw, const void* w_op, con
                    void* stream) {
   if (T <= 0 || N <= 0 || H <= 0 || H % 128 != 0 || U != 8)
     return static_cast<int>(cudaErrorInvalidValue);
+  Args a{};
+  a.xw = xw, a.wop = w_op, a.h0 = h0, a.c0 = static_cast<const float*>(c0);
+  a.y[0] = y, a.hT = hT, a.cT = static_cast<float*>(cT);
+  a.T = T, a.N = N, a.H = H, a.Hl = H, a.j_base = 0, a.nr = 1;
   auto* s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      weight_bf16 ? launch<__nv_bfloat16, 8>(xw, w_op, h0, c0, y, hT, cT, T, N, H, s)
-                  : launch<float, 8>(xw, w_op, h0, c0, y, hT, cT, T, N, H, s);
-  return static_cast<int>(err);
+  return static_cast<int>(weight_bf16 ? launch<__nv_bfloat16, 8>(a, s) : launch<float, 8>(a, s));
+}
+
+// Rank mode: one step (xw (N, 4Hl), the rank's columns; the full-width h
+// (N, H)) of the Hl units from j_base on, Hl / 8 blocks; w_op is
+// block_columns of the rank's W_hh slice (H x 4Hl); c (N, Hl) f32 is read
+// and written in place; y_dst[0..nr) (N, H) are the ranks' full-width
+// h_t, this rank's first, and the launch stores its slice into each.
+// Returns 0, or the CUDA error of a refused launch.
+int rnnt_lstm_scan_rank_step(int weight_bf16, int U, const void* xw, const void* w_op,
+                             const void* h, void* c, void* const* y_dst, int nr, int N, int H,
+                             int Hl, int j_base, void* stream) {
+  if (N <= 0 || H <= 0 || H % 128 != 0 || U != 8 || Hl <= 0 || Hl % U != 0 || j_base < 0 ||
+      j_base % U != 0 || j_base + Hl > H || nr < 1 || nr > MAXR)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{};
+  a.xw = xw, a.wop = w_op, a.h0 = h, a.c0 = static_cast<const float*>(c);
+  for (int r = 0; r < nr; ++r) a.y[r] = y_dst[r];
+  a.hT = nullptr, a.cT = static_cast<float*>(c);
+  a.T = 1, a.N = N, a.H = H, a.Hl = Hl, a.j_base = j_base, a.nr = nr;
+  auto* s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(weight_bf16 ? launch<__nv_bfloat16, 8>(a, s) : launch<float, 8>(a, s));
 }
 
 const char* rnnt_cuda_error_string(int err) {

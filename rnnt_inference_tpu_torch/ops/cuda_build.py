@@ -111,6 +111,8 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_lib_path(name)))
         lib.rnnt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.rnnt_cuda_error_string.restype = ctypes.c_char_p
+        lib.rnnt_enable_peer_access.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.rnnt_enable_peer_access.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
 
@@ -131,6 +133,63 @@ def require(t, name: str, dtype, shape) -> None:
             f"{name}: want contiguous {dtype} {tuple(shape)}, "
             f"got {t.dtype} {tuple(t.shape)}"
         )
+
+
+def pointers(tensors: Sequence[torch.Tensor]) -> ctypes.Array:
+    """The tensors' data pointers as a C array (void* const*)."""
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
+# Tensor parallelism: the most model ranks a rank-mode launch writes to
+# (MAXR in csrc/hopper.cuh)
+MAX_RANKS = 8
+
+
+def _card(d) -> torch.device:
+    d = torch.device(d)
+    return torch.device("cuda", torch.cuda.current_device() if d.index is None else d.index)
+
+
+def rank_barrier(devices: Sequence) -> None:
+    """Order what the model ranks on ``devices`` launch next after what
+    they launched so far: with ranks on two or more cards, every card's
+    current stream waits on an event recorded on each other card's.  Ranks
+    on one card share its stream, whose order is enough (nothing to do);
+    CPU devices need nothing either."""
+    cards = list(dict.fromkeys(_card(d) for d in devices if torch.device(d).type == "cuda"))
+    if len(cards) < 2:
+        return
+    events = {}
+    for d in cards:
+        events[d] = torch.cuda.Event()
+        events[d].record(torch.cuda.current_stream(d))
+    for d in cards:
+        stream = torch.cuda.current_stream(d)
+        for e, ev in events.items():
+            if e != d:
+                stream.wait_event(ev)
+
+
+_PEERS: set = set()
+
+
+def enable_peer_access(devices: Sequence, lib: ctypes.CDLL) -> None:
+    """Let kernels on each card of ``devices`` store into every other's
+    memory (the rank modes' exchange across cards), through ``lib``'s
+    rnnt_enable_peer_access; raises where a pair of cards cannot reach each
+    other (cudaDeviceCanAccessPeer 0).  Once per pair and process."""
+    cards = sorted({_card(d).index for d in devices if torch.device(d).type == "cuda"})
+    for a in cards:
+        for b in cards:
+            if a != b and (a, b) not in _PEERS:
+                check(lib, lib.rnnt_enable_peer_access(a, b), f"peer access cuda:{a} -> cuda:{b}")
+                _PEERS.add((a, b))
+
+
+def rank_order(items: Sequence, r: int) -> list:
+    """``items`` (one per model rank) with rank r's first: the order of a
+    rank-mode launch's destinations, whose first is the one it reads."""
+    return [items[r]] + [x for q, x in enumerate(items) if q != r]
 
 
 # (name, id(owner)) ->(weakref to the owner, stamp of its tensors, operands)
@@ -155,9 +214,9 @@ def cached_operands(owner, name: str, tensors: Sequence, build: Callable[[], obj
         return hit[2]
     operands = build()
 
-    def forget(ref, k=key):
-        if _OPERANDS.get(k, (None,))[0] is ref:
-            del _OPERANDS[k]
+    def forget(ref, k=key, registry=_OPERANDS):  # bound now: gone at interpreter exit
+        if registry.get(k, (None,))[0] is ref:
+            del registry[k]
 
     _OPERANDS[key] = (weakref.ref(owner, forget), stamp, operands)
     return operands

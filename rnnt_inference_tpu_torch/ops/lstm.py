@@ -12,16 +12,29 @@ CPU tensors or when impl="reference" is asked for.  The float encoder (run
 modes f32 and bf16) and calibration go through here; the int8 serving path
 runs ops/lstm_int8.py.  The fake_quant encoder (``fake_quant_lstm_stack``)
 runs here as eager PyTorch on either device.
+
+Tensor parallelism (parallel/tensor.py): ``lstm_layer_tp`` runs one float
+layer on the k model ranks of a data shard, each holding the weight slice
+of H/k units (parallel/mesh.py rank_weights): each rank's projection xw
+on its own columns (a plain product, dot_f32), then one step at a time
+every rank computes its units' h_t and stores it into every rank's
+full-width y_t, which is the next step's h (``cuda_build.rank_barrier``
+across cards); c never leaves its rank.  A step is kernel C's rank mode
+(lstm_scan_cuda.lstm_rank_step_cuda) or its plain twin ``lstm_rank_step``
+(exchange: a copy of the slice into each rank's y, a torch.cat of the
+slices).  The products of a column slice may sum in another order than
+the full product's, so the float layer agrees with the one-device layer
+to f32 rounding.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from rnnt_inference_tpu_torch.models.weights import LSTMLayerWeights
-from rnnt_inference_tpu_torch.ops import lstm_scan_cuda
+from rnnt_inference_tpu_torch.ops import cuda_build, lstm_scan_cuda
 from rnnt_inference_tpu_torch.ops.activations import gate_fns
 
 
@@ -110,6 +123,85 @@ def lstm_stack(
         new_h.append(h)
         new_c.append(c)
     return y, torch.stack(new_h), torch.stack(new_c)
+
+
+def lstm_rank_step(layer: LSTMLayerWeights, xw_t: torch.Tensor, h: torch.Tensor,
+                   c: torch.Tensor, y_dests, unit0: int) -> None:
+    """Kernel C's rank mode in plain PyTorch: one step of the model rank
+    whose weight slice ``layer`` (W_hh {H, 4Hl}) holds units [unit0,
+    unit0 + Hl): the cell on xw_t {N, 4Hl} and the full-width h {N, H};
+    h_t's slice (in the compute dtype) copied into each of ``y_dests``'
+    columns, c {N, Hl} f32 updated in place (``lstm_rank_step_cuda``'s
+    contract)."""
+    h_new, c_new = lstm_cell(xw_t, h, c, layer.w_hh)
+    h_new = h_new.to(layer.w_hh.dtype)
+    cols = slice(unit0, unit0 + c.shape[1])
+    for d in y_dests:
+        d[:, cols] = h_new.to(d.device)
+    c.copy_(c_new)
+
+
+def lstm_rank_step_op(layer, xw_t, h, c, y_dests, unit0: int, impl: Optional[str] = None) -> None:
+    """Kernel C's rank-mode wrapper: the kernel for CUDA tensors, the plain
+    twin for CPU tensors or when impl="reference"."""
+    if impl not in (None, "reference"):
+        raise ValueError(f"unknown impl {impl!r}")
+    if impl == "reference" or not xw_t.is_cuda:
+        return lstm_rank_step(layer, xw_t, h, c, y_dests, unit0)
+    return lstm_scan_cuda.lstm_rank_step_cuda(layer, xw_t, h, c, y_dests, unit0)
+
+
+def lstm_layer_tp(
+    layers: Sequence[LSTMLayerWeights],
+    x: Sequence[torch.Tensor],
+    h0: Sequence[torch.Tensor],
+    c0: Sequence[torch.Tensor],
+    impl: Optional[str] = None,
+) -> Tuple[List[torch.Tensor], List[torch.Tensor], List[torch.Tensor]]:
+    """One float LSTM layer on k model ranks (module docstring), one list
+    entry per rank, each on its device: layers[r] rank r's slice, x[r]
+    {T, N, IC} and h0[r] {N, H} full width (equal on every rank), c0[r]
+    {N, H/k} f32.  Returns (y {T, N, H}, hT {N, H}, cT {N, H/k}) per
+    rank."""
+    if impl not in (None, "reference"):
+        raise ValueError(f"unknown impl {impl!r}")
+    k = len(layers)
+    dt = layers[0].w_ih.dtype
+    xw = [(dot_f32(xr.to(dt), l.w_ih) + l.b.float()).to(xw_dtype(dt))
+          for xr, l in zip(x, layers)]
+    h = [hr.to(dt) for hr in h0]
+    cs = [cr.float().clone().contiguous() for cr in c0]
+    T, N = x[0].shape[:2]
+    H = h[0].shape[1]
+    y = [hr.new_empty((T, N, H)) for hr in h]
+    for t in range(T):
+        for r in range(k):
+            lstm_rank_step_op(layers[r], xw[r][t], h[r] if t == 0 else y[r][t - 1], cs[r],
+                              cuda_build.rank_order([yr[t] for yr in y], r), r * (H // k), impl)
+        cuda_build.rank_barrier([yr.device for yr in y])
+    return y, [yr[T - 1] if T else hr for yr, hr in zip(y, h)], cs
+
+
+def lstm_stack_tp(
+    layers: Sequence[Sequence[LSTMLayerWeights]],
+    x: Sequence[torch.Tensor],
+    hs: Sequence[torch.Tensor],
+    cs: Sequence[torch.Tensor],
+    impl: Optional[str] = None,
+) -> Tuple[List[torch.Tensor], List[torch.Tensor], List[torch.Tensor]]:
+    """``lstm_stack`` on k model ranks: layers[r] rank r's slices of the
+    stack; hs[r] (L, N, H), cs[r] (L, N, H/k).  Returns per rank (y, h,
+    c)."""
+    k = len(layers)
+    new_h, new_c = [[] for _ in range(k)], [[] for _ in range(k)]
+    y = list(x)
+    for l in range(len(layers[0])):
+        y, h, c = lstm_layer_tp([lr[l] for lr in layers], y, [t[l] for t in hs],
+                                [t[l] for t in cs], impl)
+        for r in range(k):
+            new_h[r].append(h[r])
+            new_c[r].append(c[r])
+    return y, [torch.stack(t) for t in new_h], [torch.stack(t) for t in new_c]
 
 
 def fake_quant_lstm_layer(

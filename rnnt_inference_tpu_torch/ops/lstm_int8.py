@@ -11,16 +11,29 @@ Per layer and step:
 (ops/lstm_cuda.py, csrc/quant_lstm.cu).  ``quant_lstm_layer_op`` is the
 wrapper the stack calls: CPU tensors take the twin, CUDA tensors launch the
 kernel (or the twin when ``impl="reference"`` is asked for explicitly).
+
+Tensor parallelism (parallel/tensor.py): ``quant_lstm_layer_tp`` runs one
+layer on the k model ranks of a data shard, each holding the weight slice
+of H/k units (parallel/mesh.py rank_weights), one step at a time: every
+rank computes its units' h_t and stores it into every rank's full-width
+ping-pong h buffer (2, N, H), and its y_t into every rank's full-width y,
+then the next step begins (``cuda_build.rank_barrier`` across cards).  The
+recurrence exchanges int8 h (``in_scale``), y keeps its own type, and c
+never leaves its rank.  A step is kernel A's rank mode
+(lstm_cuda.quant_lstm_rank_step_cuda) or its plain twin
+``quant_lstm_rank_step``, whose exchange is a copy of the slice into each
+buffer (a torch.cat of the ranks' slices); int8 sums are exact, so the
+layer's output equals the one-device layer's bit for bit.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from rnnt_inference_tpu_torch.models.quant import QuantLSTMLayerWeights, quantize
-from rnnt_inference_tpu_torch.ops import lstm_cuda
+from rnnt_inference_tpu_torch.ops import cuda_build, lstm_cuda
 
 
 def int_dot(a_i8: torch.Tensor, w_i8: torch.Tensor) -> torch.Tensor:
@@ -106,3 +119,90 @@ def quant_lstm_stack(
         new_h.append(h)
         new_c.append(c)
     return y, torch.stack(new_h), torch.stack(new_c)
+
+
+def quant_lstm_rank_step(layer: QuantLSTMLayerWeights, x_t: torch.Tensor, h: torch.Tensor,
+                         c: torch.Tensor, h_dests, y_dests, unit0: int, emit_f32: bool) -> None:
+    """Kernel A's rank mode in plain PyTorch: one step of the model rank
+    whose weight slice ``layer`` holds units [unit0, unit0 + Hl), the twin
+    on the slice; its h_t and y_t slices copied into each destination's
+    columns, c {N, Hl} updated in place (``quant_lstm_rank_step_cuda``'s
+    contract)."""
+    y, h_q, c_new = quant_lstm_layer(layer, x_t[None], h, c, emit_f32)
+    cols = slice(unit0, unit0 + c.shape[1])
+    for d in h_dests:
+        d[:, cols] = h_q.to(d.device)
+    for d in y_dests:
+        d[:, cols] = y[0].to(d.device)
+    c.copy_(c_new)
+
+
+def quant_lstm_rank_step_op(layer, x_t, h, c, h_dests, y_dests, unit0: int, emit_f32: bool,
+                            impl: Optional[str] = None) -> None:
+    """Kernel A's rank-mode wrapper: the kernel for CUDA tensors, the plain
+    twin for CPU tensors or when impl="reference"."""
+    if impl not in (None, "reference"):
+        raise ValueError(f"unknown impl {impl!r}")
+    if impl == "reference" or not x_t.is_cuda:
+        return quant_lstm_rank_step(layer, x_t, h, c, h_dests, y_dests, unit0, emit_f32)
+    return lstm_cuda.quant_lstm_rank_step_cuda(layer, x_t, h, c, h_dests, y_dests, unit0,
+                                               emit_f32)
+
+
+def quant_lstm_layer_tp(
+    layers: Sequence[QuantLSTMLayerWeights],
+    x: Sequence[torch.Tensor],
+    h: Sequence[torch.Tensor],
+    c: Sequence[torch.Tensor],
+    emit_f32: bool,
+    impl: Optional[str] = None,
+) -> Tuple[List[torch.Tensor], List[torch.Tensor], List[torch.Tensor]]:
+    """One int8 LSTM layer on k model ranks (module docstring), one list
+    entry per rank, each on its device: layers[r] rank r's slice, x[r]
+    {T, N, IC} int8 and h[r] {N, H} int8 full width (equal on every rank),
+    c[r] {N, H/k} f32 its units' cell.  Returns (y, hT, cT) per rank: y
+    {T, N, H} and hT full width, cT {N, H/k}."""
+    k = len(layers)
+    T, N, _ = x[0].shape
+    H = h[0].shape[1]
+    Hl = H // k
+    devices = [t.device for t in x]
+    hbuf = [hr.new_empty((2, N, H)) for hr in h]
+    for r in range(k):
+        hbuf[r][1].copy_(h[r])  # step 0 reads slot (0 - 1) & 1
+    cs = [cr.float().clone().contiguous() for cr in c]
+    y = [xr.new_empty((T, N, H), dtype=torch.float32 if emit_f32 else torch.int8) for xr in x]
+    for t in range(T):
+        for r in range(k):
+            quant_lstm_rank_step_op(
+                layers[r], x[r][t], hbuf[r][(t - 1) & 1], cs[r],
+                cuda_build.rank_order([b[t & 1] for b in hbuf], r),
+                cuda_build.rank_order([yr[t] for yr in y], r), r * Hl, emit_f32, impl)
+        cuda_build.rank_barrier(devices)
+    return y, [b[(T - 1) & 1] if T else hr for b, hr in zip(hbuf, h)], cs
+
+
+def quant_lstm_stack_tp(
+    layers: Sequence[Sequence[QuantLSTMLayerWeights]],
+    x: Sequence[torch.Tensor],
+    hs_i8: Sequence[torch.Tensor],
+    cs: Sequence[torch.Tensor],
+    skip_quant_y: bool,
+    impl: Optional[str] = None,
+) -> Tuple[List[torch.Tensor], List[torch.Tensor], List[torch.Tensor]]:
+    """``quant_lstm_stack`` on k model ranks: layers[r] rank r's slices of
+    the stack, x[r] its copy of the input, hs_i8[r] (L, N, H) and cs[r]
+    (L, N, H/k).  Returns per rank (y full width, h (L, N, H), c (L, N,
+    H/k))."""
+    k = len(layers)
+    y = [xr if xr.dtype == torch.int8 else quantize(xr.float(), layers[r][0].in_scale)
+         for r, xr in enumerate(x)]
+    new_h, new_c = [[] for _ in range(k)], [[] for _ in range(k)]
+    for l in range(len(layers[0])):
+        emit_f32 = skip_quant_y and l == len(layers[0]) - 1
+        y, h, c = quant_lstm_layer_tp([lr[l] for lr in layers], y, [t[l] for t in hs_i8],
+                                      [t[l] for t in cs], emit_f32, impl)
+        for r in range(k):
+            new_h[r].append(h[r])
+            new_c[r].append(c[r])
+    return y, [torch.stack(t) for t in new_h], [torch.stack(t) for t in new_c]

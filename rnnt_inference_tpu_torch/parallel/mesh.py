@@ -1,19 +1,45 @@
-"""Device mesh and data-parallel sharding (counterpart of
-rnnt_inference_tpu/parallel/mesh.py).
+"""Device mesh, data-parallel sharding and the tensor-parallel weight split
+(counterpart of rnnt_inference_tpu/parallel/mesh.py).
 
 A ``Mesh`` is an array of ``torch.device`` shaped (data, model) with axis
-names ("data", "model"), as the JAX mesh.  Utterance batches shard over
-"data": each data device runs the whole model on a contiguous slice of the
-lanes (slots), the runners enqueue every shard's kernel launches before they
-read any shard's finish mask (runtime/offline.py ``lockstep``), and the
-results join in lane order.  Weights replicate: one copy per distinct
-device, shared by every shard on that device, so those shards also share
-its kernel-operand registry (ops/cuda_build.py ``cached_operands``).
+names ("data", "model"), as the JAX mesh: ``make_mesh(model_parallel=k)``
+lays n devices out data-major, device i at (i // k, i % k), as JAX's
+``reshape(n // k, k)``.
 
-A device may appear more than once (two shards on one card, or
-``["cpu", "cpu"]``): the sharding logic is the same, the shards then share
-the device's stream.  Tensor parallelism (gate columns split across cards)
-is not ported: it is queued as ROADMAP item 2.8.
+Data parallelism: utterance batches shard over "data": each data device
+(column 0 of the mesh, ``data_devices``) runs the whole model on a
+contiguous slice of the lanes (slots), the runners enqueue every shard's
+kernel launches before they read any shard's finish mask
+(runtime/offline.py ``lockstep``), and the results join in lane order.
+Weights replicate: one copy per distinct device, shared by every shard on
+that device, so those shards also share its kernel-operand registry
+(ops/cuda_build.py ``cached_operands``).  The Offline runners and the
+Server take only the data axis and never split over "model" (as the JAX
+runners, which replicate over it: runtime/offline.py, runtime/packing.py).
+
+Tensor parallelism (``weight_shardings(..., tensor_parallel=True)``, run by
+parallel/tensor.py): the weights of every (data, model) rank.  The port
+splits the LSTMs **by hidden unit**, not by contiguous gate columns: rank r
+of k takes units [r H/k, (r+1) H/k) with all four gates i, f, g, o of each
+(``split_units``), and the matching slice of the folded bias.  Kernels A,
+B and C give each block whole units (A: 8 units x 4 gates; C: U units; B:
+UP units of each prediction layer and 8 columns of W1p), so with this
+split a rank's blocks are a contiguous range of the one-card grid's
+blocks and every cell update stays inside its rank.  GSPMD's split of the
+gate-major columns (``P(None, "model")`` on (in, 4H)) would put the i and
+f gates of a unit on one card and its g and o gates on another.  The two
+packages' results are compared, never their shards.  Which leaf goes
+where: the five encoder layers (float or int8) and the two prediction
+layers by unit; the joint's w1_trans, w1_pred and b1 by joint-hidden
+column (``split_columns``); the embedding, the int8 scales, w2 and b2
+replicated (JAX splits w2 by row with an all-reduce; the port gathers the
+joint's hidden z and every rank computes the full z.W2, so logits and the
+argmax do not depend on k); fake-quant weights replicated whole, as JAX's.
+
+A device may appear more than once (two shards or two model ranks on one
+card, or ``["cpu"] * 4``): the logic is the same, those ranks then share
+the device's stream, and shards of one model rank on one device share one
+weight slice.
 """
 
 from __future__ import annotations
@@ -24,11 +50,10 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from rnnt_inference_tpu_torch.models.weights import tensor_leaves
+from rnnt_inference_tpu_torch.models.quant import FakeQuantRNNTWeights
+from rnnt_inference_tpu_torch.models.weights import map_tensors, tensor_leaves
 
 AXIS_NAMES = ("data", "model")
-TP_QUEUED = ("tensor parallelism is not ported: splitting kernels A, B and C over gate "
-             "columns across cards is queued as ROADMAP item 2.8")
 
 
 class Mesh:
@@ -41,8 +66,12 @@ class Mesh:
 
     @property
     def data_devices(self) -> List[torch.device]:
-        """One device per data shard, in shard order."""
+        """One device per data shard, in shard order (model rank 0's)."""
         return list(self.devices[:, 0])
+
+    def model_devices(self, shard: int) -> List[torch.device]:
+        """The devices of data shard ``shard``'s model ranks, in rank order."""
+        return list(self.devices[shard])
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, {[str(d) for d in self.devices.reshape(-1)]})"
@@ -60,30 +89,107 @@ def make_mesh(
     model_parallel: int = 1,
     devices: Optional[Sequence] = None,
 ) -> Mesh:
-    """A ("data", "model") mesh over ``devices`` (every visible CUDA device
-    by default; a device may be listed more than once), cut to the
-    first ``n_devices``.  model_parallel > 1 raises NotImplementedError."""
-    if model_parallel != 1:
-        raise NotImplementedError(f"model_parallel={model_parallel}: {TP_QUEUED}")
+    """A (n // k, k) ("data", "model") mesh, k = model_parallel, over
+    ``devices`` (every visible CUDA device by default; a device may be
+    listed more than once) cut to the first ``n_devices``, data-major:
+    device i at (i // k, i % k).  n not divisible by k raises."""
     devs = [torch.device(d) for d in (devices if devices is not None else _visible_devices())]
     if n_devices is not None:
         devs = devs[:n_devices]
     if not devs:
         raise ValueError("a mesh needs at least one device")
-    arr = np.empty((len(devs), 1), dtype=object)
+    k = model_parallel
+    if k < 1 or len(devs) % k:
+        raise ValueError(f"{len(devs)} devices are not divisible by model_parallel={k}")
+    arr = np.empty((len(devs) // k, k), dtype=object)
     for i, d in enumerate(devs):
-        arr[i, 0] = d
+        arr[i // k, i % k] = d
     return Mesh(arr)
+
+
+def _cat(parts: Sequence, axis: int):
+    return (torch.cat(list(parts), dim=axis) if isinstance(parts[0], torch.Tensor)
+            else np.concatenate(parts, axis=axis))
+
+
+def _contiguous(a):
+    return a.contiguous() if isinstance(a, torch.Tensor) else np.ascontiguousarray(a)
+
+
+def split_units(w, k: int) -> list:
+    """Gate columns (..., 4H) (gate g of unit j at column g H + j; a folded
+    bias (4H,) too), numpy or tensor, cut into k rank slices (..., 4H/k):
+    slice r holds units [r H/k, (r+1) H/k), all four gates of each, in the
+    same gate-major order.  H not divisible by k raises."""
+    *lead, G = w.shape
+    if G % 4 or (G // 4) % k:
+        raise ValueError(f"{G // 4} hidden units do not split over {k} model ranks")
+    v = w.reshape(*lead, 4, k, G // 4 // k)
+    return [_contiguous(v[..., r, :].reshape(*lead, G // k)) for r in range(k)]
+
+
+def join_units(slices: Sequence):
+    """The (..., 4H) gate columns back from ``split_units``' slices."""
+    *lead, Gl = slices[0].shape
+    return _cat([s.reshape(*lead, 4, 1, Gl // 4) for s in slices], -2).reshape(
+        *lead, Gl * len(slices))
+
+
+def split_columns(w, k: int) -> list:
+    """(..., J) cut into k contiguous column slices (..., J/k), numpy or
+    tensor; J not divisible by k raises."""
+    J = w.shape[-1]
+    if J % k:
+        raise ValueError(f"{J} columns do not split over {k} model ranks")
+    return [_contiguous(w[..., r * (J // k):(r + 1) * (J // k)]) for r in range(k)]
+
+
+def join_columns(slices: Sequence):
+    """The (..., J) columns back from ``split_columns``' slices."""
+    return _cat(list(slices), -1)
+
+
+def rank_weights(weights, r: int, k: int):
+    """Model rank r of k's weights (module docstring): the same type, its
+    LSTM layers cut by unit, the joint's first layer by column, the rest
+    replicated.  ``weights`` itself for k = 1 and for fake-quant weights."""
+    if k == 1 or isinstance(weights, FakeQuantRNNTWeights):
+        return weights
+    layer = lambda l: dataclasses.replace(
+        l, **{f: split_units(getattr(l, f), k)[r] for f in ("w_ih", "w_hh", "b")})
+    jw = weights.joint
+    return dataclasses.replace(
+        weights,
+        pre_rnn=[layer(l) for l in weights.pre_rnn],
+        post_rnn=[layer(l) for l in weights.post_rnn],
+        pred_rnn=[layer(l) for l in weights.pred_rnn],
+        joint=dataclasses.replace(jw, **{f: split_columns(getattr(jw, f), k)[r]
+                                         for f in ("w1_trans", "w1_pred", "b1")}),
+    )
 
 
 def weight_shardings(mesh: Mesh, weights, tensor_parallel: bool = False) -> list:
     """The weights each data shard runs: one replica per distinct device
     (``weights`` itself where it already lives there), the same object for
-    shards on the same device.  tensor_parallel=True raises
-    NotImplementedError."""
+    shards on the same device.  tensor_parallel=True: the weights of every
+    (data, model) rank, ``[shard][rank]``, each on its device
+    (``rank_weights``; one object per (device, rank), shared by the shards
+    whose rank r is on that device)."""
+    home = tensor_leaves(weights)[0].device
     if tensor_parallel:
-        raise NotImplementedError(TP_QUEUED)
-    by_dev = {tensor_leaves(weights)[0].device: weights}
+        k = mesh.shape["model"]
+        by_rank: Dict[tuple, object] = {}
+        out = []
+        for s in range(mesh.shape["data"]):
+            row = []
+            for r, d in enumerate(mesh.model_devices(s)):
+                if (d, r) not in by_rank:
+                    w = rank_weights(weights, r, k)
+                    by_rank[d, r] = w if d == home else map_tensors(w, lambda t: t.to(d))
+                row.append(by_rank[d, r])
+            out.append(row)
+        return out
+    by_dev = {home: weights}
     for d in mesh.data_devices:
         if d not in by_dev:
             by_dev[d] = weights.to(d)

@@ -67,6 +67,33 @@ def launches_since(before: Dict[str, int]) -> Dict[str, int]:
     return {name: n - before[name] for name, n in launch_counts().items()}
 
 
+def lockstep_steps(
+    steps: Sequence[Generator], devices: Sequence[torch.device],
+    shard_launches: Optional[List[Dict[str, int]]] = None,
+) -> Generator[None, None, list]:
+    """``lockstep`` as a step generator: yields after every round in which
+    each live shard advanced once."""
+    values = [None] * len(steps)
+    live = list(range(len(steps)))
+    while live:
+        for s in list(live):
+            before = launch_counts()
+            dev = torch.device(devices[s])
+            try:
+                with (torch.cuda.device(dev) if dev.type == "cuda"
+                      else contextlib.nullcontext()):
+                    next(steps[s])
+            except StopIteration as stop:
+                values[s] = stop.value
+                live.remove(s)
+            if shard_launches is not None:
+                for k, n in launches_since(before).items():
+                    shard_launches[s][k] = shard_launches[s].get(k, 0) + n
+        if live:
+            yield
+    return values
+
+
 def lockstep(
     steps: Sequence[Generator], devices: Sequence[torch.device],
     shard_launches: Optional[List[Dict[str, int]]] = None,
@@ -78,24 +105,7 @@ def lockstep(
     read, and shards on k cards overlap.  Returns the generators' values in
     shard order; each shard's kernel launches are added to
     ``shard_launches[s]`` when it is given."""
-    values = [None] * len(steps)
-    live = list(range(len(steps)))
-    with torch.no_grad():
-        while live:
-            for s in list(live):
-                before = launch_counts()
-                dev = torch.device(devices[s])
-                try:
-                    with (torch.cuda.device(dev) if dev.type == "cuda"
-                          else contextlib.nullcontext()):
-                        next(steps[s])
-                except StopIteration as stop:
-                    values[s] = stop.value
-                    live.remove(s)
-                if shard_launches is not None:
-                    for k, n in launches_since(before).items():
-                        shard_launches[s][k] = shard_launches[s].get(k, 0) + n
-    return values
+    return drain(lockstep_steps(steps, devices, shard_launches))
 
 
 class PhaseClock:

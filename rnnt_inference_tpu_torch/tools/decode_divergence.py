@@ -36,6 +36,9 @@ exits 1 if any case holds a fault.
 compare_run_launches does the same for every launch of a whole run (a
 runner's run_device), and counts a second kind of tie: a parting from
 the same state whose twin gap is within the product tie tolerance.
+compare_tp_run_launches does it for every call of a tensor-parallel run
+(parallel/tensor.py): each call's k ranks (kernel B's rank mode, or the
+plain one) against the one-device twin on the joined state.
 summed_in_halves gives a second plain version of the twin, summing in
 another order, to measure how far two plain versions part on a model.
 """
@@ -107,17 +110,21 @@ def _differs(a, b):
 
 def compare_k_launch(fproj, state, dw, params: RNNTParams, K: int,
                      starts: Optional[torch.Tensor] = None, res_base: Optional[torch.Tensor] = None,
-                     utt_budget: int = 0) -> dict:
+                     utt_budget: int = 0, run_k: Optional[Callable] = None) -> dict:
     """One K-iteration launch of kernel B against K twin iterations from
     ``state`` (left as it is): the report described in the module's
-    docstring."""
+    docstring.  ``run_k(s, k)`` replaces the launch: k iterations of the
+    path under test on the state list s ([lanes, hg, cg, res]), in place."""
     wdt = dw.embed.dtype
     tol_h, tol_c = tolerances(wdt)
     packed = dict(starts=starts, utt_budget=utt_budget) if starts is not None else {}
 
     def kernel(k):
         s = _snap(state, res_base)
-        dc.decode_step_cuda(fproj, *s[:4], dw, params, k, res_base=s[4], **packed)
+        if run_k is not None:
+            run_k(s, k)
+        else:
+            dc.decode_step_cuda(fproj, *s[:4], dw, params, k, res_base=s[4], **packed)
         return s
 
     twin = [_snap(state, res_base)]
@@ -244,6 +251,11 @@ def compare_run_launches(run: Callable[[], object]) -> dict:
         result = run()
     finally:
         decoder.dc.decode_step = launch
+    return result, _summary(reports, tie)
+
+
+def _summary(reports, tie) -> dict:
+    """compare_run_launches' summary of the launches' reports."""
     parted = [lane for r in reports for lane in r["lanes"]]
     tol_h, tol_c = tie.get("tolerances", (0.0, 0.0))
     for lane in parted:
@@ -253,7 +265,7 @@ def compare_run_launches(run: Callable[[], object]) -> dict:
             and lane["twin_on_kernel_state"] == lane["twin_symbol"]
             and abs(lane["gap"]) <= tie["gap"])
     unexplained = [lane for lane in parted if not (lane["near_tie"] or lane["product_tie"])]
-    return result, dict(
+    return dict(
         launches=len(reports), lanes_parted=len(parted),
         near_ties=sum(lane["near_tie"] for lane in parted),
         product_ties=sum(lane["product_tie"] for lane in parted),
@@ -268,9 +280,82 @@ def compare_run_launches(run: Callable[[], object]) -> dict:
         end_cg_drift_kept_lanes=max((r["end_cg_drift_kept_lanes"] for r in reports),
                                     default=0.0),
         faults=len(unexplained) + sum((not r["end_drift_within_tolerance"])
-                                      + (not r["deterministic"]) for r in reports),
+                                      + (not r["deterministic"]) + (not r.get("ranks_equal", True))
+                                      for r in reports),
         partings_unexplained=unexplained[:20],
     )
+
+
+def joined_decode_weights(dws) -> dc.DecodeWeights:
+    """The one-device DecodeWeights of k model ranks' slices
+    (parallel/mesh.py join_units / join_columns), on rank 0's device."""
+    from rnnt_inference_tpu_torch.parallel.mesh import join_columns, join_units
+
+    dev = dws[0].w2.device
+    units = lambda name: join_units([getattr(d, name).to(dev) for d in dws]).contiguous()
+    cols = lambda name: join_columns([getattr(d, name).to(dev) for d in dws]).contiguous()
+    return dc.DecodeWeights(embed=dws[0].embed, w_ih=units("w_ih"), w_hh=units("w_hh"),
+                            b=units("b"), w1p=cols("w1p"), b1=cols("b1"), w2=dws[0].w2,
+                            b2=dws[0].b2)
+
+
+def compare_tp_call(fproj, lanes, hg, cg, res, dws, params: RNNTParams, K: int,
+                    impl: Optional[str] = None, step: Optional[Callable] = None) -> dict:
+    """One tensor-parallel call of K iterations (ops/decode_cuda.py
+    decode_step_tp on the k ranks' lists, left as they are) against K
+    iterations of the one-device twin from the joined state (rank 0's
+    lanes, hg and tokens, the ranks' cg and fproj columns joined, the
+    weights joined): compare_k_launch's report.  The ranks' copies of the
+    lane state must stay equal: ``ranks_equal`` says whether they did.
+    ``step`` is the decode_step_tp to run (that function by default)."""
+    step = step or dc.decode_step_tp
+    k, dev = len(lanes), lanes[0].device
+    fp = torch.cat([f.to(dev) for f in fproj], dim=-1)
+    state = [lanes[0], hg[0], torch.cat([c.to(dev) for c in cg], dim=-1), res[0]]
+    Pl = cg[0].shape[-1]
+    equal = []
+
+    def run_k(s, steps):
+        ln = [s[0].to(t.device).clone() for t in lanes]
+        h = [s[1].to(t.device).clone() for t in hg]
+        c = [s[2][..., r * Pl:(r + 1) * Pl].to(t.device).contiguous() for r, t in enumerate(cg)]
+        rs = [s[3].to(t.device).clone() for t in res]
+        step(fproj, ln, h, c, rs, dws, params, steps, impl)
+        equal.append(all(torch.equal(a.to(dev), b) for xs in (ln, h, rs) for a, b in
+                         zip(xs[1:], [xs[0]] * (k - 1))))
+        s[0].copy_(ln[0])
+        s[1].copy_(h[0])
+        s[2].copy_(torch.cat([t.to(dev) for t in c], dim=-1))
+        s[3].copy_(rs[0])
+
+    report = compare_k_launch(fp, state, joined_decode_weights(dws), params, K, run_k=run_k)
+    report["ranks_equal"] = all(equal)
+    report["faults"] += not report["ranks_equal"]
+    return report
+
+
+def compare_tp_run_launches(run: Callable[[], object]) -> dict:
+    """``compare_run_launches`` for a tensor-parallel run: calls ``run()``
+    (for example parallel/tensor.py greedy_decode_tp on a mesh) with every
+    decode_step_tp call it makes first compared with the one-device twin
+    from the same joined state (``compare_tp_call``).  Returns (run's
+    result, summary) as compare_run_launches."""
+    reports, tie = [], {}
+    launch = dc.decode_step_tp
+
+    def compared(fproj, lanes, hg, cg, res, dws, params, steps=1, impl=None):
+        reports.append(compare_tp_call(fproj, lanes, hg, cg, res, dws, params, steps, impl,
+                                       launch))
+        tie["tolerances"] = tolerances(dws[0].embed.dtype)
+        tie["gap"] = product_tie_tolerance(dws[0].embed.dtype)
+        launch(fproj, lanes, hg, cg, res, dws, params, steps, impl)
+
+    dc.decode_step_tp = compared
+    try:
+        result = run()
+    finally:
+        dc.decode_step_tp = launch
+    return result, _summary(reports, tie)
 
 
 def main() -> int:

@@ -5,13 +5,19 @@ to the same work on one device.
   python -m rnnt_inference_tpu_torch.tools.dryrun_multichip --n 2
   python -m rnnt_inference_tpu_torch.tools.dryrun_multichip --n 2 --device cpu
 
-Phases: dp greedy decode (MLPerf widths, f32), the dp OfflineRunner over
-device-resident samples, quant-dp, packed-dp and Server-dp (tokens and
-``res_idx`` equal to the single-device run).  quant-tp checks that tensor
-parallelism raises its queued error (ROADMAP 2.8).  With fewer cards than
-n, the mesh lists the cards round-robin (two shards may share one card).
-The small model is 128 wide in the encoder and 64 in the prediction net
-and the joint, the least widths kernels C and B take.
+Phases, as JAX's: greedy decode at the MLPerf widths (f32) on a dp x
+tp = 2 mesh when n is even (dp = n / 2; tensor parallelism,
+parallel/tensor.py), else on a dp = n mesh; the dp OfflineRunner over
+device-resident samples, quant-dp, packed-dp and Server-dp on the dp = n
+mesh; quant-tp, the int8 small model on dp = n / 2 x tp = 2 (n even).
+Each is held to the single-device run: tokens and ``res_idx`` equal; the
+float tensor-parallel decode may part from it only at near-ties (its
+column-slice products may round apart:
+tools/decode_divergence.compare_tp_run_launches).  With fewer cards than
+n, the mesh lists the cards round-robin (two shards, or two model ranks,
+may share one card).  The small model is 128 wide in the encoder and 64
+in the prediction net and the joint, the least widths kernels C and B
+take.
 """
 
 from __future__ import annotations
@@ -27,7 +33,6 @@ from rnnt_inference_tpu_torch.models.decoder import drain, greedy_decode_steps
 from rnnt_inference_tpu_torch.models.quant import calibrate, quantize_weights
 from rnnt_inference_tpu_torch.models.weights import init_weights
 from rnnt_inference_tpu_torch.parallel.mesh import (
-    TP_QUEUED,
     batch_sharding,
     join,
     lens_sharding,
@@ -38,6 +43,7 @@ from rnnt_inference_tpu_torch.runtime.harness import run_offline
 from rnnt_inference_tpu_torch.runtime.offline import OfflineRunner, lockstep
 from rnnt_inference_tpu_torch.runtime.packing import PackedOfflineRunner
 from rnnt_inference_tpu_torch.runtime.qsl import QuerySampleLibrary
+from rnnt_inference_tpu_torch.parallel.tensor import greedy_decode_tp
 from rnnt_inference_tpu_torch.runtime.server import (
     init_server_state,
     server_insert,
@@ -73,29 +79,60 @@ def _equal(name, got, want):
         raise AssertionError(f"{name}: sharded run != single-device run")
 
 
+def _near_ties(name, got, want, rerun) -> str:
+    """A float tensor-parallel decode (res, lens) against the single-device
+    one: "equal", or "near-ties" where tokens part at an edit rate <= 1e-3
+    and every decode call of ``rerun()`` parts from the one-device twin
+    only at a tie (tools/decode_divergence.compare_tp_run_launches)."""
+    from rnnt_inference_tpu_torch.tools.decode_divergence import compare_tp_run_launches
+
+    if all(torch.equal(g.cpu(), w.cpu()) for g, w in zip(got, want)):
+        return "equal"
+    toks = lambda res, lens: [res[i, : int(lens[i])].tolist() for i in range(res.shape[0])]
+    a, b = toks(*got), toks(*want)
+    differ = sum(x != y for x, y in zip(a, b))
+    if differ / max(sum(len(t) for t in b), 1) > 1e-3:
+        raise AssertionError(f"{name}: {differ} utterances part from the single-device run")
+    _, summary = compare_tp_run_launches(rerun)
+    if summary["faults"]:
+        raise AssertionError(f"{name}: parts outside a near-tie: {summary}")
+    return "near-ties"
+
+
 def dryrun_multichip(n_devices: int, devices=None, impl=None, log=print) -> dict:
     """Run every phase on a mesh of ``devices`` (``mesh_devices(n)`` by
     default); raises AssertionError where a sharded run parts from the
     single-device one.  Returns a dict of what each phase checked."""
     devices = devices if devices is not None else mesh_devices(n_devices)
+    tp = 2 if n_devices % 2 == 0 else 1
     mesh = make_mesh(n_devices, devices=devices)
+    tp_mesh = make_mesh(n_devices, model_parallel=tp, devices=devices)
     dev = mesh.data_devices[0]
     dp = mesh.shape["data"]
     cfg = FeaturizerConfig()
-    out = {"mesh": repr(mesh)}
+    out = {"mesh": repr(mesh), "tp_mesh": repr(tp_mesh)}
     with torch.inference_mode():
-        # dp greedy decode at the MLPerf widths
+        # greedy decode at the MLPerf widths, dp x tp = 2 (n even)
         params = RNNTParams(max_res_len=64)
         w = init_weights(params, torch.Generator().manual_seed(0), device=dev)
-        T, N = 8, max(2 * dp, 8)
+        T, N = 8, max(2 * n_devices, 8)
         x = torch.randn((T, N, params.trans_input_size),
                         generator=torch.Generator().manual_seed(1)).to(dev)
         x_lens = torch.full((N,), T, dtype=torch.int32, device=dev)
-        res, lens = decode_dp(mesh, w, x, x_lens, params, impl)
-        _equal("dp decode", (res, lens), drain(greedy_decode_steps(w, x, x_lens, params, impl=impl)))
-        out["dp_decode"] = dict(res=list(res.shape), lens=[int(lens.min()), int(lens.max())])
-        log(f"dryrun_multichip OK: mesh=({dp}x1) res={tuple(res.shape)} "
-            f"lens min/max={int(lens.min())}/{int(lens.max())}")
+        want = drain(greedy_decode_steps(w, x, x_lens, params, impl=impl))
+        if tp > 1:
+            w_tp = weight_shardings(tp_mesh, w, tensor_parallel=True)
+            run = lambda: greedy_decode_tp(tp_mesh, w_tp, x, x_lens, params, impl=impl)
+            res, lens = run()
+            verdict = _near_ties("tp decode", (res, lens), want, run)
+        else:
+            res, lens = decode_dp(mesh, w, x, x_lens, params, impl)
+            _equal("dp decode", (res, lens), want)
+            verdict = "equal"
+        out["dp_decode"] = dict(res=list(res.shape), lens=[int(lens.min()), int(lens.max())],
+                                tokens=verdict)
+        log(f"dryrun_multichip OK: mesh=({n_devices // tp}x{tp}) res={tuple(res.shape)} "
+            f"lens min/max={int(lens.min())}/{int(lens.max())} tokens {verdict}")
 
         # the Offline runner over device-resident samples
         ws = init_weights(SMALL, torch.Generator().manual_seed(2), device=dev)
@@ -123,14 +160,14 @@ def dryrun_multichip(n_devices: int, devices=None, impl=None, log=print) -> dict
         out["quant_dp"] = dict(res=list(resq[0].shape))
         log(f"dryrun_multichip quant-dp OK: dp={dp} res={tuple(resq[0].shape)}")
 
-        # tensor parallelism is queued, not ported
-        try:
-            weight_shardings(mesh, wq, tensor_parallel=True)
-        except NotImplementedError as e:
-            out["quant_tp"] = str(e)
-            log(f"dryrun_multichip quant-tp: not run: {e}")
-        else:
-            raise AssertionError("tensor_parallel=True did not raise: " + TP_QUEUED)
+        # int8 under tensor parallelism: dp = n / 2 x tp = 2
+        if tp > 1:
+            wq_tp = weight_shardings(tp_mesh, wq, tensor_parallel=True)
+            resqt = greedy_decode_tp(tp_mesh, wq_tp, xq, lq, SMALL, impl=impl)
+            _equal("quant-tp", resqt, resq)
+            out["quant_tp"] = dict(dp=n_devices // 2, tp=2, res=list(resqt[0].shape))
+            log(f"dryrun_multichip quant-tp OK: dp={n_devices // 2} tp=2 "
+                f"res={tuple(resqt[0].shape)} tokens==single-device")
 
         # packed Offline, lanes over "data": tokens equal the single device's
         store_p = SampleStore.synthetic(n=4 * dp, seed=7, min_seconds=0.3, max_seconds=1.0,

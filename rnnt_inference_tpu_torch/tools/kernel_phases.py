@@ -91,29 +91,29 @@ HEADER = [
      "    if (c == 0) STAMP(g_base);"),
 ]
 DECODE = [
-    ("  for (;; ++it) {\n    const int p = it & 1;",
-     "  for (;; ++it) {\n    if (b == 0 && tid == 0) g_it = it;\n    STAMP(0);\n"
+    ("  for (; seg != 5; ++it) {\n    const int p = it & 1;",
+     "  for (; seg != 5; ++it) {\n    if (b == 0 && tid == 0) g_it = it;\n    STAMP(0);\n"
      "    const int p = it & 1;"),
     ("    __syncthreads();\n\n    // phase 1: layer 0.",
      "    __syncthreads();\n    STAMP(1);\n\n    // phase 1: layer 0."),
-    ("    grid.sync();\n\n    // phase 2: layer 1",
-     "    STAMP(2);\n    grid.sync();\n    STAMP(3);\n\n    // phase 2: layer 1"),
+    ("    if (seg == 0) grid.sync();\n\n    // phase 2: layer 1",
+     "    STAMP(2);\n    if (seg == 0) grid.sync();\n    STAMP(3);\n\n    // phase 2: layer 1"),
     ("        PassAcc<WT, NC1> acc;\n        pass_products<WT, NC1>(",
      "        PassAcc<WT, NC1> acc;\n        if (b == 0 && tid == 0) g_base = 4;\n"
      "        pass_products<WT, NC1>("),
     ("[&](int r) { return hn_cur + ((size_t)p0 + r) * P; }, acc);\n        if (kg != 0)",
      "[&](int r) { return hn_cur + ((size_t)p0 + r) * P; }, acc);\n        STAMP(5);\n"
      "        if (kg != 0)"),
-    ("    grid.sync();\n\n    // phase 3: the joint",
-     "    STAMP(6);\n    grid.sync();\n    STAMP(7);\n\n    // phase 3: the joint"),
+    ("    if (seg == 0) grid.sync();\n\n    // phase 3: the joint",
+     "    STAMP(6);\n    if (seg == 0) grid.sync();\n    STAMP(7);\n\n    // phase 3: the joint"),
     ("        PassAcc<WT, NC2> acc;\n        pass_products<WT, NC2>(",
      "        PassAcc<WT, NC2> acc;\n        if (b == 0 && tid == 0) g_base = 8;\n"
      "        pass_products<WT, NC2>("),
     ("[&](int r) { return y + ((size_t)p0 + r) * P; }, acc);\n        if (kg != 0)",
      "[&](int r) { return y + ((size_t)p0 + r) * P; }, acc);\n        STAMP(9);\n"
      "        if (kg != 0)"),
-    ("    grid.sync();\n\n    // phase 4:",
-     "    STAMP(10);\n    grid.sync();\n    STAMP(11);\n\n    // phase 4:"),
+    ("    if (seg == 0) grid.sync();\n\n    // phase 4:",
+     "    STAMP(10);\n    if (seg == 0) grid.sync();\n    STAMP(11);\n\n    // phase 4:"),
     ("      PassAcc<WT, VP> acc;\n      pass_products<WT, VP>(",
      "      PassAcc<WT, VP> acc;\n      if (b == 0 && tid == 0) g_base = 12;\n"
      "      pass_products<WT, VP>("),

@@ -162,7 +162,7 @@ def test_frontend_constants_match_jax():
 def test_port_imports_no_jax():
     """Importing every module of the port, the bench, the profiler, the
     native loadgen's bindings, the text, manifest, audio and FLAC modules,
-    the mesh and distributed modules, the Transcriber, the golden module
+    the mesh, distributed and tensor-parallel modules, the Transcriber, the golden module
     and the tools included, loads no jax and nothing of the JAX package (a
     fresh interpreter)."""
     code = (
@@ -177,6 +177,7 @@ def test_port_imports_no_jax():
         "'rnnt_inference_tpu_torch.data.manifest', 'rnnt_inference_tpu_torch.data.audio', "
         "'rnnt_inference_tpu_torch.data.flac', 'rnnt_inference_tpu_torch.parallel.mesh', "
         "'rnnt_inference_tpu_torch.parallel.distributed', 'rnnt_inference_tpu_torch.transcribe', "
+        "'rnnt_inference_tpu_torch.parallel.tensor', "
         "'rnnt_inference_tpu_torch.utils.golden', 'rnnt_inference_tpu_torch.tools.multihost_probe', "
         "'rnnt_inference_tpu_torch.tools.dryrun_multichip', "
         "'rnnt_inference_tpu_torch.tools.convert_librispeech'} <= set(sys.modules)\n"

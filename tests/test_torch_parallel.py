@@ -72,8 +72,8 @@ def _tokens_equal(got, want):
 
 def test_make_mesh_shapes_match_jax():
     """(data, model) shape and axis names as JAX's make_mesh; n_devices
-    cuts the list; a device may repeat; model_parallel > 1 raises the
-    queued-TP error."""
+    cuts the list; a device may repeat; model_parallel = 2 gives JAX's
+    (n / 2, 2) shape with the data shards' devices in column 0."""
     for n in (1, 2, 4):
         m = tmesh.make_mesh(devices=["cpu"] * 8, n_devices=n)
         j = jmesh.make_mesh(n_devices=n)
@@ -81,15 +81,19 @@ def test_make_mesh_shapes_match_jax():
         assert m.axis_names == tuple(j.axis_names)
         assert m.devices.shape == j.devices.shape
         assert m.data_devices == [torch.device("cpu")] * n
-    with pytest.raises(NotImplementedError, match="ROADMAP item 2.8"):
-        tmesh.make_mesh(devices=["cpu"] * 4, model_parallel=2)
+    m = tmesh.make_mesh(devices=["cpu"] * 4, model_parallel=2)
+    j = jmesh.make_mesh(4, model_parallel=2)
+    assert m.shape == dict(j.shape) == {"data": 2, "model": 2}
+    assert m.devices.shape == j.devices.shape
+    assert m.data_devices == [torch.device("cpu")] * 2
 
 
 @pytest.mark.parametrize("quant", [False, True])
 def test_weight_shardings_replicate_per_device(quant):
     """Shards on one device share the one replica (the caller's own object,
-    so its kernel-operand registry too); tensor_parallel=True raises the
-    queued-TP error."""
+    so its kernel-operand registry too); tensor_parallel=True on a 1 x 2
+    mesh gives each model rank its slice (two objects, whose LSTM weights
+    hold half the units)."""
     from rnnt_inference_tpu_torch.models.quant import calibrate, quantize_weights
     from rnnt_inference_tpu_torch.models.weights import init_weights
 
@@ -100,8 +104,10 @@ def test_weight_shardings_replicate_per_device(quant):
     mesh = tmesh.make_mesh(devices=CPU2)
     reps = tmesh.weight_shardings(mesh, tw)
     assert len(reps) == 2 and reps[0] is tw and reps[1] is tw
-    with pytest.raises(NotImplementedError, match="ROADMAP item 2.8"):
-        tmesh.weight_shardings(mesh, tw, tensor_parallel=True)
+    tp = tmesh.weight_shardings(tmesh.make_mesh(devices=CPU2, model_parallel=2), tw,
+                                tensor_parallel=True)
+    assert len(tp) == 1 and len(tp[0]) == 2 and tp[0][0] is not tp[0][1]
+    assert all(2 * r.pre_rnn[0].w_hh.shape[1] == tw.pre_rnn[0].w_hh.shape[1] for r in tp[0])
 
 
 def test_shard_and_join_follow_the_lane_axis():
@@ -260,16 +266,18 @@ def test_server_dp_matches_single_slot_set():
 
 
 def test_dryrun_multichip_on_two_cpu_devices():
-    """tools/dryrun_multichip.py's phases on ["cpu", "cpu"]: each
-    data-parallel phase equals its single-device run, and quant-tp raises
-    the queued-TP error."""
+    """tools/dryrun_multichip.py's phases on ["cpu", "cpu"]: the decode at
+    the MLPerf widths on 1 x 2 (tensor parallelism) and each data-parallel
+    phase equal their single-device runs, and quant-tp (int8, 1 x 2) holds
+    its result, tokens and res_idx equal."""
     from rnnt_inference_tpu_torch.tools.dryrun_multichip import dryrun_multichip
 
     lines = []
     out = dryrun_multichip(2, devices=CPU2, log=lines.append)
-    assert set(out) == {"mesh", "dp_decode", "offline", "quant_dp", "quant_tp", "packed_dp",
-                        "server_dp"}
-    assert "ROADMAP item 2.8" in out["quant_tp"]
+    assert set(out) == {"mesh", "tp_mesh", "dp_decode", "offline", "quant_dp", "quant_tp",
+                        "packed_dp", "server_dp"}
+    assert out["quant_tp"] == {"dp": 1, "tp": 2, "res": [2, 64]}
+    assert out["dp_decode"]["tokens"] in ("equal", "near-ties")
     assert out["offline"]["samples"] == 4 and len(lines) == 6
 
 
@@ -284,3 +292,17 @@ def test_mesh_scaling_tool_on_the_cpu(runner):
     assert sorted(out["meshes"]) == ["1", "2"] and out["runner"] == runner
     assert all(m["tokens_equal_first_mesh"] for m in out["meshes"].values())
     assert len(out["meshes"]["2"]["shard_launches"]) == 2
+
+
+def test_mesh_scaling_tool_tp_on_the_cpu():
+    """tools/mesh_scaling.py --tp's measure_tp at a tiny size on the CPU
+    (1 x 2 and 2 x 2 over CPU copies): res and res_idx equal the one-device
+    decode's, a report for every mesh, no rank-mode launch on the CPU."""
+    from rnnt_inference_tpu_torch.tools import mesh_scaling
+
+    out = mesh_scaling.measure_tp(["1x2", "2x2"], device="cpu", hidden=64, n=4,
+                                  max_seconds=1.0, reps=1)
+    assert sorted(out["meshes"]) == ["1x1", "1x2", "2x2"] and out["tokens"] > 0
+    assert all(m["tokens_equal_one_card"] for m in out["meshes"].values())
+    assert all(not any(m["rank_mode_launches_per_rank"].values())
+               for m in out["meshes"].values())
