@@ -68,6 +68,21 @@ it and read just after:
     bf16 one on 1 x 2 against the one-card kernels (int8 f bit-equal;
     tokens and res_idx equal or parting only at near-ties; every rank's
     lane state equal), with its wall beside the one-card wall;
+  - server_probe: tools/server_probe.py on the bench's calibrated blank
+    model (int8, cap 1, 0.8 symbols per frame), 128 slots, split 24: the
+    step cadence over 50 full-slot steps, then a ladder of Poisson rates
+    (25 to 800 QPS, 6 s each under a user.conf that cuts min_duration to
+    6 s and min_query_count to qps x 6) on the native clock with each
+    level's MLPerf verdict, stopping after the first INVALID level (at
+    least three levels), and the highest VALID level and the lowest again
+    on the Python clock; completed = issued at every level, and the lowest
+    level's tokens equal the bucketed Offline runner's on its samples;
+  - run_stages: tools/run_stages.py, the port's scripts/run.sh flow, with
+    QUICK=true STAGE=-1 SYNTHETIC=64 in a temporary WORK_DIR (kernels
+    built, calibration on kernel C, quantization, stage 3b's check_calib,
+    Offline and Server accuracy and native performance runs on kernels A
+    and B); tools/eval_accuracy.py on its Offline accuracy log prints the
+    run's own WER;
   - bench_blank_cap1 / bench_burst_cap30: the port's bench (``python -m
     rnnt_inference_tpu_torch.bench``, a child process) at the JAX headline
     configuration (int8, packed, cap 1, calibrated blank rate 0.8) and at
@@ -2458,6 +2473,292 @@ def phase_profile(qweights, params, dev, card: str, blank_replay: str, store) ->
     return rows
 
 
+# the server_probe phase: the ladder on the native clock, each level for
+# PROBE_SECONDS under a user.conf that cuts min_duration to PROBE_SECONDS
+# and min_query_count to qps x PROBE_SECONDS; the JAX probe's slots, split
+# and store size
+PROBE_LEVELS = (25.0, 50.0, 100.0, 200.0, 400.0, 800.0)
+PROBE_SECONDS = 6.0
+PROBE_SLOTS, PROBE_SPLIT, PROBE_N = 128, 24, 512
+
+
+def _streaming_parting(w, params, qsl, batch_size: int, q: int, feats, server_tokens,
+                       offline_tokens, split: int, slots: int, dev) -> dict:
+    """Where query q's Server tokens part from the bucketed Offline
+    runner's.  Kernel A is bit-equal to its twin, so from equal features
+    both runs have the same encoder output f; what differs is the shape
+    of two sums: the joint's projection fproj = f @ w1_trans, an f32 GEMM
+    of (split / 2) x slots rows in a Server window and T2 x batch_size in
+    the Offline batch, whose products may sum in an order that depends on
+    the row count, and kernel B's, which sum a lane's products in an order
+    that can depend on the lane count (64 lanes against 1 or 2 on an H100:
+    PERF.md).
+    Both projections are rebuilt for q (the Offline batch as the runner
+    forms it; the Server's from the features its slot held, a window at a
+    time in a window-shaped GEMM), and tools/decode_divergence.py
+    compare_fproj_lanes decodes each in its run's lane count side by side:
+    they must reproduce both runs' tokens, and part at a near-tie."""
+    from rnnt_inference_tpu_torch.models import rnnt as model
+    from rnnt_inference_tpu_torch.ops import decode_cuda
+    from rnnt_inference_tpu_torch.ops.features import log_mel_features
+    from rnnt_inference_tpu_torch.ops.lstm import dot_f32
+    from rnnt_inference_tpu_torch.tools import decode_divergence
+
+    w1 = w.joint.w1_trans
+    order = qsl.sort_desc(np.arange(len(qsl)))
+    start = int(np.nonzero(order == q)[0][0]) // batch_size * batch_size
+    batch = order[start : start + batch_size]
+    row = int(np.nonzero(batch == q)[0][0])
+    with torch.inference_mode():
+        wav, lens, _ = qsl.assemble_waveforms(batch, pad_n=batch_size)
+        x, x_lens = log_mel_features(torch.from_numpy(wav).to(dev), torch.from_numpy(lens).to(dev),
+                                     qsl.cfg)
+        f, _ = model.transcription(w, x, x_lens, model.init_encoder_state(
+            batch_size, params, w.pre_rnn[0].w_ih.dtype, dev), params)
+        f_len = -(-int(x_lens[row]) // params.stack_time_factor)
+        fproj_off = dot_f32(f.to(w1.dtype), w1)[:f_len, row]
+        xs = feats[:, None]
+        fs, _ = model.transcription(w, xs, torch.tensor([xs.shape[0]], dtype=torch.int32,
+                                                        device=dev),
+                                    model.init_encoder_state(1, params, w.pre_rnn[0].w_ih.dtype,
+                                                             dev), params)
+        t2 = split // params.stack_time_factor
+        windows = []
+        for k in range(0, fs.shape[0], t2):
+            win = torch.zeros((t2, slots, fs.shape[2]), dtype=fs.dtype, device=dev)
+            win[: min(t2, fs.shape[0] - k), 0] = fs[k : k + t2, 0]
+            windows.append(dot_f32(win.to(w1.dtype), w1)[:, 0])
+        fproj_srv = torch.cat(windows)[:f_len]
+        r = decode_divergence.compare_fproj_lanes(fproj_srv, fproj_off, f_len,
+                                                  decode_cuda.decode_weights(w), params,
+                                                  lane_counts=(slots, batch_size))
+    tokens = r.pop("tokens")
+    r.update(reproduced=bool(np.array_equal(tokens[0], server_tokens)
+                             and np.array_equal(tokens[1], offline_tokens)),
+             server_tokens=len(server_tokens), offline_tokens=len(offline_tokens),
+             features_equal_offline=bool(torch.equal(feats, x[: feats.shape[0], row])
+                                         and feats.shape[0] == int(x_lens[row])),
+             fproj_max_abs_diff=float((fproj_srv - fproj_off).abs().max()))
+    return r
+
+
+def phase_server_probe(params, dev, card: str, blank_replay: str, store) -> dict:
+    """tools/server_probe.py on the bench's calibrated blank model
+    (``_bench_model("blank_cap1", ...)``: int8, cap 1, the blank bias the
+    bench phase calibrated, 0.8 symbols per frame), 128 slots, split 24, the
+    first 512 utterances of the bench's store: the step cadence, then the
+    ladder PROBE_LEVELS on the native clock, each level PROBE_SECONDS under
+    a user.conf overlay (min_duration = PROBE_SECONDS, min_query_count =
+    qps x PROBE_SECONDS; configs/mlperf.conf below it), stopping after the
+    first INVALID level once three levels ran (launch counts set to 0 just
+    before the ladder, read just after).  Then the highest VALID level and
+    the lowest level again on the Python clock.  Gates: completed = issued
+    at every level, kernels A and B launched, and the lowest level's
+    Python-clock tokens equal to the bucketed OfflineRunner's on the same
+    samples (the streaming invariant: a Server slot decodes its utterance
+    in split-frame windows, the Offline runner in one pass)."""
+    import tempfile
+
+    from rnnt_inference_tpu_torch.ops import decode_cuda, lstm_cuda
+    from rnnt_inference_tpu_torch.runtime.config import TestSettings
+    from rnnt_inference_tpu_torch.runtime.offline import OfflineRunner
+    from rnnt_inference_tpu_torch.runtime.qsl import QuerySampleLibrary
+    from rnnt_inference_tpu_torch.runtime.server import ServerRunner
+    from rnnt_inference_tpu_torch.tools import server_probe
+
+    t_phase = time.time()
+    counters = {"quant_lstm_layer": lstm_cuda.quant_lstm_layer_cuda,
+                "decode_step": decode_cuda.decode_step_cuda}
+    mlperf = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "mlperf.conf")
+    w, bparams, _ = _bench_model("blank_cap1", blank_replay, params, dev)
+    store = store.select(np.arange(PROBE_N))
+    runner = ServerRunner(w, bparams, slots=PROBE_SLOTS, split_len=PROBE_SPLIT, device=dev)
+    warm = runner.warmup()
+    with tempfile.TemporaryDirectory() as d:
+
+        def settings_for(qps):
+            conf = _write_conf(os.path.join(d, f"probe_{qps:g}.conf"), "Server", PROBE_N,
+                               min_duration=int(PROBE_SECONDS * 1000),
+                               min_query_count=int(qps * PROBE_SECONDS))
+            return TestSettings.from_conf(mlperf, conf, "rnnt", "Server")
+
+        for c in counters.values():
+            c.launches = 0
+        out = server_probe.probe(runner, store, PROBE_LEVELS, PROBE_SECONDS, settings_for,
+                                 native=True, stop_after_invalid=True, min_levels=3)
+        launches = {k: c.launches for k, c in counters.items()}
+        ladder = out["ladder"]
+        for lv in ladder:
+            if lv["completed"] != lv["issued"] or not all(lv["launches"][k] for k in counters):
+                raise AssertionError(f"server_probe level {lv['target_qps']}: completed "
+                                     f"{lv['completed']} of {lv['issued']}, launches "
+                                     f"{lv['launches']}")
+        if len(ladder) < 3 or not all(launches.values()):
+            raise AssertionError(f"server_probe: {len(ladder)} levels, launches {launches}")
+        lowest, highest = PROBE_LEVELS[0], out["highest_valid_qps"]
+        python_clock, feats = {}, {}
+        insert = runner.insert_samples
+
+        def insert_keeping_features(wavs, ids):  # each query's features, as its slot holds them
+            insert(wavs, ids)
+            for slot, q in runner.slot_sample.items():
+                if q in ids and q >= 0:
+                    feats[q] = runner.state.F[: int(runner.state.F_lens[slot]), slot].clone()
+
+        for qps in sorted({lowest} | ({highest} if highest else set()), reverse=True):
+            if qps == lowest:  # the level whose tokens are held to the Offline runner's
+                runner.insert_samples = insert_keeping_features
+            level, results = server_probe.probe_level(runner, store, qps, PROBE_SECONDS,
+                                                      settings_for(qps), native=False)
+            if level["completed"] != level["issued"]:
+                raise AssertionError(f"server_probe python clock {qps}: completed "
+                                     f"{level['completed']} of {level['issued']}")
+            python_clock[qps] = (level, results)
+        runner.insert_samples = insert
+    # the streaming invariant: the lowest level's tokens against the
+    # bucketed Offline runner on its samples
+    level, results = python_clock[lowest]
+    m = min(len(store), int(lowest * PROBE_SECONDS))
+    qsl = QuerySampleLibrary(store.select(np.arange(m)))
+    offline = OfflineRunner(w, bparams, batch_size=64, device=dev)
+    offline.warmup(qsl)
+    ref = offline.run(qsl).tokens
+    n_tok = sum(len(results[q]) for q in results)
+    parted = {q: _streaming_parting(w, bparams, qsl, offline.batch_size, q, feats[q],
+                                    results[q], ref[q], PROBE_SPLIT, PROBE_SLOTS, dev)
+              for q in sorted(results) if not np.array_equal(results[q], ref[q])}
+    faults = {q: r for q, r in parted.items() if not (r["near_tie"] and r["reproduced"])}
+    if faults or n_tok == 0:
+        raise AssertionError(f"server_probe: the Server's tokens part from the bucketed "
+                             f"Offline runner's outside a near-tie: {faults} ({len(parted)} "
+                             f"of {len(results)} queries parted; {n_tok} tokens)")
+    keep = ("target_qps", "issued", "completed", "latency_ms_p50", "latency_ms_p90",
+            "latency_ms_p99", "qps", "wall_seconds", "result_validity", "invalid_reasons",
+            "launches")
+    emit({"phase": "server_probe", "card": card, "replay": blank_replay,
+          "utterances": len(store), "slots": runner.slots, "split_len": runner.split_len,
+          "warmup_seconds": warm, "cadence": out["cadence"],
+          "device_step_cadence_ms": out["device_step_cadence_ms"],
+          "ladder_native": [{k: lv.get(k) for k in keep} for lv in ladder],
+          "rules": out["rules"], "highest_valid_qps": highest,
+          "python_clock": [{k: lv.get(k) for k in keep} for lv, _ in python_clock.values()],
+          "streaming_vs_offline": {"queries": len(results), "tokens": n_tok,
+                                   "queries_parted": len(parted), "partings": parted},
+          "launches": launches, "seconds": time.time() - t_phase})
+    return {"main": launches, "timed_pass": launches}
+
+
+# stage -1's golden gate runs tests/test_torch_golden.py, which makes the
+# bundle's weights with the JAX package: this script runs nothing of it
+GOLDEN_NOT_RUN = ("    golden gate NOT RUN by chip_smoke.py: tests/test_torch_golden.py "
+                  "imports the JAX package")
+
+
+def phase_run_stages(card: str) -> dict:
+    """tools/run_stages.py, the port's scripts/run.sh flow, with QUICK=true,
+    STAGE=-1 and SYNTHETIC=64 in a temporary WORK_DIR, on the card (launch
+    counts set to 0 just before, read just after; per stage from the
+    records): stage -1 builds the four kernels and the loadgen (its QUICK
+    golden gate is not run: the test imports the JAX package), stages 0-2
+    skip, stage 3 calibrates (kernel C) and quantizes, then checks the
+    calibration against a TRT cache written into WORK_DIR (advisory on a
+    synthetic calibration), stage 5 runs the Offline accuracy (packed) and
+    performance (native) runs and the Server accuracy and performance
+    (native) runs (kernels A and B).  MANIFEST names a manifest written for
+    the synthetic store, so the Offline runs score a WER.  Gates: every
+    stage returns, the calibration, the int8 npz, the accuracy log and the
+    four summaries exist, both performance summaries say timing native,
+    tools/eval_accuracy.py on the Offline accuracy log prints the WER of
+    that run's summary.json, and kernels A, B and C each launched."""
+    import struct
+    import tempfile
+
+    from rnnt_inference_tpu_torch.data.dataset import SampleStore
+    from rnnt_inference_tpu_torch.ops import decode_cuda, lstm_cuda, lstm_scan_cuda
+    from rnnt_inference_tpu_torch.tools import eval_accuracy, run_stages
+
+    t_phase = time.time()
+    counters = {"quant_lstm_layer": lstm_cuda.quant_lstm_layer_cuda,
+                "decode_step": decode_cuda.decode_step_cuda,
+                "lstm_recurrence": lstm_scan_cuda.lstm_recurrence_cuda}
+    root = os.path.dirname(os.path.abspath(__file__))
+    rng = np.random.RandomState(17)
+    words = "the a of speech model reads seven quiet rivers under bright stones".split()
+    with tempfile.TemporaryDirectory() as d:
+        work = os.path.join(d, "work")
+        os.makedirs(work)
+        store = SampleStore.synthetic(n=64, seed=0)  # main's --synthetic 64 (--seed 0)
+        manifest = os.path.join(d, "m.json")
+        with open(manifest, "w") as f:
+            json.dump([{"audio_filepath": name, "duration": len(s) / 16000.0,
+                        "transcript": " ".join(rng.choice(words, size=rng.randint(3, 9)))}
+                       for name, s in zip(store.names, store.samples)], f)
+        # a TRT MinMax cache (name: big-endian hex of amax / 127) for stage 3b
+        names = ["input"] + [f"encoder.{net}.lstm{i}_{t}" for net, n in (("pre_rnn", 2),
+                                                                         ("post_rnn", 3))
+                             for i in range(n) for t in ("hidden", "output")]
+        with open(os.path.join(work, "calibration_result_nv.cache"), "w") as f:
+            f.write("TRT-8001-MinMaxCalibration\n")
+            for k in names:
+                amax = 5.84 if k == "input" else 1.0
+                f.write(f"{k}: {struct.pack('>f', amax / 127).hex()}\n")
+        env = {"QUICK": "true", "STAGE": "-1", "SYNTHETIC": "64", "WORK_DIR": work,
+               "MANIFEST": manifest}
+        for c in counters.values():
+            c.launches = 0
+        stages = run_stages.Stages()
+        with contextlib.chdir(root), contextlib.redirect_stdout(sys.stderr):
+            run_stages.run_all(env, stages, gate=lambda: print(GOLDEN_NOT_RUN))
+        records = stages.records
+        launches = {k: c.launches for k, c in counters.items()}
+        out_dir = os.path.join(work, "out")
+        need = [os.path.join(work, f) for f in ("rnnt_calib.npz", "rnnt_quant.npz", "quick.conf")]
+        need += [os.path.join(out_dir, "offline_acc", "accuracy_log.json")]
+        need += [os.path.join(out_dir, r, "summary.json")
+                 for r in ("offline_acc", "offline_perf", "server_acc", "server_perf")]
+        missing = [f for f in need if not os.path.isfile(f)]
+        if missing:
+            raise AssertionError(f"run_stages: missing {missing}")
+        summaries = {}
+        for r in ("offline_acc", "offline_perf", "server_acc", "server_perf"):
+            with open(os.path.join(out_dir, r, "summary.json")) as f:
+                summaries[r] = json.load(f)
+        for r in ("offline_perf", "server_perf"):
+            if summaries[r].get("timing") != "native":
+                raise AssertionError(f"run_stages {r}: timing {summaries[r].get('timing')!r}")
+        with contextlib.redirect_stdout(sys.stderr):
+            wer = eval_accuracy.main(["--log_path",
+                                      os.path.join(out_dir, "offline_acc", "accuracy_log.json"),
+                                      "--manifest_path", manifest,
+                                      "--hypotheses_out", os.path.join(d, "hypotheses.log")])
+        run_wer = summaries["offline_acc"].get("wer_percent")
+        if run_wer is None or round(wer * 100, 3) != run_wer:
+            raise AssertionError(f"run_stages: eval_accuracy WER {wer * 100}% against the "
+                                 f"run's {run_wer}%")
+    if not all(launches.values()):
+        raise AssertionError(f"run_stages: launches {launches}")
+    calls = {}  # "stage:run" -> launches and seconds of one main call
+    for r in records:
+        a = r["argv"]
+        run = (a[a.index("--output_dir") + 1].rsplit("/", 1)[-1] if "--output_dir" in a
+               else a[2].lstrip("-"))
+        calls[f"{r['stage']}:{run}"] = {"launches": r["launches"], "seconds": r["seconds"]}
+    emit({"phase": "run_stages", "card": card, "env": {k: v for k, v in env.items()
+                                                        if k not in ("WORK_DIR", "MANIFEST")},
+          "golden_gate": GOLDEN_NOT_RUN.strip(),
+          "main_calls": calls, "launches": launches,
+          "wer_percent": run_wer, "eval_accuracy_wer_percent": wer * 100,
+          "summaries": {k: {x: v.get(x) for x in ("timing", "result_validity",
+                                                  "samples_per_second", "completed",
+                                                  "latency_ms_p99", "wer_percent")}
+                        for k, v in summaries.items()},
+          "seconds": time.time() - t_phase})
+    perf = [r["launches"] for r in records
+            if "--native_loadgen" in r["argv"] and "--accuracy" not in r["argv"]]
+    return {"main": launches,
+            "timed_pass": {k: sum(p[k] for p in perf) for k in launches}}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2519,6 +2820,9 @@ def main() -> int:
     benches = phase_bench(card)
     twins = phase_bench_twins(params, dev, card, benches, bench_store)
     phase_profile(qweights, params, dev, card, benches["blank_cap1"][0], bench_store)
+    paths["server_probe"] = phase_server_probe(params, dev, card, benches["blank_cap1"][0],
+                                               bench_store)
+    paths["run_stages"] = phase_run_stages(card)
     # launches: A from the int8 Offline path (one pass); B and C from one
     # main call of the CLI's default run mode (bf16), this slice's main
     # path; D from its own entry point; per timed pass beside them
@@ -2528,10 +2832,10 @@ def main() -> int:
     c["launches"] = paths["bf16"]["main"]["lstm_recurrence"]
     d["launches_per_timed_pass"] = d["launches"]
     native = ("native_offline", "native_packed", "native_server", "native_single_stream",
-              "product_chain")
+              "product_chain", "server_probe", "run_stages")
     for e, name, ks in ((a, "quant_lstm_layer", ("int8", "packed", "server") + native),
                         (b, "decode_step", ("int8", "bf16", "f32", "packed", "server") + native),
-                        (c, "lstm_recurrence", ("bf16", "f32", "product_chain"))):
+                        (c, "lstm_recurrence", ("bf16", "f32", "product_chain", "run_stages"))):
         e["launches_per_timed_pass"] = paths["bf16" if e is not a else "int8"]["timed_pass"][name]
         e["launches_by_path"] = {k: paths[k]["main"][name] for k in ks}
         e["launches_per_timed_pass_by_path"] = {k: paths[k]["timed_pass"][name] for k in ks}

@@ -295,7 +295,7 @@ def _run_scenario(args, weights, store, params, cfg, device):
                 min_query_count=settings.min_query_count,
                 min_duration_s=settings.min_duration_ms / 1e3,
             )
-            summary = dict(metrics, scenario="Server")
+            summary = dict(metrics, scenario="Server", timing="native")
         else:
             metrics, results = run_server(
                 runner, store, target_qps=settings.target_qps,

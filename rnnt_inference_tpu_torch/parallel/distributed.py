@@ -39,6 +39,18 @@ def initialize(
                             rank=process_id)
 
 
+def shutdown() -> None:
+    """Leave the process group: a barrier, so that no rank tears its
+    connections down while another still uses them, then
+    destroy_process_group; a no-op without a group.  A process that exits
+    with its gloo group still alive can abort in the group's destructor
+    ("terminate called without an active exception") after its work is
+    done."""
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
+
+
 def process_index() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
 
@@ -55,20 +67,27 @@ def host_shard_indices(n_samples: int, lengths: np.ndarray) -> np.ndarray:
     return order[process_index()::process_count()]
 
 
-def local_devices() -> List[torch.device]:
-    """This process's devices: the visible CUDA devices striped over the
-    processes (device i to rank i mod world; with more ranks than cards,
-    rank r takes card r mod count), or the CPU without CUDA."""
-    if not torch.cuda.is_available() or torch.cuda.device_count() == 0:
+def local_devices(kind: str = "cuda") -> List[torch.device]:
+    """This process's devices of the kind its caller asks for: "cuda" takes
+    the visible CUDA devices striped over the processes (device i to rank i
+    mod world; with more ranks than cards, rank r takes card r mod count)
+    and raises when no CUDA device is visible; "cpu" is the CPU."""
+    if kind == "cpu":
         return [torch.device("cpu")]
-    n, rank, world = torch.cuda.device_count(), process_index(), process_count()
+    if kind != "cuda":
+        raise ValueError(f"device kind {kind!r}: 'cuda' or 'cpu'")
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n == 0:
+        raise RuntimeError("no CUDA device is visible: ask for 'cpu' to serve on the CPU")
+    rank, world = process_index(), process_count()
     mine = [torch.device("cuda", i) for i in range(n) if i % world == rank]
     return mine or [torch.device("cuda", rank % n)]
 
 
-def local_data_mesh() -> Mesh:
-    """A ("data", "model") mesh over this process's local devices."""
-    return make_mesh(devices=local_devices())
+def local_data_mesh(kind: str = "cuda") -> Mesh:
+    """A ("data", "model") mesh over this process's local devices of
+    ``kind`` (``local_devices``)."""
+    return make_mesh(devices=local_devices(kind))
 
 
 def all_gather_floats(values) -> np.ndarray:

@@ -351,15 +351,21 @@ def run_offline_native(
     return report
 
 
-def eval_accuracy_log(log_path: str, references: List[str]) -> float:
-    """Score an accuracy log against reference transcripts."""
+def accuracy_log_hypotheses(log_path: str) -> List[str]:
+    """The hypotheses of an accuracy log, in qsl_idx order ("" where an
+    index has no entry)."""
     with open(log_path) as f:
         results = json.load(f)
-    hyps: List[Optional[str]] = [None] * len(results)
+    hyps = [""] * len(results)
     for r in results:
         seq = hex_to_tokens(r["data"])
         hyps[r["qsl_idx"]] = seq_to_sen(seq, len(seq))
-    wer, _, _ = word_error_rate([h or "" for h in hyps], references)
+    return hyps
+
+
+def eval_accuracy_log(log_path: str, references: List[str]) -> float:
+    """Score an accuracy log against reference transcripts."""
+    wer, _, _ = word_error_rate(accuracy_log_hypotheses(log_path), references)
     return wer
 
 

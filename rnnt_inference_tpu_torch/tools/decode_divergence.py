@@ -41,6 +41,9 @@ compare_tp_run_launches does it for every call of a tensor-parallel run
 plain one) against the one-device twin on the joined state.
 summed_in_halves gives a second plain version of the twin, summing in
 another order, to measure how far two plain versions part on a model.
+compare_fproj_lanes finds where two decodes of one utterance part when
+their joint projection and lane count differ (two runs that batch it
+differently), and whether that is a near-tie.
 """
 
 from __future__ import annotations
@@ -356,6 +359,87 @@ def compare_tp_run_launches(run: Callable[[], object]) -> dict:
     finally:
         dc.decode_step_tp = launch
     return result, _summary(reports, tie)
+
+
+def _one_lane(fproj: torch.Tensor, f_len: int, n: int, dw: dc.DecodeWeights,
+              params: RNNTParams):
+    """An n-lane decode state from SOS whose lane 0 decodes ``fproj`` (T2,
+    J) for f_len frames; the other lanes are finished (f_len 0)."""
+    dev, (T2, J) = fproj.device, fproj.shape
+    fp = torch.zeros((T2, n, J), dtype=fproj.dtype, device=dev)
+    fp[:, 0] = fproj
+    f_lens = torch.zeros((n,), dtype=torch.int32, device=dev)
+    f_lens[0] = f_len
+    lanes = torch.zeros((dc.N_LANE_ROWS, n), dtype=torch.int32, device=dev)
+    lanes[dc.PRE_G] = params.SOS
+    lanes[dc.RES_IDX] = -1
+    lanes[dc.FINISH] = (f_lens == 0).int()
+    lanes[dc.F_LENS] = f_lens
+    lanes[dc.EOS] = torch.clamp(f_lens - 1, min=0)
+    L, P = params.pred_num_layers, params.pred_hidden_size
+    return [fp, lanes, torch.zeros((L, n, P), dtype=dw.embed.dtype, device=dev),
+            torch.zeros((L, n, P), dtype=torch.float32, device=dev),
+            torch.full((n, params.max_res_len), -1, dtype=torch.int8, device=dev)]
+
+
+def compare_fproj_lanes(fproj_a: torch.Tensor, fproj_b: torch.Tensor, f_len: int,
+                        dw: dc.DecodeWeights, params: RNNTParams, lane_counts=(1, 1),
+                        impl: Optional[str] = None) -> dict:
+    """Two decodes of one utterance from the same encoder output, as two runs
+    that batch it differently make them: decode a projects it as
+    ``fproj_a`` (T2, J) and runs it as lane 0 of ``lane_counts[0]`` lanes,
+    decode b with ``fproj_b`` in ``lane_counts[1]`` lanes.  The projection's products, and
+    kernel B's, may sum in an order that depends on the batch's shape.  Both
+    run in lockstep, one kernel-B launch of one iteration each (the twin for
+    CPU tensors or impl="reference").  The prediction net's state follows
+    the symbols emitted, so until the decodes part their time is equal and
+    their h and c differ by rounding alone.  At the first iteration after
+    which their lane rows differ: both symbols, the twin's gap there (on
+    decode a's state and input, its logit of a's symbol minus b's), the
+    logit shift (max |twin logits on a's input - on b's|), the frame's
+    fproj drift and the h and c drift before the iteration.  The parting is
+    a near-tie when the symbols differ, the drift is within kernel B's
+    per-step tolerances (``tolerances``), the shift within the product tie
+    tolerance (the inputs differ as two summation orders do) and |gap|
+    within that tolerance plus the shift.  Both decodes run to their end;
+    returns their tokens too."""
+    sides = [_one_lane(fp, f_len, n, dw, params)
+             for fp, n in ((fproj_a, lane_counts[0]), (fproj_b, lane_counts[1]))]
+    rows = [dc.PRE_G, dc.TIME, dc.SYMADD, dc.RES_IDX, dc.FINISH]
+    tol = product_tie_tolerance(dw.embed.dtype)
+    tol_h, tol_c = tolerances(dw.embed.dtype)
+    out = dict(parted=False, near_tie=None, lane_counts=list(lane_counts))
+    for it in range(fproj_a.shape[0] * (params.max_symbols_per_step + 1) + 1):
+        if all(bool(sd[1][dc.FINISH].all()) for sd in sides):
+            break
+        before = [t[:, :1].clone() for t in sides[0][1:4]]  # lane 0's lanes, hg, cg
+        hb, cb = sides[1][2][:, :1].clone(), sides[1][3][:, :1].clone()
+        for fp, ln, hg, cg, res in sides:
+            dc.decode_step(fp, ln, hg, cg, res, dw, params, 1, impl)
+        a, b = sides[0][1][rows, 0], sides[1][1][rows, 0]
+        if out["parted"] or torch.equal(a, b):
+            continue
+        ln0, hg0, cg0 = before
+        fp2 = torch.stack([fproj_a, fproj_b], dim=1).contiguous()
+        logits, _, _ = dc.decode_logits_reference(fp2, ln0.expand(-1, 2).contiguous(),
+                                                  hg0.expand(-1, 2, -1).contiguous(),
+                                                  cg0.expand(-1, 2, -1).contiguous(), dw, params)
+        sym = [int(sides[0][1][dc.SYMBOL, 0]), int(sides[1][1][dc.SYMBOL, 0])]
+        t = int(ln0[dc.TIME, 0])
+        shift = float((logits[0] - logits[1]).abs().max())
+        gap = float(logits[0, sym[0]] - logits[0, sym[1]])
+        hd = float((hg0.float() - hb.float()).abs().max())
+        cd = float((cg0 - cb).abs().max())
+        out.update(parted=True, iteration=it, frame=t, symbols=sym, gap=gap, logit_shift=shift,
+                   fproj_drift=float((fproj_a[t] - fproj_b[t]).abs().max()), hg_drift=hd,
+                   cg_drift=cd, product_tie_tolerance=tol,
+                   near_tie=bool(sym[0] != sym[1] and hd <= tol_h and cd <= tol_c
+                                 and shift <= tol and abs(gap) <= tol + shift))
+    out["tokens"] = []
+    for _, ln, _, _, res in sides:
+        n = min(int(ln[dc.RES_IDX, 0]) + 1, params.max_res_len)
+        out["tokens"].append(res[0, :n].cpu().numpy().astype(np.int32))
+    return out
 
 
 def main() -> int:

@@ -81,7 +81,7 @@ def worker(args) -> int:
     from rnnt_inference_tpu_torch.runtime.harness import run_offline
 
     distributed.initialize(args.coord, args.procs, args.rank, args.backend)
-    dev = distributed.local_devices()[0] if args.device == "cuda" else torch.device("cpu")
+    dev = distributed.local_devices(args.device)[0]
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // args.procs))
@@ -106,8 +106,7 @@ def worker(args) -> int:
         merged["per_host_wall_seconds"] = [float(v) for v in walls]
         merged["load_balance_efficiency"] = float(np.mean(walls) / np.max(walls))
         print("PROBE " + json.dumps(merged), flush=True)
-    if torch.distributed.is_initialized():
-        torch.distributed.destroy_process_group()
+    distributed.shutdown()
     return 0
 
 

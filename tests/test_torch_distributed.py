@@ -28,7 +28,7 @@ _WORKER = textwrap.dedent(
     sys.path.insert(0, os.environ["RNNT_REPO"])
     import numpy as np
     from rnnt_inference_tpu_torch.parallel.distributed import (
-        all_hosts_report, host_shard_indices, initialize, process_count, process_index,
+        all_hosts_report, host_shard_indices, initialize, process_count, process_index, shutdown,
     )
 
     pid = int(os.environ["PROC_ID"])
@@ -43,6 +43,8 @@ _WORKER = textwrap.dedent(
     merged = all_hosts_report(local)
     print("MERGED", pid, merged["audio_seconds_per_second"], merged["samples"],
           merged["hosts"], flush=True)
+    shutdown()
+    assert process_count() == 1
     """
 )
 
@@ -109,8 +111,22 @@ def test_initialize_one_process_is_a_noop():
     import torch.distributed as dist
 
     assert not dist.is_initialized()
-    assert tdist.local_devices() == [tdist.torch.device("cpu")]
-    assert tdist.local_data_mesh().shape == {"data": 1, "model": 1}
+    tdist.shutdown()  # no group: a no-op
+    assert tdist.local_devices("cpu") == [tdist.torch.device("cpu")]
+    assert tdist.local_data_mesh("cpu").shape == {"data": 1, "model": 1}
+
+
+def test_local_devices_cuda_raises_without_a_card(monkeypatch):
+    """Asked for the card with no CUDA device visible, local_devices and
+    local_data_mesh raise: no silent CPU path."""
+    monkeypatch.setattr(tdist.torch.cuda, "is_available", lambda: False)
+    for fn in (tdist.local_devices, tdist.local_data_mesh):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn("cuda")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn()
+    with pytest.raises(ValueError):
+        tdist.local_devices("tpu")
 
 
 def test_multihost_probe_ranks_match_single_process(tmp_path):

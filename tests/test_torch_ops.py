@@ -163,8 +163,9 @@ def test_port_imports_no_jax():
     """Importing every module of the port, the bench, the profiler, the
     native loadgen's bindings, the text, manifest, audio and FLAC modules,
     the mesh, distributed and tensor-parallel modules, the Transcriber, the golden module
-    and the tools included, loads no jax and nothing of the JAX package (a
-    fresh interpreter)."""
+    and the tools (the entry scripts' counterparts eval_accuracy, check_calib,
+    server_probe and run_stages among them) included, loads no jax and
+    nothing of the JAX package (a fresh interpreter)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import rnnt_inference_tpu_torch as p\n"
@@ -180,7 +181,10 @@ def test_port_imports_no_jax():
         "'rnnt_inference_tpu_torch.parallel.tensor', "
         "'rnnt_inference_tpu_torch.utils.golden', 'rnnt_inference_tpu_torch.tools.multihost_probe', "
         "'rnnt_inference_tpu_torch.tools.dryrun_multichip', "
-        "'rnnt_inference_tpu_torch.tools.convert_librispeech'} <= set(sys.modules)\n"
+        "'rnnt_inference_tpu_torch.tools.convert_librispeech', "
+        "'rnnt_inference_tpu_torch.tools.eval_accuracy', 'rnnt_inference_tpu_torch.tools.check_calib', "
+        "'rnnt_inference_tpu_torch.tools.server_probe', "
+        "'rnnt_inference_tpu_torch.tools.run_stages'} <= set(sys.modules)\n"
         "print('ok')\n"
     )
     out = subprocess.run(
