@@ -83,6 +83,16 @@ it and read just after:
     Offline and Server accuracy and native performance runs on kernels A
     and B); tools/eval_accuracy.py on its Offline accuracy log prints the
     run's own WER;
+  - bare_machine: the same flow from a bare machine, STAGE=-1 QUICK=true
+    with PLATFORM unset: stage -1 probes the card in a throwaway process
+    (utils/backend.py), stage 0 fetches a seeded full-width rnnt.pt and
+    stage 1 two seeded LibriSpeech-layout tarballs (dev-clean 32 FLAC
+    utterances of 2-14 s, train-clean-100 16 of 2-8 s; md5-checked) from
+    a loopback HTTP server (data/download.py), stage 2 converts them, stage
+    3 calibrates on the listed train utterances with --model rnnt.pt
+    (kernel C), stage 5 serves dev-clean.npz (kernels A and B); a second
+    pass fetches nothing, the stores are bit-equal to the seeded 16-bit
+    audio, and tools/eval_accuracy.py gives the run's WER;
   - bench_blank_cap1 / bench_burst_cap30: the port's bench (``python -m
     rnnt_inference_tpu_torch.bench``, a child process) at the JAX headline
     configuration (int8, packed, cap 1, calibrated blank rate 0.8) and at
@@ -110,6 +120,8 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import hashlib
+import io
 import json
 import os
 import socket
@@ -2759,6 +2771,299 @@ def phase_run_stages(card: str) -> dict:
             "timed_pass": {k: sum(p[k] for p in perf) for k in launches}}
 
 
+BARE_WORDS = ("HE SAID THE QUIET RIVER RAN UNDER SEVEN BRIGHT STONES WHILE A MODEL READ "
+              "OF SPEECH AND NIGHT").split()
+
+
+def _flac16k(q: np.ndarray) -> bytes:
+    from rnnt_inference_tpu_torch.data.flac import encode_flac
+
+    return encode_flac(q, 16000)
+
+
+def _md5(path: str) -> str:
+    with open(path, "rb") as f:
+        return hashlib.md5(f.read()).hexdigest()
+
+
+def _librispeech_subset(root: str, subset: str, n: int, seconds, rng, pool) -> dict:
+    """root/<subset>.tar.gz in LibriSpeech's layout: members
+    LibriSpeech/<subset>/<spk>/<chap>/<spk>-<chap>-<utt>.flac (seeded
+    speech-like noise, 16-bit, encoded with the port's encode_flac in
+    ``pool``) and one <spk>-<chap>.trans.txt per chapter (upper-case, as
+    LibriSpeech).  Returns {utterance id: (int16 samples, transcript)}."""
+    import tarfile
+
+    from rnnt_inference_tpu_torch.data.dataset import speechlike_noise
+
+    utts, ids = {}, []
+    spk0 = 1000 if subset == "dev-clean" else 5000
+    for i in range(n):  # four speakers of two chapters each
+        spk, chap = spk0 + 37 * (i % 4), 20000 + 11 * (i % 8 // 4)
+        uid = f"{spk}-{chap}-{i:04d}"
+        x = speechlike_noise(rng, int(rng.uniform(*seconds) * 16000))
+        q = np.clip(np.round(x * 32767.0), -32768, 32767).astype(np.int16)
+        utts[uid] = (q, " ".join(rng.choice(BARE_WORDS, size=rng.randint(4, 16))))
+        ids.append(uid)
+    flacs = dict(zip(ids, pool.map(_flac16k, [utts[u][0] for u in ids])))
+    with tarfile.open(os.path.join(root, f"{subset}.tar.gz"), "w:gz") as t:
+        def add(name, data):
+            info = tarfile.TarInfo(f"LibriSpeech/{subset}/{name}")
+            info.size = len(data)
+            t.addfile(info, io.BytesIO(data))
+
+        for spk, chap in sorted({tuple(u.split("-")[:2]) for u in ids}):
+            mine = [u for u in ids if u.startswith(f"{spk}-{chap}-")]
+            add(f"{spk}/{chap}/{spk}-{chap}.trans.txt",
+                "".join(f"{u} {utts[u][1]}\n" for u in mine).encode())
+            for u in mine:
+                add(f"{spk}/{chap}/{u}.flac", flacs[u])
+    return utts
+
+
+class _Tee(io.TextIOBase):
+    """Writes to stderr and keeps the text, with the time of each "==> "
+    stage marker."""
+
+    def __init__(self):
+        self.text, self.marks = io.StringIO(), []
+
+    def write(self, s: str) -> int:
+        if s.startswith("==> "):
+            self.marks.append((time.time(), s.strip()))
+        sys.stderr.write(s)
+        return self.text.write(s)
+
+    def flush(self) -> None:
+        sys.stderr.flush()
+
+
+@contextlib.contextmanager
+def _loopback_only():
+    """No proxy from the environment may take a loopback fetch off the host."""
+    keys = ("http_proxy", "HTTP_PROXY", "https_proxy", "HTTPS_PROXY", "all_proxy", "ALL_PROXY",
+            "no_proxy", "NO_PROXY")
+    saved = {k: os.environ.pop(k) for k in keys if k in os.environ}
+    os.environ["no_proxy"] = os.environ["NO_PROXY"] = "127.0.0.1,localhost"
+    try:
+        yield
+    finally:
+        for k in ("no_proxy", "NO_PROXY"):
+            os.environ.pop(k, None)
+        os.environ.update(saved)
+
+
+def phase_bare_machine(card: str, seed: int) -> dict:
+    """tools/run_stages.py from a bare machine: STAGE=-1, QUICK=true,
+    PLATFORM unset, in a temporary WORK_DIR, with the checkpoint and the
+    corpus fetched over loopback.  A zenodo-layout rnnt.pt of seeded f32
+    weights at RNNTParams() (full width) and two LibriSpeech-layout subsets
+    (dev-clean: 32 utterances of 2-14 s; train-clean-100: 16 of 2-8 s;
+    seeded 16-bit speech-like noise as FLAC with upper-case transcripts)
+    are served by a ThreadingHTTPServer on 127.0.0.1; MODEL_URL and
+    data/download.py's LIBRISPEECH_SETS (the module attribute, for this
+    phase) point at it, with the tarballs' md5s; CALIB_LIST names 12 of the
+    16 train utterances; TRT_CACHE names no file (seeded weights cannot
+    match a TRT cache, so stage 3b does not run).  Stage -1 probes the card
+    in a throwaway process and builds; stage 0 fetches rnnt.pt, stage 1
+    both tarballs (md5 checked) and extracts them, stage 2 converts them
+    (dev-clean.npz with features, train-calib.npz with the list), stage 3
+    calibrates on train-calib.npz with --model rnnt.pt (kernel C) and
+    quantizes, stage 5 serves dev-clean.npz in its four runs (kernels A and
+    B).  Launch counts are set to 0 just before the run and read just
+    after.  Gates: the probe's detail names the card and the device count;
+    each file fetched once, byte for byte and md5-checked; a second run
+    from STAGE=0, and data/download.py main again, fetch nothing; the
+    stores' samples bit-equal to the seeded 16-bit samples / 2**15, the
+    calibration store holding the listed utterances; C launched in stage
+    3, A and B in each of stage 5's four runs; tools/eval_accuracy.py on
+    the Offline accuracy log and the conversion's manifest gives the WER of
+    the run's summary (the Server accuracy log, scored the same way, is
+    printed beside it)."""
+    import collections
+    import http.server
+    import tempfile
+    import threading
+    from concurrent.futures import ProcessPoolExecutor
+    from multiprocessing import get_context
+
+    from rnnt_inference_tpu_torch.config import RNNTParams
+    from rnnt_inference_tpu_torch.data import download
+    from rnnt_inference_tpu_torch.data.dataset import SampleStore
+    from rnnt_inference_tpu_torch.models.weights import init_weights, torch_state_dict_from_weights
+    from rnnt_inference_tpu_torch.ops import decode_cuda, lstm_cuda, lstm_scan_cuda
+    from rnnt_inference_tpu_torch.tools import eval_accuracy, run_stages
+
+    t_phase = time.time()
+    counters = {"quant_lstm_layer": lstm_cuda.quant_lstm_layer_cuda,
+                "decode_step": decode_cuda.decode_step_cuda,
+                "lstm_recurrence": lstm_scan_cuda.lstm_recurrence_cuda}
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as d, _loopback_only():
+        src, work = os.path.join(d, "served"), os.path.join(d, "work")
+        os.makedirs(src)
+        t0 = time.time()
+        weights = init_weights(RNNTParams(), torch.Generator().manual_seed(seed + 21), device="cpu")
+        torch.save({"state_dict": torch_state_dict_from_weights(weights), "epoch": 100},
+                   os.path.join(src, "rnnt.pt"))
+        del weights
+        rng = np.random.RandomState(seed + 22)
+        with ProcessPoolExecutor(8, mp_context=get_context("spawn")) as pool:
+            utts = {"dev-clean": _librispeech_subset(src, "dev-clean", 32, (2.0, 14.0), rng,
+                                                     pool),
+                    "train-clean-100": _librispeech_subset(src, "train-clean-100", 16,
+                                                           (2.0, 8.0), rng, pool)}
+        listed = sorted(utts["train-clean-100"])[:12]
+        calib_list = os.path.join(d, "calibration_files.txt")
+        with open(calib_list, "w") as f:
+            f.writelines(f"LibriSpeech/train-clean-100/{u.split('-')[0]}/{u.split('-')[1]}/"
+                         f"{u}.flac\n" for u in listed)
+        served = {n: _md5(os.path.join(src, n))
+                  for n in ("rnnt.pt", "dev-clean.tar.gz", "train-clean-100.tar.gz")}
+        sizes = {n: os.path.getsize(os.path.join(src, n)) for n in served}
+        setup_seconds = time.time() - t0
+
+        hits, lock = collections.Counter(), threading.Lock()
+
+        class Handler(http.server.SimpleHTTPRequestHandler):
+            def __init__(self, *a, **k):
+                super().__init__(*a, directory=src, **k)
+
+            def do_GET(self):
+                with lock:
+                    hits[self.path] += 1
+                super().do_GET()
+
+            def log_message(self, *a):
+                pass
+
+        server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        url = lambda n: f"http://127.0.0.1:{server.server_address[1]}/{n}"
+        sets = download.LIBRISPEECH_SETS
+        download.LIBRISPEECH_SETS = [(s, url(f"{s}.tar.gz"), served[f"{s}.tar.gz"])
+                                     for s in utts]
+        env = {"STAGE": "-1", "QUICK": "true", "WORK_DIR": work, "MODEL_URL": url("rnnt.pt"),
+               "CALIB_LIST": calib_list, "TRT_CACHE": os.path.join(d, "no-trt-cache")}
+        tee = _Tee()
+        try:
+            for c in counters.values():
+                c.launches = 0
+            stages = run_stages.Stages()
+            with contextlib.chdir(root), contextlib.redirect_stdout(tee):
+                run_stages.run_all(env, stages, gate=lambda: print(GOLDEN_NOT_RUN))
+            t_done = time.time()
+            launches = {k: c.launches for k, c in counters.items()}
+            fetched = dict(hits)
+            again = run_stages.Stages()
+            t0 = time.time()
+            with contextlib.chdir(root), contextlib.redirect_stdout(sys.stderr):
+                run_stages.run_all(dict(env, STAGE="0"), again)
+                download.main(["--download_dir", f"{work}/LibriSpeech", "--subsets",
+                               "dev-clean", "train-clean-100"])
+            second_seconds = time.time() - t0
+            refetched = dict(hits)
+        finally:
+            download.LIBRISPEECH_SETS = sets
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=10)
+        log = tee.text.getvalue()
+
+        # the probe, the fetches and the second pass
+        probe = [ln for ln in log.splitlines() if ln.startswith("  backend probe: ")]
+        name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
+        if len(probe) != 1 or name not in probe[0] or f"devices={count}" not in probe[0]:
+            raise AssertionError(f"bare_machine: probe lines {probe} (card {name!r} x {count})")
+        want = {f"/{n}": 1 for n in served}
+        if fetched != want or refetched != want:
+            raise AssertionError(f"bare_machine: requests {fetched}, after the second pass "
+                                 f"{refetched}; want {want}")
+        got = {n: _md5(os.path.join(work, n) if n == "rnnt.pt" else
+                       os.path.join(work, "LibriSpeech", n)) for n in served}
+        if got != served:
+            raise AssertionError(f"bare_machine: fetched md5s {got} against served {served}")
+
+        # stage 2's stores against the seeded 16-bit samples
+        stores = {"dev-clean": SampleStore.load(os.path.join(work, "dev-clean.npz")),
+                  "train-clean-100": SampleStore.load(os.path.join(work, "train-calib.npz"))}
+        if (len(stores["dev-clean"]) != 32
+                or sorted(stores["train-clean-100"].names) != [f"{u}.flac" for u in listed]):
+            raise AssertionError(f"bare_machine: stores of {len(stores['dev-clean'])} and "
+                                 f"{stores['train-clean-100'].names}")
+        for s, store in stores.items():
+            for n, x in zip(store.names, store.samples):
+                q = utts[s][n[: -len(".flac")]][0]
+                if x.dtype != np.float32 or not np.array_equal(x, q.astype(np.float32) / 32768.0):
+                    raise AssertionError(f"bare_machine: {s} {n} differs from its seeded samples")
+
+        # the calibration (kernel C) and the four serving runs (A and B)
+        records = stages.records
+        cal = [r for r in records if r["stage"] == "3" and "--calibration" in r["argv"]]
+        serve = [r for r in records if r["stage"] == "5"]
+        if (len(cal) != 1 or not cal[0]["launches"]["lstm_recurrence"]
+                or cal[0]["argv"][cal[0]["argv"].index("--model") + 1] != f"{work}/rnnt.pt"
+                or f"{work}/train-calib.npz" not in cal[0]["argv"]):
+            raise AssertionError(f"bare_machine: calibration {cal}")
+        if len(serve) != 4 or any(
+                not r["launches"]["quant_lstm_layer"] or not r["launches"]["decode_step"]
+                or r["argv"][r["argv"].index("--sample_file") + 1] != f"{work}/dev-clean.npz"
+                for r in serve):
+            raise AssertionError(f"bare_machine: stage 5 {[r['launches'] for r in serve]}")
+        out_dir = os.path.join(work, "out")
+        summaries = {}
+        for r in ("offline_acc", "offline_perf", "server_acc", "server_perf"):
+            with open(os.path.join(out_dir, r, "summary.json")) as f:
+                summaries[r] = json.load(f)
+        for r in ("offline_perf", "server_perf"):
+            if summaries[r].get("timing") != "native":
+                raise AssertionError(f"bare_machine {r}: timing {summaries[r].get('timing')!r}")
+        with contextlib.redirect_stdout(sys.stderr):
+            wer, server_wer = (eval_accuracy.main([
+                "--log_path", os.path.join(out_dir, r, "accuracy_log.json"),
+                "--manifest_path", os.path.join(work, "dev-clean.manifest.json"),
+                "--hypotheses_out", os.path.join(d, f"{r}_hypotheses.log")])
+                for r in ("offline_acc", "server_acc"))
+        run_wer = summaries["offline_acc"].get("wer_percent")
+        if run_wer is None or round(wer * 100, 3) != run_wer:
+            raise AssertionError(f"bare_machine: eval_accuracy WER {wer * 100}% against the "
+                                 f"run's {run_wer}%")
+    # seconds per stage, from each "==> Stage" line to the next "==> " line
+    marks = tee.marks + [(t_done, "end")]
+    stage_seconds = collections.defaultdict(float)
+    for (t, m), (t_next, _) in zip(marks, marks[1:]):
+        if m.startswith("==> Stage"):
+            stage_seconds[m.split(":")[0].removeprefix("==> ")] += t_next - t
+    if not all(launches.values()):
+        raise AssertionError(f"bare_machine: launches {launches}")
+    emit({"phase": "bare_machine", "card": card, "params": "RNNTParams() defaults",
+          "env": {k: v for k, v in env.items() if k in ("STAGE", "QUICK")},
+          "trt_cache": "none: seeded weights cannot match the reference's TRT cache, so stage "
+                       "3b did not run",
+          "golden_gate": GOLDEN_NOT_RUN.strip(), "probe": probe[0].strip(),
+          "utterances": {s: len(u) for s, u in utts.items()},
+          "audio_seconds": {s: sum(len(q) for q, _ in u.values()) / 16000.0
+                            for s, u in utts.items()},
+          "calibration_utterances": len(listed), "bytes_fetched": sizes,
+          "requests": fetched, "requests_after_second_pass": refetched,
+          "setup_seconds": setup_seconds, "stage_seconds": dict(stage_seconds),
+          "second_pass_seconds": second_seconds,
+          "main_calls": [{"stage": r["stage"], "argv": " ".join(r["argv"][:4]),
+                          "launches": r["launches"], "seconds": r["seconds"]} for r in records],
+          "launches": launches, "wer_percent": run_wer,
+          "eval_accuracy_wer_percent": wer * 100,
+          "server_eval_accuracy_wer_percent": server_wer * 100,
+          "summaries": {k: {x: v.get(x) for x in ("timing", "result_validity",
+                                                  "samples_per_second", "completed",
+                                                  "latency_ms_p99", "wer_percent")}
+                        for k, v in summaries.items()},
+          "seconds": time.time() - t_phase})
+    perf = [r["launches"] for r in records
+            if "--native_loadgen" in r["argv"] and "--accuracy" not in r["argv"]]
+    return {"main": launches, "timed_pass": {k: sum(p[k] for p in perf) for k in launches}}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2823,6 +3128,7 @@ def main() -> int:
     paths["server_probe"] = phase_server_probe(params, dev, card, benches["blank_cap1"][0],
                                                bench_store)
     paths["run_stages"] = phase_run_stages(card)
+    paths["bare_machine"] = phase_bare_machine(card, args.seed)
     # launches: A from the int8 Offline path (one pass); B and C from one
     # main call of the CLI's default run mode (bf16), this slice's main
     # path; D from its own entry point; per timed pass beside them
@@ -2832,10 +3138,11 @@ def main() -> int:
     c["launches"] = paths["bf16"]["main"]["lstm_recurrence"]
     d["launches_per_timed_pass"] = d["launches"]
     native = ("native_offline", "native_packed", "native_server", "native_single_stream",
-              "product_chain", "server_probe", "run_stages")
+              "product_chain", "server_probe", "run_stages", "bare_machine")
     for e, name, ks in ((a, "quant_lstm_layer", ("int8", "packed", "server") + native),
                         (b, "decode_step", ("int8", "bf16", "f32", "packed", "server") + native),
-                        (c, "lstm_recurrence", ("bf16", "f32", "product_chain", "run_stages"))):
+                        (c, "lstm_recurrence", ("bf16", "f32", "product_chain", "run_stages",
+                                                "bare_machine"))):
         e["launches_per_timed_pass"] = paths["bf16" if e is not a else "int8"]["timed_pass"][name]
         e["launches_by_path"] = {k: paths[k]["main"][name] for k in ks}
         e["launches_per_timed_pass_by_path"] = {k: paths[k]["timed_pass"][name] for k in ks}

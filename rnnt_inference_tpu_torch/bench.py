@@ -16,6 +16,13 @@ one JSON line with "error" and value 0 and exits with code 1; it never
 re-emits an earlier result.  --device cpu runs the plain twins of the
 kernels, at any size, for the tests.
 
+Before it touches the card it waits for it, as the JAX bench waits for its
+backend: throwaway probe processes with backoff (utils/backend.py
+wait_for_backend) for up to BENCH_DEADLINE_S seconds (10800), then CUDA
+initialised in this process under a thread guard of
+BENCH_BACKEND_TIMEOUT_S seconds (900).  If either gives up, the one JSON
+line says "unavailable" and why, with value 0, and the exit code is 1.
+
 Env knobs (the JAX bench's, with its defaults): BENCH_N (utterances, 8192),
 BENCH_BATCH (lanes of the packed runner / batch rows, 1024), BENCH_SECONDS
 (wav bucket ladder, "2,3,...,15"), BENCH_DTYPE (quant | bf16 | f32; quant:
@@ -50,6 +57,7 @@ import dataclasses
 import json
 import os
 import sys
+import threading
 import time
 import traceback
 from typing import Callable, List, Optional, Tuple
@@ -401,6 +409,39 @@ def cuda_probe(device: torch.device) -> str:
     return torch.cuda.get_device_name(device)
 
 
+def card_unavailable(device: torch.device) -> Optional[str]:
+    """None once the card answers, else why not: throwaway probes until
+    BENCH_DEADLINE_S, then CUDA initialised in this process under a thread
+    guard of BENCH_BACKEND_TIMEOUT_S (the probe passing does not stop the
+    driver from wedging before this process reaches it)."""
+    from rnnt_inference_tpu_torch.utils.backend import wait_for_backend
+
+    deadline_s = float(os.environ.get("BENCH_DEADLINE_S", "10800"))
+    said: List[str] = []
+
+    def record(msg: str) -> None:
+        log(msg)
+        said.append(msg)
+
+    if not wait_for_backend(deadline_s, log=record):
+        return said[-1]  # the probe's "gave up" line, with its last reason
+    done, out = threading.Event(), {}
+
+    def init() -> None:
+        try:
+            torch.cuda.init()
+            torch.cuda.get_device_name(device)
+        except Exception as e:  # reported as the reason, not raised in the thread
+            out["error"] = f"{type(e).__name__}: {e}"
+        done.set()
+
+    threading.Thread(target=init, daemon=True).start()
+    timeout_s = float(os.environ.get("BENCH_BACKEND_TIMEOUT_S", "900"))
+    if not done.wait(timeout_s):
+        return f"CUDA initialisation still blocked after {timeout_s:.0f}s"
+    return out.get("error")
+
+
 def run(device: torch.device, params: Optional[RNNTParams] = None) -> dict:
     """The benchmark from the knobs; returns the payload.  ``params``
     replaces the model configuration (the tests' small widths); the knobs
@@ -513,8 +554,17 @@ def main(argv=None, params: Optional[RNNTParams] = None) -> int:
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="cuda runs the CUDA kernels; cpu their plain twins (tests)")
     args = parser.parse_args(argv)
+    device = torch.device(args.device)
+    why = card_unavailable(device) if device.type == "cuda" else None
+    if why:
+        log(f"card unavailable: {why}")
+        print(json.dumps({"metric": METRIC, "value": 0, "unit": "audio-s/s", "vs_baseline": 0,
+                          "error": f"CUDA device unavailable: {why}"}), flush=True)
+        # a wedged initialisation thread may still hold the driver: exit
+        # without the interpreter's shutdown, which could touch it
+        os._exit(1)
     try:
-        payload = run(torch.device(args.device), params)
+        payload = run(device, params)
     except Exception as e:  # the boundary: report the failure as the one JSON line
         traceback.print_exc(file=sys.stderr)
         print(json.dumps({"metric": METRIC, "value": 0, "unit": "audio-s/s", "vs_baseline": 0,

@@ -11,7 +11,7 @@ port.
 Run from the repository's root, as run.sh cds there: relative paths
 (WORK_DIR=work, configs/mlperf.conf) are taken from the working directory.
 Each command reads the environment knobs of its shell script, with the
-same defaults (run.sh: STAGE, WORK_DIR, DATA_DIR, MODEL, CALIB_OUT,
+same defaults (run.sh: STAGE, WORK_DIR, DATA_DIR, MODEL, MODEL_URL, CALIB_OUT,
 QUANT_OUT, DEV_CLEAN, TRAIN_CALIB, SYNTHETIC_ONLY, QUICK, CALIB_LIST,
 TRT_CACHE, PACKED, NATIVE, SYNTHETIC, USER_CONF; the stage scripts' own,
 such as BATCH_SIZE, OUTPUT_DIR, SAMPLE_FILE or SLOTS), builds the argument
@@ -24,14 +24,24 @@ JAX scripts pass ``--platform``, and also in the stage-4 quantize call and
 eval, whose JAX scripts pass none); unset, everything runs on the card.
 
 Stages (each runs if STAGE <= n):
-  -1  build the four CUDA kernels (not with PLATFORM=cpu) and the native
-      loadgen, round-trip FLAC; a failed build raises.  With QUICK, the
-      port's golden gate (tests/test_torch_golden.py), where jax imports:
-      that test makes the bundle's weights with the JAX package; elsewhere
-      a line says that the gate did not run and why.
-   0  the checkpoint: used when MODEL exists, else a skip (no download)
-   1  LibriSpeech: a skip when the corpus is absent (no download)
-   2  tools/convert_librispeech.py, when the corpus is present
+  -1  probe the card in a throwaway process killed at a deadline
+      (utils/backend.py probe_backend, PREPARE_PROBE_TIMEOUT_S, 300 s; a
+      probe that fails stops the run), then build the four CUDA kernels
+      (neither with PLATFORM=cpu) and the native loadgen, round-trip FLAC;
+      a failed build raises.  With QUICK, the port's golden gate
+      (tests/test_torch_golden.py), where jax imports: that test makes the
+      bundle's weights with the JAX package; elsewhere a line says that
+      the gate did not run and why.
+   0  the checkpoint: kept when MODEL exists, else (SYNTHETIC_ONLY not
+      true) fetched from MODEL_URL (run.sh's zenodo URL) with
+      data/download.py download_file; a failed fetch prints run.sh's skip
+      notice and leaves no file at MODEL
+   1  LibriSpeech: kept when the corpus is present, else (SYNTHETIC_ONLY
+      not true) data/download.py main fetches, md5-checks and extracts
+      dev-clean and train-clean-100 into DATA_DIR; a failure prints
+      run.sh's notice and the flow goes on
+   2  tools/convert_librispeech.py, when the corpus is present (looked
+      for again after stage 1)
    3  calibrate and quantize (calibrate.sh), then tools/check_calib.py
       against TRT_CACHE when that file exists (default
       $WORK_DIR/calibration_result_nv.cache), advisory unless MODEL and
@@ -56,12 +66,15 @@ import importlib.util
 import os
 import subprocess
 import sys
+import tarfile
 import time
 from pathlib import Path
 from typing import Callable, Dict, List, Optional
 
 from rnnt_inference_tpu_torch import main as cli
+from rnnt_inference_tpu_torch.data import download
 from rnnt_inference_tpu_torch.runtime.offline import launch_counts, launches_since
+from rnnt_inference_tpu_torch.utils import backend
 
 REPO = Path(__file__).resolve().parents[2]
 GOLDEN_TEST = REPO / "tests" / "test_torch_golden.py"
@@ -72,6 +85,13 @@ rnnt.Server.min_query_count = 64
 rnnt.Offline.target_qps = 100
 rnnt.Server.target_qps = 50
 """
+
+# run.sh's MODEL_URL default
+ZENODO_URL = ("https://zenodo.org/record/3662521/files/"
+              "DistributedDataParallel_1576581068.9962234-epoch-100.pt?download=1")
+# what fails a fetch: urllib's errors and a bad md5 (OSError), a URL it
+# cannot open (ValueError), a tarball it refuses (TarError)
+FETCH_ERRORS = (OSError, ValueError, tarfile.TarError)
 
 Env = Dict[str, str]
 
@@ -198,10 +218,12 @@ class Stages:
 
 
 def prepare_env(env: Env) -> None:
-    """Stage -1 (prepare_env.sh): the versions, the four CUDA kernels built
-    and loaded (on the card; PLATFORM=cpu runs the plain twins and builds
-    none), the native loadgen built with g++, FLAC round-tripped.  A failed
-    build raises."""
+    """Stage -1 (prepare_env.sh): the versions; off PLATFORM=cpu, the card
+    probed in a throwaway process killed after PREPARE_PROBE_TIMEOUT_S
+    (a probe that fails raises SystemExit, before any build), then the
+    four CUDA kernels built and loaded (PLATFORM=cpu runs the plain twins
+    and builds none); the native loadgen built with g++, FLAC
+    round-tripped.  A failed build raises."""
     import numpy as np
     import torch
 
@@ -213,12 +235,17 @@ def prepare_env(env: Env) -> None:
 
     print("== python deps ==")
     print(f"  torch {torch.__version__} (CUDA {torch.version.cuda}), numpy {np.__version__}")
-    print("== CUDA kernels ==")
     if _device(env) == ["--device", "cpu"]:
+        print("== CUDA kernels ==")
         print("  PLATFORM=cpu: no kernel built; the plain PyTorch twins run")
     else:
-        if not torch.cuda.is_available():
-            raise SystemExit("  no CUDA device is available (set PLATFORM=cpu to run the twins)")
+        # a wedged driver blocks CUDA initialisation: ask a killable child first
+        ok, detail = backend.probe_backend(float(_get(env, "PREPARE_PROBE_TIMEOUT_S", "300")))
+        if not ok:
+            raise SystemExit(f"  accelerator backend unavailable: {detail}\n"
+                             "  (set PLATFORM=cpu to prepare without it)")
+        print(f"  backend probe: {detail}")
+        print("== CUDA kernels ==")
         names = [lstm_cuda.NAME, decode_cuda.NAME, lstm_scan_cuda.NAME, features_cuda.NAME]
         cuda_build.build(names)  # one nvcc per source, in parallel; raises on failure
         for name in names:
@@ -279,11 +306,13 @@ def run_all(env: Env, stages: Stages, prepare: Callable[[Env], None] = prepare_e
     work = knobs["WORK_DIR"] = _get(env, "WORK_DIR", "work")
     data_dir = knobs["DATA_DIR"] = _get(env, "DATA_DIR", f"{work}/LibriSpeech")
     model = knobs["MODEL"] = _get(env, "MODEL", f"{work}/rnnt.pt")
+    model_url = knobs["MODEL_URL"] = _get(env, "MODEL_URL", ZENODO_URL)
     calib_out = knobs["CALIB_OUT"] = _get(env, "CALIB_OUT", f"{work}/rnnt_calib.npz")
     quant_out = knobs["QUANT_OUT"] = _get(env, "QUANT_OUT", f"{work}/rnnt_quant.npz")
     dev_clean = knobs["DEV_CLEAN"] = _get(env, "DEV_CLEAN", f"{work}/dev-clean.npz")
     train_calib = knobs["TRAIN_CALIB"] = _get(env, "TRAIN_CALIB", f"{work}/train-calib.npz")
     knobs["SYNTHETIC_ONLY"] = _get(env, "SYNTHETIC_ONLY", "false")
+    have_net = knobs["SYNTHETIC_ONLY"] != "true"
     quick = knobs["QUICK"] = _get(env, "QUICK", "false")
     # run.sh's assignments reach the stage scripts only where the knob was
     # exported to it
@@ -293,7 +322,9 @@ def run_all(env: Env, stages: Stages, prepare: Callable[[Env], None] = prepare_e
     os.makedirs(work, exist_ok=True)
     if quick == "true":
         _write_quick(work, env)
-    have_corpus = os.path.isdir(f"{data_dir}/LibriSpeech/dev-clean")
+
+    def have_corpus() -> bool:  # looked for at each stage, as run.sh does
+        return os.path.isdir(f"{data_dir}/LibriSpeech/dev-clean")
 
     if stage <= -1:
         print("==> Stage -1: preparing environment", flush=True)
@@ -302,17 +333,38 @@ def run_all(env: Env, stages: Stages, prepare: Callable[[Env], None] = prepare_e
             print("==> Stage -1b: golden-bundle regression gate (QUICK)", flush=True)
             gate()
     if stage <= 0:
-        print("==> Stage 0: model checkpoint")
-        print(f"    {model} already present" if os.path.isfile(model) else
-              f"    not present, and the port downloads nothing — skipping (runs use "
-              f"random weights; place the zenodo checkpoint at {model} to use real weights)")
+        print("==> Stage 0: downloading model checkpoint", flush=True)
+        fetched = os.path.isfile(model)
+        if fetched:
+            print(f"    {model} already present")
+        elif have_net:
+            try:
+                download.download_file(model_url, model)
+            except FETCH_ERRORS as e:
+                print(f"    fetch failed: {type(e).__name__}: {e}")
+            else:
+                fetched = True
+                print(f"    fetched {model} ({os.path.getsize(model)} bytes)")
+        if not fetched:
+            print("    no network access — skipping (runs will use random weights;")
+            print(f"    place the zenodo checkpoint at {model} to use real weights)")
     if stage <= 1:
-        print("==> Stage 1: LibriSpeech")
-        print(f"    {data_dir}/dev-clean already present" if have_corpus else
-              "    corpus absent, and the port downloads nothing — skipping")
+        print("==> Stage 1: downloading LibriSpeech", flush=True)
+        if have_corpus():
+            print(f"    {data_dir}/dev-clean already present")
+        elif have_net:
+            try:
+                download.main(["--download_dir", data_dir, "--subsets", "dev-clean",
+                               "train-clean-100"])
+            except FETCH_ERRORS as e:
+                print(f"    {type(e).__name__}: {e}")
+                print("    download failed (no network?) — later stages fall back to "
+                      "synthetic data")
+        else:
+            print("    SYNTHETIC_ONLY=true — skipping")
     if stage <= 2:
         print("==> Stage 2: converting dataset", flush=True)
-        if have_corpus:
+        if have_corpus():
             from rnnt_inference_tpu_torch.tools import convert_librispeech
 
             workers = _get(env, "WORKERS", "8")

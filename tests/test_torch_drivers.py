@@ -233,10 +233,11 @@ printf '\\n' >> "$RECORD"
 """
 
 
-def _shell_lists(tmp_path, env, script="run.sh"):
+def _shell_lists(tmp_path, env, script="run.sh", stdout=None):
     """The argument lists of ``python -m rnnt_inference_tpu.main`` that the
     JAX shell script builds under ``env``, with ``--platform cpu`` written as
-    the port's ``--device cpu``; and every python call recorded."""
+    the port's ``--device cpu``; and every python call recorded.  The
+    script's stdout is appended to ``stdout`` when a list is given."""
     bin_dir = tmp_path / "bin"
     bin_dir.mkdir(exist_ok=True)
     for name, body in (("python", FAKE_PYTHON), ("wget", "#!/bin/sh\nexit 1\n")):
@@ -249,6 +250,8 @@ def _shell_lists(tmp_path, env, script="run.sh"):
     r = subprocess.run(["bash", os.path.join(REPO, "scripts", script)], env=full,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
+    if stdout is not None:
+        stdout.append(r.stdout)
     calls = [line.split("\x1f")[:-1] for line in record.read_text().splitlines()]
     mains = []
     for c in calls:
@@ -261,12 +264,21 @@ def _shell_lists(tmp_path, env, script="run.sh"):
     return mains, calls
 
 
-def _port_lists(monkeypatch, env, command="all"):
+def _port_lists(monkeypatch, env, command="all", aux=None):
+    """The port's ``main`` argument lists under ``env``, and the stage -1
+    hooks called; with ``aux`` (a dict), also the argument lists the port
+    passes to data/download.py's and tools/convert_librispeech.py's
+    ``main`` (both recorded, not run), under "download" and "convert"."""
     from rnnt_inference_tpu_torch import main as cli
-    from rnnt_inference_tpu_torch.tools import run_stages
+    from rnnt_inference_tpu_torch.data import download
+    from rnnt_inference_tpu_torch.tools import convert_librispeech, run_stages
 
     calls, hooks = [], []
     monkeypatch.setattr(cli, "main", lambda argv: calls.append(list(argv)))
+    if aux is not None:
+        for key, mod in (("download", download), ("convert", convert_librispeech)):
+            aux[key] = []
+            monkeypatch.setattr(mod, "main", lambda argv, k=key: aux[k].append(list(argv)))
     if command == "all":
         stages = run_stages.Stages()
         run_stages.run_all(env, stages, prepare=lambda e: hooks.append("prepare"),
@@ -278,8 +290,18 @@ def _port_lists(monkeypatch, env, command="all"):
 
 
 def _files(tmp_path, *names):
+    """Empty files, and directories for names that end in "/"."""
     for n in names:
-        (tmp_path / n).write_bytes(b"")
+        if n.endswith("/"):
+            (tmp_path / n).mkdir(parents=True)
+        else:
+            (tmp_path / n).write_bytes(b"")
+
+
+def _without(argv, flag):
+    """argv with ``flag`` and its value taken out."""
+    i = argv.index(flag)
+    return argv[:i] + argv[i + 2:]
 
 
 def _expected(case, w):
@@ -287,6 +309,22 @@ def _expected(case, w):
     q = f"{w}/quick.conf"
     cl = f"{w}/quick_calib_list.txt"
     calib, quant = f"{w}/rnnt_calib.npz", f"{w}/rnnt_quant.npz"
+    if case in ("stage0_fetch_fails", "stage1_corpus_absent"):
+        # STAGE=0 or 1, QUICK=true, SYNTHETIC_ONLY=false, no PLATFORM: stage
+        # 0 fetches nothing (run.sh:83-93), stage 1 calls the download
+        # (run.sh:95-107, recorded, not run), so stage 2 finds no corpus
+        # (run.sh:109-126): quick_cpu_all's lists, with no --device (no
+        # PLATFORM, no --platform)
+        return [_without(a, "--device") for a in _expected("quick_cpu_all", w)]
+    if case.startswith("stage2_corpus"):
+        # STAGE=2, both subset directories present, no QUICK: stage 2
+        # converts (recorded, not run, so no TRAIN_CALIB appears), stage 3
+        # calibrates on synthetic data (calibrate.sh:12-23, CALIB_LIST
+        # passed where it is set), stage 5 as in stage4_model
+        cal = ["--run_mode", "f32", "--calibration", "--calib_out", calib, "--synthetic", "500"]
+        cal += ["--calib_list", "calib_files.txt"] if case.endswith("calib_list") else []
+        return [cal, ["--run_mode", "f32", "--save_quant", "--calib_in", calib, "--quant_out",
+                      quant, "--synthetic", "1"]] + _expected("stage4_model", w)[1:]
     if case == "quick_cpu_all":
         # STAGE=-1 QUICK=true PLATFORM=cpu: run.sh:43-65 (quick.conf,
         # SYNTHETIC=64, CALIB_LIST), no MODEL or TRAIN_CALIB file
@@ -382,8 +420,46 @@ def _expected(case, w):
     ]
 
 
+def _expected_aux(case, w):
+    """The argument lists of the download (run.sh:99-101, ``python -m
+    rnnt_inference_tpu.data.download``) and of the conversions
+    (run.sh:111-124, ``python scripts/convert_librispeech.py``)."""
+    downloads, converts = [], []
+    if case in ("stage0_fetch_fails", "stage1_corpus_absent"):
+        downloads = [["--download_dir", f"{w}/LibriSpeech", "--subsets", "dev-clean",
+                      "train-clean-100"]]
+    if case.startswith("stage2_corpus"):
+        corpus = f"{w}/LibriSpeech/LibriSpeech"
+        converts = [["--input_dir", f"{corpus}/dev-clean", "--output", f"{w}/dev-clean.npz",
+                     "--features", "--workers", "8"],
+                    ["--input_dir", f"{corpus}/train-clean-100", "--output",
+                     f"{w}/train-calib.npz", "--workers", "8"]]
+        if case.endswith("calib_list"):
+            converts[1] += ["--calib_list", "calib_files.txt"]
+    return downloads, converts
+
+
+CORPUS = ("LibriSpeech/LibriSpeech/dev-clean/", "LibriSpeech/LibriSpeech/train-clean-100/")
+
+
+@pytest.fixture
+def loopback_only(monkeypatch):
+    """No proxy from the environment may take a loopback fetch off the host."""
+    for k in ("http_proxy", "HTTP_PROXY", "https_proxy", "HTTPS_PROXY", "all_proxy",
+              "ALL_PROXY"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("no_proxy", "127.0.0.1,localhost")
+    monkeypatch.setenv("NO_PROXY", "127.0.0.1,localhost")
+SKIP_MODEL = "    no network access — skipping (runs will use random weights;"
+
 CASES = {
     "quick_cpu_all": (dict(STAGE="-1", QUICK="true", PLATFORM="cpu"), ()),
+    # the stand-in wget fails; the port's MODEL_URL is a loopback server
+    # that has no such file
+    "stage0_fetch_fails": (dict(STAGE="0", QUICK="true", SYNTHETIC_ONLY="false"), ()),
+    "stage1_corpus_absent": (dict(STAGE="1", QUICK="true", SYNTHETIC_ONLY="false"), ()),
+    "stage2_corpus": (dict(STAGE="2"), CORPUS),
+    "stage2_corpus_calib_list": (dict(STAGE="2", CALIB_LIST="calib_files.txt"), CORPUS),
     "stage3_model_train_calib": (dict(STAGE="3", NATIVE="false", PACKED="false"),
                                  ("rnnt.pt", "train-calib.npz")),
     "stage4_model": (dict(STAGE="4"), ("rnnt.pt",)),
@@ -393,22 +469,42 @@ CASES = {
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_run_stages_argv_match_shell_scripts(tmp_path, monkeypatch, case):
+def test_run_stages_argv_match_shell_scripts(tmp_path, monkeypatch, capsys, loopback_only,
+                                             case):
     """Every stage's argument list, with main.main replaced by a recorder,
     equals the list written out in _expected and the list the JAX shell
-    scripts build under the same environment (run with a stand-in python).
-    Stage -1 prepares the environment and, with QUICK, runs the golden
-    gate, in both."""
+    scripts build under the same environment (run with a stand-in python);
+    so do the download's and the conversions' (the port's recorded, not
+    run).  Stage -1 prepares the environment and, with QUICK, runs the
+    golden gate, in both.  A stage 0 whose fetch fails prints run.sh's skip
+    notice in both and leaves no file at MODEL."""
+    from test_torch_download import Loopback
+
     knobs, files = CASES[case]
     w = str(tmp_path / "work")
     os.makedirs(w)
     _files(tmp_path / "work", *files)
-    env = dict(knobs, WORK_DIR=w, SYNTHETIC_ONLY="true", TRT_CACHE=str(tmp_path / "none.cache"))
-    want = _expected(case, w)
-    shell, calls = _shell_lists(tmp_path, env)
-    port, hooks = _port_lists(monkeypatch, env)
+    (tmp_path / "empty").mkdir()
+    with Loopback(tmp_path / "empty") as srv:
+        env = dict(dict(SYNTHETIC_ONLY="true", TRT_CACHE=str(tmp_path / "none.cache")),
+                   **knobs, WORK_DIR=w, MODEL_URL=srv.url("rnnt.pt"))
+        want = _expected(case, w)
+        out = []
+        shell, calls = _shell_lists(tmp_path, env, stdout=out)
+        aux = {}
+        port, hooks = _port_lists(monkeypatch, env, aux=aux)
     assert port == want
     assert shell == want
+    downloads, converts = _expected_aux(case, w)
+    assert aux["download"] == downloads
+    assert [c[2:] for c in calls if c[:2] == ["-m", "rnnt_inference_tpu.data.download"]] == downloads
+    assert aux["convert"] == converts
+    assert [c[1:] for c in calls if c[:1] == ["scripts/convert_librispeech.py"]] == converts
+    fetch = int(knobs["STAGE"]) <= 0 and knobs.get("SYNTHETIC_ONLY") == "false"
+    assert srv.requests == ({"/rnnt.pt": 1} if fetch else {})
+    if fetch:
+        assert SKIP_MODEL in out[0].splitlines() and SKIP_MODEL in capsys.readouterr().out
+        assert not any((tmp_path / "work").glob("rnnt.pt*"))
     # stage -1: prepare_env.sh's python calls, then (QUICK) the golden gate
     prepared = any(c == ["-"] for c in calls)
     gated = any(c[:2] == ["-m", "pytest"] for c in calls)
@@ -487,6 +583,84 @@ def test_run_stages_prepare_env_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "PLATFORM=cpu: no kernel built" in out
     assert "built OK" in out and "round-trip OK" in out and out.endswith("environment ready\n")
+
+
+def test_run_stages_fetch_and_convert_from_loopback(tmp_path, monkeypatch, capsys,
+                                                    loopback_only):
+    """Stages 0-2 for real, on the CPU, from a loopback server: a seeded
+    zenodo-layout rnnt.pt at MODEL_URL, and dev-clean (8 utterances of 1-2
+    s) and train-clean-100 (4) as LibriSpeech tarballs at the URLs and md5s
+    of data/download.py's LIBRISPEECH_SETS (pointed at the server).  Stage
+    0 fetches the checkpoint byte for byte, stage 1 each tarball once with
+    its md5 checked, stage 2 converts: dev-clean.npz (and its features
+    store) holds the 8 utterances bit-equal to their 16-bit samples / 2**15
+    with their normalized transcripts, train-calib.npz the 3 that
+    CALIB_LIST names.  The calibration and serving calls that follow (main
+    recorded, not run) take rnnt.pt, train-calib.npz and dev-clean.npz.
+    A second run from STAGE=0 fetches nothing."""
+    from test_torch_download import Loopback, write_subset
+
+    from rnnt_inference_tpu_torch import main as cli
+    from rnnt_inference_tpu_torch.data import download
+    from rnnt_inference_tpu_torch.data.dataset import SampleStore
+    from rnnt_inference_tpu_torch.data.text import normalize_transcript
+    from rnnt_inference_tpu_torch.models.weights import init_weights, torch_state_dict_from_weights
+    from rnnt_inference_tpu_torch.tools import run_stages
+    from rnnt_inference_tpu_torch.utils.golden import small_params
+    from rnnt_inference_tpu_torch.utils.labels import LABELS
+
+    src, w = tmp_path / "src", str(tmp_path / "work")
+    src.mkdir()
+    weights = init_weights(small_params(), torch.Generator().manual_seed(3), device="cpu")
+    torch.save({"state_dict": torch_state_dict_from_weights(weights), "epoch": 0},
+               src / "rnnt.pt")
+    utts = {"dev-clean": write_subset(src, "dev-clean", 8, seed=1, seconds=(1.0, 2.0)),
+            "train-clean-100": write_subset(src, "train-clean-100", 4, seed=2,
+                                            seconds=(1.0, 2.0))}
+    listed = sorted(utts["train-clean-100"])[:3]
+    calib_list = tmp_path / "calibration_files.txt"
+    calib_list.write_text("".join(f"LibriSpeech/train-clean-100/{u.split('-')[0]}/"
+                                  f"{u.split('-')[1]}/{u}.flac\n" for u in listed))
+    calls = []
+    monkeypatch.setattr(cli, "main", lambda argv: calls.append(list(argv)))
+    with Loopback(src) as srv:
+        monkeypatch.setattr(download, "LIBRISPEECH_SETS", [
+            (s, srv.url(f"{s}.tar.gz"), download.md5_checksum(str(src / f"{s}.tar.gz")))
+            for s in utts])
+        env = dict(STAGE="0", WORK_DIR=w, MODEL_URL=srv.url("rnnt.pt"), PLATFORM="cpu",
+                   CALIB_LIST=str(calib_list), WORKERS="1", TRT_CACHE=str(tmp_path / "none"))
+        run_stages.run_all(env, run_stages.Stages())
+        fetched = dict(srv.requests)
+        first = list(calls)
+        calls.clear()
+        run_stages.run_all(env, run_stages.Stages())
+        again = dict(srv.requests)
+    out = capsys.readouterr().out
+    assert fetched == again == {"/rnnt.pt": 1, "/dev-clean.tar.gz": 1,
+                                "/train-clean-100.tar.gz": 1}
+    assert f"    fetched {w}/rnnt.pt" in out and f"    {w}/rnnt.pt already present" in out
+    assert (tmp_path / "work" / "rnnt.pt").read_bytes() == (src / "rnnt.pt").read_bytes()
+    for s in utts:
+        assert download.md5_checksum(f"{w}/LibriSpeech/{s}.tar.gz") == \
+            download.md5_checksum(str(src / f"{s}.tar.gz"))
+    stores = {"dev-clean": SampleStore.load(f"{w}/dev-clean.npz"),
+              "train-clean-100": SampleStore.load(f"{w}/train-calib.npz")}
+    assert sorted(stores["train-clean-100"].names) == [f"{u}.flac" for u in listed]
+    assert len(stores["dev-clean"]) == 8
+    for s, store in stores.items():
+        for name, x, text in zip(store.names, store.samples, store.transcripts):
+            q, want_text = utts[s][name[:-len(".flac")]]
+            assert x.dtype == np.float32
+            np.testing.assert_array_equal(x, q.astype(np.float32) / 32768.0)
+            assert text == normalize_transcript(want_text, LABELS)
+    assert len(SampleStore.load(f"{w}/dev-clean-input.npz")) == 8
+    assert first == calls  # the second run serves the same files
+    cal = first[0]
+    assert cal[cal.index("--model") + 1] == f"{w}/rnnt.pt"
+    assert cal[cal.index("--calib_file") + 1] == f"{w}/train-calib.npz"
+    assert cal[cal.index("--calib_list") + 1] == str(calib_list)
+    assert [a[a.index("--sample_file") + 1] for a in first[2:]] == [f"{w}/dev-clean.npz"] * 4
+    assert all(a[a.index("--device") + 1] == "cpu" for a in first)
 
 
 def test_run_stages_golden_gate_says_when_it_does_not_run(monkeypatch, capsys):

@@ -162,21 +162,25 @@ def test_frontend_constants_match_jax():
 def test_port_imports_no_jax():
     """Importing every module of the port, the bench, the profiler, the
     native loadgen's bindings, the text, manifest, audio and FLAC modules,
-    the mesh, distributed and tensor-parallel modules, the Transcriber, the golden module
+    the LibriSpeech download and the card probe, the mesh, distributed and
+    tensor-parallel modules, the Transcriber, the golden module
     and the tools (the entry scripts' counterparts eval_accuracy, check_calib,
-    server_probe and run_stages among them) included, loads no jax and
-    nothing of the JAX package (a fresh interpreter)."""
+    server_probe and run_stages among them) included, loads no jax,
+    nothing of the JAX package and no ``requests`` (the card's machine has
+    none; the download uses urllib) (a fresh interpreter)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import rnnt_inference_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'rnnt_inference_tpu'))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'rnnt_inference_tpu', 'requests'))\n"
         "assert not bad, bad\n"
         "assert {'rnnt_inference_tpu_torch.bench', 'rnnt_inference_tpu_torch.utils.profiler', "
         "'rnnt_inference_tpu_torch.runtime.native', 'rnnt_inference_tpu_torch.data.text', "
         "'rnnt_inference_tpu_torch.data.manifest', 'rnnt_inference_tpu_torch.data.audio', "
         "'rnnt_inference_tpu_torch.data.flac', 'rnnt_inference_tpu_torch.parallel.mesh', "
+        "'rnnt_inference_tpu_torch.data.download', 'rnnt_inference_tpu_torch.utils.backend', "
         "'rnnt_inference_tpu_torch.parallel.distributed', 'rnnt_inference_tpu_torch.transcribe', "
         "'rnnt_inference_tpu_torch.parallel.tensor', "
         "'rnnt_inference_tpu_torch.utils.golden', 'rnnt_inference_tpu_torch.tools.multihost_probe', "
@@ -204,13 +208,14 @@ def _imported_roots(path):
 
 @pytest.mark.parametrize("target", ["rnnt_inference_tpu_torch", "chip_smoke.py"])
 def test_sources_import_no_jax(target):
-    """No source file of the port, and not chip_smoke.py, names jax or the
-    JAX package in an import statement."""
+    """No source file of the port, and not chip_smoke.py, names jax, the
+    JAX package or requests in an import statement."""
     path = os.path.join(REPO, target)
     files = [path] if path.endswith(".py") else [
         os.path.join(d, f) for d, _, fs in os.walk(path) for f in fs if f.endswith(".py")
     ]
     assert files
     for f in files:
-        bad = {r for r in _imported_roots(f)} & {"jax", "jaxlib", "rnnt_inference_tpu"}
+        bad = {r for r in _imported_roots(f)} & {"jax", "jaxlib", "rnnt_inference_tpu",
+                                                  "requests"}
         assert not bad, (f, bad)
