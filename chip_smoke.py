@@ -70,13 +70,21 @@ it and read just after:
     lane state equal), with its wall beside the one-card wall;
   - server_probe: tools/server_probe.py on the bench's calibrated blank
     model (int8, cap 1, 0.8 symbols per frame), 128 slots, split 24: the
-    step cadence over 50 full-slot steps, then a ladder of Poisson rates
-    (25 to 800 QPS, 6 s each under a user.conf that cuts min_duration to
-    6 s and min_query_count to qps x 6) on the native clock with each
-    level's MLPerf verdict, stopping after the first INVALID level (at
-    least three levels), and the highest VALID level and the lowest again
-    on the Python clock; completed = issued at every level, and the lowest
+    step cadence over 50 full-slot steps (synchronous, then 50 step_async
+    dispatches at depth 16 with the refills inside the window), then a
+    ladder of Poisson rates (25 to 800 QPS, 6 s each under a user.conf
+    that cuts min_duration to 6 s and min_query_count to qps x 6) on the
+    native clock at pipeline depth 16 with each level's MLPerf verdict,
+    stopping after the first INVALID level (at least three levels), and
+    the highest VALID level and the lowest again on the Python clock
+    (inflight_window 8); completed = issued at every level, and the lowest
     level's tokens equal the bucketed Offline runner's on its samples;
+  - server_pipelined: the same model in a runner of its own: 50
+    step_async dispatches and 8-slot inserts under
+    torch.cuda.set_sync_debug_mode("error"), the native Server at depth 16
+    and at depth 1 on the same arrivals at 200 QPS (tokens equal per
+    query), the ladder at depth 1 beside depth 16's, and native packed
+    Offline at max_inflight_cycles 1 and 4 (equal hypotheses);
   - run_stages: tools/run_stages.py, the port's scripts/run.sh flow, with
     QUICK=true STAGE=-1 SYNTHETIC=64 in a temporary WORK_DIR (kernels
     built, calibration on kernel C, quantization, stage 3b's check_calib,
@@ -2492,6 +2500,213 @@ def phase_profile(qweights, params, dev, card: str, blank_replay: str, store) ->
 PROBE_LEVELS = (25.0, 50.0, 100.0, 200.0, 400.0, 800.0)
 PROBE_SECONDS = 6.0
 PROBE_SLOTS, PROBE_SPLIT, PROBE_N = 128, 24, 512
+PROBE_DEPTH = 16  # run_server_native's default, the product's
+KEEP_LEVEL = ("target_qps", "issued", "completed", "latency_ms_p50", "latency_ms_p90",
+              "latency_ms_p99", "qps", "wall_seconds", "result_validity", "invalid_reasons",
+              "launches", "pipeline_depth", "inflight_window", "extract_calls", "extract_ms",
+              "host_ms")
+
+
+@contextlib.contextmanager
+def _host_timed(runner, server_probe):
+    """Time the host's parts of each ladder level: every level that
+    ``server_probe.probe_level`` returns meanwhile carries host_ms, the
+    wall (ms) and calls inside the arrival poll (``NativeLoadGen.poll``,
+    which blocks up to 500 us when nothing has arrived), ``insert_samples``
+    (featurizing and inserting; enqueued, not waited for),
+    ``step_async`` (enqueueing a dispatch), the finish-mask reads
+    (``FinishMask.cpu``, waiting for a dispatch) and ``extract`` (which
+    reads the newest state, so it waits for every dispatch enqueued); and
+    extract_calls and extract_ms on their own."""
+    from rnnt_inference_tpu_torch.runtime import native, server
+
+    acc = {}
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                calls, secs = acc.get(name, (0, 0.0))
+                acc[name] = (calls + 1, secs + time.perf_counter() - t0)
+        return run
+
+    real_level = server_probe.probe_level
+    real = dict(poll=native.NativeLoadGen.poll, mask_read=server.FinishMask.cpu)
+
+    def level(*args, **kw):
+        acc.clear()
+        lv, results = real_level(*args, **kw)
+        lv["host_ms"] = {k: dict(calls=c, ms=t * 1e3) for k, (c, t) in sorted(acc.items())}
+        lv.update(extract_calls=acc.get("extract", (0, 0.0))[0],
+                  extract_ms=acc.get("extract", (0, 0.0))[1] * 1e3)
+        return lv, results
+
+    for name in ("extract", "insert_samples", "step_async"):
+        setattr(runner, name, timed(name, getattr(runner, name)))
+    native.NativeLoadGen.poll = timed("poll", real["poll"])
+    server.FinishMask.cpu = timed("mask_read", real["mask_read"])
+    server_probe.probe_level = level
+    try:
+        yield
+    finally:
+        for name in ("extract", "insert_samples", "step_async"):
+            delattr(runner, name)  # the class's methods again
+        native.NativeLoadGen.poll, server.FinishMask.cpu = real["poll"], real["mask_read"]
+        server_probe.probe_level = real_level
+
+
+SYNC_DISPATCHES = 50  # step_async dispatches under sync debug mode "error"
+TOKENS_QPS = 200.0  # a level below the ladders' highest VALID one at either depth
+OFFLINE_N, OFFLINE_CYCLES = 128, 4  # the native packed Offline runs by max_inflight_cycles
+
+
+def phase_server_pipelined(w, bparams, store, settings_for, counters, card: str,
+                           probe_out: dict, dev) -> dict:
+    """The Server's pipelined dispatch on server_probe's model (the bench's
+    calibrated blank model) in a runner of its own (128 slots, split 24: a
+    level cut short by its wall limit leaves slots behind), with the launch
+    counts set to 0 just before and read just after:
+      1. no sync: SYNC_DISPATCHES ``step_async`` dispatches, an 8-slot
+         insert before each while a slot is free, under
+         ``torch.cuda.set_sync_debug_mode("error")`` (a host synchronization
+         raises); then the masks are read and the finished slots extracted;
+      2. tokens: the native Server at depth 16 and at depth 1 on the same
+         Poisson arrivals (seed 0) at TOKENS_QPS: equal per query (a parting
+         raises, with whether the query's features were equal);
+      3. the ladder at depth 1 beside server_probe's at depth 16 (same
+         levels, same rules, stopping after the first INVALID level once
+         three ran), with each level's time inside ``extract``;
+      4. native Offline, packed, at max_inflight_cycles 1, 4, 4, 1 on the
+         store's first OFFLINE_N utterances (OFFLINE_CYCLES cycles): equal
+         hypotheses, audio-s/s of each.
+    Emits one line, phase "server_pipelined"; returns its launch counts."""
+    from rnnt_inference_tpu_torch.runtime.harness import run_offline_native
+    from rnnt_inference_tpu_torch.runtime.server import ServerRunner
+    from rnnt_inference_tpu_torch.tools import server_probe
+
+    t_phase = time.time()
+    runner = ServerRunner(w, bparams, slots=PROBE_SLOTS, split_len=PROBE_SPLIT, device=dev)
+    runner.warmup()
+    for c in counters.values():
+        c.launches = 0
+    # 1. no host synchronization on the insert and step paths
+    torch.cuda.synchronize()
+    masks, nxt = [], 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        for _ in range(SYNC_DISPATCHES):
+            k = min(runner.insert_batch, len(runner.free_slots))
+            if k:
+                runner.insert_samples([store.samples[i] for i in range(nxt, nxt + k)],
+                                      list(range(nxt, nxt + k)))
+                nxt += k
+            masks.append(runner.step_async())
+        enqueue_s = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    t0 = time.perf_counter()
+    finished = [np.nonzero(m.cpu().numpy())[0] for m in masks]
+    read_s = time.perf_counter() - t0
+    done = {}
+    for f in finished:
+        if len(f):
+            done.update(runner.extract(f))
+    while runner.n_active:
+        done.update(runner.extract(runner.step()))
+    if sorted(done) != list(range(nxt)):
+        raise AssertionError(f"server_pipelined: {len(done)} of {nxt} inserted samples came back")
+    sync_check = dict(dispatches=SYNC_DISPATCHES, inserted=nxt, syncs=0,
+                      enqueue_ms_per_dispatch=enqueue_s * 1e3 / SYNC_DISPATCHES,
+                      mask_read_ms=read_s * 1e3,
+                      finished=int(sum(len(f) for f in finished)))
+
+    # 2. the same arrivals at depth 16 and at depth 1: tokens equal per query
+    runs, feats = {}, {}
+    insert = runner.insert_samples
+    for depth in (PROBE_DEPTH, 1):
+        feats[depth] = {}
+
+        def keeping_features(wavs, ids, kept=feats[depth]):
+            insert(wavs, ids)  # each query's features as its slot holds them, not read back
+            for slot, q in runner.slot_sample.items():
+                if q in ids and q >= 0:
+                    kept[q] = (runner.state.F[:, slot].clone(), runner.state.F_lens[slot].clone())
+
+        runner.insert_samples = keeping_features
+        try:
+            level, results = server_probe.probe_level(
+                runner, store, TOKENS_QPS, PROBE_SECONDS, settings_for(TOKENS_QPS), native=True,
+                pipeline_depth=depth)
+        finally:
+            runner.insert_samples = insert
+        if level["completed"] != level["issued"] or level["result_validity"] != "VALID":
+            raise AssertionError(f"server_pipelined depth {depth} at {TOKENS_QPS} QPS: "
+                                 f"{ {k: level.get(k) for k in KEEP_LEVEL} }")
+        runs[depth] = (level, results)
+    got, want = runs[PROBE_DEPTH][1], runs[1][1]
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"server_pipelined: depth 16 answered {len(got)} queries, "
+                             f"depth 1 {len(want)}")
+    same_features = lambda a, b: bool(torch.equal(a[1], b[1]) and torch.equal(a[0], b[0]))
+    parted = {q: dict(tokens=(len(got[q]), len(want[q])),
+                      features_equal=same_features(feats[PROBE_DEPTH][q], feats[1][q]))
+              for q in sorted(got) if not np.array_equal(got[q], want[q])}
+    if parted:
+        raise AssertionError(f"server_pipelined: {len(parted)} of {len(got)} queries part "
+                             f"between depth 16 and depth 1: {parted}")
+    n_tok = sum(len(t) for t in got.values())
+
+    # 3. the ladder at depth 1, beside server_probe's at depth 16
+    ladder1 = []
+    with _host_timed(runner, server_probe):
+        for qps in PROBE_LEVELS:
+            level, _ = server_probe.probe_level(runner, store, qps, PROBE_SECONDS,
+                                                settings_for(qps), native=True, pipeline_depth=1)
+            ladder1.append(level)
+            if level["result_validity"] != "VALID" and len(ladder1) >= 3:
+                break
+    for lv in ladder1:
+        if lv["completed"] != lv["issued"]:
+            raise AssertionError(f"server_pipelined depth 1 at {lv['target_qps']}: completed "
+                                 f"{lv['completed']} of {lv['issued']}")
+    valid1 = [lv["target_qps"] for lv in ladder1 if lv["result_validity"] == "VALID"]
+
+    # 4. native packed Offline by max_inflight_cycles
+    ostore = store.select(np.arange(OFFLINE_N))
+    offline, hyps = [], {}
+    for cycles in (1, 4, 4, 1):
+        rep = run_offline_native(w, ostore, bparams, batch_size=OFFLINE_N, packed=True,
+                                 min_query_count=OFFLINE_N * OFFLINE_CYCLES,
+                                 max_inflight_cycles=cycles, device=runner.device)
+        if rep.samples != OFFLINE_N * OFFLINE_CYCLES:
+            raise AssertionError(f"server_pipelined offline: {rep.samples} samples")
+        hyps.setdefault(cycles, rep.hypotheses)
+        if rep.hypotheses != hyps[cycles] or rep.hypotheses != hyps[1]:
+            raise AssertionError("server_pipelined offline: the hypotheses part between "
+                                 "max_inflight_cycles 1 and 4")
+        offline.append(dict(max_inflight_cycles=cycles, wall_seconds=rep.wall_seconds,
+                            audio_seconds_per_second=rep.audio_seconds_per_second,
+                            launches=rep.launches))
+    launches = {k: c.launches for k, c in counters.items()}
+    if not all(launches.values()):
+        raise AssertionError(f"server_pipelined: launches {launches}")
+    cad = probe_out["cadence"]
+    emit({"phase": "server_pipelined", "card": card, "sync_check": sync_check,
+          "tokens": {"qps": TOKENS_QPS, "queries": len(got), "tokens": n_tok, "parted": 0,
+                     "levels": [{k: runs[d][0].get(k) for k in KEEP_LEVEL} for d in runs]},
+          "ladder_depth16": [{k: lv.get(k) for k in KEEP_LEVEL} for lv in probe_out["ladder"]],
+          "ladder_depth1": [{k: lv.get(k) for k in KEEP_LEVEL} for lv in ladder1],
+          "highest_valid_qps": {"depth16": probe_out["highest_valid_qps"],
+                                "depth1": max(valid1) if valid1 else None},
+          "cadence_sync": {k: cad[k] for k in ("wall_ms_per_step", "event_ms_per_step",
+                                               "kernel_busy_ms_per_step", "host_share")},
+          "cadence_step_async": cad["step_async"],
+          "offline_packed": offline, "launches": launches,
+          "seconds": time.time() - t_phase})
+    return {"main": launches, "timed_pass": launches}
 
 
 def _streaming_parting(w, params, qsl, batch_size: int, q: int, feats, server_tokens,
@@ -2562,9 +2777,12 @@ def phase_server_probe(params, dev, card: str, blank_replay: str, store) -> dict
     ladder PROBE_LEVELS on the native clock, each level PROBE_SECONDS under
     a user.conf overlay (min_duration = PROBE_SECONDS, min_query_count =
     qps x PROBE_SECONDS; configs/mlperf.conf below it), stopping after the
-    first INVALID level once three levels ran (launch counts set to 0 just
-    before the ladder, read just after).  Then the highest VALID level and
-    the lowest level again on the Python clock.  Gates: completed = issued
+    first INVALID level once three levels ran, at pipeline depth 16 (launch
+    counts set to 0 just before the ladder, read just after; each level's
+    host time in the poll, the inserts, the dispatches, the mask reads and
+    ``extract`` beside it).  Then the highest VALID level and
+    the lowest level again on the Python clock (inflight_window 8), and
+    phase ``server_pipelined``.  Gates: completed = issued
     at every level, kernels A and B launched, and the lowest level's
     Python-clock tokens equal to the bucketed OfflineRunner's on the same
     samples (the streaming invariant: a Server slot decodes its utterance
@@ -2596,8 +2814,10 @@ def phase_server_probe(params, dev, card: str, blank_replay: str, store) -> dict
 
         for c in counters.values():
             c.launches = 0
-        out = server_probe.probe(runner, store, PROBE_LEVELS, PROBE_SECONDS, settings_for,
-                                 native=True, stop_after_invalid=True, min_levels=3)
+        with _host_timed(runner, server_probe):
+            out = server_probe.probe(runner, store, PROBE_LEVELS, PROBE_SECONDS, settings_for,
+                                     native=True, stop_after_invalid=True, min_levels=3,
+                                     pipeline_depth=PROBE_DEPTH)
         launches = {k: c.launches for k, c in counters.items()}
         ladder = out["ladder"]
         for lv in ladder:
@@ -2627,6 +2847,8 @@ def phase_server_probe(params, dev, card: str, blank_replay: str, store) -> dict
                                      f"{level['completed']} of {level['issued']}")
             python_clock[qps] = (level, results)
         runner.insert_samples = insert
+        pipelined = phase_server_pipelined(w, bparams, store, settings_for, counters, card, out,
+                                           dev)
     # the streaming invariant: the lowest level's tokens against the
     # bucketed Offline runner on its samples
     level, results = python_clock[lowest]
@@ -2644,20 +2866,19 @@ def phase_server_probe(params, dev, card: str, blank_replay: str, store) -> dict
         raise AssertionError(f"server_probe: the Server's tokens part from the bucketed "
                              f"Offline runner's outside a near-tie: {faults} ({len(parted)} "
                              f"of {len(results)} queries parted; {n_tok} tokens)")
-    keep = ("target_qps", "issued", "completed", "latency_ms_p50", "latency_ms_p90",
-            "latency_ms_p99", "qps", "wall_seconds", "result_validity", "invalid_reasons",
-            "launches")
     emit({"phase": "server_probe", "card": card, "replay": blank_replay,
           "utterances": len(store), "slots": runner.slots, "split_len": runner.split_len,
           "warmup_seconds": warm, "cadence": out["cadence"],
           "device_step_cadence_ms": out["device_step_cadence_ms"],
-          "ladder_native": [{k: lv.get(k) for k in keep} for lv in ladder],
+          "ladder_native": [{k: lv.get(k) for k in KEEP_LEVEL} for lv in ladder],
           "rules": out["rules"], "highest_valid_qps": highest,
-          "python_clock": [{k: lv.get(k) for k in keep} for lv, _ in python_clock.values()],
+          "python_clock": [{k: lv.get(k) for k in KEEP_LEVEL}
+                           for lv, _ in python_clock.values()],
           "streaming_vs_offline": {"queries": len(results), "tokens": n_tok,
                                    "queries_parted": len(parted), "partings": parted},
           "launches": launches, "seconds": time.time() - t_phase})
-    return {"main": launches, "timed_pass": launches}
+    return {"server_probe": {"main": launches, "timed_pass": launches},
+            "server_pipelined": pipelined}
 
 
 # stage -1's golden gate runs tests/test_torch_golden.py, which makes the
@@ -3125,8 +3346,7 @@ def main() -> int:
     benches = phase_bench(card)
     twins = phase_bench_twins(params, dev, card, benches, bench_store)
     phase_profile(qweights, params, dev, card, benches["blank_cap1"][0], bench_store)
-    paths["server_probe"] = phase_server_probe(params, dev, card, benches["blank_cap1"][0],
-                                               bench_store)
+    paths.update(phase_server_probe(params, dev, card, benches["blank_cap1"][0], bench_store))
     paths["run_stages"] = phase_run_stages(card)
     paths["bare_machine"] = phase_bare_machine(card, args.seed)
     # launches: A from the int8 Offline path (one pass); B and C from one
@@ -3138,7 +3358,7 @@ def main() -> int:
     c["launches"] = paths["bf16"]["main"]["lstm_recurrence"]
     d["launches_per_timed_pass"] = d["launches"]
     native = ("native_offline", "native_packed", "native_server", "native_single_stream",
-              "product_chain", "server_probe", "run_stages", "bare_machine")
+              "product_chain", "server_probe", "server_pipelined", "run_stages", "bare_machine")
     for e, name, ks in ((a, "quant_lstm_layer", ("int8", "packed", "server") + native),
                         (b, "decode_step", ("int8", "bf16", "f32", "packed", "server") + native),
                         (c, "lstm_recurrence", ("bf16", "f32", "product_chain", "run_stages",

@@ -11,11 +11,14 @@ Mask algebra (per lane, per iteration):
 
 The symbol loop is a host loop.  Each trip runs up to K iterations (on
 CUDA tensors one launch of kernel B, which leaves early once every lane has
-finished; the plain twin runs all K) and then reads ``finish.all()`` once.
+finished; so does the plain twin on CPU tensors) and then reads
+``finish.all()`` once.
 Every update of an iteration is finish-gated, so iterations applied to
 lanes that have already finished change nothing, and the tokens are the
 same at any K.  The cap ``it < max_iters`` is checked for every iteration,
-not once per trip.
+not once per trip.  ``steps_per_check=None`` makes the loop one trip of
+``max_iters`` iterations with no host read before or after it (the Server
+step, runtime/server.py): the same state, and nothing the host waits for.
 
 Each loop is written once, as a step generator (``*_steps``) that yields
 just before it reads a finish mask; the plain functions run one to its end
@@ -142,11 +145,12 @@ def greedy_decode_chunk_steps(
     f_lens: torch.Tensor,
     params: RNNTParams = RNNTParams(),
     impl: Optional[str] = None,
-    steps_per_check: int = DEFAULT_STEPS_PER_CHECK,
+    steps_per_check: Optional[int] = DEFAULT_STEPS_PER_CHECK,
     dw: Optional[dc.DecodeWeights] = None,
 ) -> Generator[None, None, DecodeState]:
     """Run the symbol loop over one encoded chunk.
-    f: {T2, N, 1024}, f_lens: {N} valid post-stack frames."""
+    f: {T2, N, 1024}, f_lens: {N} valid post-stack frames.  A host read of
+    finish.all() every ``steps_per_check`` iterations, or none (None)."""
     return (yield from _symbol_loop(weights, state, f, f_lens, params, impl, steps_per_check,
                                     dw, {}))
 
@@ -161,7 +165,7 @@ def greedy_decode_chunk_packed_steps(
     res_base: torch.Tensor,
     utt_budget: int,
     impl: Optional[str] = None,
-    steps_per_check: int = DEFAULT_STEPS_PER_CHECK,
+    steps_per_check: Optional[int] = DEFAULT_STEPS_PER_CHECK,
     dw: Optional[dc.DecodeWeights] = None,
 ) -> Generator[None, None, Tuple[DecodeState, torch.Tensor]]:
     """The packed symbol loop over one piece of the lanes' timelines.
@@ -195,14 +199,17 @@ def _symbol_loop(weights, state, f, f_lens, params, impl, steps_per_check, dw, p
     hg, cg, res = state.hg.clone(), state.cg.clone(), state.res.clone()
 
     max_iters = T2 * (params.max_symbols_per_step + 1) + 1
-    it = 0
-    while it < max_iters:
-        yield  # the other shards enqueue their launches before this read
-        if bool(lanes[dc.FINISH].all()):
-            break
-        steps = min(steps_per_check, max_iters - it)
-        dc.decode_step(fproj, lanes, hg, cg, res, dw, params, steps, impl, **packed)
-        it += steps
+    if steps_per_check is None:  # one launch of every iteration the chunk may take
+        dc.decode_step(fproj, lanes, hg, cg, res, dw, params, max_iters, impl, **packed)
+    else:
+        it = 0
+        while it < max_iters:
+            yield  # the other shards enqueue their launches before this read
+            if bool(lanes[dc.FINISH].all()):
+                break
+            steps = min(steps_per_check, max_iters - it)
+            dc.decode_step(fproj, lanes, hg, cg, res, dw, params, steps, impl, **packed)
+            it += steps
     return DecodeState(
         enc=state.enc,
         res=res,
@@ -220,7 +227,7 @@ def decode_chunk_steps(
     x_lens: torch.Tensor,
     params: RNNTParams = RNNTParams(),
     impl: Optional[str] = None,
-    steps_per_check: int = DEFAULT_STEPS_PER_CHECK,
+    steps_per_check: Optional[int] = DEFAULT_STEPS_PER_CHECK,
     dw: Optional[dc.DecodeWeights] = None,
     mark: Optional[Callable[[str], None]] = None,
 ) -> Generator[None, None, DecodeState]:
@@ -245,7 +252,7 @@ def greedy_decode_steps(
     params: RNNTParams = RNNTParams(),
     split_len: int = -1,
     impl: Optional[str] = None,
-    steps_per_check: int = DEFAULT_STEPS_PER_CHECK,
+    steps_per_check: Optional[int] = DEFAULT_STEPS_PER_CHECK,
     mark: Optional[Callable[[str], None]] = None,
 ) -> Generator[None, None, Tuple[torch.Tensor, torch.Tensor]]:
     """Full-utterance batched greedy decode.

@@ -500,15 +500,20 @@ def decode_step(
     utt_budget: int = 0,
 ) -> None:
     """Kernel B's wrapper: ``steps`` iterations, the CUDA kernel for CUDA
-    tensors (one launch, which may stop early once every lane has
-    finished), the plain twin for CPU tensors or when impl="reference";
-    packed mode where ``starts`` is given."""
+    tensors (one launch, which stops early once every lane has finished),
+    the plain twin for CPU tensors or when impl="reference"; packed mode
+    where ``starts`` is given.  On CPU tensors the twin stops where the
+    kernel would (the iterations left would change nothing, and reading
+    the finish row there waits for no card); on the card it runs all
+    ``steps`` and reads nothing back."""
     if impl not in (None, "reference"):
         raise ValueError(f"unknown impl {impl!r}")
     packed = dict(starts=starts, res_base=res_base, utt_budget=utt_budget)
     if impl == "reference" or not lanes.is_cuda:
         for _ in range(steps):
             decode_step_reference(fproj, lanes, hg, cg, res, dw, params, **packed)
+            if not lanes.is_cuda and bool(lanes[FINISH].all()):
+                break
         return
     decode_step_cuda(fproj, lanes, hg, cg, res, dw, params, steps, **packed)
 

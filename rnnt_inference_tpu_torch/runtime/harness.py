@@ -188,16 +188,8 @@ def _packed_runner(weights, store, qsl, params, cfg, batch_size, warmup, runner,
                         pack_chunks=plan.n_chunks, chunk_frames=runner.chunk_frames)
 
 
-# Cycles a native Offline run dispatches before it reads the oldest back.
-# ``dispatch`` returns only after the decode loop's last finish-mask read,
-# so the queue overlaps little more than the readback and harvest with the
-# next cycles' trailing work; reading each cycle back at once measured
-# about 1% slower packed on an H100 (PERF.md).
-NATIVE_INFLIGHT_CYCLES = 4
-
-
 def _native_offline_loop(store, cfg, n, n_queries, dispatch, harvest, max_wall_s,
-                         extra) -> RunReport:
+                         max_inflight_cycles, extra) -> RunReport:
     """The native-clock Offline serve loop over whole cycles of the sample
     set: ``dispatch()`` enqueues one cycle and returns its results on the
     device (tensors, with host arrays passed through), ``harvest(*host)``
@@ -205,7 +197,7 @@ def _native_offline_loop(store, cfg, n, n_queries, dispatch, harvest, max_wall_s
     Query q is sample q % n; a query completes once its cycle's tokens are
     on the host.  The wall is first issue -> last completion on the native
     loadgen's clock, the bulk token readback included.  Up to
-    NATIVE_INFLIGHT_CYCLES cycles are dispatched before the oldest is read
+    ``max_inflight_cycles`` cycles are dispatched before the oldest is read
     back."""
     from rnnt_inference_tpu_torch.runtime.native import NativeLoadGen
 
@@ -250,7 +242,7 @@ def _native_offline_loop(store, cfg, n, n_queries, dispatch, harvest, max_wall_s
             if time.time() - t_host0 > max_wall_s:
                 break
             inflight.append((cycle, dispatch()))
-            while len(inflight) >= NATIVE_INFLIGHT_CYCLES:
+            while len(inflight) >= max_inflight_cycles:
                 complete_cycle(*inflight.pop(0))
         while inflight:
             complete_cycle(*inflight.pop(0))
@@ -294,7 +286,9 @@ def run_offline_native(
     samples_per_query: int = 1,
     performance_sample_count: int = 0,
     warmup: bool = True,
+    wav_buckets_s=None,
     max_wall_s: float = 700.0,
+    max_inflight_cycles: int = 4,
     packed: bool = False,
     chunk_frames: int = 16,
     decode_chunk: int = 128,
@@ -317,9 +311,11 @@ def run_offline_native(
 
     Each cycle serves the whole staged set: bucketed through a DeviceQSL and
     ``OfflineRunner.dispatch_device``, or with packed=True through
-    ``PackedOfflineRunner.dispatch``.  Staging and warm-up (the kernels'
-    build and one untimed pass) happen before the issuer starts (loadgen's
-    untimed LoadSamplesToRam and warm-up).  ``mesh`` (parallel/mesh.py)
+    ``PackedOfflineRunner.dispatch``; up to ``max_inflight_cycles`` cycles
+    are dispatched before the oldest is read back.  ``wav_buckets_s`` sets
+    the QSL's padding ladder (default: runtime/qsl.py's).  Staging and
+    warm-up (the kernels' build and one untimed pass) happen before the
+    issuer starts (loadgen's untimed LoadSamplesToRam and warm-up).  ``mesh`` (parallel/mesh.py)
     shards each batch's lanes, or the packed lanes, over its data devices;
     the report's ``shard_launches`` holds each shard's kernel launches of
     the last cycle."""
@@ -331,9 +327,10 @@ def run_offline_native(
                     samples_per_query, n)
     if store.kind != "waveform":
         raise ValueError("the native Offline run serves waveform stores")
-    qsl = QuerySampleLibrary(store, cfg)
+    qsl = (QuerySampleLibrary(store, cfg, wav_buckets_s=wav_buckets_s) if wav_buckets_s
+           else QuerySampleLibrary(store, cfg))
     loop = lambda dispatch, harvest, extra: _native_offline_loop(
-        store, cfg, n, n_queries, dispatch, harvest, max_wall_s, extra)
+        store, cfg, n, n_queries, dispatch, harvest, max_wall_s, max_inflight_cycles, extra)
     if packed:
         prunner, packing = _packed_runner(weights, store, qsl, params, cfg, batch_size, warmup,
                                           None, device, chunk_frames, decode_chunk, mesh)

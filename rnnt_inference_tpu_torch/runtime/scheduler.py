@@ -7,17 +7,19 @@ qos_len waveform samples are parked and served only after the main stream
 drains, and their latencies are kept apart from the live percentiles.
 response_size: finished slots are responded in groups of at least
 response_size, except while the tail drains or the slot pool is starved.
-Queries loop over the sample set (query q -> sample q % n).
+Queries loop over the sample set (query q -> sample order[q % n]).
 ``run_server`` keeps its own Poisson schedule on the Python clock;
 ``run_server_native`` takes arrivals and latencies from the native
-mini-loadgen (runtime/native.py).
+mini-loadgen (runtime/native.py).  Both dispatch steps with
+``ServerRunner.step_async`` and read the finish masks back later: the host
+admits new queries while the card runs the steps already enqueued.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -78,6 +80,7 @@ def run_server(
     runner: ServerRunner,
     store: SampleStore,
     target_qps: float,
+    sample_order: Optional[np.ndarray] = None,
     seed: int = 0,
     qos_len: int = 233500,
     max_wall_s: float = 600.0,
@@ -85,15 +88,20 @@ def run_server(
     response_size: int = 1,
     min_query_count: int = 0,
     min_duration_s: float = 0.0,
+    inflight_window: int = 1,
 ) -> Tuple[ServerMetrics, Dict[int, np.ndarray]]:
     """Drive the slot pipeline against a Poisson arrival trace.
 
     realtime=True keeps the wall-clock arrival times (Server latency);
     realtime=False issues as fast as the pipeline accepts (latencies then
-    measure residency from the actual issue).  Returns (metrics, {query_id:
-    tokens}); query q is sample q % len(store)."""
+    measure residency from the actual issue).  Each loop dispatches one
+    step without reading it back, and the finish masks in flight are read
+    once there are ``inflight_window`` of them or no slot is active.
+    Returns (metrics, {query_id: tokens}); query q is sample
+    sample_order[q % len(store)] (default: the store's order)."""
     n = len(store)
     n_queries = max(n, min_query_count)
+    order = sample_order if sample_order is not None else np.arange(n)
     # twice the duration's arrivals: a sum of qps * dur exponential gaps
     # has mean dur, so about half the seeds would run out before it
     arrivals = poisson_schedule(
@@ -108,6 +116,7 @@ def run_server(
     t_start = time.time()
     next_i = 0
     finished_backlog: List[int] = []
+    inflight = []  # finish masks of dispatches not read back yet
 
     # issue until the count and the duration rules are both met
     nq = n_queries
@@ -123,9 +132,14 @@ def run_server(
             pool[query_id] = (now - issue_times[query_id]) * 1e3
             metrics.completed += 1
 
-    def drain(force: bool) -> None:
+    def sample_of(q: int) -> int:
+        return int(order[q % n])
+
+    def drain_inflight(force: bool) -> None:
         # responses wait for >= response_size finished slots unless forced
         # (tail drain, slot starvation)
+        while inflight:
+            finished_backlog.extend(int(s) for s in np.nonzero(inflight.pop(0).cpu().numpy())[0])
         tail = next_i >= nq and not deferred
         starved = not runner.free_slots
         if finished_backlog and (force or tail or starved
@@ -142,7 +156,7 @@ def run_server(
             q = next_i
             next_i += 1
             issue_times[q] = t_start + arrivals[q] if realtime else time.time()
-            if store.samples[q % n].shape[0] > qos_len:
+            if store.samples[sample_of(q)].shape[0] > qos_len:
                 deferred.append(q)
                 deferred_set.add(q)
                 continue
@@ -155,19 +169,21 @@ def run_server(
                     issue_times[q] = time.time()
                 batch.append(q)
         if batch:
-            runner.insert_samples([store.samples[q % n] for q in batch], batch)
+            runner.insert_samples([store.samples[sample_of(q)] for q in batch], batch)
             metrics.issued += len(batch)
 
-        # 2. streaming steps, and their finish mask read back
+        # 2. streaming steps, dispatched without a read back: the insert
+        # and the step queue on the card behind the steps still running
         if runner.n_active:
-            finished_backlog.extend(int(s) for s in runner.step())
-        elif next_i < nq and realtime:
+            inflight.append(runner.step_async())
+        elif next_i < nq and realtime and not inflight:
             wait = arrivals[next_i] - (time.time() - t_start)  # idle until the next arrival
             if wait > 0:
                 time.sleep(min(wait, 0.01))
 
-        # 3. respond in response_size groups
-        drain(force=not runner.n_active and next_i >= nq)
+        # 3. read the finish masks back, and respond in response_size groups
+        if len(inflight) >= inflight_window or not runner.n_active:
+            drain_inflight(force=not runner.n_active and next_i >= nq)
 
     metrics.wall_seconds = time.time() - t_start
     return metrics, results
@@ -180,6 +196,7 @@ def run_server_native(
     seed: int = 0,
     qos_len: int = 233500,
     max_wall_s: float = 600.0,
+    pipeline_depth: int = 16,
     response_size: int = 1,
     min_query_count: int = 0,
     min_duration_s: float = 0.0,
@@ -188,8 +205,10 @@ def run_server_native(
     Poisson arrivals on a steady clock and completions are stamped there, so
     latencies are free of Python jitter and charged from the scheduled
     arrival (loadgen's rule).  The issuer keeps the min_query_count and
-    min_duration rules.  Each step's finish mask is read at once
-    (ServerRunner.step), so there is no pipeline depth to set.
+    min_duration rules.  Steps are dispatched ahead of their read back
+    (``ServerRunner.step_async``): past ``pipeline_depth`` finish masks in
+    flight the oldest are read down to depth // 2; short of free slots, or
+    at the tail, all of them; otherwise none.
 
     Returns (the native latency report, with the kernel launches of the
     run under "launches"; {query_id: tokens})."""
@@ -198,11 +217,27 @@ def run_server_native(
 
     results: Dict[int, np.ndarray] = {}
     deferred: List[int] = []
+    inflight = []  # finish masks of dispatches not read back yet
     finished_backlog: List[int] = []
     before = launch_counts()
     lg = NativeLoadGen(len(store), target_qps, mode="Server", seed=seed,
                        min_query_count=min_query_count, min_duration_s=min_duration_s)
     t_start = time.time()
+
+    def drain_one(force: bool) -> None:
+        finished_backlog.extend(int(s) for s in np.nonzero(inflight.pop(0).cpu().numpy())[0])
+        # respond in response_size groups, unless forced, the tail drains
+        # or the slot pool is starved
+        tail = lg.done_issuing and lg.pending == 0 and not deferred
+        starved = not runner.free_slots
+        if finished_backlog and (force or tail or starved
+                                 or len(finished_backlog) >= response_size):
+            for query_id, tokens in runner.extract(finished_backlog):
+                results[query_id] = tokens
+                if query_id >= 0:  # not a warm-up sample
+                    lg.complete(query_id)
+            finished_backlog.clear()
+
     try:
         while not lg.drained and time.time() - t_start < max_wall_s:
             # 1. admit arrivals into free slots (QoS: park over-long samples)
@@ -225,22 +260,19 @@ def run_server_native(
             if batch:
                 runner.insert_samples([store.samples[lg.sample_of(q)] for q in batch], batch)
 
-            # 2. streaming steps and their finish mask
+            # 2. dispatch steps ahead and read the finish masks back lazily
             if runner.n_active:
-                finished_backlog.extend(int(s) for s in runner.step())
-
-            # 3. respond in response_size groups, unless the tail drains,
-            # the stream is exhausted or the slot pool is starved
-            tail = lg.done_issuing and lg.pending == 0 and not deferred
-            force = not runner.n_active and lg.pending == 0 and lg.done_issuing
-            starved = not runner.free_slots
-            if finished_backlog and (force or tail or starved
-                                     or len(finished_backlog) >= response_size):
-                for query_id, tokens in runner.extract(finished_backlog):
-                    results[query_id] = tokens
-                    if query_id >= 0:  # not a warm-up sample
-                        lg.complete(query_id)
-                finished_backlog.clear()
+                inflight.append(runner.step_async())
+            if inflight:
+                if len(inflight) > pipeline_depth:
+                    target = max(pipeline_depth // 2, 1)
+                elif not runner.free_slots or (not runner.n_active and lg.pending == 0):
+                    target = 0  # short of slots, or the tail: read them all
+                else:
+                    target = len(inflight)
+                force = not runner.n_active and lg.pending == 0 and lg.done_issuing
+                while len(inflight) > target:
+                    drain_one(force)
         report = lg.report()
     finally:
         lg.close()

@@ -12,7 +12,12 @@ its tokens and frees it.
 
 The step is decode_chunk, the streaming unit of the Offline path, so Server
 and Offline give the same tokens.  On the card a step runs kernel A (the
-int8 encoder) and kernel B (the decode) as the Offline runner does.
+int8 encoder) and kernel B (the decode) as the Offline runner does, with
+the symbol loop as one kernel-B launch per chunk and no host read
+(models/decoder.py ``steps_per_check=None``): neither a step nor an insert
+waits for the card, so ``ServerRunner.step_async`` enqueues a dispatch and
+returns its finish mask still in flight (``FinishMask``), and the
+scheduler (runtime/scheduler.py) reads the masks back later.
 
 ``server_multi_step_dp`` runs the steps on a slot-sharded state: the slot
 axis cut over a mesh's data devices (parallel/mesh.py
@@ -77,28 +82,48 @@ def init_server_state(
     )
 
 
+def host_to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device`` without waiting for the card: on a card it
+    is copied through pinned memory, which stays allocated until the copy
+    has run (a pageable copy would synchronize the stream)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def server_insert(
     state: ServerState,
     feats: torch.Tensor,
     feat_lens: torch.Tensor,
-    slot_ids: torch.Tensor,
+    slot_ids,
     params: RNNTParams = RNNTParams(),
 ) -> ServerState:
     """Place K new samples into free slots: feats {T_new, K, C} (T_new <=
-    T_max), feat_lens {K} (0: no sample in that column), slot_ids {K}
-    (unique).  Writes their features (zeros past T_new), resets the slots'
-    decode state and activates them.  F, F_lens, offsets and active are
-    updated in place (F is the largest array of the state)."""
-    valid = feat_lens > 0
-    sel = slot_ids.to(feat_lens.device)[valid].long()
+    T_max), feat_lens {K} (0: no sample in that column), slot_ids {K} on
+    the host (unique; an id past the last slot drops its column, as JAX's
+    scatter with mode="drop").  Writes their features (zeros past T_new),
+    resets the slots' decode state and activates them.  F, F_lens, offsets
+    and active are updated in place (F is the largest array of the state).
+    Nothing here waits for the card: the columns are chosen on the host,
+    and a column with feat_lens 0 is masked out on the device."""
     F = state.F
-    F[:, sel] = 0
-    F[: feats.shape[0], sel] = feats[:, valid]
-    state.F_lens[sel] = feat_lens[valid].int()
-    state.offsets[sel] = 0
-    state.active[sel] = True
-    reset = torch.zeros_like(state.active)
-    reset[sel] = True
+    N, dev = F.shape[1], F.device
+    ids = torch.as_tensor(slot_ids).cpu().long()
+    cols = torch.nonzero(ids < N).flatten()
+    if not len(cols):
+        return state
+    sel = host_to_device(ids[cols].numpy(), dev)
+    cols = host_to_device(cols.numpy(), dev)
+    valid = feat_lens.to(dev).index_select(0, cols) > 0
+    new = torch.zeros((F.shape[0], len(cols), F.shape[2]), dtype=F.dtype, device=dev)
+    new[: feats.shape[0]] = feats.to(dev).index_select(1, cols)
+    F.index_copy_(1, sel, torch.where(valid[None, :, None], new, F.index_select(1, sel)))
+    lens = feat_lens.to(dev).index_select(0, cols).int()
+    state.F_lens.index_copy_(0, sel, torch.where(valid, lens, state.F_lens.index_select(0, sel)))
+    state.offsets.index_copy_(0, sel, state.offsets.index_select(0, sel).masked_fill(valid, 0))
+    state.active.index_copy_(0, sel, state.active.index_select(0, sel) | valid)
+    reset = torch.zeros_like(state.active).index_copy_(0, sel, valid)
     return dataclasses.replace(
         state, decode=masked_reset_decode(state.decode, reset, params, keep_res=False))
 
@@ -122,7 +147,7 @@ def server_step_steps(
     remaining = torch.clamp(state.F_lens - state.offsets, min=0)
     w_lens = torch.clamp(remaining, max=split_len) * state.active.int()
     decode = yield from decode_chunk_steps(weights, state.decode, window, w_lens, params, impl,
-                                           dw=dw)
+                                           steps_per_check=None, dw=dw)
     offsets = state.offsets + w_lens
     finished = state.active & (offsets >= state.F_lens)
     return ServerState(F=state.F, F_lens=state.F_lens, offsets=offsets,
@@ -179,6 +204,31 @@ def server_multi_step_dp(
     dev = state.F.device
     return (join_server_state([o[0] for o in outs], dev),
             join([o[1] for o in outs], 0, dev))
+
+
+class FinishMask:
+    """The finish mask of a dispatch, on its way to the host (the device
+    array JAX's ``step_async`` returns).  On a card the mask is copied into
+    pinned host memory behind the dispatch's launches and an event is
+    recorded after the copy: ``cpu()`` waits for that event alone, so the
+    oldest of several masks in flight is read without waiting for the
+    dispatches enqueued after it, as a tensor's ``.cpu()`` would."""
+
+    def __init__(self, mask: torch.Tensor):
+        self._event = None
+        self._host = mask
+        if mask.is_cuda:
+            with torch.cuda.device(mask.device):
+                self._host = torch.empty(mask.shape, dtype=mask.dtype, pin_memory=True)
+                self._host.copy_(mask, non_blocking=True)
+                self._event = torch.cuda.Event()
+                self._event.record()
+
+    def cpu(self) -> torch.Tensor:
+        """The mask on the host, once its dispatch has run."""
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host
 
 
 class ServerRunner:
@@ -256,8 +306,7 @@ class ServerRunner:
             lens[r] = min(w.shape[0], S)
         with torch.inference_mode():
             feats, feat_lens = log_mel_features(
-                torch.from_numpy(wav).to(self.device), torch.from_numpy(lens).to(self.device),
-                self.cfg)
+                host_to_device(wav, self.device), host_to_device(lens, self.device), self.cfg)
             # bucket padding can featurize past the slot buffer: crop (the
             # true lengths come from the waveform lengths)
             feats = feats[: self.max_frames]
@@ -273,15 +322,25 @@ class ServerRunner:
 
     def step(self) -> np.ndarray:
         """One dispatch of steps_per_dispatch streaming steps; returns the
-        indices of the slots that have just finished."""
+        indices of the slots that have just finished (waits for the
+        dispatch)."""
+        return np.nonzero(self.step_async().cpu().numpy())[0]
+
+    def step_async(self) -> FinishMask:
+        """Enqueue one dispatch of steps_per_dispatch streaming steps and
+        return its finish mask (the OR over the steps) without waiting for
+        the card.  A slot that has finished stays inert (its windows are
+        empty, so its tokens do not change) until ``extract`` frees it, so
+        a caller may read the masks of several dispatches later."""
         with torch.inference_mode():
             self.state, finished = server_multi_step(
                 self.weights, self.state, self.split_len, self.steps_per_dispatch, self.params,
                 self.impl, self._dw)
-        return np.nonzero(finished.cpu().numpy())[0]
+            return FinishMask(finished)
 
     def extract(self, finished_slots) -> List[Tuple[int, np.ndarray]]:
-        """The tokens of finished slots, which are freed."""
+        """The tokens of finished slots, which are freed.  They are read
+        from the newest state, so this waits for every dispatch enqueued."""
         idx = torch.as_tensor(np.asarray(finished_slots, np.int64), device=self.device)
         res = self.state.decode.res[idx].cpu().numpy()
         res_lens = np.minimum(self.state.decode.res_idx[idx].cpu().numpy() + 1,

@@ -964,3 +964,42 @@ def test_kernels_launch_on_the_tensors_card(dev, qweights):
     got = runner.run(qsl)
     assert all(s["decode_step"] > 0 for s in got.shard_launches)
     _tokens_within_near_ties(got.tokens, single.tokens, lambda: runner.run(qsl))
+
+
+def test_server_step_async_and_insert_make_no_sync(dev, qweights):
+    """ServerRunner.insert_samples and step_async under
+    torch.cuda.set_sync_debug_mode("error"): 12 dispatches with an 8-slot
+    insert before each of the first four raise nothing (no host
+    synchronization); then every mask is read, the finished slots are
+    extracted, and the tokens equal those of the synchronous step() run."""
+    from rnnt_inference_tpu_torch.data.dataset import SampleStore
+    from rnnt_inference_tpu_torch.runtime.server import ServerRunner
+
+    store = SampleStore.synthetic(n=32, seed=3, min_seconds=0.5, max_seconds=2.0,
+                                  mean_seconds=1.0)
+
+    def serve(pipelined):
+        runner = ServerRunner(qweights, P, slots=32, split_len=24, device=dev)
+        runner.warmup()
+        out, masks = {}, []
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error" if pipelined else "default")
+        try:
+            for k in range(12):
+                if k < 4:
+                    ids = list(range(8 * k, 8 * k + 8))
+                    runner.insert_samples([store.samples[i] for i in ids], ids)
+                masks.append(runner.step_async() if pipelined else runner.step())
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        for m in masks:
+            finished = np.nonzero(m.cpu().numpy())[0] if pipelined else m
+            out.update(runner.extract(finished) if len(finished) else [])
+        while runner.n_active:
+            out.update(runner.extract(runner.step()))
+        return out
+
+    got, want = serve(True), serve(False)
+    assert sorted(got) == sorted(want) == list(range(32))
+    for q in want:
+        np.testing.assert_array_equal(got[q], want[q])
