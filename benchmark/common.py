@@ -1,0 +1,113 @@
+"""What the drivers share: a cell's files, the record of one run that the
+metric readers read, and the set-up of a cell's weights."""
+
+from __future__ import annotations
+
+import json
+import sys
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from benchmark import emission, traffic
+from benchmark.weights import program_featurizer, program_weights, random_weights
+
+ROOT = Path(__file__).resolve().parent  # benchmark/
+REPO = ROOT.parent
+
+
+def log(msg: str) -> None:
+    print(msg, file=sys.stderr, flush=True)
+
+
+@dataclass
+class Cell:
+    """One entry of BENCHMARK.json's workloads with its files: the
+    configuration (its "file"), the traffic mix (traffic/<traffic>.json)
+    and the cell's own entry (cells/<name>.json: the replayed emission
+    model and the limits of the correctness check)."""
+
+    name: str
+    chips: int
+    config: dict
+    traffic: dict
+    entry: dict
+    spec: dict
+    repo: Path
+
+    @classmethod
+    def load(cls, name: str, repo: Path = REPO) -> "Cell":
+        spec = json.loads((repo / "BENCHMARK.json").read_text())
+        cells = {w["name"]: w for w in spec["workloads"]}
+        if name not in cells:
+            raise SystemExit(f"no workload {name!r} in BENCHMARK.json")
+        w = cells[name]
+        cfg = {c["name"]: c for c in spec["configs"]}[w["config"]]
+        bench = repo / "benchmark"
+        return cls(name=name, chips=int(w["chips"]),
+                   config=json.loads((repo / cfg["file"]).read_text()),
+                   traffic=json.loads((bench / "traffic" / f"{w['traffic']}.json").read_text()),
+                   entry=json.loads((bench / "cells" / f"{name}.json").read_text()),
+                   spec=spec, repo=repo)
+
+    def end_to_end(self) -> List[dict]:
+        return [m for m in self.spec["end_to_end"] if self.name in m.get("workloads", [self.name])]
+
+    def per_layer(self) -> List[dict]:
+        e2e = {m["name"] for m in self.end_to_end()}
+        return [m for m in self.spec["per_layer"]
+                if (self.name in m["workloads"] if "workloads" in m else m["moves"] in e2e)]
+
+
+@dataclass
+class Run:
+    """What one run leaves for the result line and the metric readers."""
+
+    cell: Cell
+    e2e: Dict[str, float] = field(default_factory=dict)
+    attempted: int = 0
+    failed: int = 0
+    memory_peak: int = 0
+    trace: Optional[object] = None  # benchmark.trace.Trace of the traced window
+    # traced window: kernel calls by kernel (shapes), launches by the
+    # program's counters, the phase seconds of each traced rep, the work
+    # served (feature frames, post-stack frames, symbols), host seconds of
+    # wrapped calls
+    calls: Dict[str, list] = field(default_factory=dict)
+    launches: Dict[str, int] = field(default_factory=dict)
+    phases: List[Dict[str, float]] = field(default_factory=list)
+    work: Dict[str, float] = field(default_factory=dict)
+    host_s: Dict[str, List[float]] = field(default_factory=dict)
+    # Server: latency ms of each query whose life lies outside the profiled
+    # span (every query of an untraced run)
+    latency_ms: List[float] = field(default_factory=list)
+    # the sample the reference judges
+    check_wavs: List[np.ndarray] = field(default_factory=list)
+    check_tokens: List[np.ndarray] = field(default_factory=list)
+    weights: Optional[dict] = None  # the float32 weights both sides were given
+
+
+def cell_weights(cell: Cell, device):
+    """(the float32 weights with the cell's emission model, the program's
+    weight object made from them)."""
+    config = cell.config
+    w = emission.apply(random_weights(config, device), cell.entry["emission"],
+                       config["num_labels"] - 1)
+    calib = None
+    if config["precision"]["encoder"] == "int8":
+        from rnnt_inference_tpu_torch.ops.features import log_mel_features
+
+        pcm, lens = traffic.calibration_audio(config, device)
+        wav = (pcm.float() / 32768.0).reshape(len(lens), -1)
+        with torch.no_grad():
+            calib = log_mel_features(wav, torch.as_tensor(lens, device=device),
+                                     program_featurizer(config))
+    return w, program_weights(w, config, calib)
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
