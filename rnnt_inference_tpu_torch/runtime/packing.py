@@ -27,6 +27,11 @@ frames in the same order, and each utterance keeps at most max_res_len
 tokens (the standalone decode's truncation), enforced by the per-utterance
 budget.  ``harvest`` splits each lane's tokens at the markers.
 
+The host side of a rep is timed by spans (utils/profiler.py):
+rnnt.offline.features, .encode (with .encode_chunk per chunk), .decode
+(with .decode_piece per piece), then the tail, .sync, .readback and
+.harvest.
+
 With a ``mesh`` (parallel/mesh.py) the lane axis of every table (the pack
 gather table, chunk lengths, resets, compaction tables) is cut into one
 contiguous shard per data device; the flat feature buffer is replicated on
@@ -67,6 +72,7 @@ from rnnt_inference_tpu_torch.runtime.offline import (
     launches_since,
     lockstep,
 )
+from rnnt_inference_tpu_torch.utils.profiler import span
 
 
 @dataclasses.dataclass
@@ -310,13 +316,14 @@ class PackedOfflineRunner:
         est = model.init_encoder_state(N, self.params, self._enc_dtype, sh["device"])
         outs = []
         for c in range(C):
-            m = sh["resets"][c][None, :, None]
-            z = lambda a: a.masked_fill(m, 0)
-            est = model.EncoderState(pre_h=z(est.pre_h), pre_c=z(est.pre_c),
-                                     post_h=z(est.post_h), post_c=z(est.post_c))
-            f_c, est = model.transcription(weights, xc[c], sh["chunk_lens"][c], est,
-                                           self.params, self.impl)
-            outs.append(f_c.to(self._f_dtype))
+            with span("rnnt.offline.encode_chunk"):
+                m = sh["resets"][c][None, :, None]
+                z = lambda a: a.masked_fill(m, 0)
+                est = model.EncoderState(pre_h=z(est.pre_h), pre_c=z(est.pre_c),
+                                         post_h=z(est.post_h), post_c=z(est.post_c))
+                f_c, est = model.transcription(weights, xc[c], sh["chunk_lens"][c], est,
+                                               self.params, self.impl)
+                outs.append(f_c.to(self._f_dtype))
             yield
         return torch.cat(outs)
 
@@ -336,32 +343,35 @@ class PackedOfflineRunner:
         lanes = torch.arange(N, device=dev)
         dw = decode_cuda.decode_weights(weights)
         for k in range(n_dc):
-            off = k * DC
-            f_c = f_packed[off : off + DC]
-            starts_c = starts[off : off + DC]
-            if f_c.shape[0] < DC:  # the last piece, padded: its pad frames are never visited
-                pad = DC - f_c.shape[0]
-                f_c = torch.cat([f_c, f_c.new_zeros((pad,) + f_c.shape[1:])])
-                starts_c = torch.cat([starts_c, starts_c.new_zeros((pad, N))])
-            lens_c = torch.clamp(lane_f_lens - off, 0, DC)
-            if off > 0:
-                # an utterance that starts at the piece's first frame is not
-                # entered inside the piece: reset it and write its marker here
-                bmask = starts_c[0] & (off < lane_f_lens)
-                st = masked_reset_decode(st, bmask, pp, keep_res=True)
-                st.res_idx = st.res_idx + bmask.int()
-                keep = bmask & (st.res_idx < pp.max_res_len)
-                st.res[lanes[keep], st.res_idx[keep].long()] = PACK_BOUNDARY
-                rb = torch.where(bmask, st.res_idx, rb)
-            st, rb = yield from greedy_decode_chunk_packed_steps(
-                weights, st, f_c, lens_c, pp, starts_c, rb, self._utt_budget, self.impl, dw=dw)
+            with span("rnnt.offline.decode_piece"):
+                off = k * DC
+                f_c = f_packed[off : off + DC]
+                starts_c = starts[off : off + DC]
+                if f_c.shape[0] < DC:  # the last piece, padded: its pad frames are never visited
+                    pad = DC - f_c.shape[0]
+                    f_c = torch.cat([f_c, f_c.new_zeros((pad,) + f_c.shape[1:])])
+                    starts_c = torch.cat([starts_c, starts_c.new_zeros((pad, N))])
+                lens_c = torch.clamp(lane_f_lens - off, 0, DC)
+                if off > 0:
+                    # an utterance that starts at the piece's first frame is not
+                    # entered inside the piece: reset it and write its marker here
+                    bmask = starts_c[0] & (off < lane_f_lens)
+                    st = masked_reset_decode(st, bmask, pp, keep_res=True)
+                    st.res_idx = st.res_idx + bmask.int()
+                    keep = bmask & (st.res_idx < pp.max_res_len)
+                    st.res[lanes[keep], st.res_idx[keep].long()] = PACK_BOUNDARY
+                    rb = torch.where(bmask, st.res_idx, rb)
+                st, rb = yield from greedy_decode_chunk_packed_steps(
+                    weights, st, f_c, lens_c, pp, starts_c, rb, self._utt_budget, self.impl, dw=dw)
         return st.res, st.res_idx
 
     def _shard_steps(self, sh: dict, weights, packed: torch.Tensor, mark):
         """Phases B and C of one shard, from its packed features."""
-        f_all = yield from self._encode_steps(sh, weights, packed)
+        with span("rnnt.offline.encode"):
+            f_all = yield from self._encode_steps(sh, weights, packed)
         mark("encoder")
-        out = yield from self._decode_steps(sh, weights, f_all)
+        with span("rnnt.offline.decode"):
+            out = yield from self._decode_steps(sh, weights, f_all)
         mark("decode")
         return out
 
@@ -376,7 +386,8 @@ class PackedOfflineRunner:
         clock = clock or PhaseClock(self.device)
         with torch.inference_mode():
             clock.mark("start")
-            packed = self._features()
+            with span("rnnt.offline.features"):
+                packed = self._features()
             clock.mark("features")
             if self.mesh is None:
                 return drain(self._shard_steps(self._shards[0], self.weights, packed[0],
@@ -398,16 +409,20 @@ class PackedOfflineRunner:
         before = launch_counts()
         t0 = time.time()
         res, res_idx = self.dispatch(clock)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with span("rnnt.offline.sync"):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         wall = time.time() - t0
         launches = launches_since(before)
 
         t1 = time.time()
-        res_np, idx_np = res.cpu().numpy(), res_idx.cpu().numpy()
+        with span("rnnt.offline.readback"):
+            res_np, idx_np = res.cpu().numpy(), res_idx.cpu().numpy()
         readback = time.time() - t1
+        with span("rnnt.offline.harvest"):
+            tokens = self.harvest(res_np, idx_np)
         return OfflineResult(
-            tokens=self.harvest(res_np, idx_np),
+            tokens=tokens,
             wall_seconds=wall,
             batches=len(self._staged) + 1,
             phase_seconds=clock.totals(),

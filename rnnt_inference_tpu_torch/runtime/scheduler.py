@@ -25,6 +25,7 @@ import numpy as np
 
 from rnnt_inference_tpu_torch.data.dataset import SampleStore
 from rnnt_inference_tpu_torch.runtime.server import ServerRunner
+from rnnt_inference_tpu_torch.utils.profiler import REGISTRY, span
 
 
 @dataclass
@@ -210,6 +211,10 @@ def run_server_native(
     flight the oldest are read down to depth // 2; short of free slots, or
     at the tail, all of them; otherwise none.
 
+    The loop's host phases are spans (utils/profiler.py): rnnt.server.poll,
+    .insert, .dispatch, .read_mask and .extract; each query's stamps are
+    left in ``REGISTRY.server`` (a ``QueryRecord`` made anew per call).
+
     Returns (the native latency report, with the kernel launches of the
     run under "launches"; {query_id: tokens})."""
     from rnnt_inference_tpu_torch.runtime.native import NativeLoadGen
@@ -217,24 +222,39 @@ def run_server_native(
 
     results: Dict[int, np.ndarray] = {}
     deferred: List[int] = []
-    inflight = []  # finish masks of dispatches not read back yet
+    inflight = []  # (finish mask, end of its dispatch's enqueue) not read back yet
     finished_backlog: List[int] = []
     before = launch_counts()
     lg = NativeLoadGen(len(store), target_qps, mode="Server", seed=seed,
                        min_query_count=min_query_count, min_duration_s=min_duration_s)
     t_start = time.time()
+    stamps = REGISTRY.new_server_record().stamps  # each query's, by id
+    polled, inserted, enqueued = stamps["polled"], stamps["inserted"], stamps["finish_enqueued"]
+    mask_read, completed = stamps["mask_read"], stamps["completed"]
 
     def drain_one(force: bool) -> None:
-        finished_backlog.extend(int(s) for s in np.nonzero(inflight.pop(0).cpu().numpy())[0])
+        mask, enqueued_ns = inflight.pop(0)
+        with span("rnnt.server.read_mask") as read:
+            host = mask.cpu()
+        finished = [int(s) for s in np.nonzero(host.numpy())[0]]
+        for slot in finished:
+            query_id = runner.slot_sample[slot]
+            if query_id >= 0:  # not a warm-up sample
+                enqueued[query_id] = enqueued_ns
+                mask_read[query_id] = read.end_ns
+        finished_backlog.extend(finished)
         # respond in response_size groups, unless forced, the tail drains
         # or the slot pool is starved
         tail = lg.done_issuing and lg.pending == 0 and not deferred
         starved = not runner.free_slots
         if finished_backlog and (force or tail or starved
                                  or len(finished_backlog) >= response_size):
-            for query_id, tokens in runner.extract(finished_backlog):
+            with span("rnnt.server.extract"):
+                answers = runner.extract(finished_backlog)
+            for query_id, tokens in answers:
                 results[query_id] = tokens
                 if query_id >= 0:  # not a warm-up sample
+                    completed[query_id] = time.perf_counter_ns()
                     lg.complete(query_id)
             finished_backlog.clear()
 
@@ -244,7 +264,10 @@ def run_server_native(
             room = min(runner.insert_batch, len(runner.free_slots))
             batch: List[int] = []
             if room:
-                for q in lg.poll(max_n=room, timeout_us=500):
+                with span("rnnt.server.poll") as poll:
+                    arrived = lg.poll(max_n=room, timeout_us=500)
+                for q in arrived:
+                    polled[q] = poll.end_ns
                     if store.samples[lg.sample_of(q)].shape[0] > qos_len:
                         lg.mark_deferred(q)  # kept out of the live percentiles
                         deferred.append(q)
@@ -258,11 +281,16 @@ def run_server_native(
                 while deferred and len(batch) < room:
                     batch.append(deferred.pop(0))
             if batch:
-                runner.insert_samples([store.samples[lg.sample_of(q)] for q in batch], batch)
+                with span("rnnt.server.insert") as insert:
+                    runner.insert_samples([store.samples[lg.sample_of(q)] for q in batch], batch)
+                for q in batch:
+                    inserted[q] = insert.end_ns
 
             # 2. dispatch steps ahead and read the finish masks back lazily
             if runner.n_active:
-                inflight.append(runner.step_async())
+                with span("rnnt.server.dispatch") as dispatch:
+                    mask = runner.step_async()
+                inflight.append((mask, dispatch.end_ns))
             if inflight:
                 if len(inflight) > pipeline_depth:
                     target = max(pipeline_depth // 2, 1)

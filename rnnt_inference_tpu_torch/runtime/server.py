@@ -35,10 +35,11 @@ import numpy as np
 import torch
 
 from rnnt_inference_tpu_torch.config import FeaturizerConfig, RNNTParams
+from rnnt_inference_tpu_torch.models import rnnt as model
 from rnnt_inference_tpu_torch.models.decoder import (
     DecodeState,
-    decode_chunk_steps,
     drained,
+    greedy_decode_chunk_steps,
     init_decode_state,
     masked_reset_decode,
 )
@@ -51,6 +52,7 @@ from rnnt_inference_tpu_torch.parallel.mesh import (
 )
 from rnnt_inference_tpu_torch.runtime.offline import build_kernels, lockstep
 from rnnt_inference_tpu_torch.runtime.qsl import DEFAULT_WAV_BUCKETS_S
+from rnnt_inference_tpu_torch.utils.profiler import span
 
 
 @dataclasses.dataclass
@@ -138,18 +140,27 @@ def server_step_steps(
 ) -> Tuple[ServerState, torch.Tensor]:
     """One streaming step: each slot's next split_len-frame window at its own
     offset, encoded and decoded, offsets advanced.  Returns (state',
-    finished {N} bool: the slots that have just completed)."""
+    finished {N} bool: the slots that have just completed).  The host's
+    enqueue of the two halves is timed by the spans rnnt.server.encode (the
+    window and the encoder) and rnnt.server.decode (the symbol loop and the
+    finish mask)."""
     Tmax, N, C = state.F.shape
     dev = state.F.device
-    t_idx = state.offsets[None, :] + torch.arange(split_len, device=dev, dtype=torch.int32)[:, None]
-    t_idx = torch.clamp(t_idx, max=Tmax - 1).long()
-    window = torch.gather(state.F, 0, t_idx[:, :, None].expand(-1, -1, C))  # {split, N, C}
-    remaining = torch.clamp(state.F_lens - state.offsets, min=0)
-    w_lens = torch.clamp(remaining, max=split_len) * state.active.int()
-    decode = yield from decode_chunk_steps(weights, state.decode, window, w_lens, params, impl,
-                                           steps_per_check=None, dw=dw)
-    offsets = state.offsets + w_lens
-    finished = state.active & (offsets >= state.F_lens)
+    with span("rnnt.server.encode"):
+        t_idx = (state.offsets[None, :]
+                 + torch.arange(split_len, device=dev, dtype=torch.int32)[:, None])
+        t_idx = torch.clamp(t_idx, max=Tmax - 1).long()
+        window = torch.gather(state.F, 0, t_idx[:, :, None].expand(-1, -1, C))  # {split, N, C}
+        remaining = torch.clamp(state.F_lens - state.offsets, min=0)
+        w_lens = torch.clamp(remaining, max=split_len) * state.active.int()
+        f, enc = model.transcription(weights, window, w_lens, state.decode.enc, params, impl)
+    with span("rnnt.server.decode"):
+        f_lens = -(-w_lens // params.stack_time_factor)
+        decode = yield from greedy_decode_chunk_steps(
+            weights, dataclasses.replace(state.decode, enc=enc), f, f_lens, params, impl,
+            steps_per_check=None, dw=dw)
+        offsets = state.offsets + w_lens
+        finished = state.active & (offsets >= state.F_lens)
     return ServerState(F=state.F, F_lens=state.F_lens, offsets=offsets,
                        active=state.active & ~finished, decode=decode), finished
 

@@ -1,10 +1,20 @@
 """Tracing and profiling (counterpart of rnnt_inference_tpu/utils/profiler.py).
 
 ``device_trace`` wraps a run in a torch.profiler trace (CPU and, for a CUDA
-device, CUDA activities) and exports it as a chrome trace; ``BatchTimeline``
-is a host-side event log in the same format.  The timed reps of the Offline
-harness run inside a ``TIMED_REP`` annotation, so ``device_idle_share`` can
-read how much of each timed rep the card spent with no kernel running.
+device, CUDA activities) and exports it as a chrome trace.  The timed reps
+of the Offline harness run inside a ``TIMED_REP`` annotation, so
+``device_idle_share`` can read how much of each timed rep the card spent
+with no kernel running.
+
+``span(name)`` times a stretch of the program's host work, always: each
+name keeps its count, its total and a ring of its last ``RING`` (start,
+end) pairs on ``time.perf_counter_ns`` in the process-wide ``REGISTRY``.
+While a torch profiler runs, a span also opens ``record_function(name)``,
+so it lands in the chrome trace as a ``user_annotation`` on the kernels'
+clock.  Spans are named ``rnnt.<layer>.<what>``.  ``REGISTRY.server`` holds
+the per-query stamps of the last ``run_server_native`` call
+(``QueryRecord``).  The registry is not locked: spans run on the serving
+thread.
 
 Unlike the JAX package's trace, which turns into a no-op when the backend
 cannot profile, ``device_trace`` raises: a CUDA run whose trace holds no
@@ -15,12 +25,15 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
-import time
-from dataclasses import dataclass, field
-from typing import Iterator, List, Optional, Tuple
+from collections import deque
+from time import perf_counter_ns
+from typing import Dict, Iterator, List, Optional, Tuple
 
+import numpy as np
 import torch
+from torch._C._autograd import _profiler_enabled
 
 # the name of the annotation around each timed rep (runtime/harness.py)
 TIMED_REP = "rnnt.timed_rep"
@@ -98,26 +111,108 @@ def device_idle_share(events: List[dict], span: str = TIMED_REP,
     return out
 
 
-@dataclass
-class BatchTimeline:
-    """Host-side per-batch event log -> chrome-trace JSON."""
+# the last (start, end) pairs each span name keeps
+RING = 65536
+# a query's stamps in run_server_native, in the order they are taken
+QUERY_STAMPS = ("polled", "inserted", "finish_enqueued", "mask_read", "completed")
+# the stages of a query: each from one stamp to the next
+QUERY_STAGES = ("admit", "in_slot", "readback_wait", "respond")
 
-    events: List[dict] = field(default_factory=list)
-    _t0: float = field(default_factory=time.time)
 
-    @contextlib.contextmanager
-    def span(self, name: str, **meta):
-        start = time.time()
-        yield
-        end = time.time()
-        self.events.append(dict(name=name, ph="X", ts=(start - self._t0) * 1e6,
-                                dur=(end - start) * 1e6, pid=0, tid=0, args=meta))
+class SpanStats:
+    """One span name's record: how many spans ended, their total ns, and the
+    (start, end) ns of the last ``RING`` of them."""
 
-    def mark(self, name: str, **meta):
-        self.events.append(dict(name=name, ph="i", ts=(time.time() - self._t0) * 1e6,
-                                pid=0, tid=0, s="g", args=meta))
+    __slots__ = ("count", "total_ns", "ring")
 
-    def save(self, path: str) -> None:
-        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        with open(path, "w") as f:
-            json.dump({"traceEvents": self.events}, f)
+    def __init__(self):
+        self.count = 0
+        self.total_ns = 0
+        self.ring = deque(maxlen=RING)
+
+    def add(self, start_ns: int, end_ns: int) -> None:
+        self.count += 1
+        self.total_ns += end_ns - start_ns
+        self.ring.append((start_ns, end_ns))
+
+    def intervals(self, lo_ns: float = 0, hi_ns: float = math.inf) -> List[Tuple[int, int]]:
+        """The ring's (start, end) pairs that start in [lo_ns, hi_ns)."""
+        return [(s, e) for s, e in self.ring if lo_ns <= s < hi_ns]
+
+
+class QueryRecord:
+    """The stamps (perf_counter_ns) of each query of one
+    ``run_server_native`` call, ``stamps[name][query_id]``: polled, when
+    ``lg.poll`` returned it; inserted, when ``insert_samples`` returned;
+    finish_enqueued, the end of the enqueue of the dispatch whose finish
+    mask first holds its slot; mask_read, when that mask reached the host;
+    completed, at ``lg.complete``.  Warm-up samples (id < 0) are not
+    recorded."""
+
+    def __init__(self):
+        self.start_ns = perf_counter_ns()
+        self.stamps: Dict[str, Dict[int, int]] = {name: {} for name in QUERY_STAMPS}
+
+    def stages(self, from_s: float = 0.0, to_s: float = math.inf) -> Dict[str, np.ndarray]:
+        """ns of each stage (``QUERY_STAGES``: admit = inserted - polled,
+        in_slot = finish_enqueued - inserted, readback_wait = mask_read -
+        finish_enqueued, respond = completed - mask_read) of the queries
+        that hold every stamp and completed between from_s and to_s
+        seconds after the call's start; with "query", their ids."""
+        lo, hi = self.start_ns + from_s * 1e9, self.start_ns + to_s * 1e9
+        stamps = [self.stamps[name] for name in QUERY_STAMPS]
+        ids = sorted(q for q, t in stamps[-1].items()
+                     if lo <= t < hi and all(q in d for d in stamps))
+        t = np.array([[d[q] for d in stamps] for q in ids], np.int64).reshape(-1, len(stamps))
+        out = {name: t[:, k + 1] - t[:, k] for k, name in enumerate(QUERY_STAGES)}
+        out["query"] = np.array(ids, np.int64)
+        return out
+
+
+class SpanRegistry:
+    """Every span name's ``SpanStats`` and the last Server call's
+    ``QueryRecord`` (None before the first)."""
+
+    def __init__(self):
+        self.spans: Dict[str, SpanStats] = {}
+        self.server: Optional[QueryRecord] = None
+
+    def stats(self, name: str) -> SpanStats:
+        st = self.spans.get(name)
+        if st is None:
+            st = self.spans[name] = SpanStats()
+        return st
+
+    def new_server_record(self) -> QueryRecord:
+        self.server = QueryRecord()
+        return self.server
+
+
+REGISTRY = SpanRegistry()
+
+
+class span:
+    """``with span(name) as s:`` records the body's interval in
+    ``REGISTRY`` (``s.start_ns`` and ``s.end_ns`` once it ends) and, only
+    while a torch profiler runs, opens ``record_function(name)`` around it.
+    With no profiler, a span costs a flag read, two clock reads and a ring
+    append."""
+
+    __slots__ = ("name", "start_ns", "end_ns", "_annotation")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._annotation = None
+
+    def __enter__(self) -> "span":
+        if _profiler_enabled():
+            self._annotation = torch.profiler.record_function(self.name)
+            self._annotation.__enter__()
+        self.start_ns = perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.end_ns = perf_counter_ns()
+        REGISTRY.stats(self.name).add(self.start_ns, self.end_ns)
+        if self._annotation is not None:
+            self._annotation.__exit__(*exc)

@@ -4,7 +4,8 @@ with no host read (models/decoder.py ``steps_per_check=None``) against the
 checked one, the sync-free ``server_insert``, ``run_server``'s
 ``inflight_window`` and ``sample_order``, ``run_server_native``'s
 ``pipeline_depth``, ``run_offline_native``'s ``max_inflight_cycles`` and
-``wav_buckets_s``, and the runtime's signatures against JAX's.
+``wav_buckets_s``, the per-query stamps ``run_server_native`` records, and
+the runtime's signatures against JAX's.
 
 Tolerance: none.  The decode state is bit-equal between the two loops,
 and tokens are equal per query id.
@@ -35,6 +36,7 @@ from rnnt_inference_tpu_torch.models.weights import weights_from_numpy_leaves
 from rnnt_inference_tpu_torch.runtime import harness as tharness
 from rnnt_inference_tpu_torch.runtime import scheduler as tscheduler
 from rnnt_inference_tpu_torch.runtime import server as tserver
+from rnnt_inference_tpu_torch.utils.profiler import QUERY_STAMPS, REGISTRY
 
 torch.set_num_threads(1)  # tier-1 runs several pytest workers
 
@@ -43,6 +45,7 @@ DIMS = dict(trans_input_size=240, trans_hidden_size=64, pred_hidden_size=32,
 JP, TP = JParams(**DIMS), RNNTParams(**DIMS)
 CFG = FeaturizerConfig()
 RUNNER = dict(slots=4, split_len=4, max_frames=64, insert_batch=2)
+RUNNER_STEPS = 4  # ServerRunner's steps_per_dispatch
 QOS_LEN = 8000  # 0.5 s: the longer utterances are QoS-deferred
 
 
@@ -231,6 +234,47 @@ def test_run_server_native_pipeline_depth_matches_jax(runners, depth, response_s
     assert trep["completed"] == trep["issued"] == jrep["completed"] == 8
     assert trep["deferred_completed"] == jrep["deferred_completed"] > 0
     assert len(trunner.free_slots) == RUNNER["slots"]
+
+
+@pytest.mark.parametrize("depth", [1, 16])
+def test_run_server_native_records_each_querys_stages(runners, depth):
+    """run_server_native at pipeline_depth 1 and 16 (response_size 3, QoS
+    deferral on, a warm-up sample (id -1) already in a slot) leaves the
+    call's QueryRecord in REGISTRY.server: every completed query holds its
+    five stamps in order, the warm-up sample none, its four stages sum to
+    completed - polled, and its finish_enqueued is the end of a
+    rnnt.server.dispatch span that began after its insert.  Each dispatch
+    of steps_per_dispatch steps times an encode and a decode per step."""
+    _, trunner = runners
+    _, ts = _stores(6, 4, 0.3, 1.2, 0.6)
+    trunner.insert_samples([ts.samples[0][:4000]], [-1])
+    counts = lambda: {n: REGISTRY.stats(f"rnnt.server.{n}").count
+                      for n in ("poll", "insert", "dispatch", "read_mask", "extract", "encode",
+                                "decode")}
+    before = counts()
+    rep, res = tscheduler.run_server_native(
+        trunner, ts, target_qps=200.0, max_wall_s=60.0, qos_len=QOS_LEN, response_size=3,
+        min_query_count=8, pipeline_depth=depth)
+    added = {n: c - before[n] for n, c in counts().items()}
+    rec = REGISTRY.server
+    assert rep["completed"] == 8 and sorted(res) == list(range(-1, 8))
+    assert len(trunner.free_slots) == RUNNER["slots"]
+    t = np.array([[rec.stamps[name][q] for name in QUERY_STAMPS] for q in range(8)])
+    assert all(sorted(d) == list(range(8)) for d in rec.stamps.values())
+    assert (rec.start_ns < t[:, 0]).all() and (np.diff(t, axis=1) >= 0).all(), t
+    st = rec.stages()
+    assert list(st["query"]) == list(range(8))
+    np.testing.assert_array_equal(st["admit"] + st["in_slot"] + st["readback_wait"]
+                                  + st["respond"], t[:, 4] - t[:, 0])
+    dispatches = dict((end, start) for start, end in
+                      REGISTRY.stats("rnnt.server.dispatch").intervals(rec.start_ns))
+    assert len(dispatches) == added["dispatch"] > 0
+    for inserted, enqueued in t[:, 1:3].tolist():
+        assert enqueued in dispatches and dispatches[enqueued] > inserted
+    # the loop may end with the last dispatch's mask unread
+    assert 0 < added["read_mask"] <= added["dispatch"]
+    assert added["encode"] == added["decode"] == RUNNER_STEPS * added["dispatch"]
+    assert added["insert"] >= 4 and added["extract"] >= 3 and added["poll"] >= added["insert"]
 
 
 # -- run_offline_native: max_inflight_cycles and wav_buckets_s ---------------

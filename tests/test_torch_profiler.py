@@ -1,14 +1,11 @@
-"""The port's tracing (rnnt_inference_tpu_torch/utils/profiler.py) on the
-CPU: the idle-share arithmetic on a hand-made trace, the no-fallback rule
-of device_trace, a CPU trace's timed-rep span, and BatchTimeline against
-the JAX package's."""
-
-import json
+"""The port's device tracing (rnnt_inference_tpu_torch/utils/profiler.py)
+on the CPU: the idle-share arithmetic on a hand-made trace, the no-fallback
+rule of device_trace, and a CPU trace's timed-rep span.  Its spans are
+tested in tests/test_torch_spans.py."""
 
 import pytest
 import torch
 
-from rnnt_inference_tpu.utils.profiler import BatchTimeline as JBatchTimeline
 from rnnt_inference_tpu_torch.utils import profiler
 
 
@@ -54,18 +51,3 @@ def test_device_trace_raises_where_it_cannot_trace_the_card(tmp_path):
     (span,) = profiler.device_idle_share(events, cats=("cpu_op",))
     assert span["window_us"] > 0 and span["busy_us"] > 0
 
-
-def test_batch_timeline_matches_jax(tmp_path):
-    """The host-side timeline writes the JAX package's chrome-trace events
-    (the same keys, phases and names)."""
-    files = []
-    for cls, tag in ((JBatchTimeline, "j"), (profiler.BatchTimeline, "t")):
-        tl = cls()
-        with tl.span("batch", rows=4):
-            pass
-        tl.mark("flush", n=1)
-        files.append(tmp_path / tag / "trace.json")
-        tl.save(str(files[-1]))
-    j, t = (json.loads(f.read_text())["traceEvents"] for f in files)
-    strip = lambda evs: [{k: v for k, v in e.items() if k not in ("ts", "dur")} for e in evs]
-    assert strip(t) == strip(j) and len(t) == 2
