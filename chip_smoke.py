@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Builds the port's four CUDA kernels from rnnt_inference_tpu_torch/csrc
+Builds the port's five CUDA kernels from rnnt_inference_tpu_torch/csrc
 (one nvcc per source, started together), holds each against its plain
 PyTorch twin on the card at full model width (kernel A bit for bit at N =
 16, 64, 128 lanes and T = 48, at the bench's 1,024 lanes and T = 16, and
@@ -10,7 +10,9 @@ at one lane over a whole SingleStream utterance, for the three int8 layer
 shapes, one launch per layer call; kernel B per step and over one launch
 of K iterations, at N = 1, 16, 64, 128 lanes, with its time per iteration
 at one and at K iterations per launch, its early exit, and the symbol
-loop's time by K; kernel C at N = 16, 128 beside cuDNN's layer),
+loop's time by K; kernel C at N = 16, 128 beside cuDNN's layer; kernel E,
+the bf16 projection, at the packed runner's layer shapes, fproj and eproj,
+beside its bound and torch.mm's bf16-in, f32-out product),
 then drives each path with the kernel launch counts set to 0 just before
 it and read just after:
   - end_to_end: the bucketed Offline int8 pipeline (waveform -> log-mel ->
@@ -217,11 +219,12 @@ def bound(bytes_moved: float, ops: float, peak_ops: float):
 
 def phase_build() -> None:
     from rnnt_inference_tpu_torch.ops import (
-        cuda_build, decode_cuda, features_cuda, lstm_cuda, lstm_scan_cuda,
+        cuda_build, decode_cuda, features_cuda, lstm_cuda, lstm_scan_cuda, projection_cuda,
     )
 
     t0 = time.time()
-    names = [lstm_cuda.NAME, decode_cuda.NAME, lstm_scan_cuda.NAME, features_cuda.NAME]
+    names = [lstm_cuda.NAME, decode_cuda.NAME, lstm_scan_cuda.NAME, features_cuda.NAME,
+             projection_cuda.NAME]
     info = cuda_build.build(names)  # one nvcc per source, in parallel
     for name in names:
         cuda_build.load(name)
@@ -624,11 +627,13 @@ def phase_kernel_b_packed(weights, params, dev) -> dict:
 
 def phase_kernel_c(weights, dev) -> dict:
     """Kernel C against its twin at H=1024 (the middle encoder layer's
-    shape, IC=1024), T=48, N in {16, 128}, bf16 and f32 weights; cuDNN's
-    LSTM layer of the same shape and type as the yardstick."""
+    shape, IC=1024), T=48, N in {16, 128}, bf16 and f32 weights, both on
+    one xw: the layer's own projection (kernel E in bf16, which phase
+    projection holds to its twin); cuDNN's LSTM layer of the same shape
+    and type as the yardstick."""
     from rnnt_inference_tpu_torch.models.weights import map_tensors
     from rnnt_inference_tpu_torch.ops import lstm as tl
-    from rnnt_inference_tpu_torch.ops import lstm_scan_cuda
+    from rnnt_inference_tpu_torch.ops import lstm_scan_cuda, projection_cuda
 
     T = 48
     g = torch.Generator().manual_seed(321)
@@ -643,8 +648,10 @@ def phase_kernel_c(weights, dev) -> dict:
             x = torch.randn((T, N, IC), generator=g).to(dev)
             h0 = (torch.randn((N, H), generator=g) * 0.5).to(dev)
             c0 = (torch.randn((N, H), generator=g) * 0.5).to(dev)
-            got = tl.lstm_layer(layer, x, h0, c0)
-            want = tl.lstm_layer(layer, x, h0, c0, impl="reference")
+            xw = projection_cuda.project(x.to(dt), layer.w_ih, layer.b)
+            hc, cc = h0.to(dt), c0
+            got = lstm_scan_cuda.lstm_recurrence_cuda(layer, xw, hc, cc)
+            want = tl.lstm_recurrence(xw, layer.w_hh, hc, cc)
             torch.cuda.synchronize()
             row = {"dtype": str(dt), "IC": IC, "H": H, "N": N, "T": T}
             for name, a, b, tol in zip(("y", "h", "c"), got, want, (tol_h, tol_h, tol_c)):
@@ -653,11 +660,9 @@ def phase_kernel_c(weights, dev) -> dict:
                 row[f"{name}_share_diff"] = float((d != 0).float().mean())
                 if not row[f"{name}_max_abs_diff"] <= tol:
                     raise AssertionError(f"kernel C {name} off: {row}")
-            # the kernel alone (recurrence over T steps) against its twin
-            # on the same xw, and the whole layer (projection + kernel)
-            # against cuDNN's LSTM layer
-            xw = (tl.dot_f32(x.to(dt), layer.w_ih) + layer.b.float()).to(dt)
-            hc, cc = h0.to(dt), c0
+            # the kernel alone (recurrence over T steps) against its twin,
+            # and the whole layer (projection + kernel) against cuDNN's
+            # LSTM layer
             before = lstm_scan_cuda.lstm_recurrence_cuda.launches
             lstm_scan_cuda.lstm_recurrence_cuda(layer, xw, hc, cc)
             launches_per_call = lstm_scan_cuda.lstm_recurrence_cuda.launches - before
@@ -702,6 +707,99 @@ def phase_kernel_c(weights, dev) -> dict:
                           "bound_ms", "bound_by")},
         "n16": {str(d): {k: entries[(d, 16)][k] for k in ("ms", "layer_ms", "library_ms")}
                 for d in (torch.bfloat16, torch.float32)},
+    }
+
+
+def phase_projection(weights, dev) -> dict:
+    """Kernel E (ops/projection_cuda.py) against its plain twin on the
+    model's bf16 weights at the main path's shapes: the packed runner's
+    pre-net layers (M = 16 frames x 1,024 lanes, K = 240 and 1,024), its
+    post-net layers (M = 8,192 after stack_time, K = 2,048 and 1,024), ragged
+    M, the joint's fproj (N = 512, f32 out), the decode set-up's eproj (M =
+    28, K = 320, N = 1,280) and an odd N (W2, N = 29); M = 0 launches
+    nothing.  Tolerance: the kernel and the twin sum the same exact
+    products in f32 in another order, so the f32 epilogue lies within
+    2 K eps sum|a||b| of the twin, and the bf16 one, after its one
+    rounding, within that plus one bf16 ulp of the larger of the two.  Each
+    shape is timed beside its bound, the twin and the library's
+    bf16-in, f32-out product (torch.mm(..., out_dtype=torch.float32))."""
+    from rnnt_inference_tpu_torch.ops import projection_cuda as pc
+
+    bf = lambda t: t.to(torch.bfloat16)
+    pre, post, jw = weights.pre_rnn, weights.post_rnn, weights.joint
+    cases = [  # name, M, w, b
+        ("pre_layer0", 16384, pre[0].w_ih, pre[0].b),
+        ("pre_layer1", 16384, pre[1].w_ih, pre[1].b),
+        ("post_layer0", 8192, post[0].w_ih, post[0].b),
+        ("post_layer1", 8192, post[1].w_ih, post[1].b),
+        ("ragged_post_layer0", 8192 - 77, post[0].w_ih, post[0].b),
+        ("ragged_pre_layer0", 1000, pre[0].w_ih, pre[0].b),
+        ("fproj", 8192, jw.w1_trans, None),
+        ("eproj", weights.embed.shape[0], weights.pred_rnn[0].w_ih, None),
+        ("odd_n", 64, jw.w2, None),
+    ]
+    g = torch.Generator().manual_seed(18)
+    rows, eps = {}, torch.finfo(torch.float32).eps
+    for name, M, w, b in cases:
+        w, b = bf(w).contiguous(), None if b is None else bf(b)
+        K, N = w.shape
+        x = bf(torch.randn((M, K), generator=g)).to(dev)
+        before = pc.project_cuda.launches
+        got = pc.project_cuda(x, w, b)
+        launches = pc.project_cuda.launches - before
+        want = pc.project_reference(x, w, b)
+        torch.cuda.synchronize()
+        if got.dtype != want.dtype or got.shape != want.shape or launches != 1:
+            raise AssertionError(f"kernel E {name}: {got.dtype} {tuple(got.shape)}, want "
+                                 f"{want.dtype} {tuple(want.shape)}; {launches} launches")
+        tol = 2 * K * eps * (x.float().abs() @ w.float().abs())
+        if b is not None:
+            big = torch.maximum(got.float().abs(), want.float().abs())
+            tol = tol + torch.ldexp(torch.ones_like(big), torch.frexp(big).exponent - 8)
+        d = (got.float() - want.float()).abs()
+        ratio = float((d / tol).max())
+        if not ratio <= 1.0 or not torch.isfinite(got.float()).all():
+            raise AssertionError(f"kernel E {name} off: max |d| {float(d.max())}, "
+                                 f"{ratio} of its tolerance")
+        ms = cuda_ms(lambda: pc.project_cuda(x, w, b), 20)
+        plain_ms = cuda_ms(lambda: pc.project_reference(x, w, b), 5, 1)
+        try:
+            library_ms = cuda_ms(lambda: torch.mm(x, w, out_dtype=torch.float32), 20)
+        except (TypeError, RuntimeError) as e:  # a torch without mm's out_dtype
+            library_ms = f"not available: {e}"
+        out_bytes = 2 if b is not None else 4
+        nbytes = (M * K + K * N) * 2 + M * N * out_bytes + (0 if b is None else N * 4)
+        bound_ms, bound_by = bound(nbytes, 2 * M * N * K, PEAK_BF16_FLOPS)
+        rows[name] = {
+            "M": M, "K": K, "N": N, "epilogue": "b: f32" if b is None else "a: bf16 + bias",
+            "launches_per_call": launches, "max_abs_err": float(d.max()),
+            "share_differing": float((d != 0).float().mean()), "max_err_over_tolerance": ratio,
+            "ms": ms, "tflops": 2 * M * N * K / ms / 1e9, "bound_ms": bound_ms,
+            "bound_by": bound_by, "plain_ms": plain_ms, "library_ms": library_ms}
+    w = bf(post[0].w_ih)
+    before = pc.project_cuda.launches
+    empty = pc.project_cuda(torch.empty((0, w.shape[0]), dtype=torch.bfloat16, device=dev), w)
+    if empty.shape != (0, w.shape[1]) or pc.project_cuda.launches != before:
+        raise AssertionError("kernel E: M = 0 must return (0, N) without a launch")
+    emit({"phase": "projection",
+          "tolerance": "f32 out: 2 K eps sum|a||b| (summation order); bf16 out: that plus one "
+                       "bf16 ulp (the one rounding after another order)",
+          "library": "torch.mm(a, b, out_dtype=torch.float32) (aten::mm.dtype), bf16 in",
+          "rows": rows})
+    e = rows["post_layer0"]
+    return {
+        "name": "projection", "route": "cuda",
+        "source": "rnnt_inference_tpu_torch/csrc/projection.cu",
+        "replaces": "none: rnnt_inference_tpu/ops/lstm.py:64 jnp.dot(..., "
+                    "preferred_element_type=jnp.float32), left to XLA",
+        "shape": f"M={e['M']} K={e['K']} N={e['N']} bf16, bias, bf16 out (post-net layer 0 of "
+                 "a packed chunk); one call = 1 launch",
+        "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+        "max_err_over_tolerance": max(r["max_err_over_tolerance"] for r in rows.values()),
+        "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+        "bound_by": e["bound_by"], "library_ms": e["library_ms"],
+        "by_shape": {k: {q: r[q] for q in ("ms", "bound_ms", "plain_ms", "library_ms")}
+                     for k, r in rows.items()},
     }
 
 
@@ -910,13 +1008,16 @@ def phase_cli(mode: str, n: int, dev, card: str) -> dict:
 
     from rnnt_inference_tpu_torch import main as cli
     from rnnt_inference_tpu_torch.config import FeaturizerConfig, RNNTParams
-    from rnnt_inference_tpu_torch.ops import decode_cuda, lstm_cuda, lstm_scan_cuda
+    from rnnt_inference_tpu_torch.ops import (
+        decode_cuda, lstm_cuda, lstm_scan_cuda, projection_cuda,
+    )
     from rnnt_inference_tpu_torch.runtime.harness import run_offline
     from rnnt_inference_tpu_torch.runtime.offline import OfflineRunner
 
     counters = {"lstm_recurrence": lstm_scan_cuda.lstm_recurrence_cuda,
                 "decode_step": decode_cuda.decode_step_cuda,
-                "quant_lstm_layer": lstm_cuda.quant_lstm_layer_cuda}
+                "quant_lstm_layer": lstm_cuda.quant_lstm_layer_cuda,
+                "projection": projection_cuda.project_cuda}
     with tempfile.TemporaryDirectory() as out:
         argv = ["--run_mode", mode, "--benchmark", "--scenario", "Offline",
                 "--synthetic", str(n), "--output_dir", out]
@@ -932,6 +1033,8 @@ def phase_cli(mode: str, n: int, dev, card: str) -> dict:
             raise AssertionError(f"the {mode} CLI run never launched kernel C or B: {launches}")
         if per_pass["lstm_recurrence"] == 0 or per_pass["decode_step"] == 0:
             raise AssertionError(f"main's timed pass launched no kernel C or B: {per_pass}")
+        if mode == "bf16" and not per_pass["projection"]:
+            raise AssertionError(f"main's bf16 timed pass launched no kernel E: {per_pass}")
 
         args = cli.parse_args(argv)
         params, cfg = RNNTParams(), FeaturizerConfig()
@@ -2714,10 +2817,9 @@ def _streaming_parting(w, params, qsl, batch_size: int, q: int, feats, server_to
     """Where query q's Server tokens part from the bucketed Offline
     runner's.  Kernel A is bit-equal to its twin, so from equal features
     both runs have the same encoder output f; what differs is the shape
-    of two sums: the joint's projection fproj = f @ w1_trans, an f32 GEMM
-    of (split / 2) x slots rows in a Server window and T2 x batch_size in
-    the Offline batch, whose products may sum in an order that depends on
-    the row count, and kernel B's, which sum a lane's products in an order
+    of two sums: the joint's projection fproj = f @ w1_trans (kernel E), of
+    (split / 2) x slots rows in a Server window and T2 x batch_size in the
+    Offline batch, and kernel B's, which sum a lane's products in an order
     that can depend on the lane count (64 lanes against 1 or 2 on an H100:
     PERF.md).
     Both projections are rebuilt for q (the Offline batch as the runner
@@ -2728,7 +2830,7 @@ def _streaming_parting(w, params, qsl, batch_size: int, q: int, feats, server_to
     from rnnt_inference_tpu_torch.models import rnnt as model
     from rnnt_inference_tpu_torch.ops import decode_cuda
     from rnnt_inference_tpu_torch.ops.features import log_mel_features
-    from rnnt_inference_tpu_torch.ops.lstm import dot_f32
+    from rnnt_inference_tpu_torch.ops.projection_cuda import project
     from rnnt_inference_tpu_torch.tools import decode_divergence
 
     w1 = w.joint.w1_trans
@@ -2743,7 +2845,7 @@ def _streaming_parting(w, params, qsl, batch_size: int, q: int, feats, server_to
         f, _ = model.transcription(w, x, x_lens, model.init_encoder_state(
             batch_size, params, w.pre_rnn[0].w_ih.dtype, dev), params)
         f_len = -(-int(x_lens[row]) // params.stack_time_factor)
-        fproj_off = dot_f32(f.to(w1.dtype), w1)[:f_len, row]
+        fproj_off = project(f.to(w1.dtype), w1)[:f_len, row]
         xs = feats[:, None]
         fs, _ = model.transcription(w, xs, torch.tensor([xs.shape[0]], dtype=torch.int32,
                                                         device=dev),
@@ -2754,7 +2856,7 @@ def _streaming_parting(w, params, qsl, batch_size: int, q: int, feats, server_to
         for k in range(0, fs.shape[0], t2):
             win = torch.zeros((t2, slots, fs.shape[2]), dtype=fs.dtype, device=dev)
             win[: min(t2, fs.shape[0] - k), 0] = fs[k : k + t2, 0]
-            windows.append(dot_f32(win.to(w1.dtype), w1)[:, 0])
+            windows.append(project(win.to(w1.dtype), w1)[:, 0])
         fproj_srv = torch.cat(windows)[:f_len]
         r = decode_divergence.compare_fproj_lanes(fproj_srv, fproj_off, f_len,
                                                   decode_cuda.decode_weights(w), params,
@@ -3326,6 +3428,7 @@ def main() -> int:
     b32 = phase_kernel_b(weights, params, dev, "kernel_b_f32")
     bp = phase_kernel_b_packed(qweights, params, dev)
     c = phase_kernel_c(weights, dev)
+    proj = phase_projection(weights, dev)
     # the bench's store (bench.run's: seed 0) at the bench phase's BENCH_N
     bench_store = SampleStore.synthetic(n=int(BENCH_CUTS["BENCH_N"]), seed=0)
     d = phase_kernel_d(qweights, params, dev, bench_store)
@@ -3356,6 +3459,8 @@ def main() -> int:
     a["encoder_layer_calls_per_timed_pass"] = paths["int8"]["layer_calls"]
     b["launches"] = paths["bf16"]["main"]["decode_step"]
     c["launches"] = paths["bf16"]["main"]["lstm_recurrence"]
+    proj["launches"] = paths["bf16"]["main"]["projection"]
+    proj["launches_per_timed_pass"] = paths["bf16"]["timed_pass"]["projection"]
     d["launches_per_timed_pass"] = d["launches"]
     native = ("native_offline", "native_packed", "native_server", "native_single_stream",
               "product_chain", "server_probe", "server_pipelined", "run_stages", "bare_machine")
@@ -3393,7 +3498,7 @@ def main() -> int:
                                               "plain_ms_per_step_packed")}
                         for n, r in bp.items()}
     emit({"phase": "summary", "card": card, "seconds": time.time() - t_start})
-    emit({"kernels": [a, b, c, d, tp["a"], tp["b"], tp["c"]]})
+    emit({"kernels": [a, b, c, d, proj, tp["a"], tp["b"], tp["c"]]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

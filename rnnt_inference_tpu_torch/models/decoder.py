@@ -45,7 +45,7 @@ import torch
 from rnnt_inference_tpu_torch.config import RNNTParams
 from rnnt_inference_tpu_torch.models import rnnt as model
 from rnnt_inference_tpu_torch.ops import decode_cuda as dc
-from rnnt_inference_tpu_torch.ops.lstm import dot_f32
+from rnnt_inference_tpu_torch.ops import projection_cuda
 
 # iterations between two host reads of finish.all(): one kernel-B launch
 # each; chip_smoke.py's symbol_loop_by_k times the choice (PERF.md)
@@ -186,7 +186,7 @@ def _symbol_loop(weights, state, f, f_lens, params, impl, steps_per_check, dw, p
     dev = f.device
     jw = weights.joint
     # the joint's transcription projection, hoisted out of the symbol loop
-    fproj = dot_f32(f.to(jw.w1_trans.dtype), jw.w1_trans).contiguous()  # (T2, N, J)
+    fproj = projection_cuda.project(f.to(jw.w1_trans.dtype), jw.w1_trans, impl=impl)  # (T2, N, J)
     dw = dw if dw is not None else dc.decode_weights(weights)
     f_lens = f_lens.to(device=dev, dtype=torch.int32)
 

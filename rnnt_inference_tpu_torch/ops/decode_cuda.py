@@ -56,7 +56,7 @@ from typing import Optional
 import torch
 
 from rnnt_inference_tpu_torch.config import RNNTParams
-from rnnt_inference_tpu_torch.ops import cuda_build
+from rnnt_inference_tpu_torch.ops import cuda_build, projection_cuda
 from rnnt_inference_tpu_torch.ops.lstm import dot_f32
 
 NAME = "decode_step"
@@ -315,7 +315,7 @@ def kernel_operands(dw: DecodeWeights, UP: int):
       wout {J, VP}: W2 padded with zero columns;
     in bf16 each then in mma fragment order (cuda_build.b_fragments).
     eproj {P/UP, V, UP, 4} f32: layer 0's input gates for every embedding
-    row, embed . W_ih[0] + b[0] (f32 sums, as the twin), and in row V-1
+    row, embed . W_ih[0] + b[0] (f32 sums; kernel E on the card), and in row V-1
     those of SOS's zero embedding, b[0]."""
     L, P, G = dw.w_ih.shape
     J, V = dw.w2.shape
@@ -335,7 +335,8 @@ def kernel_operands(dw: DecodeWeights, UP: int):
     ops = (whh, w1, w2, wout)
     if dt == torch.bfloat16:
         ops = tuple(cuda_build.b_fragments(t) for t in ops)
-    eproj = torch.cat([dot_f32(dw.embed, dw.w_ih[0]) + dw.b[0], dw.b[0][None]])  # (V, 4P)
+    eproj = torch.cat([projection_cuda.project(dw.embed, dw.w_ih[0]) + dw.b[0],
+                       dw.b[0][None]])  # (V, 4P)
     eproj = eproj.reshape(V, 4, nbp, UP).permute(2, 0, 3, 1)
     return tuple(t.contiguous() for t in ops + (eproj,))
 

@@ -1,9 +1,13 @@
 """Float LSTM as plain PyTorch ops (counterpart of rnnt_inference_tpu/ops/lstm.py).
 
 The input projection ``x @ W_ih + b`` of a whole (T, N) chunk is hoisted out
-of the recurrence into one matmul; only ``h @ W_hh`` and the gate math run
-per step.  Matmuls take their operands in the weights' dtype and accumulate
-in f32 (bf16 operands are upcast, which is exact); the cell state is f32.
+of the recurrence into one product; only ``h @ W_hh`` and the gate math run
+per step.  Products take their operands in the weights' dtype and sum in
+f32.  The projection of bf16 operands on the card runs kernel E
+(ops/projection_cuda.py: bf16 tensor-core products, f32 sums, the bias and
+the one rounding to bf16 in its epilogue); elsewhere, and in the plain
+twins, a product is one f32 matmul on upcast operands (``dot_f32``; a
+product of two bf16 values is exact in f32).  The cell state is f32.
 
 The recurrence runs kernel C (ops/lstm_scan_cuda.py, the counterpart of
 the JAX package's Pallas _lstm_scan_kernel) on CUDA tensors; its plain twin
@@ -16,7 +20,7 @@ runs here as eager PyTorch on either device.
 Tensor parallelism (parallel/tensor.py): ``lstm_layer_tp`` runs one float
 layer on the k model ranks of a data shard, each holding the weight slice
 of H/k units (parallel/mesh.py rank_weights): each rank's projection xw
-on its own columns (a plain product, dot_f32), then one step at a time
+on its own columns (kernel E or its twin), then one step at a time
 every rank computes its units' h_t and stores it into every rank's
 full-width y_t, which is the next step's h (``cuda_build.rank_barrier``
 across cards); c never leaves its rank.  A step is kernel C's rank mode
@@ -34,21 +38,19 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from rnnt_inference_tpu_torch.models.weights import LSTMLayerWeights
-from rnnt_inference_tpu_torch.ops import cuda_build, lstm_scan_cuda
+from rnnt_inference_tpu_torch.ops import cuda_build, lstm_scan_cuda, projection_cuda
 from rnnt_inference_tpu_torch.ops.activations import gate_fns
 
 
 def dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b with f32 accumulation (jnp.dot(..., preferred_element_type=f32)).
-    torch's bf16 matmul would round its result to bf16, so reduced-precision
-    operands are upcast first; a product of two bf16 values is exact in f32."""
+    """a @ b with f32 sums (jnp.dot(..., preferred_element_type=f32)) as one
+    plain f32 matmul on upcast operands: torch's bf16 matmul would round its
+    result to bf16, and a product of two bf16 values is exact in f32.  The
+    plain twins (kernel C's recurrence, kernel B's iteration, the reference
+    joint) use it; the main path's large products call
+    projection_cuda.project, which runs bf16 operands on the card on kernel
+    E and takes this same formula elsewhere."""
     return torch.matmul(a.float(), b.float())
-
-
-def xw_dtype(compute_dtype: torch.dtype) -> torch.dtype:
-    """The dtype the hoisted projection xw is stored in: the compute dtype
-    (accumulated in f32, then rounded once), the JAX package's default."""
-    return compute_dtype
 
 
 def lstm_cell(
@@ -92,15 +94,15 @@ def lstm_layer(
     c0: torch.Tensor,
     impl: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One LSTM layer over a (T, N, IC) chunk: the hoisted projection as one
-    plain product, then the recurrence (kernel C on CUDA tensors, its plain
-    twin on CPU tensors or when impl="reference").
+    """One LSTM layer over a (T, N, IC) chunk: the hoisted projection xw =
+    x @ W_ih + b, summed in f32 and stored in the compute dtype (kernel E on
+    bf16 CUDA tensors), then the recurrence (kernel C on CUDA tensors); both
+    plain twins on CPU tensors or when impl="reference".
     Returns (y {T,N,H} in the weights' dtype, h {N,H}, c {N,H} f32)."""
     if impl not in (None, "reference"):
         raise ValueError(f"unknown impl {impl!r}")
     compute_dtype = layer.w_ih.dtype
-    x = x.to(compute_dtype)
-    xw = (dot_f32(x, layer.w_ih) + layer.b.float()).to(xw_dtype(compute_dtype))
+    xw = projection_cuda.project(x.to(compute_dtype), layer.w_ih, layer.b, impl)
     h = h0.to(compute_dtype)
     c = c0.float()
     if impl == "reference" or not xw.is_cuda:
@@ -167,8 +169,7 @@ def lstm_layer_tp(
         raise ValueError(f"unknown impl {impl!r}")
     k = len(layers)
     dt = layers[0].w_ih.dtype
-    xw = [(dot_f32(xr.to(dt), l.w_ih) + l.b.float()).to(xw_dtype(dt))
-          for xr, l in zip(x, layers)]
+    xw = [projection_cuda.project(xr.to(dt), l.w_ih, l.b, impl) for xr, l in zip(x, layers)]
     h = [hr.to(dt) for hr in h0]
     cs = [cr.float().clone().contiguous() for cr in c0]
     T, N = x[0].shape[:2]

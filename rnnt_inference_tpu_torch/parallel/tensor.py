@@ -58,7 +58,8 @@ from rnnt_inference_tpu_torch.models.decoder import (
 )
 from rnnt_inference_tpu_torch.models.quant import FakeQuantRNNTWeights, QuantRNNTWeights
 from rnnt_inference_tpu_torch.ops import decode_cuda as dc
-from rnnt_inference_tpu_torch.ops.lstm import dot_f32, lstm_stack_tp, stack_time
+from rnnt_inference_tpu_torch.ops import projection_cuda
+from rnnt_inference_tpu_torch.ops.lstm import lstm_stack_tp, stack_time
 from rnnt_inference_tpu_torch.ops.lstm_int8 import quant_lstm_stack_tp
 from rnnt_inference_tpu_torch.parallel.mesh import Mesh, batch_sharding, join, lens_sharding
 from rnnt_inference_tpu_torch.runtime.offline import lockstep_steps
@@ -110,7 +111,7 @@ def transcription_tp(ranks: Sequence, x: Sequence[torch.Tensor], x_lens: Sequenc
 def _symbol_loop_tp(ranks, dws, states, f, f_lens, params, impl, steps_per_check):
     """models/decoder.py _symbol_loop on k model ranks; returns the ranks'
     states and lane arrays."""
-    fproj = [dot_f32(fr.to(w.joint.w1_trans.dtype), w.joint.w1_trans).contiguous()
+    fproj = [projection_cuda.project(fr.to(w.joint.w1_trans.dtype), w.joint.w1_trans, impl=impl)
              for fr, w in zip(f, ranks)]  # (T2, N, J/k): the rank's joint columns
     T2, N = f[0].shape[:2]
     lanes = []

@@ -22,7 +22,9 @@ import torch
 
 from rnnt_inference_tpu_torch.config import FeaturizerConfig, RNNTParams
 from rnnt_inference_tpu_torch.models.decoder import drain, greedy_decode_steps
-from rnnt_inference_tpu_torch.ops import cuda_build, decode_cuda, lstm_cuda, lstm_scan_cuda
+from rnnt_inference_tpu_torch.ops import (
+    cuda_build, decode_cuda, lstm_cuda, lstm_scan_cuda, projection_cuda,
+)
 from rnnt_inference_tpu_torch.ops.features import log_mel_features
 from rnnt_inference_tpu_torch.parallel.mesh import join, shard, weight_shardings
 from rnnt_inference_tpu_torch.runtime.qsl import DeviceQSL, QuerySampleLibrary
@@ -49,6 +51,7 @@ _KERNELS = {
     "quant_lstm_layer": lstm_cuda.quant_lstm_layer_cuda,
     "lstm_recurrence": lstm_scan_cuda.lstm_recurrence_cuda,
     "decode_step": decode_cuda.decode_step_cuda,
+    "projection": projection_cuda.project_cuda,
 }
 
 
@@ -56,7 +59,8 @@ def build_kernels(device: torch.device, impl: Optional[str]) -> None:
     """Build every kernel a runner can launch (untimed set-up): on the card
     unless impl="reference"."""
     if device.type == "cuda" and impl is None:
-        cuda_build.build([lstm_cuda.NAME, lstm_scan_cuda.NAME, decode_cuda.NAME])
+        cuda_build.build([lstm_cuda.NAME, lstm_scan_cuda.NAME, decode_cuda.NAME,
+                          projection_cuda.NAME])
 
 
 def launch_counts() -> Dict[str, int]:

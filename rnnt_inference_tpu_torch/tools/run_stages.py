@@ -229,7 +229,7 @@ def prepare_env(env: Env) -> None:
 
     from rnnt_inference_tpu_torch.data.flac import decode_flac, encode_flac
     from rnnt_inference_tpu_torch.ops import (
-        cuda_build, decode_cuda, features_cuda, lstm_cuda, lstm_scan_cuda,
+        cuda_build, decode_cuda, features_cuda, lstm_cuda, lstm_scan_cuda, projection_cuda,
     )
     from rnnt_inference_tpu_torch.runtime import native
 
@@ -246,7 +246,8 @@ def prepare_env(env: Env) -> None:
                              "  (set PLATFORM=cpu to prepare without it)")
         print(f"  backend probe: {detail}")
         print("== CUDA kernels ==")
-        names = [lstm_cuda.NAME, decode_cuda.NAME, lstm_scan_cuda.NAME, features_cuda.NAME]
+        names = [lstm_cuda.NAME, decode_cuda.NAME, lstm_scan_cuda.NAME, features_cuda.NAME,
+                 projection_cuda.NAME]
         cuda_build.build(names)  # one nvcc per source, in parallel; raises on failure
         for name in names:
             cuda_build.load(name)

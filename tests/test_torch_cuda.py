@@ -176,6 +176,33 @@ def test_lstm_scan_kernel_matches_twin(dev, wdtype, N):
         assert float((a.float() - b.float()).abs().max()) <= tol, name
 
 
+@pytest.mark.parametrize("M,K,N,bias", [
+    (16, 240, 4096, True), (131, 1024, 4096, True), (300, 2048, 4096, True),
+    (257, 1024, 512, False), (28, 320, 1280, False), (64, 512, 29, False), (33, 20, 24, True)])
+def test_projection_kernel_matches_twin(dev, M, K, N, bias):
+    """Kernel E against its plain twin, ragged M and N, K off a multiple of
+    64 (and of 8): the f32 epilogue within 2 K eps sum|a||b| (summation
+    order), the bf16 one within that plus one bf16 ulp (its one rounding);
+    one launch per call, none for M = 0."""
+    from rnnt_inference_tpu_torch.ops import projection_cuda as pc
+
+    g = torch.Generator().manual_seed(M + K + N)
+    x = torch.randn((M, K), generator=g).to(dev, torch.bfloat16)
+    w = (torch.randn((K, N), generator=g) / K ** 0.5).to(dev, torch.bfloat16)
+    b = torch.randn((N,), generator=g).to(dev, torch.bfloat16) if bias else None
+    before = pc.project_cuda.launches
+    got = pc.project(x, w, b)
+    assert pc.project_cuda.launches == before + 1
+    want = pc.project_reference(x, w, b)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    tol = 2 * K * torch.finfo(torch.float32).eps * (x.float().abs() @ w.float().abs())
+    if bias:
+        big = torch.maximum(got.float().abs(), want.float().abs())
+        tol = tol + torch.ldexp(torch.ones_like(big), torch.frexp(big).exponent - 8)
+    assert bool(((got.float() - want.float()).abs() <= tol).all())
+    assert pc.project(x[:0], w, b).shape == (0, N) and pc.project_cuda.launches == before + 1
+
+
 def test_log_mel_kernel_matches_twin(dev):
     """Kernel D, and the fused entry point, against their twins at N = 1, 3
     and 17 utterances: the kernel alone at T = 1, BM - 1, BM, BM + 1 and
