@@ -3,9 +3,9 @@
     python benchmark/calibrate_emission.py --workload int8.offline.speech [--write]
 
 The cell's file names the model ("blank" or "burst"); this finds its values
-on the program's own decode (models/decoder.py greedy_decode_chunk, kernel B
-on a card) of the encoder output of 64 utterances drawn by the cell's
-traffic law, as the program's bench.py calibrates (``emission.bisect``):
+on the program's own decode of the encoder output of 64 utterances drawn by
+the cell's traffic law (the cell's model's ``emission_probe``), as the
+program's bench.py calibrates (``emission.bisect``):
   blank  for w1_trans amp 1, 2, 4 and 8 the bisected blank delta for
          ``target`` symbols per post-stack frame (0.8, as speech); the
          nearest of the four;
@@ -22,7 +22,6 @@ Prints the values as JSON (and with --write puts them into the cell's file).
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import os
 import sys
@@ -35,61 +34,32 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from benchmark import emission, traffic  # noqa: E402
 from benchmark.common import REPO, Cell, log  # noqa: E402
-from benchmark.weights import (program_featurizer, program_params, program_weights,  # noqa: E402
-                               random_weights)
 
 
 def calibrate(cell: Cell, device, n: int = 64, target: float = 0.8,
               target_burst: float = 1.05) -> dict:
-    from rnnt_inference_tpu_torch.models import rnnt as model
-    from rnnt_inference_tpu_torch.models.decoder import greedy_decode_chunk, init_decode_state
-    from rnnt_inference_tpu_torch.models.weights import JointWeights, LSTMLayerWeights
-    from rnnt_inference_tpu_torch.ops.features import log_mel_features
-
-    config, tr = cell.config, cell.traffic
+    config, tr, model = cell.config, cell.traffic, cell.model
     kind = cell.entry["emission"]["model"]
-    blank_id = config["num_labels"] - 1
     cap = tr["max_symbols_per_step"]
-    params = program_params(config, cap)
-    cfg = program_featurizer(config)
-    w = random_weights(config, device)
+    w = model.random_weights(config, device)
     lens = traffic.durations(tr["duration"], n, 0)
     pcm = traffic.speechlike(lens, 1, device)
     wav = torch.zeros((n, int(lens.max())), device=device)
     off = np.concatenate([[0], np.cumsum(lens)])
     for i in range(n):
         wav[i, : lens[i]] = pcm[off[i] : off[i + 1]].float() / 32768.0
-    with torch.no_grad():
-        feats, flens = log_mel_features(wav, torch.as_tensor(lens, device=device), cfg)
-        calib = None
-        if config["precision"]["encoder"] == "int8":
-            c_pcm, c_lens = traffic.calibration_audio(config, device)
-            calib = log_mel_features((c_pcm.float() / 32768.0).reshape(len(c_lens), -1),
-                                     torch.as_tensor(c_lens, device=device), cfg)
-        base = program_weights(w, config, calib)
-        enc_dtype = base.pre_rnn[0].w_ih.dtype
-        f, _ = model.transcription(base, feats, flens, model.init_encoder_state(
-            n, params, enc_dtype, device), params)
-    f_lens = -(-flens // params.stack_time_factor)
-    frames_u = f_lens.cpu().numpy().astype(np.float64)
-    cast = lambda t: t.to(base.embed.dtype)
+    probe = model.emission_probe(config, w, wav, lens, device)
+    emitting = lambda **values: model.apply_emission(w, values, config)
 
-    def symbols(wt: dict, p):
-        served = dataclasses.replace(
-            base, embed=cast(wt["embed"]),
-            pred_rnn=[LSTMLayerWeights(*map(cast, l)) for l in wt["pred"]],
-            joint=JointWeights(**{k: cast(v) for k, v in wt["joint"].items()}))
-        with torch.no_grad():
-            st = greedy_decode_chunk(served, init_decode_state(
-                n, p, enc_dtype, base.pred_rnn[0].w_ih.dtype, device), f, f_lens, p)
-        r = (st.res_idx + 1).cpu().numpy().astype(np.float64)
+    def symbols(wt: dict, at_cap: int):
+        r, frames_u = probe(wt, at_cap)
         return r.sum() / frames_u.sum(), float((r / frames_u).max()), r.sum()
 
     if kind == "blank":
         best = None
         for amp in (1.0, 2.0, 4.0, 8.0):
             delta, r = emission.bisect(
-                lambda d, amp=amp: symbols(emission.blank(w, amp, d, blank_id), params)[0],
+                lambda d, amp=amp: symbols(emitting(model="blank", amp=amp, delta=d), cap)[0],
                 target, iters=14)
             log(f"blank: amp {amp:g} delta {delta:.4f} -> {r:.4f} symbols/frame")
             if best is None or abs(r - target) < abs(best[2] - target):
@@ -98,17 +68,16 @@ def calibrate(cell: Cell, device, n: int = 64, target: float = 0.8,
         return dict(model="blank", amp=amp, delta=round(delta, 6), target_symbols_per_frame=target,
                     measured_symbols_per_frame=round(r, 4))
 
-    params1 = dataclasses.replace(params, max_symbols_per_step=1)
     tail_cap = min(10.0, 0.4 * cap)
     found = []
 
     def consider(kappa, amp):
         delta, r = emission.bisect(
-            lambda d: symbols(emission.burst(w, amp, d, kappa, blank_id), params)[0],
+            lambda d: symbols(emitting(model="burst", amp=amp, delta=d, kappa=kappa), cap)[0],
             rate_target, iters=12)
-        wt = emission.burst(w, amp, delta, kappa, blank_id)
-        r, tail, s_cap = symbols(wt, params)
-        s_1 = symbols(wt, params1)[2]
+        wt = emitting(model="burst", amp=amp, delta=delta, kappa=kappa)
+        r, tail, s_cap = symbols(wt, cap)
+        s_1 = symbols(wt, 1)[2]
         factor = s_cap / max(s_1, 1.0)
         log(f"burst: amp {amp:g} kappa {kappa:g} delta {delta:.4f} -> {r:.4f} symbols/frame, "
             f"burst factor {factor:.4f}, worst utterance {tail:.2f} symbols/frame")

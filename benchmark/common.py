@@ -1,5 +1,5 @@
-"""What the drivers share: a cell's files, the record of one run that the
-metric readers read, and the set-up of a cell's weights."""
+"""What the drivers share: a cell's files and model, the record of one run
+that the metric readers read, and the set-up of a cell's weights."""
 
 from __future__ import annotations
 
@@ -7,13 +7,13 @@ import json
 import sys
 from dataclasses import dataclass, field
 from pathlib import Path
+from types import ModuleType
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from benchmark import emission, traffic
-from benchmark.weights import program_featurizer, program_weights, random_weights
+from benchmark import models
 
 ROOT = Path(__file__).resolve().parent  # benchmark/
 REPO = ROOT.parent
@@ -26,9 +26,10 @@ def log(msg: str) -> None:
 @dataclass
 class Cell:
     """One entry of BENCHMARK.json's workloads with its files: the
-    configuration (its "file"), the traffic mix (traffic/<traffic>.json)
-    and the cell's own entry (cells/<name>.json: the replayed emission
-    model and the limits of the correctness check)."""
+    configuration (its "file"), the traffic mix (traffic/<traffic>.json),
+    the cell's own entry (cells/<name>.json: the replayed emission model
+    and the limits of the correctness check) and the model module the
+    configuration's "model" names (models/<model>.py)."""
 
     name: str
     chips: int
@@ -37,6 +38,7 @@ class Cell:
     entry: dict
     spec: dict
     repo: Path
+    model: ModuleType
 
     @classmethod
     def load(cls, name: str, repo: Path = REPO) -> "Cell":
@@ -47,11 +49,14 @@ class Cell:
         w = cells[name]
         cfg = {c["name"]: c for c in spec["configs"]}[w["config"]]
         bench = repo / "benchmark"
-        return cls(name=name, chips=int(w["chips"]),
-                   config=json.loads((repo / cfg["file"]).read_text()),
+        config = json.loads((repo / cfg["file"]).read_text())
+        if "model" not in config:
+            raise ValueError(f"configuration {cfg['file']} has no \"model\" key: it names "
+                             "the model module benchmark/models/<model>.py")
+        return cls(name=name, chips=int(w["chips"]), config=config,
                    traffic=json.loads((bench / "traffic" / f"{w['traffic']}.json").read_text()),
                    entry=json.loads((bench / "cells" / f"{name}.json").read_text()),
-                   spec=spec, repo=repo)
+                   spec=spec, repo=repo, model=models.load(config["model"], repo))
 
     def end_to_end(self) -> List[dict]:
         return [m for m in self.spec["end_to_end"] if self.name in m.get("workloads", [self.name])]
@@ -90,22 +95,20 @@ class Run:
     weights: Optional[dict] = None  # the float32 weights both sides were given
 
 
+def cell_program(cell: Cell, device, max_symbols_per_step: int):
+    """(the float32 weights with the cell's emission model, and the
+    program's served weights, params and featurizer config made from them:
+    ``cell.model.program``)."""
+    m = cell.model
+    w = m.apply_emission(m.random_weights(cell.config, device), cell.entry["emission"],
+                         cell.config)
+    return (w,) + tuple(m.program(cell.config, w, device, max_symbols_per_step))
+
+
 def cell_weights(cell: Cell, device):
     """(the float32 weights with the cell's emission model, the program's
-    weight object made from them)."""
-    config = cell.config
-    w = emission.apply(random_weights(config, device), cell.entry["emission"],
-                       config["num_labels"] - 1)
-    calib = None
-    if config["precision"]["encoder"] == "int8":
-        from rnnt_inference_tpu_torch.ops.features import log_mel_features
-
-        pcm, lens = traffic.calibration_audio(config, device)
-        wav = (pcm.float() / 32768.0).reshape(len(lens), -1)
-        with torch.no_grad():
-            calib = log_mel_features(wav, torch.as_tensor(lens, device=device),
-                                     program_featurizer(config))
-    return w, program_weights(w, config, calib)
+    served weights made from them) at a cap of one symbol a frame."""
+    return cell_program(cell, device, 1)[:2]
 
 
 def sync(device) -> None:

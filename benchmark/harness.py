@@ -4,11 +4,14 @@ check of what the window served, the metrics, and the result line.
     python benchmark/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 Everything is found by name from BENCHMARK.json: the cell's configuration
-(its "file"), its traffic mix (benchmark/traffic/<traffic>.json, whose
-"kind" picks the driver), its entry (benchmark/cells/<cell>.json: the
-replayed emission model and the check's limits) and each per-layer metric's
-reader (benchmark/metrics/<metric>.py, ``read(run)`` returning a number or
-None when it finds nothing to read).
+(its "file") and the model module it names (benchmark/models/<model>.py,
+through which the drivers, the check and the readers reach the weights, the
+program, the reference and the work counts), its traffic mix
+(benchmark/traffic/<traffic>.json, whose "kind" picks the driver), its
+entry (benchmark/cells/<cell>.json: the replayed emission model and the
+check's limits) and each per-layer metric's reader
+(benchmark/metrics/<metric>.py, ``read(run)`` returning a number or None
+when it finds nothing to read).
 
 The last line of standard output is one JSON object: correct, attempted,
 failed, metrics (--trace 0: the cell's end-to-end metrics; --trace 1: its
@@ -20,7 +23,6 @@ error.
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import json
 import sys
 import time
@@ -29,7 +31,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from benchmark import check
+from benchmark import check, models
 from benchmark.common import REPO, Cell, Run, log
 
 # top-level module names that may not be loaded in a run
@@ -49,10 +51,7 @@ def forbidden_modules() -> list:
 def reader(cell: Cell, name: str):
     """The ``read`` function of benchmark/metrics/<name>.py."""
     path = cell.repo / "benchmark" / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"benchmark.metrics.{name}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return models.from_file(path, f"benchmark.metrics.{name}").read
 
 
 def metrics_of(cell: Cell, run: Run, traced: bool) -> Dict[str, dict]:
@@ -77,7 +76,7 @@ def judge(cell: Cell, run: Run, device) -> Dict[str, dict]:
     """The numbers compared, each with its limit."""
     t0 = time.perf_counter()
     gaps = check.gaps(cell.config, run.weights, cell.traffic["max_symbols_per_step"],
-                      run.check_wavs, run.check_tokens, device)
+                      run.check_wavs, run.check_tokens, device, cell.model)
     log(f"check: {len(gaps)} answers, {sum(len(t) for t in run.check_tokens)} tokens in "
         f"{time.perf_counter() - t0:.2f} s; widest logit gap by answer "
         f"{[float(f'{g:.3g}') for g in gaps]}")
@@ -111,8 +110,9 @@ def run_cell(cell: Cell, device, seed: int, seconds: float, traced: bool,
     result["correct"] = all(c["value"] <= c["limit"] for c in checks.values())
     if control:
         cap = cell.traffic["max_symbols_per_step"]
-        toks = check.control_tokens(cell.config, run.weights, cap, run.check_wavs, device)
-        gaps = check.gaps(cell.config, run.weights, cap, run.check_wavs, toks, device)
+        toks = check.control_tokens(cell.config, run.weights, cap, run.check_wavs, device,
+                                    cell.model)
+        gaps = check.gaps(cell.config, run.weights, cap, run.check_wavs, toks, device, cell.model)
         result["control"] = {"mean_logit_gap": check.mean_gap(gaps), "gaps": gaps,
                              "tokens_differing": sum(int(not np.array_equal(a, b)) for a, b in
                                                      zip(toks, run.check_tokens))}

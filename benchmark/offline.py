@@ -9,53 +9,21 @@ when the last rep's tokens are on the host and harvested, so the readback
 and ``harvest`` count.  audio_s_per_s = the audio of every rep / the window.
 
 A traced run profiles ``trace_reps`` reps after the untimed one instead, and
-records the shapes of the kernel calls they make (kernels A and C; kernel
-B's work is counted from the tokens).
+records the shapes of the kernel calls they make (``cell.model.recording``;
+kernel B's work is counted from the tokens, ``cell.model.work``).
 """
 
 from __future__ import annotations
 
-import contextlib
 import time
-from typing import Dict, List
+from typing import List
 
 import numpy as np
 import torch
 
 from benchmark import trace as tr_mod
 from benchmark import traffic
-from benchmark.common import Cell, Run, cell_weights, log, sync
-from benchmark.weights import program_featurizer, program_params
-
-
-@contextlib.contextmanager
-def recording_calls():
-    """Shapes of the calls into kernels A and C while the block runs:
-    {"kernel_a": [(T, N, IC, H, f32 out)], "kernel_c": [(T, N, H, dtype)]}."""
-    from rnnt_inference_tpu_torch.ops import lstm_cuda, lstm_scan_cuda
-
-    calls: Dict[str, list] = {"kernel_a": [], "kernel_c": []}
-    a, c = lstm_cuda.quant_lstm_layer_cuda, lstm_scan_cuda.lstm_recurrence_cuda
-
-    def rec_a(layer, x_i8, h_i8, cell, emit_f32, *args, **kw):
-        T, N, IC = x_i8.shape
-        calls["kernel_a"].append((T, N, IC, h_i8.shape[1], bool(emit_f32)))
-        return a(layer, x_i8, h_i8, cell, emit_f32, *args, **kw)
-
-    def rec_c(layer, xw, h, cell, *args, **kw):
-        T, N, G = xw.shape
-        calls["kernel_c"].append((T, N, G // 4, "bf16" if xw.dtype == torch.bfloat16 else "f32"))
-        return c(layer, xw, h, cell, *args, **kw)
-
-    # each wrapper counts its launches on the module's name for it, which is
-    # the recorder while it stands in: carry the counts over and back
-    rec_a.launches, rec_c.launches = a.launches, c.launches
-    lstm_cuda.quant_lstm_layer_cuda, lstm_scan_cuda.lstm_recurrence_cuda = rec_a, rec_c
-    try:
-        yield calls
-    finally:
-        lstm_cuda.quant_lstm_layer_cuda, lstm_scan_cuda.lstm_recurrence_cuda = a, c
-        a.launches, c.launches = rec_a.launches, rec_c.launches
+from benchmark.common import Cell, Run, cell_program, log, sync
 
 
 def run(cell: Cell, device, seed: int, seconds: float, traced: bool, t_begin: float) -> Run:
@@ -68,9 +36,7 @@ def run(cell: Cell, device, seed: int, seconds: float, traced: bool, t_begin: fl
 
     tr, config = cell.traffic, cell.config
     s_order, s_check = traffic.substreams(seed, 2)
-    params = program_params(config, tr["max_symbols_per_step"])
-    cfg = program_featurizer(config)
-    w32, served = cell_weights(cell, device)
+    w32, served, params, cfg = cell_program(cell, device, tr["max_symbols_per_step"])
 
     lens, wavs = traffic.store(tr["duration"], tr["utterances"], s_order, device)
     store = SampleStore(kind="waveform", samples=wavs, transcripts=[""] * len(wavs))
@@ -103,7 +69,7 @@ def run(cell: Cell, device, seed: int, seconds: float, traced: bool, t_begin: fl
         log(f"window: {len(results)} reps in {window:.4f} s, {audio_s:.1f} audio-s a rep")
     else:
         before = launch_counts()
-        with recording_calls() as calls, tr_mod.profiler(torch.device(device)) as prof:
+        with cell.model.recording() as calls, tr_mod.profiler(torch.device(device)) as prof:
             for _ in range(tr["trace_reps"]):
                 with torch.profiler.record_function(tr_mod.SPAN):
                     results.append(runner.run_device())
@@ -116,13 +82,10 @@ def run(cell: Cell, device, seed: int, seconds: float, traced: bool, t_begin: fl
     tokens: List[np.ndarray] = results[-1].tokens
     n = len(tokens)
     out.attempted, out.failed = n * len(results), 0
-    frames = np.array([cfg.out_frames(int(s)) for s in lens], np.float64)
-    post = np.ceil(frames / params.stack_time_factor)
-    syms = np.array([len(t) for t in tokens], np.float64)
-    reps = len(results)
-    out.work = dict(frames=frames.sum() * reps, post_frames=post.sum() * reps,
-                    symbols=syms.sum() * reps)
-    log(f"symbols per post-stack frame in the window: {syms.sum() / post.sum():.4f}")
+    out.work = cell.model.work(config, params, cfg, lens, tokens, len(results))
+    log(f"symbols per post-stack frame in the window: "
+        f"{out.work['symbols'] / out.work['post_frames']:.4f}")
+    syms = [len(t) for t in tokens]
     pick = traffic.check_sample(n, tr["check_utterances"], s_check,
                                 [int(np.argmax(lens)), int(np.argmax(syms))])
     out.check_wavs = [wavs[i] for i in pick]

@@ -3,7 +3,7 @@ whether a benchmark run served the right tokens.
 
 It imports nothing of the program and takes nothing the program made: the
 benchmark hands it the float32 weights it drew (a plain dict, see
-``random_weights`` in benchmark/weights.py), the waveforms and the
+``random_weights`` in benchmark/models/rnnt.py), the waveforms and the
 calibration audio, and it works out everything else itself, the int8
 scales included.
 
@@ -38,6 +38,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from benchmark.check import widest_gap  # noqa: F401  (the check's rule, once here)
 
 # the next precision below each one a configuration can state
 LOWER = {"int8": "int4", "bf16": "fp8", "f32": "tf32"}
@@ -320,6 +322,7 @@ class RNNT:
                                        for k in ("w1_trans", "w1_pred", "w2"))
         self.b1, self.b2 = (j[k].to(self.joint_op.store).float() for k in ("b1", "b2"))
         self.blank = config["num_labels"] - 1
+        self.max_len = config["max_res_len"]  # the program's answer buffer
 
     def encode(self, wavs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """The encoder's output (T2_i, H) of each waveform, float32."""
@@ -412,46 +415,3 @@ def _to(weights: dict, device) -> dict:
     if isinstance(weights, dict):
         return {k: _to(v, device) for k, v in weights.items()}
     return type(weights)(_to(v, device) for v in weights)
-
-
-# --------------------------------------------------------------------------
-# judging served tokens
-# --------------------------------------------------------------------------
-
-
-def widest_gap(logits: np.ndarray, tokens: Sequence[int], cap: int, blank: int,
-               truncated: bool = False) -> float:
-    """How far below the reference's best logit a greedy decode had to choose
-    to serve ``tokens``, on the alignment that keeps that distance least.
-
-    logits (T2, K + 1, V): the reference at frame t after k tokens.  At each
-    node the decode either emits token k (gap best - logit[k]) or, with
-    fewer than ``cap`` symbols on the frame, takes blank and advances (gap
-    best - logit[blank]); with ``cap`` symbols on the frame it advances
-    whatever the logits say.  The served decode ends past the last frame
-    with every token emitted; a ``truncated`` one (its tokens cut at the
-    buffer's length) ends once the last token is emitted.  Returns the
-    least, over alignments, of the widest gap on the alignment (inf when
-    no alignment serves the tokens)."""
-    T2, K1, _ = logits.shape
-    K = K1 - 1
-    best = logits.max(axis=2)
-    emit = best[:, :K] - logits[:, np.arange(K), np.asarray(tokens, np.int64)] if K else \
-        np.zeros((T2, 0))
-    adv = best - logits[:, :, blank]
-    inf = np.inf
-    enter = np.full(K1, inf)
-    enter[0] = 0.0
-    reached = inf
-    for t in range(T2):
-        states = [enter]
-        for _ in range(cap):
-            prev = states[-1]
-            nxt = np.full(K1, inf)
-            nxt[1:] = np.maximum(prev[:-1], emit[t])
-            states.append(nxt)
-        if truncated:
-            reached = min(reached, min(s[K] for s in states))
-        leave = np.minimum.reduce([np.maximum(s, adv[t]) for s in states[:-1]] + [states[-1]])
-        enter = leave
-    return float(min(enter[K], reached))

@@ -1,5 +1,6 @@
 """The yardstick of the rooflines and of mfu: the card's published peaks and
-the operations and bytes each kernel's calls, and the model, need.
+the operations and bytes each kernel's calls need (the model's own products,
+mfu's numerator, are counted by its module, ``cell.model.least``).
 
 Least time = max(operations / peak of their precision, bytes / bandwidth),
 each input byte counted read once and each output byte written once.  The
@@ -15,7 +16,8 @@ BANDWIDTH = 3.35e12  # bytes/s
 ITEM = {"int8": 1, "bf16": 2, "f32": 4}
 
 # a substring of each kernel's name in the device trace
-KERNEL_NAME = {"kernel_a": "quant_lstm", "kernel_b": "decode_loop", "kernel_c": "lstm_scan"}
+KERNEL_NAME = {"kernel_a": "quant_lstm", "kernel_b": "decode_loop", "kernel_c": "lstm_scan",
+               "kernel_e": "projection"}
 
 
 def least(ops: float, nbytes: float, prec: str) -> float:
@@ -48,44 +50,26 @@ def kernel_c(calls: Iterable[Tuple[int, int, int, str]]) -> float:
     return total
 
 
-def decode_iteration_ops(c: dict) -> float:
-    """One decode iteration of one lane: the prediction net's step (every
-    layer's x W_ih and h W_hh) and the joint (g W1p, z W2)."""
-    P, J, V = c["pred_hidden_size"], c["joint_hidden_size"], c["num_labels"]
-    return 2.0 * (c["pred_num_layers"] * 2 * P * 4 * P + P * J + J * V)
-
-
-def decode_weight_bytes(c: dict, prec: str) -> float:
-    P, J, V = c["pred_hidden_size"], c["joint_hidden_size"], c["num_labels"]
-    return ITEM[prec] * (c["pred_num_layers"] * 2 * P * 4 * P + (V - 1) * P + P * J + J * V)
-
-
-def kernel_b(iterations: float, frames: float, launches: int, c: dict, prec: str) -> float:
+def kernel_b(iterations: float, frames: float, launches: int, iteration_ops: float,
+             weight_bytes: float, frame_bytes: float, prec: str) -> float:
     """Kernel B over the work its inputs need: ``iterations`` lane-iterations
-    (each lane's post-stack frames plus its emitted symbols), reading the
-    joint's hoisted projection of ``frames`` frames (f32) and the weights
-    once a launch."""
-    ops = iterations * decode_iteration_ops(c)
-    nbytes = launches * decode_weight_bytes(c, prec) + frames * c["joint_hidden_size"] * 4
+    (each lane's post-stack frames plus its emitted symbols) of
+    ``iteration_ops`` operations each, reading the joint's hoisted
+    projection, ``frame_bytes`` a frame, of ``frames`` frames and the
+    weights, ``weight_bytes``, once a launch (the model's
+    ``decode_costs``)."""
+    ops = iterations * iteration_ops
+    nbytes = launches * weight_bytes + frames * frame_bytes
     return least(ops, nbytes, prec)
 
 
-def encoder_ops(c: dict, frames: float, post_frames: float) -> float:
-    """The encoder's products over ``frames`` feature frames (the pre layers)
-    and ``post_frames`` stacked frames (the post layers)."""
-    H = c["trans_hidden_size"]
-    pre_in = [c["trans_input_size"]] + [H] * (c["pre_num_layers"] - 1)
-    post_in = [H * c["stack_time_factor"]] + [H] * (c["post_num_layers"] - 1)
-    return 2.0 * 4 * H * (frames * sum(ic + H for ic in pre_in)
-                          + post_frames * sum(ic + H for ic in post_in))
-
-
-def model_least(c: dict, frames: float, post_frames: float, symbols: float) -> float:
-    """The least time of the model's products (encoder, prediction net,
-    joint) for utterances of ``frames`` feature frames, ``post_frames``
-    stacked frames and ``symbols`` emitted, each at its precision's peak."""
-    prec = c["precision"]
-    enc = encoder_ops(c, frames, post_frames) / PEAK_OPS[prec["encoder"]]
-    fproj = 2.0 * post_frames * c["trans_hidden_size"] * c["joint_hidden_size"]
-    dec = ((post_frames + symbols) * decode_iteration_ops(c) + fproj) / PEAK_OPS[prec["joint"]]
-    return enc + dec
+def kernel_e(calls: Iterable[Tuple[int, int, int, bool, str]]) -> float:
+    """Kernel E, a bf16 product with f32 sums: per call (M, K, N, bias?,
+    out dtype): A (M, K) and W (K, N) bf16 read once, the f32 bias, the
+    output (M, N) at its dtype; 2 M K N operations at the bf16 peak."""
+    total = 0.0
+    for M, K, N, bias, out in calls:
+        ops = 2.0 * M * K * N
+        nbytes = 2 * (M * K + K * N) + (4 * N if bias else 0) + M * N * ITEM[out]
+        total += least(ops, nbytes, "bf16")
+    return total

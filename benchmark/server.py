@@ -34,8 +34,7 @@ import torch
 from benchmark import loadgen
 from benchmark import trace as tr_mod
 from benchmark import traffic
-from benchmark.common import Cell, Run, cell_weights, log, sync
-from benchmark.weights import program_featurizer, program_params
+from benchmark.common import Cell, Run, cell_program, log, sync
 
 
 class _Timed:
@@ -109,12 +108,11 @@ class Serving:
         from rnnt_inference_tpu_torch.data.dataset import SampleStore
         from rnnt_inference_tpu_torch.runtime.server import ServerRunner
 
-        tr, config = cell.traffic, cell.config
+        tr = cell.traffic
         self.cell, self.device, self.tr = cell, device, tr
         s_order, self.s_arr, s_warm, self.s_check = traffic.substreams(seed, 4)
-        self.params = program_params(config, tr["max_symbols_per_step"])
-        self.cfg = program_featurizer(config)
-        self.weights, served = cell_weights(cell, device)
+        self.weights, served, self.params, self.cfg = cell_program(
+            cell, device, tr["max_symbols_per_step"])
         _, self.wavs = traffic.store(tr["duration"], tr["utterances"], s_order, device)
         self.store = SampleStore(kind="waveform", samples=self.wavs,
                                  transcripts=[""] * len(self.wavs))
@@ -204,9 +202,9 @@ def run(cell: Cell, device, seed: int, seconds: float, traced: bool, t_begin: fl
     got = sorted(q for q in results if q >= 0)
     syms = np.array([len(results[q]) for q in got])
     lens_q = np.array([len(sv.wavs[order[q]]) for q in got])
-    frames = np.array([sv.cfg.out_frames(int(s)) for s in lens_q], np.float64)
+    work = cell.model.work(cell.config, sv.params, sv.cfg, lens_q, [results[q] for q in got], 1)
     log(f"symbols per post-stack frame in the window: "
-        f"{syms.sum() / np.ceil(frames / sv.params.stack_time_factor).sum():.4f}")
+        f"{work['symbols'] / work['post_frames']:.4f}")
     pick = traffic.check_sample(len(got), cell.traffic["check_queries"], sv.s_check,
                                 [int(np.argmax(lens_q)), int(np.argmax(syms))])
     out.check_wavs = [sv.wavs[order[got[i]]] for i in pick]

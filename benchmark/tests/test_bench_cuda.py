@@ -24,8 +24,9 @@ def test_full_width_cell_is_correct_and_its_control_is_not(card, name, tmp_path)
     root = tmp_path / "repo"
     (root / "benchmark").mkdir(parents=True)
     shutil.copy(REPO / "BENCHMARK.json", root / "BENCHMARK.json")
-    for d in ("configs", "traffic", "cells", "metrics"):
-        shutil.copytree(REPO / "benchmark" / d, root / "benchmark" / d)
+    for d in ("configs", "traffic", "cells", "metrics", "models", "reference"):
+        shutil.copytree(REPO / "benchmark" / d, root / "benchmark" / d,
+                        ignore=shutil.ignore_patterns("__pycache__"))
     spec = json.loads((REPO / "BENCHMARK.json").read_text())
     mix = {w["name"]: w for w in spec["workloads"]}[name]["traffic"]
     path = root / "benchmark" / "traffic" / f"{mix}.json"

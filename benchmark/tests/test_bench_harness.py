@@ -1,10 +1,11 @@
-"""The harness on the CPU: traffic, trace and roofline arithmetic, cells found
-by name from files, and what a run may import."""
+"""The harness on the CPU: traffic, trace and roofline arithmetic, cells and
+models found by name from files, and what a run may import."""
 
 import json
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -12,9 +13,10 @@ import pytest
 import torch
 
 import tiny
-from benchmark import roofline, traffic
+from benchmark import harness, roofline, traffic
 from benchmark.common import Cell, Run
 from benchmark.harness import metrics_of
+from benchmark.models import rnnt
 from benchmark.trace import Trace, union_us
 
 REPO = tiny.REPO
@@ -107,20 +109,36 @@ def test_roofline_counts_by_hand():
     c_bytes = 1024 * 4096 * 2 + 48 * 128 * 4096 * 2 + 48 * 128 * 1024 * 2 + 2 * 128 * 1024 * 6
     assert roofline.kernel_c([(48, 128, 1024, "bf16")]) == pytest.approx(
         max(c_ops / 989e12, c_bytes / 3.35e12))
+    # kernel E: post-net layer 0 (8,192 x 2,048 x 4,096, bias, bf16 out), bound by operations
+    e_ops = 2 * 8192 * 2048 * 4096
+    e_bytes = 2 * (8192 * 2048 + 2048 * 4096) + 4096 * 4 + 8192 * 4096 * 2
+    assert roofline.kernel_e([(8192, 2048, 4096, True, "bf16")]) == pytest.approx(
+        max(e_ops / 989e12, e_bytes / 3.35e12))
+    assert e_ops / 989e12 > e_bytes / 3.35e12
+    # the joint's fproj (8,192 x 1,024 x 512, no bias, f32 out), bound by bytes
+    f_ops = 2 * 8192 * 1024 * 512
+    f_bytes = 2 * (8192 * 1024 + 1024 * 512) + 8192 * 512 * 4
+    assert roofline.kernel_e([(8192, 1024, 512, False, "f32")]) == pytest.approx(f_bytes / 3.35e12)
+    assert f_bytes / 3.35e12 > f_ops / 989e12
+    assert roofline.kernel_e([(8192, 2048, 4096, True, "bf16"), (8192, 1024, 512, False, "f32")]) \
+        == pytest.approx(e_ops / 989e12 + f_bytes / 3.35e12)
+    # the model's own counts (benchmark/models/rnnt.py)
     cfg = json.loads((REPO / "benchmark/configs/rnnt_mlperf_int8.json").read_text())
     # one decode iteration: 2 layers x (x W_ih + h W_hh) of 320 x 1280, 320 x 512, 512 x 29
     it = 2 * (2 * 2 * 320 * 1280 + 320 * 512 + 512 * 29)
-    assert roofline.decode_iteration_ops(cfg) == it
-    assert roofline.kernel_b(1000.0, 600.0, 2, cfg, "bf16") == pytest.approx(
-        max(1000 * it / 989e12, (2 * roofline.decode_weight_bytes(cfg, "bf16") + 600 * 512 * 4)
-            / 3.35e12))
+    assert rnnt.decode_iteration_ops(cfg) == it
+    wb = 2 * (2 * 2 * 320 * 1280 + 28 * 320 + 320 * 512 + 512 * 29)  # bf16, the embedding too
+    assert rnnt.decode_costs(cfg) == dict(iteration_ops=it, weight_bytes=wb, frame_bytes=512 * 4,
+                                          precision="bf16")
+    assert roofline.kernel_b(1000.0, 600.0, 2, it, wb, 512 * 4, "bf16") == pytest.approx(
+        max(1000 * it / 989e12, (2 * wb + 600 * 512 * 4) / 3.35e12))
     # one second of audio: 34 feature frames, 17 stacked, 13 symbols
     enc = 2 * 4096 * (34 * ((240 + 1024) + 2048) + 17 * ((2048 + 1024) + 2 * 2048))
-    assert roofline.encoder_ops(cfg, 34, 17) == enc
+    assert rnnt.encoder_ops(cfg, 34, 17) == enc
     want = enc / 1979e12 + ((17 + 13) * it + 2 * 17 * 1024 * 512) / 989e12
-    assert roofline.model_least(cfg, 34, 17, 13) == pytest.approx(want)
+    assert rnnt.least(cfg, dict(frames=34, post_frames=17, symbols=13)) == pytest.approx(want)
     bf = dict(cfg, precision=dict(encoder="bf16", prediction="bf16", joint="bf16"))
-    assert roofline.model_least(bf, 34, 17, 13) == pytest.approx(
+    assert rnnt.least(bf, dict(frames=34, post_frames=17, symbols=13)) == pytest.approx(
         enc / 989e12 + ((17 + 13) * it + 2 * 17 * 1024 * 512) / 989e12)
 
 
@@ -167,6 +185,109 @@ def test_every_metric_in_benchmark_json_has_a_reader_and_every_cell_its_files():
         cell = Cell.load(w["name"], REPO)
         assert cell.per_layer() and len(cell.end_to_end()) >= 2
         assert cell.traffic["kind"] in ("offline", "server")
+
+
+TWIN = '''"""The RNN-T under another name: every function of the model interface is
+rnnt's (benchmark/models/rnnt.py of this checkout), and each call it serves
+is recorded in SERVED."""
+
+from pathlib import Path
+
+from benchmark import models
+
+_rnnt = models.load("rnnt", Path(__file__).resolve().parents[2])
+SERVED = []
+
+
+def _serving(name):
+    def serve(*args, **kw):
+        SERVED.append(name)
+        return getattr(_rnnt, name)(*args, **kw)
+
+    return serve
+
+
+for _name in models.INTERFACE:
+    globals()[_name] = _serving(_name)
+'''
+
+
+def test_a_second_model_is_added_as_files_alone(tmp_path):
+    """A configuration naming another model module is served through that
+    module alone: new files and BENCHMARK.json entries, no file of the
+    checkout edited, and the same result as under "model": "rnnt"."""
+    root = tiny.make_repo(tmp_path)
+    b = root / "benchmark"
+    before = {p: p.read_bytes() for p in b.rglob("*") if p.is_file()}
+    (b / "models" / "rnnt_twin.py").write_text(TWIN)
+    cfg = json.loads((b / "configs" / "tiny_int8.json").read_text())
+    (b / "configs" / "tiny_twin.json").write_text(json.dumps(dict(cfg, name="tiny_twin",
+                                                                   model="rnnt_twin")))
+    (b / "traffic" / "twin_offline.json").write_text(json.dumps(tiny.OFFLINE))
+    (b / "cells" / "twin.int8.offline.json").write_text(
+        (b / "cells" / "tiny.int8.offline.json").read_text())
+    spec = json.loads((root / "BENCHMARK.json").read_text())
+    spec["configs"].append(dict(name="tiny_twin", source="https://example.org/twin",
+                                file="benchmark/configs/tiny_twin.json", reduced=[], why="test"))
+    spec["workloads"].append(dict(name="twin.int8.offline", config="tiny_twin",
+                                  traffic="twin_offline", chips=1, why="test"))
+    for m in spec["end_to_end"] + spec["per_layer"]:
+        if "tiny.int8.offline" in m.get("workloads", []):
+            m["workloads"].append("twin.int8.offline")
+    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+    assert all(p.read_bytes() == data for p, data in before.items())
+
+    cells = {n: Cell.load(n, root) for n in ("tiny.int8.offline", "twin.int8.offline")}
+    twin = cells["twin.int8.offline"].model
+    assert twin.__file__ == str(b / "models" / "rnnt_twin.py") and twin.SERVED == []
+    assert cells["tiny.int8.offline"].model.__file__ == str(b / "models" / "rnnt.py")
+    seed = 2 ** 31 + 77
+    for traced in (False, True):
+        r = {n: harness.run_cell(c, "cpu", seed, 0.6, traced, time.perf_counter())
+             for n, c in cells.items()}
+        ours, theirs = r["tiny.int8.offline"], r["twin.int8.offline"]
+        assert theirs["correct"] is True
+        for key in ("correct", "failed", "checks"):
+            assert ours[key] == theirs[key], key
+        # the values are timings; the metrics reported are the same
+        assert {k: v["unit"] for k, v in ours["metrics"].items()} == \
+            {k: v["unit"] for k, v in theirs["metrics"].items()}
+        if traced:
+            assert "offline.mfu" in theirs["metrics"]
+    assert {"random_weights", "apply_emission", "program", "reference", "work", "least",
+            "recording"} <= set(twin.SERVED)
+
+
+def test_a_configuration_without_a_model_key_is_refused(tmp_path):
+    root = tiny.make_repo(tmp_path)
+    path = root / "benchmark" / "configs" / "tiny_bf16.json"
+    cfg = json.loads(path.read_text())
+    del cfg["model"]
+    path.write_text(json.dumps(cfg))
+    with pytest.raises(ValueError, match='"model"'):
+        Cell.load("tiny.bf16.offline", root)
+    path.write_text(json.dumps(dict(cfg, model="no_such_model")))
+    with pytest.raises(ValueError, match="no_such_model"):
+        Cell.load("tiny.bf16.offline", root)
+
+
+# the RNN-T configuration keys that only its model module and reference read
+RNNT_KEYS = ("stack_time_factor", "trans_hidden_size", "pre_num_layers", "post_num_layers",
+             "pred_num_layers", "trans_input_size")
+OWN = ("models", "reference", "configs", "tests")  # what belongs to a model, and the tests
+
+
+def test_no_shared_module_names_an_rnnt_configuration_key():
+    bench = REPO / "benchmark"
+    shared = sorted(p for p in bench.rglob("*.py")
+                    if p.relative_to(bench).parts[0] not in OWN and "__pycache__" not in p.parts)
+    names = {str(p.relative_to(bench)) for p in shared}
+    assert {"harness.py", "common.py", "offline.py", "server.py", "check.py",
+            "calibrate_emission.py", "limits.py", "sweep.py", "metrics/offline.mfu.py",
+            "metrics/kernel_b.roofline.py"} <= names
+    for p in shared:
+        text = p.read_text()
+        assert not [k for k in RNNT_KEYS if k in text], p
 
 
 # -- what a run loads ----------------------------------------------------------

@@ -9,7 +9,7 @@ import tiny
 from benchmark import check, traffic
 from benchmark.common import Cell, cell_weights
 from benchmark.reference.rnnt import fp8, int_round, int_scale, widest_gap
-from benchmark.weights import program_featurizer, program_params
+from benchmark.models.rnnt import program_featurizer, program_params
 
 
 @pytest.fixture(scope="module")

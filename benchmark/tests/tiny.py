@@ -10,7 +10,9 @@ import shutil
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[2]
-DATA = ("configs", "traffic", "cells", "metrics")
+# the files a checkout's cells are found from: data, metric readers, and the
+# model modules with their references
+DATA = ("configs", "traffic", "cells", "metrics", "models", "reference")
 
 SIZES = dict(trans_input_size=240, trans_hidden_size=64, pre_num_layers=2, post_num_layers=3,
              stack_time_factor=2, pred_hidden_size=32, pred_num_layers=2, joint_hidden_size=32,
@@ -44,7 +46,8 @@ def make_repo(root: Path, limit: float = 0.5) -> Path:
     tiny.int8.offline, tiny.bf16.offline and tiny.int8.server, and the
     benchmark's data files."""
     for d in DATA:
-        shutil.copytree(REPO / "benchmark" / d, root / "benchmark" / d)
+        shutil.copytree(REPO / "benchmark" / d, root / "benchmark" / d,
+                        ignore=shutil.ignore_patterns("__pycache__"))
     spec = json.loads((REPO / "BENCHMARK.json").read_text())
     b = root / "benchmark"
     for prec, seed in ((dict(encoder="int8", prediction="bf16", joint="bf16"), 14),
