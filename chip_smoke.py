@@ -12,7 +12,9 @@ of K iterations, at N = 1, 16, 64, 128 lanes, with its time per iteration
 at one and at K iterations per launch, its early exit, and the symbol
 loop's time by K; kernel C at N = 16, 128 beside cuDNN's layer; kernel E,
 the bf16 projection, at the packed runner's layer shapes, fproj and eproj,
-beside its bound and torch.mm's bf16-in, f32-out product),
+beside its bound and torch.mm's bf16-in, f32-out product; the Conformer's
+kernels F and G and kernel B's wide-vocabulary instantiation at the
+conformer.offline.speech cell's shapes, phase conformer_kernels),
 then drives each path with the kernel launch counts set to 0 just before
 it and read just after:
   - end_to_end: the bucketed Offline int8 pipeline (waveform -> log-mel ->
@@ -219,12 +221,13 @@ def bound(bytes_moved: float, ops: float, peak_ops: float):
 
 def phase_build() -> None:
     from rnnt_inference_tpu_torch.ops import (
-        cuda_build, decode_cuda, features_cuda, lstm_cuda, lstm_scan_cuda, projection_cuda,
+        attention_cuda, cuda_build, decode_cuda, depthwise_cuda, features_cuda, lstm_cuda,
+        lstm_scan_cuda, projection_cuda,
     )
 
     t0 = time.time()
     names = [lstm_cuda.NAME, decode_cuda.NAME, lstm_scan_cuda.NAME, features_cuda.NAME,
-             projection_cuda.NAME]
+             projection_cuda.NAME, attention_cuda.NAME, depthwise_cuda.NAME]
     info = cuda_build.build(names)  # one nvcc per source, in parallel
     for name in names:
         cuda_build.load(name)
@@ -801,6 +804,222 @@ def phase_projection(weights, dev) -> dict:
         "by_shape": {k: {q: r[q] for q in ("ms", "bound_ms", "plain_ms", "library_ms")}
                      for k, r in rows.items()},
     }
+
+
+def phase_conformer_kernels(dev, seed: int) -> dict:
+    """The Conformer-Transducer's kernels (tests/test_torch_conformer_cuda.py
+    holds them to their twins too), each against its plain twin, timed
+    beside its bound at the benchmark cell's shapes (conformer.offline.speech:
+    8,192 utterances drawn by its law, 1.7 M varlen rows):
+      F  relative-position attention (csrc/rel_attention.cu), 8 heads of
+         64: the whole rep's one launch timed; held to the twin on its
+         first 96 utterances element by element: one bf16 ulp of the
+         twin's output (2^-7 |out|, both round it) plus the rounding of
+         the probabilities to bf16 (2^-9 of each term of sum_j p |v_j|,
+         doubled: 2^-8 of the twin run on |v|) plus 1e-6; the twin timed
+         there;
+      G  depthwise convolution + bias + Swish (csrc/depthwise.cu), 512
+         channels, 31 taps, over the whole rep: one bf16 ulp of the twin;
+         beside the library's depthwise Conv1d on the transposed rows (the
+         path G replaced);
+      B  kernel B's wide-vocabulary instantiation (one layer, P = J = 640,
+         V = 1,025, bf16, int16 tokens) at 1,024 lanes: one iteration and
+         one launch of K = 64 against the twin
+         (tools/decode_divergence.py compare_k_launch: parting only at
+         ties, decode_divergence.wide_parting_explained), ms per iteration
+         at K = 64 per launch, its bound from the work an iteration needs
+         (h W_hh, g W1p and z W2 a lane; x W_ih is the eproj table's row,
+         read once a launch with the weights)."""
+    from rnnt_inference_tpu_torch.config import ConformerParams
+    from rnnt_inference_tpu_torch.models import conformer
+    from rnnt_inference_tpu_torch.ops import attention_cuda as ac
+    from rnnt_inference_tpu_torch.ops import decode_cuda as dc
+    from rnnt_inference_tpu_torch.ops import depthwise_cuda as dg
+    from rnnt_inference_tpu_torch.tools.decode_divergence import (compare_k_launch,
+                                                                   wide_parting_explained)
+
+    spec = json.load(open("benchmark/traffic/offline_speech_cap10.json"))["duration"]
+    rng = np.random.RandomState(spec["sizes_seed"])
+    secs = np.clip(rng.gamma(spec["shape"], spec["mean_s"] / spec["shape"], 8192),
+                   spec["min_s"], spec["max_s"])
+    params = ConformerParams()
+    lens = np.array([params.encoded_len(int(s * 16000) // 160 + 1) for s in secs])
+    starts, R = conformer.varlen_layout(lens)
+    seg = ac.Segments.of(starts, lens, dev)
+    gaps = conformer.gap_mask(starts, lens, R, dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    H, d, D = 8, 64, 512
+    qkv = torch.randn((R, 3 * D), generator=g, device=dev).to(torch.bfloat16)
+    q, k, v = qkv[:, :D], qkv[:, D : 2 * D], qkv[:, 2 * D :]
+    u, vb = (0.1 * torch.randn((2, H, d), generator=g, device=dev)).unbind(0)
+    pos = torch.randn((2 * seg.t_max - 1, D), generator=g, device=dev).to(torch.bfloat16)
+    rows = {}
+
+    # F: one launch over the rep; the twin on a slice of it
+    f_ms = cuda_ms(lambda: ac.rel_attention_cuda(q, k, v, u, vb, pos, seg), 5)
+    n = 96
+    sub = ac.Segments.of(starts[:n], lens[:n], dev)
+    sub.t_max = seg.t_max  # the band stays the rep's
+    got = ac.rel_attention(q, k, v, u, vb, pos, sub)[: int(starts[n - 1] + lens[n - 1])]
+    want = ac.rel_attention(q, k, v, u, vb, pos, sub, impl="reference")[: got.shape[0]]
+    absv = ac.rel_attention(q, k, v.abs(), u, vb, pos, sub, impl="reference")[: got.shape[0]]
+    diff = (got.float() - want.float()).abs()
+    over = diff - (2 ** -7 * want.float().abs() + 2 ** -8 * absv.float() + 1e-6)
+    err = float(diff.max())
+    if not float(over.max()) <= 0:
+        raise AssertionError(f"kernel F off: max |d| {err}, over its bound by "
+                             f"{float(over.max())}")
+    plain_ms = cuda_ms(lambda: ac.rel_attention_reference(q, k, v, u, vb, pos, sub), 1, 1)
+    ops = 6.0 * float((lens.astype(np.float64) ** 2).sum()) * d * H
+    nbytes = 2.0 * H * d * (4 * lens.sum() + 2 * seg.t_max - 1)
+    bound_ms, bound_by = bound(nbytes, ops, PEAK_BF16_FLOPS)
+    rows["F"] = {
+        "name": "rel_attention", "route": "cuda", "source": "rnnt_inference_tpu_torch/csrc/"
+        "rel_attention.cu", "replaces": "none: the JAX package has no attention",
+        "shape": f"{len(lens)} utterances of 1-{seg.t_max} encoder frames ({R} varlen rows), "
+                 f"{H} heads of {d}; one call = 1 launch",
+        "ms": f_ms, "bound_ms": bound_ms, "bound_by": bound_by, "share_of_bound": bound_ms / f_ms,
+        "plain_ms": plain_ms, "plain_on": f"the first {n} utterances", "max_abs_err": err,
+        "max_abs_out": float(want.float().abs().max()),
+        "library_ms": "none: no single PyTorch call computes relative-position attention over "
+                      "varlen segments without the T x T scores"}
+
+    # G: the whole rep's rows, against the twin and the library's path
+    x = torch.randn((R, D), generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn((31, D), generator=g, device=dev) / 5).to(torch.bfloat16)
+    bias = torch.randn(D, generator=g, device=dev)
+    got = dg.depthwise_silu(x, gaps, w, bias)
+    want = dg.depthwise_silu(x, gaps, w, bias, impl="reference")
+    own = ~gaps
+    diff = (got.float() - want.float()).abs()[own]
+    if float((diff - want.float().abs()[own] * 2 ** -7).max()) > 1e-6:
+        raise AssertionError(f"kernel G off: max |d| {float(diff.max())}")
+    g_ms = cuda_ms(lambda: dg.depthwise_silu_cuda(x, gaps, w, bias), 5)
+    plain_ms = cuda_ms(lambda: dg.depthwise_silu_reference(x, gaps, w, bias), 2, 1)
+    lib = lambda: torch.nn.functional.conv1d(x.t()[None], w.t()[:, None, :], bias.to(x.dtype),
+                                             padding=15, groups=D)[0].t().contiguous()
+    library_ms = cuda_ms(lib, 3, 1)
+    bound_ms, bound_by = bound(4.0 * R * D + R, 2.0 * 31 * R * D, PEAK_F32_FLOPS)
+    rows["G"] = {
+        "name": "depthwise_silu", "route": "cuda", "source": "rnnt_inference_tpu_torch/csrc/"
+        "depthwise.cu", "replaces": "none: the JAX package has no convolution module",
+        "shape": f"{R} rows x {D} channels, 31 taps, gap rows read as zero; one call = 1 launch",
+        "ms": g_ms, "bound_ms": bound_ms, "bound_by": bound_by, "share_of_bound": bound_ms / g_ms,
+        "plain_ms": plain_ms, "max_abs_err": float(diff.max()),
+        "library_ms": library_ms, "library": "F.conv1d depthwise on the rows transposed, "
+                                             "transposed back (Swish not included)"}
+
+    # B wide: 1,024 lanes at P = J = 640, V = 1,025
+    P = J = 640
+    V, N, R2, T2 = 1025, 1024, 128, 6
+    cg_ = torch.Generator().manual_seed(seed + 5)
+    uni = lambda *shape, s: (torch.rand(shape, generator=cg_) * 2 - 1) * s
+    bf = lambda t: t.to(dev, torch.bfloat16).contiguous()
+    dw = dc.DecodeWeights(embed=bf(torch.randn((V - 1, P), generator=cg_)),
+                          w_ih=bf(uni(1, P, 4 * P, s=P ** -0.5)),
+                          w_hh=bf(uni(1, P, 4 * P, s=P ** -0.5)),
+                          b=uni(1, 4 * P, s=P ** -0.5).to(dev),
+                          w1p=bf(uni(P, J, s=(2 * P) ** -0.5)), b1=uni(J, s=0.05).to(dev),
+                          w2=bf(uni(J, V, s=J ** -0.5)), b2=uni(V, s=J ** -0.5).to(dev))
+    bp = ConformerParams(max_res_len=R2, max_symbols_per_step=10)
+    lr = np.random.RandomState(seed)
+    f_lens = np.full(N, T2)
+    lanes = np.stack([lr.randint(-1, V - 1, N), lr.randint(0, T2, N), np.zeros(N),
+                      lr.choice([-1, 5], N), np.zeros(N), f_lens, f_lens - 1,
+                      np.zeros(N)]).astype(np.int32)
+    state = [torch.from_numpy(lanes).to(dev),
+             torch.from_numpy(lr.randn(1, N, P).astype(np.float32) * 0.5).to(dev, torch.bfloat16),
+             torch.from_numpy(lr.randn(1, N, P).astype(np.float32) * 0.5).to(dev),
+             torch.full((N, R2), -1, dtype=torch.int16, device=dev)]
+    fproj = torch.from_numpy(lr.randn(T2, N, J).astype(np.float32)).to(dev)
+    rep = compare_k_launch(fproj, state, dw, bp, 64)
+    faults = [lane for lane in rep["lanes"] if not wide_parting_explained(lane)]
+    if not (rep["deterministic"] and rep["end_drift_within_tolerance"]) or faults:
+        raise AssertionError(f"kernel B wide off: {json.dumps(dict(rep, lanes=faults))[:3000]}")
+
+    def k64():
+        s = [t.clone() for t in state]
+        s[0][dc.F_LENS] = 1 << 20  # no lane finishes: all 64 iterations run
+        s[0][dc.EOS] = T2 - 1
+        return s
+
+    runs = [k64() for _ in range(6)]
+    it = iter(runs)
+    b_ms = cuda_ms(lambda: dc.decode_step_cuda(fproj, *next(it), dw, bp, 64), 5, 1) / 64
+    s1 = [t.clone() for t in state]
+    plain_ms = cuda_ms(lambda: dc.decode_step_reference(fproj, *s1, dw, bp), 5, 1)
+    ops = 2.0 * N * (P * 4 * P + P * J + J * V)
+    nbytes = (2.0 * (P * 4 * P + P * J + J * V) + 4.0 * V * 4 * P) / 64 + N * J * 4
+    bound_ms, bound_by = bound(nbytes, ops, PEAK_BF16_FLOPS)
+    rows["B_wide"] = {
+        "name": "decode_step (wide)", "route": "cuda", "source": "rnnt_inference_tpu_torch/csrc/"
+        "decode_step.cu decode_loop_wide", "replaces": "ops/decode_pallas.py:112 "
+        "_decode_step_kernel (its one-layer, 1,025-label case)",
+        "shape": f"N={N} lanes, P=J={P}, V={V}, one bf16 layer, int16 tokens; K=64 a launch",
+        "ms": b_ms, "bound_ms": bound_ms, "bound_by": bound_by, "plain_ms": plain_ms,
+        "lanes_parted_in_64": rep["lanes_parted"],
+        "near_ties": sum(lane["near_tie"] for lane in rep["lanes"]),
+        "library_ms": "none (no single PyTorch call)"}
+    emit({"phase": "conformer_kernels", "rows": rows})
+    return rows
+
+
+def phase_conformer_packed(dev, card: str, seed: int) -> dict:
+    """The Conformer's packed Offline path: PackedOfflineRunner on the
+    benchmark cell conformer.offline.speech's program (17 blocks, 1,025
+    labels, bf16; the cell's weights and emission model) over 48 of its
+    utterances (its traffic's law and speech-like audio, in an order drawn
+    from ``seed``) on 16 lanes at cap 10, with the launch counts set to 0
+    just before the run and read just after: each block launches F and G
+    once a rep, E and B launch.  Then the same through the runner on the
+    twins (impl="reference", no launch).  Each run's tokens are judged as
+    the benchmark judges a run (benchmark/check.py against the plain
+    reference): the mean widest logit gap within the cell's limit."""
+    from benchmark import check, traffic
+    from benchmark.common import Cell, cell_program
+    from rnnt_inference_tpu_torch.data.dataset import SampleStore
+    from rnnt_inference_tpu_torch.runtime import offline
+    from rnnt_inference_tpu_torch.runtime.packing import PackedOfflineRunner
+    from rnnt_inference_tpu_torch.runtime.qsl import QuerySampleLibrary
+
+    cell = Cell.load("conformer.offline.speech")
+    tr, cap = cell.traffic, cell.traffic["max_symbols_per_step"]
+    w, served, params, fz = cell_program(cell, dev, cap)
+    _, wavs = traffic.store(tr["duration"], 48, seed, dev)
+    store = SampleStore(kind="waveform", samples=wavs, transcripts=[""] * len(wavs))
+    qsl = QuerySampleLibrary(store, fz, wav_buckets_s=tr["wav_buckets_s"])
+    cfg = cell.config
+    out = {}
+    for impl in (None, "reference"):
+        r = PackedOfflineRunner(served, params, fz, n_lanes=16, chunk_frames=tr["chunk_frames"],
+                                batch_size=16, decode_chunk=tr["decode_chunk"], device=dev,
+                                impl=impl)
+        r.stage(qsl)
+        for fn in offline._KERNELS.values():
+            fn.launches = 0
+        t0 = time.time()
+        res = r.run_device()
+        seconds = time.time() - t0
+        launches = offline.launch_counts()
+        gaps = check.gaps(cfg, w, cap, wavs, res.tokens, dev, cell.model)
+        row = {"launches": launches, "launches_per_timed_pass": res.launches,
+               "seconds": seconds, "mean_logit_gap": check.mean_gap(gaps),
+               "symbols": int(sum(len(t) for t in res.tokens)),
+               "ms": {k: v * 1e3 for k, v in res.phase_seconds.items()}}
+        blocks = cfg["num_blocks"]
+        if impl is None and not (launches["attention"] == launches["depthwise"] == blocks
+                                 and launches["decode_step"] > 0 and launches["projection"] > 0):
+            raise AssertionError(f"the Conformer's packed rep launched {launches}")
+        if impl is not None and any(launches.values()):
+            raise AssertionError(f"impl='reference' launched a kernel: {launches}")
+        limit = cell.entry["limits"]["mean_logit_gap"]
+        if row["symbols"] == 0 or not row["mean_logit_gap"] <= limit:
+            raise AssertionError(f"Conformer packed run ({impl}) off: {row}")
+        out["kernels" if impl is None else "twins"] = row
+    emit({"phase": "conformer_packed", "card": card, "utterances": len(wavs), "lanes": 16,
+          **out})
+    return {"main": out["kernels"]["launches"],
+            "timed_pass": out["kernels"]["launches_per_timed_pass"]}
 
 
 def phase_kernel_d(qweights, params, dev, bench_store) -> dict:
@@ -3497,8 +3716,14 @@ def main() -> int:
                                               "ms_per_iteration_bucketed",
                                               "plain_ms_per_step_packed")}
                         for n, r in bp.items()}
+    conf = phase_conformer_kernels(dev, args.seed)
+    paths["conformer_packed"] = phase_conformer_packed(dev, card, args.seed)
+    for e, name in ((conf["F"], "attention"), (conf["G"], "depthwise"),
+                    (conf["B_wide"], "decode_step")):
+        e["launches_by_path"] = {"conformer_packed": paths["conformer_packed"]["main"][name]}
     emit({"phase": "summary", "card": card, "seconds": time.time() - t_start})
-    emit({"kernels": [a, b, c, d, proj, tp["a"], tp["b"], tp["c"]]})
+    emit({"kernels": [a, b, c, d, proj, tp["a"], tp["b"], tp["c"], conf["F"], conf["G"],
+                      conf["B_wide"]]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -40,6 +40,68 @@ class RNNTParams:
 
 
 @dataclasses.dataclass(frozen=True)
+class ConformerParams:
+    """Conformer-Transducer dimensions (NeMo stt_en_conformer_transducer_large:
+    examples/asr/conf/conformer/conformer_transducer_bpe.yaml, Large).
+
+    The encoder sees each utterance whole: striding subsampling by 4 (two
+    3x3 stride-2 Conv2d of ``conv_channels``, then a Linear to d_model,
+    times sqrt(d_model)), then ``num_blocks`` Conformer blocks (half FF,
+    relative-position MHSA with per-layer biases u and v, the convolution
+    module, half FF, LayerNorm).  The prediction net is an embedding and
+    ``pred_num_layers`` LSTM layers; the joint is relu(f W1t + g W1p + b1)
+    W2 + b2.  The decoder and runners read the fields they share with
+    RNNTParams under the same names."""
+
+    n_mels: int = 80
+    d_model: int = 512
+    num_blocks: int = 17
+    n_heads: int = 8
+    ff_expansion: int = 4
+    conv_kernel_size: int = 31
+    conv_channels: int = 512
+    subsampling_factor: int = 4
+    ln_eps: float = 1e-5
+    bn_eps: float = 1e-5
+    pred_hidden_size: int = 640
+    pred_num_layers: int = 1
+    joint_hidden_size: int = 640
+    # 1,024 word pieces and blank; blank is the last label and, with a zero
+    # embedding, the start symbol (SOS -1 embeds to zeros, as in RNNTParams)
+    num_labels: int = 1025
+    SOS: int = -1
+    BLANK: int = 1024
+    max_symbols_per_step: int = 10
+    sample_rate: int = 16000
+    max_res_len: int = 1024
+
+    @property
+    def d_head(self) -> int:
+        return self.d_model // self.n_heads
+
+    @property
+    def ff_hidden(self) -> int:
+        return self.d_model * self.ff_expansion
+
+    @property
+    def sub_freq(self) -> int:
+        """Frequency bins after the two stride-2 convolutions."""
+        return conv_out_len(conv_out_len(self.n_mels))
+
+    def encoded_len(self, frames: int) -> int:
+        """Encoder frames of an utterance of ``frames`` feature frames: each
+        stride-2 convolution (kernel 3, padding 1) takes L to
+        floor((L - 1) / 2) + 1."""
+        return conv_out_len(conv_out_len(frames)) if frames > 0 else 0
+
+
+def conv_out_len(n):
+    """A 3-wide, stride-2, padding-1 convolution's output length: (n - 1) //
+    2 + 1 (for numpy arrays and tensors too)."""
+    return (n - 1) // 2 + 1
+
+
+@dataclasses.dataclass(frozen=True)
 class FeaturizerConfig:
     """Log-mel frontend parameters (configs/rnnt.toml [input_eval])."""
 
@@ -61,6 +123,17 @@ class FeaturizerConfig:
     # SUT's zero-padded preemphasis + stft(center=False)) or "reflect"
     # (stft(center=True) of the training featurizer).
     pad_mode: str = "zeros"
+    # added to the mel energies before the log: MLPerf's 1e-20; NeMo's
+    # Conformer featurizer adds 2^-24
+    log_guard: float = 1e-20
+    # whether dither^2 is added to the power spectrum at inference (MLPerf's
+    # SUT adds it in place of the training-time noise; NeMo adds nothing)
+    dither_at_inference: bool = True
+
+    @property
+    def dither_power(self) -> float:
+        """What inference adds to every power-spectrum bin: dither^2, or 0."""
+        return self.dither ** 2 if self.dither_at_inference and self.dither > 0 else 0.0
 
     @property
     def win_length(self) -> int:

@@ -93,6 +93,10 @@
 // differ by f32 rounding (chip_smoke.py states the tolerance).  The f32 epilogues use the _rn
 // intrinsics and the file is built with --fmad=false.
 //
+// A second kernel in this file, decode_loop_wide (its own section below),
+// runs a one-layer prediction net over any number of labels (the
+// Conformer-Transducer's 1,025) with W2's label columns split over the grid.
+//
 // Rank mode (tensor parallelism, parallel/tensor.py; the bucketed mode
 // only): model rank r of k holds prediction units [pb0 UP, pb0 UP + Pl)
 // and joint columns [jb0 UJ, jb0 UJ + Jl) (its weight slice; kernel_operands
@@ -164,6 +168,87 @@ struct Args {
   int nr, Pl, pb0, Jl, jb0;
   int seg, it;  // 0: the one-card loop; 1-4: phase seg of iteration it; 5: the commit
 };
+
+// What both instantiations (decode_loop, decode_loop_wide) share.
+
+// The LSTM cell of one unit from its gates (i, f, g, o) and the committed c
+// it starts from: c' into cn, and h' (f32, before its rounding).
+__device__ __forceinline__ float lstm_cell(const float (&gate)[4], float cprev, float& cn) {
+  const float ig = sigmoid_f(gate[0]);
+  const float fg = sigmoid_f(gate[1]);
+  const float gg = tanhf(gate[2]);
+  const float og = sigmoid_f(gate[3]);
+  cn = __fadd_rn(__fmul_rn(fg, cprev), __fmul_rn(ig, gg));
+  return __fmul_rn(og, tanhf(cn));
+}
+
+// (best, arg) becomes (ob, oa) where that is larger, or equal with a lower
+// label: the first maximum
+__device__ __forceinline__ void take_first_max(float& best, int& arg, float ob, int oa) {
+  if (ob > best || (ob == best && oa < arg)) {
+    best = ob;
+    arg = oa;
+  }
+}
+
+// the first maximum over the warp's 32 lanes, in every lane
+__device__ __forceinline__ void warp_first_max(float& best, int& arg) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ob = __shfl_xor_sync(0xffffffffu, best, o);
+    const int oa = __shfl_xor_sync(0xffffffffu, arg, o);
+    take_first_max(best, arg, ob, oa);
+  }
+}
+
+// The lane algebra of one iteration for lane n, which chose `sym`: from
+// its lane row as the iteration found it (finish, symadd, res_idx, f_lens
+// fl, eos eo; time and pre_g as staged in shared memory), the greedy rule
+// (emit, or advance a frame; at most max_sym symbols a frame), packed
+// mode's budget gate and its entry into an utterance (pre_g to SOS and a
+// PACK_BOUNDARY marker), then the new lane row, the token write (TT: the
+// token buffer's type) and update_g.  Returns 1 while the lane is
+// unfinished.  A: either kernel's arguments.
+template <bool PACKED, typename TT, typename A>
+__device__ __forceinline__ int lane_step(const A& a, TT* res, int n, int p, int sym, bool finish,
+                                         int symadd, int res_idx, int fl, int eo, int time_n,
+                                         int pre_n) {
+  const int N = a.N;
+  const bool update_g = sym != a.blank && symadd != a.max_sym && !finish;
+  // packed mode: an emission past the utterance's budget keeps the
+  // dynamics but neither writes nor advances res_idx
+  const bool adv = update_g && (!PACKED || a.budget == 0 ||
+                                res_idx < __ldcg(a.rb + n) + a.budget);
+  res_idx += adv;
+  int write_idx = adv ? res_idx : a.R, val = sym, pre = update_g ? sym : pre_n;
+  symadd += update_g;
+  const bool update_f = !update_g && !finish;
+  int t = time_n + update_f;
+  const bool new_finish = finish || t >= fl;
+  t = min(t, eo);
+  if (update_f) symadd = 0;
+  bool entering = false;
+  if constexpr (PACKED) {  // advanced into the first frame of an utterance
+    entering = update_f && !new_finish && t > time_n &&
+               __ldg(a.starts + (size_t)t * N + n) != 0;
+    if (entering) {
+      pre = a.sos;
+      write_idx = ++res_idx;
+      val = PACK_BOUNDARY;
+      a.rb[n] = res_idx;
+    }
+  }
+  int* ln = a.lanes + n;
+  ln[PRE_G * N] = pre;
+  ln[TIME * N] = t;
+  ln[SYMADD * N] = symadd;
+  ln[RES_IDX * N] = res_idx;
+  ln[FINISH * N] = new_finish;
+  ln[SYMBOL * N] = sym;
+  if (write_idx >= 0 && write_idx < a.R) res[(size_t)n * a.R + write_idx] = (TT)val;
+  a.upd[p * N + n] = entering ? ENTERED : update_g;
+  return !new_finish;
+}
 
 template <typename WT, int UP, bool PACKED>
 __global__ void __launch_bounds__(THREADS, 1) decode_loop(Args a) {
@@ -305,13 +390,7 @@ __global__ void __launch_bounds__(THREADS, 1) decode_loop(Args a) {
     const int ci = (l * N + n) * UP + u;
     const float cprev = entered(n, it) ? 0.0f : it > 0 && updp_s[n] ? cn_s[ci] : c_s[ci];
     c_s[ci] = cprev;
-    const float ig = sigmoid_f(gate[0]);
-    const float fg = sigmoid_f(gate[1]);
-    const float gg = tanhf(gate[2]);
-    const float og = sigmoid_f(gate[3]);
-    const float cn = __fadd_rn(__fmul_rn(fg, cprev), __fmul_rn(ig, gg));
-    cn_s[ci] = cn;
-    const WT h = store_as<WT>(__fmul_rn(og, tanhf(cn)));
+    const WT h = store_as<WT>(lstm_cell(gate, cprev, cn_s[ci]));
     for (int r = 0; r < a.nr; ++r) static_cast<WT*>(a.hn[r])[off] = h;
   };
 
@@ -526,53 +605,10 @@ __global__ void __launch_bounds__(THREADS, 1) decode_loop(Args a) {
         if (m >= rows) break;
         float best = lane < V ? lg[m * VP + lane] : -INFINITY;
         int sym = lane;
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) {  // the first maximum
-          const float ob = __shfl_xor_sync(0xffffffffu, best, o);
-          const int os = __shfl_xor_sync(0xffffffffu, sym, o);
-          if (ob > best || (ob == best && os < sym)) {
-            best = ob;
-            sym = os;
-          }
-        }
-        if (lane == 0) {
-          const bool finish = fin[r] != 0;
-          int symadd = sad[r], res_idx = rix[r];
-          const bool update_g = sym != a.blank && symadd != a.max_sym && !finish;
-          // packed mode: an emission past the utterance's budget keeps the
-          // dynamics but neither writes nor advances res_idx
-          const bool adv = update_g && (!PACKED || a.budget == 0 ||
-                                        res_idx < __ldcg(a.rb + n) + a.budget);
-          res_idx += adv;
-          int write_idx = adv ? res_idx : a.R, val = sym, pre = update_g ? sym : pre_s[n];
-          symadd += update_g;
-          const bool update_f = !update_g && !finish;
-          int t = time_s[n] + update_f;
-          const bool new_finish = finish || t >= fl[r];
-          t = min(t, eo[r]);
-          if (update_f) symadd = 0;
-          bool entering = false;
-          if constexpr (PACKED) {  // advanced into the first frame of an utterance
-            entering = update_f && !new_finish && t > time_s[n] &&
-                       __ldg(a.starts + (size_t)t * N + n) != 0;
-            if (entering) {
-              pre = a.sos;
-              write_idx = ++res_idx;
-              val = PACK_BOUNDARY;
-              a.rb[n] = res_idx;
-            }
-          }
-          int* ln = a.lanes + n;
-          ln[PRE_G * N] = pre;
-          ln[TIME * N] = t;
-          ln[SYMADD * N] = symadd;
-          ln[RES_IDX * N] = res_idx;
-          ln[FINISH * N] = new_finish;
-          ln[SYMBOL * N] = sym;
-          if (write_idx >= 0 && write_idx < a.R) a.res[(size_t)n * a.R + write_idx] = (int8_t)val;
-          a.upd[p * N + n] = entering ? ENTERED : update_g;
-          unfinished += !new_finish;
-        }
+        warp_first_max(best, sym);
+        if (lane == 0)
+          unfinished += lane_step<PACKED>(a, a.res, n, p, sym, fin[r] != 0, sad[r], rix[r], fl[r],
+                                          eo[r], time_s[n], pre_s[n]);
       }
       const int count = __syncthreads_count(unfinished);  // lg is free again, too
       if (tid == 0 && count) atomicAdd(a.alive + p, count);
@@ -628,6 +664,330 @@ cudaError_t launch(Args a, cudaStream_t stream) {
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kern),
                                     dim3(nbp > nbj ? nbp : nbj), dim3(THREADS), args, smem,
                                     stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The wide-vocabulary instantiation (decode_loop_wide): one prediction
+// layer, any number of labels V (the Conformer-Transducer's 1,025), bf16
+// weights.  W2 (J x V) no longer fits one block's shared memory, so its
+// label columns are split over the grid, VB = 16 to a block, and the argmax
+// becomes a grid-wide first maximum.  Block b owns UP = 8 units of the
+// layer (P / 8 blocks: 80 at P = 640, within a one-block-per-SM grid, where
+// UP = 4 would need 160), UJ = 8 joint columns and VB labels.  The layer's
+// input product is eproj's row (read from L2: V x 4UP floats a block no
+// longer fit beside W2's slice), and h.W_hh is made when h is, in the
+// joint's pass, as layer 1's is above.  One iteration, a grid barrier after
+// each phase:
+//   1. the cell: gates = eproj[pre_g] + h.W_hh (keep or spec), h' and c';
+//   2. a pass over y = h' against [W1p | W_hh]: z for the block's UJ
+//      columns, and spec;
+//   3. a pass over z against the block's VB columns of W2: each lane's
+//      logits of those labels (+ b2) and their first maximum, to
+//      best / arg (nbv, N);
+//   4. a warp per lane: the first maximum over the nbv blocks' (lowest
+//      label on a tie, so the first argmax over all V), then the lane
+//      algebra, the token write (TT: int8 up to 127 labels, else int16),
+//      update_g, and the count of unfinished lanes.
+// The cell, the first maximum and the lane algebra (packed mode included)
+// are the two-layer kernel's helpers; the commit and the finish-gating
+// follow its code for one layer.
+
+constexpr int UPW = 8;  // prediction units per block
+constexpr int VB = 16;  // labels per block
+
+struct WideArgs {
+  const float* fproj;            // (T2, N, J)
+  int* lanes;                    // (8, N)
+  __nv_bfloat16* hg;             // (N, P)
+  float* cg;                     // (N, P)
+  void* res;                     // (N, R) TT
+  const void* whh;               // per block < P / UP: (P, 4UP) W_hh columns, fragments
+  const void* wj;                // per block < max(nbp, nbj): (P, UJ + 4UP) [W1p | W_hh]
+  const float* b1;               // (J)
+  const void* wout;              // per block < nbv: (J, VB) W2's columns, fragments
+  const float* b2;               // (V)
+  const float* eproj;            // per block < P / UP: (V, UP, 4), row V-1 = b
+  float* keep;                   // per block: (N, UP, 4) h.W_hh of the committed h
+  float* spec;                   // per block: (N, UP, 4) h'.W_hh
+  __nv_bfloat16* hn;             // (2, N, P) h' of an iteration
+  __nv_bfloat16* hc;             // (2, N, P) committed h at an iteration's start
+  __nv_bfloat16* z;              // (N, J)
+  float* best;                   // (nbv, N) each block's best logit of a lane
+  int* arg;                      // (nbv, N) its label
+  int* upd;                      // (2, N)
+  int* alive;                    // (2)
+  const unsigned char* starts;   // packed mode: (T2, N)
+  int* rb;                       // packed mode: (N)
+  int steps, N, P, J, V, R, blank, sos, max_sym, budget, ring_cap;
+};
+
+template <bool PACKED, typename TT>
+__global__ void __launch_bounds__(THREADS, 1) decode_loop_wide(WideArgs a) {
+  using WT = __nv_bfloat16;
+  constexpr int UP = UPW, MT = Rows<WT>::MT, RMAX = Rows<WT>::RMAX, SLOTS = UP / 4;
+  constexpr int NCJ = UJ + 4 * UP, RPT = MT / 8;
+  const int N = a.N, P = a.P, J = a.J, V = a.V;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, b = blockIdx.x;
+  const int nbp = P / UP, nbj = J / UJ, nbv = (V + VB - 1) / VB;
+  const int nbjp = nbp > nbj ? nbp : nbj;
+  const size_t NP = (size_t)N * P;
+  float* keep = a.keep + (size_t)b * N * UP * 4;
+  float* spec = a.spec + (size_t)b * N * UP * 4;
+  const int pcol0 = b * UP;
+  TT* res = static_cast<TT*>(a.res);
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  const size_t wj_bytes = (size_t)P * NCJ * sizeof(WT), wo_bytes = (size_t)J * VB * sizeof(WT);
+  WT* wj_s = reinterpret_cast<WT*>(smem);
+  WT* wo_s = reinterpret_cast<WT*>(smem + wj_bytes);
+  float* c_s = reinterpret_cast<float*>(smem + wj_bytes + wo_bytes);  // (N, UP) committed c
+  float* cn_s = c_s + N * UP;                                         // (N, UP) c'
+  const int Np = (N + 3) & ~3;
+  int* pre_s = reinterpret_cast<int*>(cn_s + N * UP);
+  int* time_s = pre_s + Np;
+  int* updp_s = time_s + Np;
+  WT* ring = reinterpret_cast<WT*>(updp_s + Np);
+
+  if (b < nbjp) {
+    const uint4* src = reinterpret_cast<const uint4*>(static_cast<const char*>(a.wj) + b * wj_bytes);
+    for (int i = tid; i < (int)(wj_bytes / 16); i += THREADS) reinterpret_cast<uint4*>(wj_s)[i] = src[i];
+  }
+  if (b < nbv) {
+    const uint4* src = reinterpret_cast<const uint4*>(static_cast<const char*>(a.wout) + b * wo_bytes);
+    for (int i = tid; i < (int)(wo_bytes / 16); i += THREADS) reinterpret_cast<uint4*>(wo_s)[i] = src[i];
+  }
+  if (b < nbp)
+    for (int i = tid; i < N * UP; i += THREADS) c_s[i] = a.cg[(size_t)(i / UP) * P + pcol0 + i % UP];
+
+  const int g8 = lane >> 2, q4 = lane & 3;
+  auto row = [&](int mt, int r) { return mt * MT + g8 + 8 * r; };
+
+  // h.W_hh of the launch's starting state, once: the first iteration's keep
+  if (b < nbp) {
+    for (int p0 = 0; p0 < N; p0 += RMAX) {
+      const int rows = min(RMAX, N - p0);
+      const int WM = pass_wm(rows, MT), mt = warp % WM, kg = warp / WM;
+      PassAcc<WT, 4 * UP> acc;
+      pass_products<WT, 4 * UP>(static_cast<const WT*>(a.whh) + (size_t)b * P * 4 * UP, P, rows,
+                                ring, a.ring_cap, a.lanes,
+                                [&](int r) { return a.hg + (size_t)(p0 + r) * P; }, acc);
+      if (kg != 0) continue;
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) {
+        const int n = p0 + row(mt, r);
+        if (n >= N) continue;
+#pragma unroll
+        for (int i = 0; i < SLOTS; ++i) {
+          float* kp = keep + ((size_t)n * UP + 4 * i + q4) * 4;
+#pragma unroll
+          for (int g = 0; g < 4; ++g) kp[g] = (&acc.v[0][0])[(2 * i + g / 2) * 4 + 2 * r + g % 2];
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  auto entered = [&](int n, int it) { return PACKED && it > 0 && updp_s[n] == ENTERED; };
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  int it = 0;
+  for (;; ++it) {
+    const int p = it & 1;
+    const WT* hn_prev = a.hn + (size_t)(p ^ 1) * NP;
+    const WT* hc_prev = a.hc + (size_t)(p ^ 1) * NP;
+    WT* hn_cur = a.hn + (size_t)p * NP;
+    if (b == 0 && tid == 0) a.alive[p] = 0;  // last read two barriers ago
+    for (int n = tid; n < N; n += THREADS) {
+      pre_s[n] = __ldcg(a.lanes + PRE_G * N + n);
+      time_s[n] = __ldcg(a.lanes + TIME * N + n);
+      updp_s[n] = it > 0 ? __ldcg(a.upd + (p ^ 1) * N + n) : 0;
+    }
+    __syncthreads();
+
+    // phase 1: the cell.  gates = eproj[pre_g] + h.W_hh of the committed h:
+    // spec where the last iteration emitted, zero where it entered an
+    // utterance, else keep (which then becomes that value)
+    if (b < nbp) {
+      for (int i = tid; i < N * UP; i += THREADS) {
+        const int n = i / UP, u = i - n * UP;
+        float hh[4];
+        if (entered(n, it)) {
+          hh[0] = hh[1] = hh[2] = hh[3] = 0.0f;
+        } else {
+          const float4 v = __ldcg(reinterpret_cast<const float4*>(
+              (it > 0 && updp_s[n] ? spec : keep) + ((size_t)n * UP + u) * 4));
+          hh[0] = v.x; hh[1] = v.y; hh[2] = v.z; hh[3] = v.w;
+        }
+        if (it > 0 && updp_s[n])
+          *reinterpret_cast<float4*>(keep + ((size_t)n * UP + u) * 4) = make_float4(hh[0], hh[1], hh[2], hh[3]);
+        const int pg = pre_s[n];
+        const float4 e = __ldg(reinterpret_cast<const float4*>(
+            a.eproj + (((size_t)b * V + (pg != a.sos && pg >= 0 && pg < V - 1 ? pg : V - 1)) * UP + u) * 4));
+        const float gate[4] = {__fadd_rn(e.x, hh[0]), __fadd_rn(e.y, hh[1]), __fadd_rn(e.z, hh[2]),
+                               __fadd_rn(e.w, hh[3])};
+        const size_t off = (size_t)n * P + pcol0 + u;
+        a.hc[(size_t)p * NP + off] = it == 0 ? a.hg[off]
+                                     : entered(n, it) ? store_as<WT>(0.0f)
+                                     : updp_s[n] ? hn_prev[off] : hc_prev[off];
+        const float cprev = entered(n, it) ? 0.0f : it > 0 && updp_s[n] ? cn_s[i] : c_s[i];
+        c_s[i] = cprev;
+        hn_cur[off] = store_as<WT>(lstm_cell(gate, cprev, cn_s[i]));
+      }
+    }
+    grid.sync();
+
+    // phase 2: the joint's hidden layer, UJ columns per block, and h'.W_hh
+    // for the next iteration (spec)
+    if (b < nbjp) {
+      const int jc0 = b * UJ;
+      for (int p0 = 0; p0 < N; p0 += RMAX) {
+        const int rows = min(RMAX, N - p0);
+        const int WM = pass_wm(rows, MT), mt = warp % WM, kg = warp / WM;
+        float fb[RPT][2];  // fproj[time], loaded ahead
+        if (kg == 0 && b < nbj) {
+#pragma unroll
+          for (int r = 0; r < RPT; ++r) {
+            const int n = min(p0 + row(mt, r), N - 1);
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              fb[r][e] = __ldg(a.fproj + ((size_t)time_s[n] * N + n) * J + jc0 + 2 * q4 + e);
+          }
+        }
+        PassAcc<WT, NCJ> acc;
+        pass_products<WT, NCJ>(wj_s, P, rows, ring, a.ring_cap, a.lanes,
+                               [&](int r) { return hn_cur + (size_t)(p0 + r) * P; }, acc);
+        if (kg != 0) continue;
+        const float* flat = &acc.v[0][0];
+#pragma unroll
+        for (int r = 0; r < RPT; ++r) {
+          const int n = p0 + row(mt, r);
+          if (n >= N) continue;
+          if (b < nbj) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int jc = jc0 + 2 * q4 + e;
+              const float v = __fadd_rn(__fadd_rn(fb[r][e], flat[2 * r + e]), __ldg(a.b1 + jc));
+              a.z[(size_t)n * J + jc] = store_as<WT>(fmaxf(v, 0.0f));
+            }
+          }
+          if (b < nbp) {
+#pragma unroll
+            for (int i = 0; i < SLOTS; ++i) {
+              float s[4];
+#pragma unroll
+              for (int g = 0; g < 4; ++g) s[g] = flat[(1 + 2 * i + g / 2) * 4 + 2 * r + g % 2];
+              *reinterpret_cast<float4*>(spec + ((size_t)n * UP + 4 * i + q4) * 4) =
+                  make_float4(s[0], s[1], s[2], s[3]);
+            }
+          }
+        }
+      }
+    }
+    grid.sync();
+
+    // phase 3: the block's VB labels' logits and their first maximum
+    if (b < nbv) {
+      for (int p0 = 0; p0 < N; p0 += RMAX) {
+        const int rows = min(RMAX, N - p0);
+        const int WM = pass_wm(rows, MT), mt = warp % WM, kg = warp / WM;
+        PassAcc<WT, VB> acc;
+        pass_products<WT, VB>(wo_s, J, rows, ring, a.ring_cap, a.lanes,
+                              [&](int r) { return a.z + (size_t)(p0 + r) * J; }, acc);
+        if (kg != 0) continue;
+#pragma unroll
+        for (int r = 0; r < RPT; ++r) {
+          const int n = p0 + row(mt, r);
+          float best = -INFINITY;
+          int arg = 0x7fffffff;
+#pragma unroll
+          for (int j = 0; j < VB / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {  // ascending labels: the first maximum
+              const int v = b * VB + 8 * j + 2 * q4 + e;
+              if (v < V) {
+                const float l = __fadd_rn(acc.v[j][2 * r + e], __ldg(a.b2 + v));
+                if (l > best || arg == 0x7fffffff) {
+                  best = l;
+                  arg = v;
+                }
+              }
+            }
+#pragma unroll
+          for (int o = 1; o < 4; o <<= 1)  // over the 4 lanes of the row
+            take_first_max(best, arg, __shfl_xor_sync(0xffffffffu, best, o),
+                           __shfl_xor_sync(0xffffffffu, arg, o));
+          if (q4 == 0 && n < N) {
+            a.best[(size_t)b * N + n] = best;
+            a.arg[(size_t)b * N + n] = arg;
+          }
+        }
+      }
+    }
+    grid.sync();
+
+    // phase 4: a warp per lane: the grid's first maximum and the lane algebra
+    int unfinished = 0;
+    for (int n = b * WARPS + warp; n < N; n += gridDim.x * WARPS) {
+      float best = -INFINITY;
+      int sym = 0x7fffffff;
+      for (int k = lane; k < nbv; k += 32) {
+        take_first_max(best, sym, __ldcg(a.best + (size_t)k * N + n),
+                       __ldcg(a.arg + (size_t)k * N + n));
+      }
+      warp_first_max(best, sym);
+      if (lane == 0) {
+        const int* ln = a.lanes + n;
+        unfinished += lane_step<PACKED>(a, res, n, p, sym, __ldcg(ln + FINISH * N) != 0,
+                                        __ldcg(ln + SYMADD * N), __ldcg(ln + RES_IDX * N),
+                                        __ldcg(ln + F_LENS * N), __ldcg(ln + EOS * N), time_s[n],
+                                        pre_s[n]);
+      }
+    }
+    const int count = __syncthreads_count(unfinished);
+    if (tid == 0 && count) atomicAdd(a.alive + p, count);
+    grid.sync();
+    const bool last = it + 1 >= a.steps || __ldcg(a.alive + p) == 0;  // the same for every block
+    if (last) break;
+  }
+
+  // commit h/c of the block's units: h' and c' where the last iteration
+  // emitted, zeros where it entered an utterance, else the state it
+  // started from
+  if (b < nbp) {
+    const int p = it & 1;
+    for (int i = tid; i < N * UP; i += THREADS) {
+      const int n = i / UP, u = i - n * UP;
+      const size_t off = (size_t)n * P + pcol0 + u;
+      const int upd = __ldcg(a.upd + p * N + n);
+      const bool zero = PACKED && upd == ENTERED;
+      a.hg[off] = zero ? store_as<WT>(0.0f) : ((upd ? a.hn : a.hc) + (size_t)p * NP)[off];
+      a.cg[off] = zero ? 0.0f : upd ? cn_s[i] : c_s[i];
+    }
+  }
+}
+
+template <bool PACKED, typename TT>
+cudaError_t launch_wide(WideArgs a, cudaStream_t stream) {
+  using WT = __nv_bfloat16;
+  int dev = 0, limit = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  const size_t fixed = (size_t)a.P * (UJ + 4 * UPW) * sizeof(WT) + (size_t)a.J * VB * sizeof(WT) +
+                       (size_t)2 * a.N * UPW * 4 + (size_t)3 * ((a.N + 3) & ~3) * 4;
+  if (fixed + (size_t)ring_min<WT>() * sizeof(WT) > (size_t)limit) return cudaErrorInvalidValue;
+  a.ring_cap = (int)(((size_t)limit - fixed) / sizeof(WT)) & ~7;
+  const size_t smem = fixed + (size_t)a.ring_cap * sizeof(WT);
+  auto kern = decode_loop_wide<PACKED, TT>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int nbp = a.P / UPW, nbj = a.J / UJ, nbv = (a.V + VB - 1) / VB;
+  const int blocks = nbp > nbj ? (nbp > nbv ? nbp : nbv) : (nbj > nbv ? nbj : nbv);
+  void* args[] = {&a};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kern), dim3(blocks),
+                                    dim3(THREADS), args, smem, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -723,6 +1083,50 @@ int rnnt_decode_rank_segment(int weight_bf16, int UP, int seg, int it, const voi
   auto* s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(weight_bf16 ? launch<__nv_bfloat16, 4, false>(a, s)
                                       : launch<float, 4, false>(a, s));
+}
+
+// The wide-vocabulary instantiation (decode_loop_wide): up to `steps`
+// iterations of a one-layer prediction net with bf16 weights and any number
+// of labels, in one cooperative launch of max(P / 8, J / 8, ceil(V / 16))
+// blocks, leaving early once every lane has finished.  whh (P/8, P, 32),
+// wj (max(P/8, J/8), P, 40), wout (ceil(V/16), J, 16) and eproj (P/8, V, 8,
+// 4) are the layouts of ops/decode_cuda.py kernel_operands_wide; keep,
+// spec, hn, hc, z, best, arg, upd and alive are scratch.  res holds int16
+// tokens when tok16, else int8.  starts selects packed mode, as above.
+// Returns 0, or the CUDA error of a refused launch.
+int rnnt_decode_steps_wide(int tok16, int steps, const void* fproj, void* lanes, void* hg,
+                           void* cg, void* res, const void* whh, const void* wj, const void* b1,
+                           const void* wout, const void* b2, const void* eproj, void* keep,
+                           void* spec, void* hn, void* hc, void* z, void* best, void* arg,
+                           void* upd, void* alive, const void* starts, void* rb, int N, int P,
+                           int J, int V, int R, int blank, int sos, int max_sym, int budget,
+                           void* stream) {
+  if (steps <= 0 || N <= 0 || P <= 0 || P % 64 != 0 || J <= 0 || J % 64 != 0 || V < 1 ||
+      (starts != nullptr && (rb == nullptr || budget < 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  WideArgs a{};
+  a.fproj = static_cast<const float*>(fproj);
+  a.lanes = static_cast<int*>(lanes);
+  a.hg = static_cast<__nv_bfloat16*>(hg);
+  a.cg = static_cast<float*>(cg);
+  a.res = res;
+  a.whh = whh, a.wj = wj, a.wout = wout;
+  a.b1 = static_cast<const float*>(b1), a.b2 = static_cast<const float*>(b2);
+  a.eproj = static_cast<const float*>(eproj);
+  a.keep = static_cast<float*>(keep), a.spec = static_cast<float*>(spec);
+  a.hn = static_cast<__nv_bfloat16*>(hn), a.hc = static_cast<__nv_bfloat16*>(hc);
+  a.z = static_cast<__nv_bfloat16*>(z);
+  a.best = static_cast<float*>(best), a.arg = static_cast<int*>(arg);
+  a.upd = static_cast<int*>(upd), a.alive = static_cast<int*>(alive);
+  a.starts = static_cast<const unsigned char*>(starts), a.rb = static_cast<int*>(rb);
+  a.steps = steps, a.N = N, a.P = P, a.J = J, a.V = V, a.R = R;
+  a.blank = blank, a.sos = sos, a.max_sym = max_sym, a.budget = budget;
+  auto* s = static_cast<cudaStream_t>(stream);
+  const bool packed = starts != nullptr;
+  const cudaError_t err =
+      tok16 ? (packed ? launch_wide<true, int16_t>(a, s) : launch_wide<false, int16_t>(a, s))
+            : (packed ? launch_wide<true, int8_t>(a, s) : launch_wide<false, int8_t>(a, s));
+  return static_cast<int>(err);
 }
 
 const char* rnnt_cuda_error_string(int err) {

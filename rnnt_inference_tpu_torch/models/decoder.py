@@ -51,7 +51,7 @@ from rnnt_inference_tpu_torch.ops import projection_cuda
 # each; chip_smoke.py's symbol_loop_by_k times the choice (PERF.md)
 DEFAULT_STEPS_PER_CHECK = 64
 
-# utterance-boundary marker in packed res buffers (tokens 0..28, -1 pads)
+# utterance-boundary marker in packed res buffers (tokens 0..V-1, -1 pads)
 PACK_BOUNDARY = dc.PACK_BOUNDARY
 
 
@@ -59,8 +59,8 @@ PACK_BOUNDARY = dc.PACK_BOUNDARY
 class DecodeState:
     """Everything carried across streaming chunks."""
 
-    enc: model.EncoderState
-    res: torch.Tensor  # (N, max_res_len) int8, -1 padded
+    enc: Optional[model.EncoderState]  # None for an encoder that carries no state
+    res: torch.Tensor  # (N, max_res_len) dc.token_dtype(num_labels), -1 padded
     res_idx: torch.Tensor  # (N,) int32, -1 = empty
     pre_g: torch.Tensor  # (N,) int32 last emitted symbol, SOS initially
     hg: torch.Tensor  # (PRED_L, N, P)
@@ -76,9 +76,13 @@ def init_decode_state(
 ) -> DecodeState:
     P = params.pred_hidden_size
     L = params.pred_num_layers
+    # the Conformer sees each utterance whole: no encoder state to carry
+    enc = (model.init_encoder_state(batch, params, enc_dtype, device)
+           if isinstance(params, RNNTParams) else None)
     return DecodeState(
-        enc=model.init_encoder_state(batch, params, enc_dtype, device),
-        res=torch.full((batch, params.max_res_len), -1, dtype=torch.int8, device=device),
+        enc=enc,
+        res=torch.full((batch, params.max_res_len), -1, dtype=dc.token_dtype(params.num_labels),
+                       device=device),
         res_idx=torch.full((batch,), -1, dtype=torch.int32, device=device),
         pre_g=torch.full((batch,), params.SOS, dtype=torch.int32, device=device),
         hg=torch.zeros((L, batch, P), dtype=pred_dtype, device=device),
@@ -103,10 +107,11 @@ def masked_reset_decode(
     if not keep_res:
         res = res.masked_fill(mask[:, None], -1)
         res_idx = res_idx.masked_fill(mask, -1)
+    if enc is not None:
+        enc = model.EncoderState(pre_h=z(enc.pre_h), pre_c=z(enc.pre_c), post_h=z(enc.post_h),
+                                 post_c=z(enc.post_c))
     return DecodeState(
-        enc=model.EncoderState(
-            pre_h=z(enc.pre_h), pre_c=z(enc.pre_c), post_h=z(enc.post_h), post_c=z(enc.post_c)
-        ),
+        enc=enc,
         res=res,
         res_idx=res_idx,
         pre_g=state.pre_g.masked_fill(mask, params.SOS),

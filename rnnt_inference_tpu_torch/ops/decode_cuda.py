@@ -6,7 +6,8 @@ the fproj gather and the token write folded in.  Both versions update the
 decode state in place:
   lanes (8, N) int32: rows PRE_G, TIME, SYMADD, RES_IDX, FINISH, F_LENS,
         EOS (read only) and SYMBOL (the step's argmax, written);
-  hg (L, N, P) in the weight dtype, cg (L, N, P) f32, res (N, R) int8.
+  hg (L, N, P) in the weight dtype, cg (L, N, P) f32, res (N, R) tokens of
+  ``token_dtype(V)`` (int8 up to 127 labels, int16 above).
 Packed mode (``starts`` given, the sequence-packed Offline runner) adds
   starts (T2, N) bool: the first frame of each utterance on a lane's
         timeline; advancing into one resets the lane's prediction state
@@ -28,7 +29,12 @@ tensors launch the kernel (the twin only for impl="reference").  One
 launch runs up to ``steps`` iterations as one cooperative grid that keeps
 the weights in its blocks' shared memory (``plan``, ``kernel_operands``)
 and leaves early once every lane has finished.
-``decode_step_cuda.launches`` counts kernel launches.
+``decode_step_cuda.launches`` counts kernel launches.  Two instantiations:
+the MLPerf RNN-T's (two prediction layers, V <= 32, W2 whole in every
+block; ``plan``, ``kernel_operands``) and the wide-vocabulary one (one bf16
+layer, any V: W2's labels split VB to a block and a grid-wide first
+maximum; ``plan_wide``, ``kernel_operands_wide``), chosen by the number of
+layers.
 
 Tensor parallelism (parallel/tensor.py; bucketed mode): ``decode_step_tp``
 runs iterations on the k model ranks of a data shard, one list entry per
@@ -60,8 +66,14 @@ from rnnt_inference_tpu_torch.ops import cuda_build, projection_cuda
 from rnnt_inference_tpu_torch.ops.lstm import dot_f32
 
 NAME = "decode_step"
-# the utterance-boundary marker of packed res buffers (tokens are 0..28, -1 pads)
+# the utterance-boundary marker of packed res buffers (tokens are 0..V-1, -1 pads)
 PACK_BOUNDARY = -2
+
+
+def token_dtype(num_labels: int) -> torch.dtype:
+    """The token buffer's type: int8 up to 127 labels (the MLPerf RNN-T's
+    29), int16 above (the Conformer's 1,025)."""
+    return torch.int8 if num_labels <= 127 else torch.int16
 PRE_G, TIME, SYMADD, RES_IDX, FINISH, F_LENS, EOS, SYMBOL = range(8)
 N_LANE_ROWS = 8
 
@@ -374,6 +386,8 @@ def _lib() -> ctypes.CDLL:
         lib.rnnt_decode_steps.restype = ctypes.c_int
         lib.rnnt_decode_rank_segment.argtypes = [i] * 4 + [p] * 21 + [i] * 13 + [p]
         lib.rnnt_decode_rank_segment.restype = ctypes.c_int
+        lib.rnnt_decode_steps_wide.argtypes = [i, i] + [p] * 22 + [i] * 9 + [p]
+        lib.rnnt_decode_steps_wide.restype = ctypes.c_int
     return lib
 
 
@@ -419,6 +433,121 @@ def _operands(dw: DecodeWeights, P: int, J: int, V: int, L: int, Pl: int = 0, Jl
     return cuda_build.cached_operands(dw, f"{NAME}/P{P}J{J}V{V}L{L}/{Pl},{Jl}", tensors, build)
 
 
+UP_WIDE = 8  # prediction units per block of the wide instantiation
+VB = 16  # labels per block of the wide instantiation
+
+
+@functools.lru_cache(maxsize=64)
+def plan_wide(P: int, J: int, V: int, N: int, L: int, dtype: torch.dtype, sms: int) -> int:
+    """Shared bytes per block (less the staging ring) of kernel B's
+    wide-vocabulary instantiation (one prediction layer, bf16, any V) on a
+    card with ``sms`` SMs: max(P / UP_WIDE, J / UJ, ceil(V / VB)) blocks,
+    one to an SM.  Raises ValueError for a shape it cannot take."""
+    if L != 1 or dtype != torch.bfloat16:
+        raise ValueError(f"kernel B's wide instantiation runs one bf16 prediction layer, got "
+                         f"{L} layers of {dtype}")
+    if P <= 0 or J <= 0 or P % 64 or J % 64 or V < 1:
+        raise ValueError(f"kernel B needs P and J multiples of 64, got P={P} J={J} V={V}")
+    blocks = max(P // UP_WIDE, J // UJ, -(-V // VB))
+    if blocks > sms:
+        raise ValueError(f"kernel B: {blocks} blocks, the card has {sms} SMs")
+    smem = (P * (UJ + 4 * UP_WIDE) + J * VB) * 2 + 2 * N * UP_WIDE * 4 + 3 * -(-N // 4) * 16
+    if smem + cuda_build.ring_min_bytes(dtype) > cuda_build.SMEM_PER_BLOCK:
+        raise ValueError(f"kernel B: N={N} lanes need {smem} bytes of shared memory per block "
+                         f"and a ring, more than {cuda_build.SMEM_PER_BLOCK}")
+    return smem
+
+
+def kernel_operands_wide(dw: DecodeWeights):
+    """(whh, wj, wout, eproj), the weights of a one-layer prediction net in
+    the wide instantiation's per-block order, UP = UP_WIDE:
+      whh {P/UP, P, 4UP}: block b's W_hh columns (the launch's first h.W_hh);
+      wj {nb, P, UJ + 4UP}, nb = max(P/UP, J/UJ): the joint's pass on y = h':
+          W1p's columns b UJ .. and W_hh's of the block's units, in
+          _joint_columns order;
+      wout {ceil(V/VB), J, VB}: W2's label columns b VB .., zeros past V;
+    each in mma fragment order; eproj {P/UP, V, UP, 4} f32 as for the
+    two-layer kernel (embed . W_ih + b, row V-1 SOS's: b)."""
+    L, P, G = dw.w_ih.shape
+    J, V = dw.w2.shape
+    dt, dev = dw.w2.dtype, dw.w2.device
+    UP = UP_WIDE
+    nbp, nbj, nbv = G // 4 // UP, J // UJ, -(-V // VB)
+    nb = max(nbp, nbj)
+    whh = _gates(dw.w_hh[0], UP).reshape(nbp, P, 4 * UP)[..., cuda_build.gate_columns(UP, dt).to(dev)]
+    wj = whh.new_zeros((nb, P, UJ + 4 * UP))
+    wj[:nbj, :, :UJ] = dw.w1p.reshape(P, nbj, UJ).permute(1, 0, 2)
+    wj[:nbp, :, UJ:] = _gates(dw.w_hh[0], UP).reshape(nbp, P, 4 * UP)
+    wj = wj[..., _joint_columns(UP, dt).to(dev)]
+    wout = torch.cat([dw.w2, dw.w2.new_zeros((J, nbv * VB - V))], dim=1)
+    wout = wout.reshape(J, nbv, VB).permute(1, 0, 2)
+    eproj = torch.cat([projection_cuda.project(dw.embed, dw.w_ih[0]) + dw.b[0],
+                       dw.b[0][None]])  # (V, 4P)
+    eproj = eproj.reshape(V, 4, nbp, UP).permute(2, 0, 3, 1)
+    return tuple(cuda_build.b_fragments(t).contiguous() for t in (whh, wj, wout)) + (
+        eproj.contiguous(),)
+
+
+@functools.lru_cache(maxsize=16)
+def _scratch_wide(dev: torch.device, stream: int, N: int, P: int, J: int, V: int):
+    """The wide instantiation's scratch for one stream and shape, made once:
+    the data pointers of keep, spec, hn, hc, z, best, arg, upd, alive."""
+    nb = max(P // UP_WIDE, J // UJ, -(-V // VB))
+    f32 = dict(dtype=torch.float32, device=dev)
+    tensors = (torch.empty((nb, N, UP_WIDE, 4), **f32), torch.empty((nb, N, UP_WIDE, 4), **f32),
+               torch.empty((2, N, P), dtype=torch.bfloat16, device=dev),
+               torch.empty((2, N, P), dtype=torch.bfloat16, device=dev),
+               torch.empty((N, J), dtype=torch.bfloat16, device=dev),
+               torch.empty((-(-V // VB), N), **f32),
+               torch.empty((-(-V // VB), N), dtype=torch.int32, device=dev),
+               torch.empty((2, N), dtype=torch.int32, device=dev),
+               torch.empty((2,), dtype=torch.int32, device=dev))
+    return tensors, [t.data_ptr() for t in tensors]
+
+
+def _decode_wide(fproj, lanes, hg, cg, res, dw, params, steps, starts, res_base, utt_budget):
+    """``decode_step_cuda`` for one prediction layer: the wide instantiation."""
+    T2, N, J = fproj.shape
+    L, _, P = hg.shape
+    V, R = dw.w2.shape[1], res.shape[1]
+    dev = lanes.device
+    plan_wide(P, J, V, N, L, dw.embed.dtype, cuda_build.sm_count(dev))
+
+    def build():
+        for name, t, dt, shape in [
+            ("embed", dw.embed, torch.bfloat16, (V - 1, P)),
+            ("w_ih", dw.w_ih, torch.bfloat16, (1, P, 4 * P)),
+            ("w_hh", dw.w_hh, torch.bfloat16, (1, P, 4 * P)),
+            ("b", dw.b, torch.float32, (1, 4 * P)),
+            ("w1p", dw.w1p, torch.bfloat16, (P, J)),
+            ("b1", dw.b1, torch.float32, (J,)),
+            ("w2", dw.w2, torch.bfloat16, (J, V)),
+            ("b2", dw.b2, torch.float32, (V,)),
+        ]:
+            cuda_build.require(t, f"decode_step_cuda {name}", dt, shape)
+        return kernel_operands_wide(dw)
+
+    tensors = (dw.embed, dw.w_ih, dw.w_hh, dw.b, dw.w1p, dw.b1, dw.w2, dw.b2)
+    whh, wj, wout, eproj = cuda_build.cached_operands(dw, f"{NAME}/wide/P{P}J{J}V{V}", tensors,
+                                                      build)
+    if whh.device != dev:
+        raise ValueError(f"kernel B: weights on {whh.device}, state on {dev}")
+    lib = _lib()
+    with torch.cuda.device(dev):  # the C side launches on the current device
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _, scratch = _scratch_wide(dev, stream, N, P, J, V)
+        err = lib.rnnt_decode_steps_wide(
+            int(res.dtype == torch.int16), steps, fproj.data_ptr(), lanes.data_ptr(),
+            hg.data_ptr(), cg.data_ptr(), res.data_ptr(), whh.data_ptr(), wj.data_ptr(),
+            dw.b1.data_ptr(), wout.data_ptr(), dw.b2.data_ptr(), eproj.data_ptr(), *scratch,
+            None if starts is None else starts.data_ptr(),
+            None if starts is None else res_base.data_ptr(),
+            N, P, J, V, R, params.BLANK, params.SOS, params.max_symbols_per_step, utt_budget,
+            stream,
+        )
+    cuda_build.check(lib, err, "decode_step kernel (wide)")
+
+
 def decode_step_cuda(
     fproj: torch.Tensor,
     lanes: torch.Tensor,
@@ -448,7 +577,7 @@ def decode_step_cuda(
         ("lanes", lanes, torch.int32, (N_LANE_ROWS, N)),
         ("hg", hg, wdt, (L, N, P)),
         ("cg", cg, torch.float32, (L, N, P)),
-        ("res", res, torch.int8, (N, R)),
+        ("res", res, token_dtype(V), (N, R)),
     ] + ([] if starts is None else [
         ("starts", starts, torch.bool, (T2, N)),
         ("res_base", res_base, torch.int32, (N,)),
@@ -459,6 +588,10 @@ def decode_step_cuda(
     if hg.data_ptr() % 16:
         raise ValueError("kernel B copies hg rows in 16-byte pieces: align it")
     if steps <= 0:
+        return
+    if L == 1:
+        _decode_wide(fproj, lanes, hg, cg, res, dw, params, steps, starts, res_base, utt_budget)
+        decode_step_cuda.launches += 1
         return
     dev = lanes.device
     plan(P, J, V, N, L, wdt, cuda_build.sm_count(dev))

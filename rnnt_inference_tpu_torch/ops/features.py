@@ -4,8 +4,8 @@
   1. preemphasis y[t] = x[t] - 0.97 x[t-1], length-masked
   2. frames of the window support (320 of the 512-sample n_fft frame, hop
      160) after n_fft/2 boundary padding ("zeros" or "reflect")
-  3. |windowed DFT|^2 as two f32 matmuls, + dither^2
-  4. slaney mel filterbank matmul + 1e-20, log
+  3. |windowed DFT|^2 as two f32 matmuls, + dither^2 (``dither_power``)
+  4. slaney mel filterbank matmul + the log guard (MLPerf's 1e-20), log
   5. frames past each utterance's length zeroed, splicing x3 (stride 3)
   6. per-feature mean/var normalization over valid frames
 
@@ -303,9 +303,9 @@ def log_mel_features(
         x, cfg.n_fft, cfg.hop_length, cfg.pad_mode, support=_frontend_constants(cfg)[3]
     )
     spec = power_spectrum(frames, cos_m, sin_m)
-    if cfg.dither > 0:
-        spec = spec + cfg.dither**2
-    mel = torch.matmul(spec, fbt) + 1e-20
+    if cfg.dither_power:
+        spec = spec + cfg.dither_power
+    mel = torch.matmul(spec, fbt) + cfg.log_guard
     if cfg.log:
         mel = torch.log(mel)
     return _finish(mel, x_lens // cfg.hop_length + 1, cfg)
@@ -317,7 +317,7 @@ def fused_mel_reference(x: torch.Tensor, n_frames: int, cfg: FeaturizerConfig) -
     {N, n_frames, n_mels}, frame t = x[:, t*hop : t*hop + flen]."""
     cos_m, sin_m, fbt, _ = device_constants(cfg, str(x.device))
     frames = frames_at(x, n_frames, cfg.hop_length, cos_m.shape[0])
-    spec = power_spectrum(frames, cos_m, sin_m) + float(cfg.dither) ** 2
+    spec = power_spectrum(frames, cos_m, sin_m) + cfg.dither_power
     return torch.log(torch.matmul(spec, fbt) + 1e-20)
 
 
@@ -331,7 +331,7 @@ def fused_mel(
     if impl == "reference" or not x.is_cuda:
         return fused_mel_reference(x, n_frames, cfg)
     ops = device_constants(cfg, str(x.device))[3]
-    return features_cuda.log_mel_cuda(x, n_frames, ops, cfg.hop_length, float(cfg.dither) ** 2)
+    return features_cuda.log_mel_cuda(x, n_frames, ops, cfg.hop_length, cfg.dither_power)
 
 
 def log_mel_features_fused(
@@ -344,7 +344,10 @@ def log_mel_features_fused(
     kernel D (counterpart of features_pallas.log_mel_features_pallas).
     Preemphasis and padding run before the kernel, masking, splicing and
     normalization after it, as in log_mel_features.  As in the JAX
-    function, the log is always taken.  Needs win_length == 2 * hop."""
+    function, the log is always taken.  Needs win_length == 2 * hop and
+    kernel D's log guard, 1e-20."""
+    if cfg.log_guard != 1e-20:
+        raise ValueError(f"kernel D adds a log guard of 1e-20, not {cfg.log_guard}")
     _, _, _, (start, flen) = _frontend_constants(cfg)
     if flen != 2 * cfg.hop_length:
         raise ValueError(

@@ -23,7 +23,8 @@ import torch
 from rnnt_inference_tpu_torch.config import FeaturizerConfig, RNNTParams
 from rnnt_inference_tpu_torch.models.decoder import drain, greedy_decode_steps
 from rnnt_inference_tpu_torch.ops import (
-    cuda_build, decode_cuda, lstm_cuda, lstm_scan_cuda, projection_cuda,
+    attention_cuda, cuda_build, decode_cuda, depthwise_cuda, lstm_cuda, lstm_scan_cuda,
+    projection_cuda,
 )
 from rnnt_inference_tpu_torch.ops.features import log_mel_features
 from rnnt_inference_tpu_torch.parallel.mesh import join, shard, weight_shardings
@@ -52,15 +53,17 @@ _KERNELS = {
     "lstm_recurrence": lstm_scan_cuda.lstm_recurrence_cuda,
     "decode_step": decode_cuda.decode_step_cuda,
     "projection": projection_cuda.project_cuda,
+    "attention": attention_cuda.rel_attention_cuda,
+    "depthwise": depthwise_cuda.depthwise_silu_cuda,
 }
 
 
-def build_kernels(device: torch.device, impl: Optional[str]) -> None:
-    """Build every kernel a runner can launch (untimed set-up): on the card
-    unless impl="reference"."""
+def build_kernels(device: torch.device, impl: Optional[str], extra: Sequence[str] = ()) -> None:
+    """Build every kernel a runner can launch (untimed set-up), and the
+    ``extra`` ones its model adds: on the card unless impl="reference"."""
     if device.type == "cuda" and impl is None:
         cuda_build.build([lstm_cuda.NAME, lstm_scan_cuda.NAME, decode_cuda.NAME,
-                          projection_cuda.NAME])
+                          projection_cuda.NAME, *extra])
 
 
 def launch_counts() -> Dict[str, int]:

@@ -10,9 +10,11 @@ runs three phases on the device:
   A. features: each staged wav-bucket batch is featurized (log_mel_features)
      into a flat (rows, 240) buffer; one row gather then builds the packed
      (T_pack, n_lanes, 240) buffer (pad positions gather a zero row).
-  B. encoder: a host loop over the C chunks, one ``transcription`` per chunk
-     (on the int8 path five kernel-A launches), the encoder state zeroed on
-     the lanes where an utterance starts (``resets``).
+  B. encoder: the architecture's encoder phase (runtime/encode_phase.py),
+     chosen once from the params.  The RNN-T's is a host loop over the C
+     chunks, one ``transcription`` per chunk (on the int8 path five
+     kernel-A launches), the encoder state zeroed on the lanes where an
+     utterance starts (``resets``).
   C. decode: the encoder outputs are compacted (chunk-tail pad frames
      gathered away) into gapless per-lane timelines and decoded in
      ``decode_chunk``-frame pieces by greedy_decode_chunk_packed, whose
@@ -21,6 +23,11 @@ runs three phases on the device:
      utterance that starts exactly at a piece's first frame is reset here,
      between pieces, as the JAX runner does.
 
+With ConformerParams (models/conformer.py) phase B encodes whole
+utterances instead, from the flat buffer into one varlen buffer of the
+whole rep; compaction reads each utterance's encoder frames out of it, and
+phase C runs as above.  ``chunk_frames`` stays the packing grain.
+
 The tokens equal a standalone decode of each utterance: the masked resets
 give each utterance a fresh state, compaction feeds the decode the same
 frames in the same order, and each utterance keeps at most max_res_len
@@ -28,7 +35,8 @@ tokens (the standalone decode's truncation), enforced by the per-utterance
 budget.  ``harvest`` splits each lane's tokens at the markers.
 
 The host side of a rep is timed by spans (utils/profiler.py):
-rnnt.offline.features, .encode (with .encode_chunk per chunk), .decode
+rnnt.offline.features, .encode (with .encode_chunk per chunk, or for the
+Conformer .subsample per group and .conformer_layer per block), .decode
 (with .decode_piece per piece), then the tail, .sync, .readback and
 .harvest.
 
@@ -53,7 +61,6 @@ import numpy as np
 import torch
 
 from rnnt_inference_tpu_torch.config import FeaturizerConfig, RNNTParams
-from rnnt_inference_tpu_torch.models import rnnt as model
 from rnnt_inference_tpu_torch.models.decoder import (
     PACK_BOUNDARY,
     drain,
@@ -72,6 +79,7 @@ from rnnt_inference_tpu_torch.runtime.offline import (
     launches_since,
     lockstep,
 )
+from rnnt_inference_tpu_torch.runtime import encode_phase
 from rnnt_inference_tpu_torch.utils.profiler import span
 
 
@@ -152,9 +160,14 @@ class PackedOfflineRunner:
         mesh: a parallel/mesh.py Mesh whose data devices each take a
         contiguous n_lanes / dp lanes (n_lanes % dp == 0; module
         docstring); the runner's device is then its first data device."""
-        if chunk_frames % params.stack_time_factor:
-            raise ValueError(f"chunk_frames {chunk_frames} must be a multiple of the "
-                             f"stack_time factor {params.stack_time_factor}")
+        # f in the joint's input type is bit-exact: the decode's hoisted
+        # fproj product casts f to it anyway
+        self._f_dtype = weights.joint.w1_trans.dtype
+        self._encoder = encode_phase.for_params(params, weights, chunk_frames, impl,
+                                                self._f_dtype, mesh)
+        if chunk_frames % self._encoder.grain:
+            raise ValueError(f"chunk_frames {chunk_frames} must be a multiple of the encoder's "
+                             f"time reduction {self._encoder.grain}")
         if mesh is not None:
             dp = mesh.shape["data"]
             if n_lanes % dp:
@@ -179,11 +192,7 @@ class PackedOfflineRunner:
         self._staged = None  # [(wav_i16 {g, S}, lens {g}, flat base row)]
         self._shards: List[dict] = []  # per data shard: its lanes' device tables
         self.shard_launches: List[dict] = []  # with a mesh: per shard, last dispatch
-        self._enc_dtype = weights.pre_rnn[0].w_ih.dtype
         self._pred_dtype = weights.pred_rnn[0].w_ih.dtype
-        # f in the joint's input type is bit-exact: the decode's hoisted
-        # fproj product casts f to it anyway
-        self._f_dtype = weights.joint.w1_trans.dtype
 
     # -- untimed staging --------------------------------------------------
 
@@ -193,9 +202,7 @@ class PackedOfflineRunner:
         Raises ValueError when there are fewer utterances than lanes (a lane
         would idle through the whole rep)."""
         cfg, dev = self.cfg, self.device
-        stack = self.params.stack_time_factor
         P = self.chunk_frames
-        P2 = P // stack
         idx_arr = np.arange(len(qsl)) if indices is None else np.asarray(indices)
         if len(idx_arr) < self.n_lanes:
             raise ValueError(f"{len(idx_arr)} utterances for {self.n_lanes} lanes: a lane would "
@@ -205,9 +212,12 @@ class PackedOfflineRunner:
                             np.int64)
         feat_lens = np.array([cfg.out_frames(int(s)) for s in wav_lens], np.int64)
         self.plan = plan = make_pack_plan(feat_lens, self.n_lanes, P)
+        enc = self._encoder
+        enc_lens = enc.encoded_len(feat_lens)
+        enc.layout(feat_lens, enc_lens)
 
         # per-lane gapless timelines: src_idx gathers each utterance's
-        # ceil(F / stack) post-stack frames out of the chunked encoder output
+        # encoder frames out of the encoder output
         lane_entries: List[List[Tuple[int, int, int]]] = [[] for _ in range(self.n_lanes)]
         for pos, lane, c0, F in plan.entries:
             lane_entries[lane].append((c0, pos, F))
@@ -216,8 +226,8 @@ class PackedOfflineRunner:
         for lane in range(self.n_lanes):
             srcs, starts, order = [], [], []
             for c0, pos, F in sorted(lane_entries[lane]):
-                F2 = -(-F // stack)
-                srcs.append(c0 * P2 + np.arange(F2, dtype=np.int64))
+                F2 = int(enc_lens[pos])
+                srcs.append(enc.rows(pos, c0, F2))
                 s = np.zeros((F2,), bool)
                 s[0] = True
                 starts.append(s)
@@ -243,8 +253,8 @@ class PackedOfflineRunner:
         lane_need, budget_binds = 1, False
         for lane in range(self.n_lanes):
             need = 1
-            for _c0, _pos, F in lane_entries[lane]:
-                F2 = -(-F // stack)
+            for _c0, pos, _F in lane_entries[lane]:
+                F2 = int(enc_lens[pos])
                 budget_binds |= F2 * cap > budget
                 need += min(F2 * cap, budget) + 1
             lane_need = max(lane_need, need)
@@ -264,6 +274,8 @@ class PackedOfflineRunner:
         # (b mod k)-th of the k distinct devices
         flat_devs = list(dict.fromkeys(self._shard_devices))
         pack_src = np.full((plan.n_chunks * P, self.n_lanes), -1, np.int64)
+        pos_of = {int(i): pos for pos, i in enumerate(idx_arr)}
+        flat_rows = {}  # sample position -> the flat rows of its features
         staged, base = [], 0
         for b, (wav, lens, row_index) in enumerate(dqsl.batches()):
             g, S = wav.shape
@@ -272,11 +284,13 @@ class PackedOfflineRunner:
                     continue
                 lane, f0 = dest0[int(i)]
                 F = int(by_sample[int(i)])
-                pack_src[f0 : f0 + F, lane] = base + np.arange(F, dtype=np.int64) * g + r
+                flat_rows[pos_of[int(i)]] = base + np.arange(F, dtype=np.int64) * g + r
+                pack_src[f0 : f0 + F, lane] = flat_rows[pos_of[int(i)]]
             on = flat_devs[b % len(flat_devs)]
             staged.append((wav.to(on), lens.to(on), base))
             base += cfg.out_frames(S) * g
         pack_src[pack_src < 0] = base  # the zero row, never written
+        enc.stage(flat_rows, base, dev)
         self._staged = staged
         self._flats = {d: torch.zeros((base + 1, cfg.out_feat), dtype=torch.float32, device=d)
                        for d in flat_devs}
@@ -297,48 +311,27 @@ class PackedOfflineRunner:
 
     def _features(self) -> List[torch.Tensor]:
         """Phase A: every staged batch featurized into the flat buffer of
-        each distinct device, then each shard's row gather of its lanes'
-        packed features (C P, N_shard, 240) from its device's buffer."""
+        each distinct device, then each shard's phase B input from its
+        device's buffer (the encoder phase's ``inputs``)."""
         for wav, lens, base in self._staged:
             feats, _ = log_mel_features(wav.float() * (1.0 / 32768.0), lens, self.cfg)
             rows = feats.reshape(-1, feats.shape[-1])  # row t g + r
             for flat in self._flats.values():
                 flat[base : base + rows.shape[0]] = rows
-        return [self._flats[sh["device"]][sh["pack_src"]] for sh in self._shards]
-
-    def _encode_steps(self, sh: dict, weights, packed: torch.Tensor):
-        """Phase B on one shard's lanes: the encoder over the C chunks, its
-        state zeroed on the lanes where an utterance starts; a step (yield)
-        after each chunk.  Returns (C P2, N_shard, H) in f's type."""
-        C, P = self.plan.n_chunks, self.chunk_frames
-        N = packed.shape[1]
-        xc = packed.reshape(C, P, N, packed.shape[-1])
-        est = model.init_encoder_state(N, self.params, self._enc_dtype, sh["device"])
-        outs = []
-        for c in range(C):
-            with span("rnnt.offline.encode_chunk"):
-                m = sh["resets"][c][None, :, None]
-                z = lambda a: a.masked_fill(m, 0)
-                est = model.EncoderState(pre_h=z(est.pre_h), pre_c=z(est.pre_c),
-                                         post_h=z(est.post_h), post_c=z(est.post_c))
-                f_c, est = model.transcription(weights, xc[c], sh["chunk_lens"][c], est,
-                                               self.params, self.impl)
-                outs.append(f_c.to(self._f_dtype))
-            yield
-        return torch.cat(outs)
+        return self._encoder.inputs(self._flats, self._shards)
 
     def _decode_steps(self, sh: dict, weights, f_all: torch.Tensor):
         """Phase C on one shard's lanes: compaction, then the packed decode
-        in decode_chunk-frame pieces.  Returns (res {N_shard, R} int8,
-        res_idx {N_shard} int32)."""
+        in decode_chunk-frame pieces.  Returns (res {N_shard, R} of the
+        token type, res_idx {N_shard} int32)."""
         dev, pp = sh["device"], self._params_pack
         src, starts, lane_f_lens = sh["src_idx"], sh["starts"], sh["lane_f_lens"]
         N = src.shape[1]
-        f_packed = torch.gather(f_all, 0, src[:, :, None].expand(-1, -1, f_all.shape[-1]))
+        f_packed = self._encoder.compact(f_all, src)
         T2c = f_packed.shape[0]
         DC = min(self.decode_chunk, T2c)
         n_dc = -(-T2c // DC)
-        st = init_decode_state(N, pp, self._enc_dtype, self._pred_dtype, dev)
+        st = init_decode_state(N, pp, self._encoder.dtype, self._pred_dtype, dev)
         rb = torch.full((N,), -1, dtype=torch.int32, device=dev)
         lanes = torch.arange(N, device=dev)
         dw = decode_cuda.decode_weights(weights)
@@ -368,7 +361,7 @@ class PackedOfflineRunner:
     def _shard_steps(self, sh: dict, weights, packed: torch.Tensor, mark):
         """Phases B and C of one shard, from its packed features."""
         with span("rnnt.offline.encode"):
-            f_all = yield from self._encode_steps(sh, weights, packed)
+            f_all = yield from self._encoder.steps(sh, weights, packed, mark)
         mark("encoder")
         with span("rnnt.offline.decode"):
             out = yield from self._decode_steps(sh, weights, f_all)
@@ -377,8 +370,8 @@ class PackedOfflineRunner:
 
     def dispatch(self, clock: Optional[PhaseClock] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Enqueue one whole rep (phases A, B, C) over the staged set and
-        return the device tensors ``harvest`` takes, (res {N, R} int8,
-        res_idx {N} int32), with no token readback.  The decode's host loop
+        return the device tensors ``harvest`` takes, (res {N, R} of the token
+        type, res_idx {N} int32), with no token readback.  The decode's host loop
         still reads one finish mask per kernel-B launch, so this returns
         only once the last decode launch has been enqueued."""
         if self._staged is None:
@@ -404,7 +397,7 @@ class PackedOfflineRunner:
         """One timed rep (``dispatch``).  wall_seconds covers dispatch and
         all device work (ended by a synchronize); the token readback is
         timed apart as readback_seconds."""
-        build_kernels(self.device, self.impl)
+        build_kernels(self.device, self.impl, self._encoder.kernels)
         clock = PhaseClock(self.device)
         before = launch_counts()
         t0 = time.time()

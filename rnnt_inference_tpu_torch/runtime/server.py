@@ -34,7 +34,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from rnnt_inference_tpu_torch.config import FeaturizerConfig, RNNTParams
+from rnnt_inference_tpu_torch.config import ConformerParams, FeaturizerConfig, RNNTParams
 from rnnt_inference_tpu_torch.models import rnnt as model
 from rnnt_inference_tpu_torch.models.decoder import (
     DecodeState,
@@ -260,7 +260,12 @@ class ServerRunner:
         impl: Optional[str] = None,
     ):
         """impl=None runs the CUDA kernels on the card (the plain twins on
-        the CPU); impl="reference" runs the plain twins on the card too."""
+        the CPU); impl="reference" runs the plain twins on the card too.
+        Serves the RNN-T: a Conformer's params are refused."""
+        if isinstance(params, ConformerParams):
+            raise ValueError("ServerRunner streams each utterance through the LSTM encoder's "
+                             "state in split_len pieces; the Conformer attends over whole "
+                             "utterances: serve it with runtime/packing.py PackedOfflineRunner")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ServerRunner(device='cuda') but CUDA is not available")

@@ -198,6 +198,10 @@ def test_load_featurizer_config_matches_jax(tmp_path):
     for section in ("input_eval", "input_other"):
         got = load_featurizer_config(str(toml), section)
         want = jload_featurizer_config(str(toml), section)
-        assert dataclasses.asdict(got) == {f.name: getattr(want, f.name)
-                                           for f in dataclasses.fields(got)}
+        shared = [f.name for f in dataclasses.fields(want)]
+        assert {k: v for k, v in dataclasses.asdict(got).items() if k in shared} == \
+            {k: getattr(want, k) for k in shared}
+        # the port's own fields hold what the JAX featurizer hard-codes
+        assert set(dataclasses.asdict(got)) - set(shared) == {"log_guard", "dither_at_inference"}
+        assert got.log_guard == 1e-20 and got.dither_at_inference is True
     assert load_featurizer_config(str(toml)).out_feat == 240
