@@ -5,16 +5,18 @@
 Builds the port's five CUDA kernels from rnnt_inference_tpu_torch/csrc
 (one nvcc per source, started together), holds each against its plain
 PyTorch twin on the card at full model width (kernel A bit for bit at N =
-16, 64, 128 lanes and T = 48, at the bench's 1,024 lanes and T = 16, and
-at one lane over a whole SingleStream utterance, for the three int8 layer
-shapes, one launch per layer call; kernel B per step and over one launch
-of K iterations, at N = 1, 16, 64, 128 lanes, with its time per iteration
-at one and at K iterations per launch, its early exit, and the symbol
-loop's time by K; kernel C at N = 16, 128 beside cuDNN's layer; kernel E,
-the bf16 projection, at the packed runner's layer shapes, fproj and eproj,
-beside its bound and torch.mm's bf16-in, f32-out product; the Conformer's
-kernels F and G and kernel B's wide-vocabulary instantiation at the
-conformer.offline.speech cell's shapes, phase conformer_kernels),
+16, 64, 128 lanes and T = 48, at the bench's 1,024 lanes and T = 16 and
+8, and at one lane over a whole SingleStream utterance, for the three int8
+layer shapes, on both its paths (fused, and x . W_ih hoisted into one
+GEMM), each timed, one launch counted per layer call; kernel B per step
+and over one launch of K iterations, at N = 1, 16, 64, 128 lanes, with
+its time per iteration at one and at K iterations per launch, its early
+exit, and the symbol loop's time by K; kernel C at N = 16, 128 beside
+cuDNN's layer; kernel E, the bf16 projection, at the packed runner's
+layer shapes, fproj and eproj, beside its bound and torch.mm's bf16-in,
+f32-out product; the Conformer's kernels F and G and kernel B's
+wide-vocabulary instantiation at the conformer.offline.speech cell's
+shapes, phase conformer_kernels),
 then drives each path with the kernel launch counts set to 0 just before
 it and read just after:
   - end_to_end: the bucketed Offline int8 pipeline (waveform -> log-mel ->
@@ -255,11 +257,17 @@ def single_stream_frames(params) -> tuple:
 def phase_kernel_a(qweights, dev, ss_frames) -> dict:
     """Kernel A against its twin at H=1024 for the three layer shapes (IC =
     240, 1024, 2048), T=48 at N in {16 (the int8 runner's batch), 64, 128},
-    T=16 (the packed runner's chunk) at N=1,024 (the bench's lanes), and at
-    N=1 over a whole SingleStream utterance (``ss_frames``: the pre-net
-    layer at its stacked frames, the post-net layers after the time
-    reduction), int8 and f32 y: y, h and c bit-equal, one launch per call.
-    Its time per call and per step beside the bound of each row."""
+    T=16 (the packed runner's chunk) at N=1,024 (the bench's lanes), T=8
+    (the post-net's chunk after the time reduction) at N=1,024 for the two
+    post-net layers, at N=1 over a whole SingleStream utterance
+    (``ss_frames``: the pre-net layer at its stacked frames, the post-net
+    layers after the time reduction), and on either side of the hoisted
+    path's least rows (IC=240: T=3, N=200; T=4, N=256), int8 and f32 y: y,
+    h and c bit-equal on both paths (fused and hoisted; the one the shape
+    rule picks through the wrapper: one launch counted per call, hoisted
+    counted as the rule says).  Per row the time of each path, per call and
+    per step, beside the bound; on the rows that hoist, the input GEMM alone
+    (its sums against the twin's, bit for bit) beside its bound."""
     from rnnt_inference_tpu_torch.ops import lstm_cuda
     from rnnt_inference_tpu_torch.ops.lstm_int8 import quant_lstm_layer
 
@@ -268,40 +276,62 @@ def phase_kernel_a(qweights, dev, ss_frames) -> dict:
     rows, entries = [], {}
     cases = [(N, T, layer) for N, T in ((16, 48), (64, 48), (128, 48), (1024, 16))
              for layer in layers]
+    cases += [(1024, 8, layer) for layer in layers[1:]]
     cases += [(1, ss_frames[0] if layer is layers[0] else ss_frames[1], layer) for layer in layers]
+    cases += [(200, 3, layers[0]), (256, 4, layers[0])]
+    counted = lstm_cuda.quant_lstm_layer_cuda
     for N, T, layer in cases:
         IC, H = layer.w_ih.shape[0], layer.w_hh.shape[0]
         x = torch.randint(-128, 128, (T, N, IC), generator=g, dtype=torch.int8).to(dev)
         h = torch.randint(-128, 128, (N, H), generator=g, dtype=torch.int8).to(dev)
         c = (torch.randn((N, H), generator=g) * 0.5).to(dev)
+        hoist = lstm_cuda.hoists(T, N, IC)
         for emit_f32 in (False, True):
-            before = lstm_cuda.quant_lstm_layer_cuda.launches
-            got = lstm_cuda.quant_lstm_layer_cuda(layer, x, h, c, emit_f32)
-            launches = lstm_cuda.quant_lstm_layer_cuda.launches - before
+            before = (counted.launches, counted.hoisted)
+            got = counted(layer, x, h, c, emit_f32)
+            launches, hoisted = counted.launches - before[0], counted.hoisted - before[1]
+            other, _ = lstm_cuda.layer_on_path(layer, x, h, c, emit_f32, not hoist)
             want = quant_lstm_layer(layer, x, h, c, emit_f32)
             torch.cuda.synchronize()
             row = {"IC": IC, "H": H, "N": N, "T": T, "emit_f32": emit_f32,
-                   "launches_per_call": launches}
-            for name, a, b in zip(("y", "h", "c"), got, want):
-                d = (a.double() - b.double()).abs()
-                row[f"{name}_max_abs_diff"] = float(d.max())
-                row[f"{name}_share_diff"] = float((d != 0).double().mean())
-            if launches != 1 or any(row[f"{k}_max_abs_diff"] != 0 for k in "yhc"):
+                   "path": "hoisted" if hoist else "fused", "launches_per_call": launches,
+                   "hoisted_per_call": hoisted}
+            for path, out in ((row["path"], got), ("fused" if hoist else "hoisted", other)):
+                for name, a, b in zip(("y", "h", "c"), out, want):
+                    d = (a.double() - b.double()).abs()
+                    row[f"{path}_{name}_max_abs_diff"] = float(d.max())
+                    row[f"{path}_{name}_share_diff"] = float((d != 0).double().mean())
+            if launches != 1 or hoisted != int(hoist) or any(
+                    row[f"{p}_{k}_max_abs_diff"] != 0 for p in ("fused", "hoisted")
+                    for k in "yhc"):
                 raise AssertionError(f"kernel A is not its twin bit for bit: {row}")
-            ms = cuda_ms(lambda: lstm_cuda.quant_lstm_layer_cuda(layer, x, h, c, emit_f32), 20)
+            ms = cuda_ms(lambda: counted(layer, x, h, c, emit_f32), 20)
+            path_ms = {p: cuda_ms(lambda: lstm_cuda.layer_on_path(layer, x, h, c, emit_f32,
+                                                                  p == "hoisted"), 20)
+                       for p in ("fused", "hoisted")}
             plain_ms = cuda_ms(lambda: quant_lstm_layer(layer, x, h, c, emit_f32), 2, 1)
             y_es = 4 if emit_f32 else 1
             bytes_moved = ((IC + H) * 4 * H + T * N * IC + N * H * (1 + 4)
                            + T * N * H * y_es + N * H * (1 + 4))
             ops = 2 * T * N * (IC + H) * 4 * H
             bound_ms, bound_by = bound(bytes_moved, ops, PEAK_INT8_OPS)
-            row.update(ms=ms, ms_per_step=ms / T, plain_ms=plain_ms,
+            row.update(ms=ms, ms_per_step=ms / T, fused_ms=path_ms["fused"],
+                       hoisted_ms=path_ms["hoisted"], plain_ms=plain_ms,
                        plain_ms_per_step=plain_ms / T, bound_ms=bound_ms, bound_by=bound_by)
+            if hoist and not emit_f32:  # the input GEMM alone: x, W_ih and the s32 sums once
+                xw = lstm_cuda.input_products_cuda(layer, x)
+                if not torch.equal(xw, lstm_cuda.input_products(x, layer.w_ih)):
+                    raise AssertionError(f"kernel A's input GEMM is not its twin: {row}")
+                gemm_bound_ms, gemm_bound_by = bound(
+                    T * N * IC + IC * 4 * H + T * N * 4 * H * 4, 2 * T * N * IC * 4 * H,
+                    PEAK_INT8_OPS)
+                row.update(gemm_ms=cuda_ms(lambda: lstm_cuda.input_products_cuda(layer, x), 20),
+                           gemm_bound_ms=gemm_bound_ms, gemm_bound_by=gemm_bound_by)
             rows.append(row)
             if not emit_f32:
                 entries[(N, IC)] = dict(row, x=x, h=h, layer=layer)
-    emit({"phase": "kernel_a", "tolerance": "bit-equal: y, h, c (and f32 y) max |d| = 0",
-          "rows": rows})
+    emit({"phase": "kernel_a", "tolerance": "bit-equal on both paths: y, h, c (and f32 y) "
+          "max |d| = 0; the input GEMM's s32 sums equal", "rows": rows})
 
     # the JSON line's entry: IC=2048 (the first post layer, the widest), N=64, T=48
     wide = max(layer.w_ih.shape[0] for layer in layers)
@@ -323,14 +353,17 @@ def phase_kernel_a(qweights, dev, ss_frames) -> dict:
         "name": "quant_lstm_layer", "route": "cuda",
         "source": "rnnt_inference_tpu_torch/csrc/quant_lstm.cu",
         "replaces": "rnnt_inference_tpu/ops/lstm_pallas.py:187",
-        "shape": f"IC={IC} H={H} N={N} T={T} int8 y, one call = 1 launch",
-        "max_abs_err": max(max(r["y_max_abs_diff"], r["h_max_abs_diff"], r["c_max_abs_diff"])
-                           for r in rows),
+        "shape": f"IC={IC} H={H} N={N} T={T} int8 y, one call = 1 launch counted",
+        "max_abs_err": max(r[f"{p}_{k}_max_abs_diff"] for r in rows
+                           for p in ("fused", "hoisted") for k in "yhc"),
         "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
         "bound_by": e["bound_by"], "library_ms": library_ms,
-        "by_n": {n: {k: r[k] for k in ("T", "ms", "ms_per_step", "plain_ms", "bound_ms",
-                                        "bound_by")}
+        "by_n": {n: {k: r[k] for k in ("T", "path", "ms", "ms_per_step", "fused_ms",
+                                        "hoisted_ms", "plain_ms", "bound_ms", "bound_by")}
                  for n, r in by_n.items()},
+        "hoist_rows": [lstm_cuda.HOIST_MIN_ROWS, lstm_cuda.HOIST_MAX_ROWS],
+        "gemm": [{k: r[k] for k in ("T", "N", "IC", "gemm_ms", "gemm_bound_ms",
+                                    "gemm_bound_by")} for r in rows if "gemm_ms" in r],
     }
 
 
@@ -1386,11 +1419,13 @@ def phase_packed_int8(qweights, params, dev, card: str) -> dict:
                 "--output_dir", out]
         for c in counters.values():
             c.launches = 0
+        lstm_cuda.quant_lstm_layer_cuda.hoisted = 0
         t0 = time.time()
         with contextlib.redirect_stdout(sys.stderr):  # main prints its summary
             rk = cli.main(argv)
         seconds = time.time() - t0
         launches = {k: c.launches for k, c in counters.items()}
+        hoisted = lstm_cuda.quant_lstm_layer_cuda.hoisted
         per_rep = rk.launches
         chunks = rk.extra["pack_chunks"]
         layers = params.pre_num_layers + params.post_num_layers
@@ -1428,6 +1463,7 @@ def phase_packed_int8(qweights, params, dev, card: str) -> dict:
         "packing_efficiency": rk.extra["packing_efficiency"], "pack_chunks": chunks,
         "chunk_frames": rk.extra["chunk_frames"], "launches": launches,
         "launches_per_timed_rep": per_rep, "kernel_a_launches_per_chunk": layers,
+        "kernel_a_hoisted_share": hoisted / launches["quant_lstm_layer"],
         "kernels": {"summary": rk.summary(), "ms": ms(rk)},
         "reference": {"wall_seconds": rr.wall_seconds, "run_seconds": ref_seconds,
                       "audio_seconds_per_second": rr.audio_seconds_per_second, "ms": ms(rr)},
@@ -2621,6 +2657,7 @@ def phase_bench_twins(params, dev, card: str, benches: dict, store) -> dict:
                      else contextlib.nullcontext())
             for c in counters.values():
                 c.launches = 0
+            lstm_cuda.quant_lstm_layer_cuda.hoisted = 0
             t0 = time.time()
             with order:
                 runs[tag] = run_offline(w, store, bparams, cfg, batch_size=BENCH_LANES,
@@ -2628,6 +2665,8 @@ def phase_bench_twins(params, dev, card: str, benches: dict, store) -> dict:
                                         warmup=impl is None, device=dev)
             seconds[tag] = time.time() - t0
             launches[tag] = {k: c.launches for k, c in counters.items()}
+            if impl is None:
+                hoisted = lstm_cuda.quant_lstm_layer_cuda.hoisted
         rk = runs["kernels"]
         layers = bparams.pre_num_layers + bparams.post_num_layers
         if (rk.launches["quant_lstm_layer"] != layers * rk.extra["pack_chunks"]
@@ -2658,6 +2697,7 @@ def phase_bench_twins(params, dev, card: str, benches: dict, store) -> dict:
               "kernel_b_launches_against_twin": partings,
               "pack_chunks": rk.extra["pack_chunks"],
               "launches": launches["kernels"], "launches_per_timed_rep": rk.launches,
+              "kernel_a_hoisted_share": hoisted / launches["kernels"]["quant_lstm_layer"],
               "audio_seconds_per_second": rk.audio_seconds_per_second,
               "ms": {k: v * 1e3 for k, v in rk.phase_seconds.items()},
               "run_seconds": seconds})

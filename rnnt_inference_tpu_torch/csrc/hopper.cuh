@@ -4,7 +4,9 @@
 // tensor-core products mma.sync m16n8k16 (bf16, f32 sums), m16n8k32 (int8,
 // s32 sums) and m16n8k8 (tf32, f32 sums), the f32 FMA product on the CUDA
 // cores, the rounding helpers, and a grid barrier split into arrive and
-// wait.
+// wait; and, for the wgmma GEMMs (kernel E, projection.cu, and kernel A's
+// input product), TMA tile loads tracked by mbarriers, the shared-memory
+// descriptor of a swizzled tile, and the tensor maps' encoder.
 //
 // pass_products (below) runs one product for up to 128 lane rows with
 // every warp busy; the two product routines under it compute a warp's
@@ -19,8 +21,10 @@
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <stdint.h>
 
 namespace hopper {
@@ -410,6 +414,109 @@ __device__ __forceinline__ void grid_wait(const unsigned* bar, unsigned old) {
     }
   }
   __syncthreads();  // every block's writes before its arrival are visible
+}
+
+// ---------------------------------------------------------------------------
+// TMA and wgmma.  One thread of a producer warp loads tiles of a row-major
+// 2-D tensor into shared memory (tma_load), each stage's bytes counted on
+// its `full` mbarrier; consumer warpgroups multiply the tiles with wgmma,
+// reading both operands from shared memory through smem_desc.  A tile row
+// is 128 bytes (64 bf16 or 128 int8 inputs), stored in the 128-byte swizzle.
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// returns once the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// a box of the tensor map at (inner coordinate c0, row c1) into shared
+// memory, its bytes counted on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile in the 128-byte swizzle
+// (as TMA stores it): start address / 16, leading offset 16 bytes (unused
+// by this layout), 1,024 bytes between groups of 8 rows, layout SWIZZLE_128B;
+// + 2 moves it 32 bytes (one k-step) along the rows
+__device__ __forceinline__ uint64_t smem_desc(const void* p) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// keep the compiler from moving accesses of a warpgroup's sums across the
+// asynchronous products
+__device__ __forceinline__ void fence_sums(float (&d)[128]) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void fence_sums(int (&d)[128]) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's tensor-map encoder, looked up at run time in the libcuda.so.1
+// the CUDA runtime has loaded, so the library links against no libcuda stub
+inline EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
+    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
+  }();
+  return fn;
+}
+
+// rows x cols elements of `type` (elem_bytes each), row-major, read in boxes
+// of box_rows x 128 bytes, 128-byte swizzle, zeros outside
+inline bool encode_rows(EncodeTiled fn, CUtensorMap* map, const void* ptr, int rows, int cols,
+                        int box_rows, CUtensorMapDataType type, int elem_bytes) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem_bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / elem_bytes),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace hopper

@@ -35,12 +35,11 @@
 // epilogue uses the _rn intrinsics (the file is built with --fmad=false), so
 // only the summation order differs from the twin's f32 product.
 
-#include <cuda.h>
-#include <dlfcn.h>
-
 #include "hopper.cuh"
 
 namespace {
+
+using namespace hopper;
 
 constexpr int BM = 128;  // tile rows: CONSUMERS x 64
 constexpr int BN = 256;  // tile columns: one m64n256k16 a warpgroup
@@ -60,68 +59,6 @@ struct Params {
   void* out;          // (M, N) bf16 or f32
   int M, N, K;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// returns once the barrier's phase of this parity has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// a box of the tensor map at (inner coordinate c0, row c1) into shared
-// memory, its bytes counted on `bar`
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                         int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a K-major tile in the 128-byte swizzle
-// (as TMA stores it): start address / 16, leading offset 16 bytes (unused
-// by this layout), 1,024 bytes between groups of 8 rows, layout SWIZZLE_128B
-__device__ __forceinline__ uint64_t smem_desc(const void* p) {
-  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-// keeps the compiler from moving accesses of the sums across the
-// asynchronous products
-__device__ __forceinline__ void fence_sums(float (&d)[128]) {
-#pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 // d (64 x 256, f32) += A (64 x 16) . B (16 x 256), both K-major bf16 in
 // shared memory
@@ -334,33 +271,6 @@ __global__ void __launch_bounds__(THREADS_E, 1)
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// libcuda's tensor-map encoder, looked up at run time in the libcuda.so.1
-// the CUDA runtime has loaded, so the library links against no libcuda stub
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
-    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
-  }();
-  return fn;
-}
-
-// rows x cols bf16 row-major, read in boxes of box_rows x BK, 128-byte
-// swizzle, zeros outside
-bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-  const cuuint32_t box[2] = {BK, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <bool BF16_OUT>
 cudaError_t launch(const CUtensorMap& map_a, const CUtensorMap& map_b, const Params& p, int sms,
                    cudaStream_t stream) {
@@ -389,10 +299,12 @@ int rnnt_projection(const void* a, const void* wt, const void* bias, void* out, 
   if (M <= 0 || N <= 0 || K <= 0 || K % 8 != 0 || sms <= 0 || (out_bf16 && !bias) ||
       (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(wt)) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const EncodeTiled fn = encoder();
+  const EncodeTiled fn = tensor_map_encoder();
   if (!fn) return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
+  constexpr auto BF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap map_a, map_b;
-  if (!encode(fn, &map_a, a, M, K, BM) || !encode(fn, &map_b, wt, N, K, BN))
+  if (!encode_rows(fn, &map_a, a, M, K, BM, BF16, 2) ||
+      !encode_rows(fn, &map_b, wt, N, K, BN, BF16, 2))
     return static_cast<int>(cudaErrorInvalidValue);
   const Params p{static_cast<const float*>(bias), out, M, N, K};
   auto* s = static_cast<cudaStream_t>(stream);

@@ -54,6 +54,11 @@ Kernel A segments, one step (N <= 128: one pass each for h and x):
   x_in      x_{t+1} arriving, between arrival and wait
   x_mma     the rest of the x_{t+1} . W_ih pass (its sums stay in registers)
   wait      the rest of the barrier: waiting for the last block
+At the packed runner's N = 1,024 (8 passes) h_in also holds the first 7
+passes, and A runs on both its paths: fused, and hoisted (x . W_ih
+before the loop), whose passes stream h through their own loop, not the
+pass engine: its segments are passes (h_in, h_mma and epi together),
+arrive, prefetch (the L2 prefetch of the next step's sums) and wait.
 
 The stamps are inserted by text: an anchor that is missing stops the tool
 (a kernel's change must bring this file up to date).  Nothing of this
@@ -140,16 +145,22 @@ QUANT = [
      "    STAMP(0);\n    const int8_t* hsrc"),
     ("[&](int r) { return hsrc + (size_t)(p0 + r) * H; }, acc, H, true, false);\n",
      "[&](int r) { return hsrc + (size_t)(p0 + r) * H; }, acc, H, true, false);\n"
-     "      STAMP(2);\n"),
+     "        STAMP(2);\n"),
     ("    if (t + 1 < a.T) {  // h_t complete across the grid after the wait\n"
      "      const unsigned old = grid_arrive(a.bar);\n"
-     "      x_products(t + 1, 0, min(RMAX, N), xacc);  // needs no other block's h_t\n"
+     "      if constexpr (HOISTED)\n"
+     "        prefetch_xw(t + 1);\n"
+     "      else\n"
+     "        x_products(t + 1, 0, min(RMAX, N), xacc);  // needs no other block's h_t\n"
      "      grid_wait(a.bar, old);",
      "    STAMP(3);\n"
      "    if (t + 1 < a.T) {  // h_t complete across the grid after the wait\n"
      "      const unsigned old = grid_arrive(a.bar);\n"
      "      STAMP(4);\n      if (blockIdx.x == 0 && tid == 0) g_base = 5;\n"
-     "      x_products(t + 1, 0, min(RMAX, N), xacc);  // needs no other block's h_t\n"
+     "      if constexpr (HOISTED)\n"
+     "        prefetch_xw(t + 1);\n"
+     "      else\n"
+     "        x_products(t + 1, 0, min(RMAX, N), xacc);  // needs no other block's h_t\n"
      "      STAMP(6);\n"
      "      grid_wait(a.bar, old);\n      STAMP(7);"),
     ("const char* rnnt_cuda_error_string(int err) {", READ),
@@ -347,15 +358,19 @@ def main() -> int:
     scale = lambda v: torch.tensor(v, device=dev)
     layer = QuantLSTMLayerWeights(i8(IC, 4 * H), i8(H, 4 * H), torch.randn(4 * H, generator=g).to(dev),
                                   scale(16.0), scale(2000.0), scale(16.0))
-    for N in (16, 64):
+    for N, T, hoist in ((16, T, False), (64, T, False), (1024, 16, False), (1024, 16, True)):
         x, h0 = i8(T, N, IC), i8(N, H)
         c0 = torch.zeros(N, H, device=dev)
         for _ in range(2):
-            la.quant_lstm_layer_cuda(layer, x, h0, c0, False)
+            la.layer_on_path(layer, x, h0, c0, False, hoist)
             torch.cuda.synchronize()
         per, seg = _segments(libs["quant_lstm"], T, len(A_SEGMENTS) + 1, 2, T - 1)
-        print(f"A int8 IC={IC} N={N}: {per:.2f} us per step; "
-              + ", ".join(f"{k} {v:.2f}" for k, v in zip(A_SEGMENTS, seg)), flush=True)
+        names = A_SEGMENTS
+        if hoist:  # no pass engine: stamps 1, 2 and 5 are not written
+            names = ("passes", "arrive", "prefetch", "wait")
+            seg = [sum(seg[:3]), seg[3], seg[4] + seg[5], seg[6]]
+        print(f"A int8 IC={IC} N={N} T={T}{' hoisted' if hoist else ''}: {per:.2f} us per "
+              "step; " + ", ".join(f"{k} {v:.2f}" for k, v in zip(names, seg)), flush=True)
     return 0
 
 

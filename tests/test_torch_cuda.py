@@ -82,26 +82,54 @@ def _quant_layer(dev, IC, H, seed=15):
         f32(in_scale), f32(w_scale), f32(100.0))
 
 
-@pytest.mark.parametrize("emit_f32", [False, True])
-@pytest.mark.parametrize("IC", [240, 1024, 2048])
-@pytest.mark.parametrize("T", [1, 48])
-@pytest.mark.parametrize("N", [1, 16, 128, 200, 1024])
-def test_quant_lstm_kernel_mlperf_width(dev, N, T, IC, emit_f32):
-    """Kernel A at H=1024 (MLPerf's width) for the three int8 layer shapes
-    (IC=240 padded to 256 inside), 1 to 1,024 lanes (more than one pass of
-    128 from N=200), one and 48 steps: bit-equal to the twin, one launch per
-    call."""
+def _both_paths_equal_twin(dev, N, T, IC, emit_f32):
+    """Kernel A at H=1024 through the wrapper (one launch counted, hoisted
+    counted as lstm_cuda.hoists says) and, where the hoisted path's scratch
+    holds the rows, on the other path: each bit-equal to the twin."""
     layer = _quant_layer(dev, IC, 1024)
     g = torch.Generator().manual_seed(N + T + IC)
     x = torch.randint(-128, 128, (T, N, IC), generator=g, dtype=torch.int8).to(dev)
     h = torch.randint(-128, 128, (N, 1024), generator=g, dtype=torch.int8).to(dev)
     c = (torch.randn((N, 1024), generator=g) * 0.5).to(dev)
-    before = lstm_cuda.quant_lstm_layer_cuda.launches
-    got = lstm_cuda.quant_lstm_layer_cuda(layer, x, h, c, emit_f32)
-    assert lstm_cuda.quant_lstm_layer_cuda.launches == before + 1
+    fn, hoist = lstm_cuda.quant_lstm_layer_cuda, lstm_cuda.hoists(T, N, IC)
+    before = (fn.launches, fn.hoisted)
+    got = fn(layer, x, h, c, emit_f32)
+    assert (fn.launches, fn.hoisted) == (before[0] + 1, before[1] + hoist)
     want = quant_lstm_layer(layer, x, h, c, emit_f32)
     torch.cuda.synchronize()
     _assert_quant_layer_equal(got, want)
+    if hoist or T * N <= lstm_cuda.HOIST_MAX_ROWS:
+        other, _ = lstm_cuda.layer_on_path(layer, x, h, c, emit_f32, not hoist)
+        torch.cuda.synchronize()
+        assert (fn.launches, fn.hoisted) == (before[0] + 1, before[1] + hoist)
+        _assert_quant_layer_equal(other, want)
+    else:
+        with pytest.raises(ValueError, match="rows"):
+            lstm_cuda.layer_on_path(layer, x, h, c, emit_f32, True)
+
+
+@pytest.mark.parametrize("emit_f32", [False, True])
+@pytest.mark.parametrize("IC", [240, 1024, 2048])
+@pytest.mark.parametrize("T", [1, 48, 16, 8])
+@pytest.mark.parametrize("N", [1, 16, 128, 200, 1024])
+def test_quant_lstm_kernel_mlperf_width(dev, N, T, IC, emit_f32):
+    """Kernel A at H=1024 (MLPerf's width) for the three int8 layer shapes
+    (IC=240 padded to 256 inside), 1 to 1,024 lanes (more than one pass of
+    128 from N=200), one and 48 steps and the packed runner's chunks of 16
+    and 8 (at N=1,024 the hoisted path): bit-equal to the twin on the path
+    the shape picks and on the other, one launch counted per call, hoisted
+    counted as the rule says."""
+    _both_paths_equal_twin(dev, N, T, IC, emit_f32)
+
+
+@pytest.mark.parametrize("T, N", [(3, 341), (4, 256), (16, 1024), (17, 1024)])
+def test_quant_lstm_hoist_threshold(dev, T, N):
+    """Either side of the hoisted path's bounds on the rows T N (1,023 and
+    1,024; 16,384 and 17,408) at IC=240: .hoisted moves as the bounds say,
+    .launches by one, bit-equal to the twin."""
+    assert lstm_cuda.hoists(T, N, 240) == (lstm_cuda.HOIST_MIN_ROWS <= T * N
+                                           <= lstm_cuda.HOIST_MAX_ROWS)
+    _both_paths_equal_twin(dev, N, T, 240, False)
 
 
 @pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
@@ -385,7 +413,7 @@ def test_refused_shapes_raise(dev):
     i8 = lambda *s: torch.zeros(s, dtype=torch.int8, device=dev)
     f32 = lambda *s: torch.zeros(s, device=dev)
     for (IC, H, N), msg in [((240, 1000, 4), "multiples of 16"), ((240, 2048, 4), "blocks"),
-                            ((2048, 1024, 4096), "shared memory")]:
+                            ((2048, 1024, 8192), "shared memory")]:
         with pytest.raises(ValueError, match=msg):
             lstm_cuda.quant_lstm_layer_cuda(_quant_layer(dev, IC, H), i8(2, N, IC), i8(N, H),
                                             f32(N, H), False)

@@ -221,6 +221,65 @@ def test_kernel_a_plan_and_refusals():
                                         False)
 
 
+@pytest.mark.parametrize("T, N, IC, hoisted", [
+    (16, 1024, 240, True),     # the packed runner's chunk: pre-net layer 0
+    (16, 1024, 1024, True),    # pre-net layer 1
+    (8, 1024, 2048, True),     # post-net layer 0, after the time reduction
+    (8, 1024, 1024, True),     # post-net layers 1 and 2
+    (24, 128, 1024, False),    # the Server: 128 slots, split 24
+    (12, 128, 2048, False),    # its post-net
+    (251, 1, 240, False),      # SingleStream: one lane
+    (48, 16, 1024, False),     # the bucketed int8 runner's 16 lanes
+    (750, 128, 240, False),    # a bucketed batch of 128 whole utterances
+    (3, 341, 240, False),      # 1,023 rows: below HOIST_MIN_ROWS
+    (4, 256, 240, True),       # 1,024 rows
+    (17, 1024, 1024, False),   # 17,408 rows: above HOIST_MAX_ROWS
+])
+def test_kernel_a_hoist_rule(T, N, IC, hoisted):
+    """Kernel A's path from the call's shape alone: more lanes than one pass
+    of the loop (128) and HOIST_MIN_ROWS <= T N <= HOIST_MAX_ROWS hoist,
+    at every IC.  The hoisted loop's shared memory stages no W_ih (ICP x
+    32 bytes) and keeps the warps' sums (8 x 16 x 40 words) beside its two
+    h slots."""
+    assert lstm_cuda.hoists(T, N, IC) is hoisted
+    smem = {h: lstm_cuda.plan(1024, IC, N, 132, hoisted=h) for h in (False, True)}
+    assert smem[True] - smem[False] == 8 * 16 * 40 * 4 - -(-IC // 64) * 64 * 32
+
+
+@pytest.mark.parametrize("IC", [240, 1024])
+def test_kernel_a_xw_operand_and_layout(IC):
+    """The input GEMM's operand and output: xw_operand's inverse gives W_ih
+    back bit for bit, its row b 4U + 4u + g is W_ih's column g H + b U + u,
+    and x times the operand's rows (what the GEMM computes), each row's
+    columns stored at (t, b, n, u, g) as its epilogue stores them, equals
+    input_products, whose int4 at ((t H/U + b) N + n) U + u (what the time
+    loop reads) holds gates 0-3 of unit b U + u for lane n at step t."""
+    H, U, T, N = 64, lstm_cuda.U, 3, 5
+    rng = np.random.RandomState(IC)
+    w_ih = torch.from_numpy(rng.randint(-128, 128, (IC, 4 * H)).astype(np.int8))
+    x = torch.from_numpy(rng.randint(-128, 128, (T, N, IC)).astype(np.int8))
+    op = lstm_cuda.xw_operand(w_ih)
+    assert op.shape == (4 * H, IC) and op.is_contiguous()
+    assert torch.equal(lstm_cuda.xw_operand_inverse(op), w_ih)
+    b, u, g = H // U - 1, 5, 2
+    assert torch.equal(op[b * 4 * U + 4 * u + g], w_ih[:, g * H + b * U + u])
+    sums = torch.matmul(x.reshape(T * N, IC).double(), op.t().double()).to(torch.int32)
+    stored = torch.empty(T * (H // U) * N * 4 * U, dtype=torch.int32)
+    for r in range(T * N):
+        t, n = divmod(r, N)
+        for c0 in range(0, 4 * H, 4 * U):  # one block's 4U columns: a 128-byte row
+            off = ((t * (H // U) + c0 // (4 * U)) * N + n) * 4 * U
+            stored[off:off + 4 * U] = sums[r, c0:c0 + 4 * U]
+    xw = lstm_cuda.input_products(x, w_ih)
+    assert xw.shape == (T, H // U, N, U, 4) and xw.dtype == torch.int32
+    assert torch.equal(stored, xw.reshape(-1))
+    plain = torch.matmul(x.double(), w_ih.double())
+    flat = xw.reshape(-1, 4)
+    for t, n, b, u in ((0, 0, 0, 0), (2, 4, H // U - 1, 7), (1, 2, 3, 5)):
+        want = plain[t, n, [gg * H + b * U + u for gg in range(4)]]
+        assert torch.equal(flat[((t * (H // U) + b) * N + n) * U + u].double(), want)
+
+
 def test_quantize_rounds_half_to_even():
     """quantize == the JAX package's: round half to even, clamp [-128, 127]."""
     v = np.array([0.5, 1.5, 2.5, -0.5, -1.5, 126.5, 127.5, -128.5, 300.0, -300.0],
