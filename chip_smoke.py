@@ -67,13 +67,6 @@ it and read just after:
     convert_librispeech (bit-equal), compute_features_store on the card,
     and the Transcriber on product_chain's rnnt.pt in bf16 (kernels C and
     B) against the twins;
-  - tensor_parallel: kernels A, B and C in rank mode (parallel/tensor.py),
-    the model ranks of a mesh sharing cuda:0: each rank mode against its
-    plain version and timed beside the one-card kernel, then the int8
-    greedy decode of 16 utterances of 1-4 s on 1 x 2 and 2 x 2 and the
-    bf16 one on 1 x 2 against the one-card kernels (int8 f bit-equal;
-    tokens and res_idx equal or parting only at near-ties; every rank's
-    lane state equal), with its wall beside the one-card wall;
   - server_probe: tools/server_probe.py on the bench's calibrated blank
     model (int8, cap 1, 0.8 symbols per frame), 128 slots, split 24: the
     step cadence over 50 full-slot steps (synchronous, then 50 step_async
@@ -878,21 +871,21 @@ def phase_conformer_kernels(dev, seed: int) -> dict:
     params = ConformerParams()
     lens = np.array([params.encoded_len(int(s * 16000) // 160 + 1) for s in secs])
     starts, R = conformer.varlen_layout(lens)
-    seg = ac.Segments.of(starts, lens, dev)
+    segs = ac.Segments.of(starts, lens, dev)
     gaps = conformer.gap_mask(starts, lens, R, dev)
     g = torch.Generator(device=dev).manual_seed(seed)
     H, d, D = 8, 64, 512
     qkv = torch.randn((R, 3 * D), generator=g, device=dev).to(torch.bfloat16)
     q, k, v = qkv[:, :D], qkv[:, D : 2 * D], qkv[:, 2 * D :]
     u, vb = (0.1 * torch.randn((2, H, d), generator=g, device=dev)).unbind(0)
-    pos = torch.randn((2 * seg.t_max - 1, D), generator=g, device=dev).to(torch.bfloat16)
+    pos = torch.randn((2 * segs.t_max - 1, D), generator=g, device=dev).to(torch.bfloat16)
     rows = {}
 
     # F: one launch over the rep; the twin on a slice of it
-    f_ms = cuda_ms(lambda: ac.rel_attention_cuda(q, k, v, u, vb, pos, seg), 5)
+    f_ms = cuda_ms(lambda: ac.rel_attention_cuda(q, k, v, u, vb, pos, segs), 5)
     n = 96
     sub = ac.Segments.of(starts[:n], lens[:n], dev)
-    sub.t_max = seg.t_max  # the band stays the rep's
+    sub.t_max = segs.t_max  # the band stays the rep's
     got = ac.rel_attention(q, k, v, u, vb, pos, sub)[: int(starts[n - 1] + lens[n - 1])]
     want = ac.rel_attention(q, k, v, u, vb, pos, sub, impl="reference")[: got.shape[0]]
     absv = ac.rel_attention(q, k, v.abs(), u, vb, pos, sub, impl="reference")[: got.shape[0]]
@@ -904,12 +897,12 @@ def phase_conformer_kernels(dev, seed: int) -> dict:
                              f"{float(over.max())}")
     plain_ms = cuda_ms(lambda: ac.rel_attention_reference(q, k, v, u, vb, pos, sub), 1, 1)
     ops = 6.0 * float((lens.astype(np.float64) ** 2).sum()) * d * H
-    nbytes = 2.0 * H * d * (4 * lens.sum() + 2 * seg.t_max - 1)
+    nbytes = 2.0 * H * d * (4 * lens.sum() + 2 * segs.t_max - 1)
     bound_ms, bound_by = bound(nbytes, ops, PEAK_BF16_FLOPS)
     rows["F"] = {
         "name": "rel_attention", "route": "cuda", "source": "rnnt_inference_tpu_torch/csrc/"
         "rel_attention.cu", "replaces": "none: the JAX package has no attention",
-        "shape": f"{len(lens)} utterances of 1-{seg.t_max} encoder frames ({R} varlen rows), "
+        "shape": f"{len(lens)} utterances of 1-{segs.t_max} encoder frames ({R} varlen rows), "
                  f"{H} heads of {d}; one call = 1 launch",
         "ms": f_ms, "bound_ms": bound_ms, "bound_by": bound_by, "share_of_bound": bound_ms / f_ms,
         "plain_ms": plain_ms, "plain_on": f"the first {n} utterances", "max_abs_err": err,
@@ -2107,334 +2100,6 @@ def phase_multi_device(qweights, params, dev, card: str, seed: int) -> dict:
     out["seconds"] = time.time() - t_phase
     emit(out)
     return paths
-
-
-def _res_tokens(res, lens) -> list:
-    return [res[i, : int(lens[i])].cpu().numpy() for i in range(res.shape[0])]
-
-
-def phase_tensor_parallel(weights, qweights, params, dev, card: str, seed: int) -> dict:
-    """Tensor parallelism on the one card (parallel/tensor.py: kernels A, B
-    and C in rank mode, the ranks of a mesh sharing cuda:0), MLPerf widths.
-    (a) Each rank mode against its plain version on the same inputs and
-    timed beside the one-card kernel: A, one step of the widest layer
-    (IC = 2048) at N = 16 on both ranks of 1 x 2, bit-equal; C, one step
-    of a middle layer, bf16 and f32, C's tolerances; B, one call of 1 and
-    of K iterations on 1 x 2 from random lane states at N = 16, B's
-    tolerances, lanes, symbols and tokens equal.  (b) The int8 greedy
-    decode of 16 utterances of 1-4 s on [cuda:0] x 2 (1 x 2) and x 4 (2 x
-    2), with token buffers (max_res_len 8,192) that no utterance fills, so
-    every emission is compared: the encoder's f bit-equal to the one-card
-    kernels', tokens and res_idx equal to the one-card decode's (or parting
-    only at near-ties, tools/decode_divergence.compare_tp_run_launches),
-    every rank's lane state, tokens and hg equal.  (c) The bf16 decode of
-    the batch on 1 x 2: f within 2**-4 of the one-card f (the projections'
-    column slices may round apart by bf16 steps; a wrong slice moves f by
-    O(1)), tokens as in (b).  Launch counts are set to 0 just before each
-    decode and read just after.
-    Returns the three rank modes' entries of the kernels line."""
-    from rnnt_inference_tpu_torch.data.dataset import SampleStore
-    from rnnt_inference_tpu_torch.models import rnnt as model
-    from rnnt_inference_tpu_torch.models.decoder import DEFAULT_STEPS_PER_CHECK, greedy_decode
-    from rnnt_inference_tpu_torch.ops import decode_cuda as dc
-    from rnnt_inference_tpu_torch.ops import lstm as tl
-    from rnnt_inference_tpu_torch.ops import lstm_cuda, lstm_scan_cuda
-    from rnnt_inference_tpu_torch.ops.cuda_build import rank_order
-    from rnnt_inference_tpu_torch.ops.features import log_mel_features
-    from rnnt_inference_tpu_torch.ops.lstm_int8 import quant_lstm_rank_step
-    from rnnt_inference_tpu_torch.parallel import tensor
-    from rnnt_inference_tpu_torch.parallel.mesh import lane_bounds, make_mesh, weight_shardings
-    from rnnt_inference_tpu_torch.tools import decode_divergence
-
-    t_phase = time.time()
-    counters = {"quant_lstm_rank_step": lstm_cuda.quant_lstm_rank_step_cuda,
-                "lstm_rank_step": lstm_scan_cuda.lstm_rank_step_cuda,
-                "decode_rank_segment": dc.decode_step_tp_cuda}
-    card0 = torch.device("cuda", 0)
-    m12 = make_mesh(devices=[card0] * 2, model_parallel=2)
-    m22 = make_mesh(devices=[card0] * 4, model_parallel=2)
-    wb = weights.to(dtype=torch.bfloat16)
-    g = torch.Generator().manual_seed(seed + 11)
-    out = {"phase": "tensor_parallel", "card": card, "meshes": {"1x2": repr(m12),
-                                                                 "2x2": repr(m22)}}
-    entries = {}
-
-    # (a) A: one step of post layer 0 on both ranks of 1 x 2
-    N, k = 16, 2
-    ranks = weight_shardings(m12, qweights, tensor_parallel=True)[0]
-    layers = [w.post_rnn[0] for w in ranks]
-    IC, H = qweights.post_rnn[0].w_ih.shape[0], qweights.post_rnn[0].w_hh.shape[0]
-    Hl = H // k
-    x = torch.randint(-128, 128, (N, IC), generator=g, dtype=torch.int8).to(dev)
-    h = torch.randint(-128, 128, (N, H), generator=g, dtype=torch.int8).to(dev)
-    c = (torch.randn((N, H), generator=g) * 0.5).to(dev)
-
-    def a_step(fn, c_r, hd, yd):
-        for r in range(k):
-            fn(layers[r], x, h, c_r[r], rank_order(hd, r), rank_order(yd, r), r * Hl, False)
-
-    def a_run(fn):
-        c_r = [c[:, r * Hl:(r + 1) * Hl].contiguous() for r in range(k)]
-        hd = [torch.zeros((N, H), dtype=torch.int8, device=dev) for _ in range(k)]
-        yd = [torch.zeros((N, H), dtype=torch.int8, device=dev) for _ in range(k)]
-        a_step(fn, c_r, hd, yd)
-        return c_r, hd, yd
-
-    got, want = a_run(lstm_cuda.quant_lstm_rank_step_cuda), a_run(quant_lstm_rank_step)
-    one = lstm_cuda.quant_lstm_layer_cuda(qweights.post_rnn[0], x[None], h, c, False)
-    torch.cuda.synchronize()
-    a_err = max(float((p.double() - q.double()).abs().max())
-                for gs, ws in zip(got, want) for p, q in zip(gs, ws))
-    same_one = (all(torch.equal(t, one[1]) and torch.equal(u, one[0][0])
-                    for t, u in zip(got[1], got[2]))
-                and torch.equal(torch.cat(got[0], 1), one[2]))
-    if a_err != 0 or not same_one:
-        raise AssertionError(f"kernel A rank mode: max |d| {a_err} against its plain version, "
-                             f"equal to the one-card kernel: {same_one}")
-    c_r, hd, yd = a_run(lstm_cuda.quant_lstm_rank_step_cuda)
-    ms = cuda_ms(lambda: a_step(lstm_cuda.quant_lstm_rank_step_cuda, c_r, hd, yd), 50) / k
-    plain_ms = cuda_ms(lambda: a_step(quant_lstm_rank_step, c_r, hd, yd), 5, 1) / k
-    T = 48
-    xT = torch.randint(-128, 128, (T, N, IC), generator=g, dtype=torch.int8).to(dev)
-    one_ms = cuda_ms(lambda: lstm_cuda.quant_lstm_layer_cuda(qweights.post_rnn[0], xT, h, c,
-                                                             False), 20) / T
-    bytes_moved = ((IC + H) * 4 * Hl + N * IC + N * H + N * Hl * 8 + 2 * k * N * Hl)
-    bound_ms, bound_by = bound(bytes_moved, 2 * N * (IC + H) * 4 * Hl, PEAK_INT8_OPS)
-    entries["a"] = {
-        "name": "quant_lstm_rank_step", "route": "cuda",
-        "source": "rnnt_inference_tpu_torch/csrc/quant_lstm.cu",
-        "replaces": "rnnt_inference_tpu/ops/lstm_pallas.py:187",
-        "shape": f"rank mode, one step of one rank of 1x2: IC={IC} H={H} units {Hl} N={N}",
-        "max_abs_err": a_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None, "one_card_ms_per_step_t48": one_ms}
-
-    # (a) C: one step of post layer 1, bf16 and f32, on both ranks of 1 x 2
-    c_rows = {}
-    for dt, (tol_h, tol_c) in ((torch.bfloat16, (2 ** -8, 1e-3)), (torch.float32, (1e-5, 1e-5))):
-        wd = wb if dt == torch.bfloat16 else weights
-        lay = [w.post_rnn[1] for w in weight_shardings(m12, wd, tensor_parallel=True)[0]]
-        H = lay[0].w_hh.shape[0]
-        Hl = H // k
-        xw = [(torch.randn((N, 4 * Hl), generator=g) * 0.5).to(dev, dt) for _ in range(k)]
-        hc = (torch.randn((N, H), generator=g) * 0.5).to(dev, dt)
-        cc = (torch.randn((N, H), generator=g) * 0.5).to(dev)
-
-        def c_step(fn, c_r, yd):
-            for r in range(k):
-                fn(lay[r], xw[r], hc, c_r[r], rank_order(yd, r), r * Hl)
-
-        def c_run(fn):
-            c_r = [cc[:, r * Hl:(r + 1) * Hl].contiguous() for r in range(k)]
-            yd = [torch.zeros((N, H), dtype=dt, device=dev) for _ in range(k)]
-            c_step(fn, c_r, yd)
-            return c_r, yd
-
-        got, want = c_run(lstm_scan_cuda.lstm_rank_step_cuda), c_run(tl.lstm_rank_step)
-        torch.cuda.synchronize()
-        dh = max(float((p.float() - q.float()).abs().max()) for p, q in zip(got[1], want[1]))
-        dc_ = max(float((p - q).abs().max()) for p, q in zip(got[0], want[0]))
-        if not (dh <= tol_h and dc_ <= tol_c) or not torch.equal(got[1][0], got[1][1]):
-            raise AssertionError(f"kernel C rank mode {dt}: h {dh}, c {dc_} against its plain "
-                                 "version, or the ranks' h differ")
-        c_r, yd = c_run(lstm_scan_cuda.lstm_rank_step_cuda)
-        ms = cuda_ms(lambda: c_step(lstm_scan_cuda.lstm_rank_step_cuda, c_r, yd), 50) / k
-        plain_ms = cuda_ms(lambda: c_step(tl.lstm_rank_step, c_r, yd), 5, 1) / k
-        xwT = (torch.randn((T, N, 4 * H), generator=g) * 0.5).to(dev, dt)
-        one_ms = cuda_ms(lambda: lstm_scan_cuda.lstm_recurrence_cuda(wd.post_rnn[1], xwT, hc, cc),
-                         20) / T
-        es = dt.itemsize
-        bytes_moved = H * 4 * Hl * es + N * 4 * Hl * es + N * H * es + N * Hl * 8 + k * N * Hl * es
-        bound_ms, bound_by = bound(bytes_moved, 2 * N * H * 4 * Hl,
-                                   PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_F32_FLOPS)
-        c_rows[str(dt)] = {"h_max_abs_diff": dh, "c_max_abs_diff": dc_, "ms": ms,
-                           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                           "one_card_ms_per_step_t48": one_ms}
-    e = c_rows["torch.bfloat16"]
-    entries["c"] = {
-        "name": "lstm_rank_step", "route": "cuda",
-        "source": "rnnt_inference_tpu_torch/csrc/lstm_scan.cu",
-        "replaces": "rnnt_inference_tpu/ops/lstm_pallas.py:41",
-        "shape": f"rank mode, one step of one rank of 1x2: H={H} units {Hl} N={N} bf16 "
-                 "(f32 beside it)",
-        "max_abs_err": max(max(r["h_max_abs_diff"], r["c_max_abs_diff"]) for r in c_rows.values()),
-        "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
-        "bound_by": e["bound_by"], "library_ms": None,
-        "one_card_ms_per_step_t48": e["one_card_ms_per_step_t48"],
-        "f32": c_rows["torch.float32"]}
-
-    # (a) B: 1 and K iterations on 1 x 2 from random lane states, N = 16
-    K = DEFAULT_STEPS_PER_CHECK
-    b_rows = {}
-    for wd in (qweights, weights):
-        dw = dc.decode_weights(wd)
-        wdt = dw.embed.dtype
-        tol_h, tol_c = decode_divergence.tolerances(wdt)
-        dws = [dc.decode_weights(w) for w in weight_shardings(m12, wd, tensor_parallel=True)[0]]
-        L, P, J, V, R = params.pred_num_layers, params.pred_hidden_size, \
-            params.joint_hidden_size, params.num_labels, params.max_res_len
-        rng = np.random.RandomState(seed + 12)
-        T2 = 40
-        fproj = torch.from_numpy(rng.randn(T2, N, J).astype(np.float32)).to(dev)
-        lanes0 = torch.from_numpy(_decode_lanes(rng, N, T2, V, R)).to(dev)
-        hg0 = torch.from_numpy(rng.randn(L, N, P).astype(np.float32) * 0.5).to(dev, wdt)
-        cg0 = torch.from_numpy(rng.randn(L, N, P).astype(np.float32) * 0.5).to(dev)
-        res0 = torch.full((N, R), -1, dtype=torch.int8, device=dev)
-        Pl, Jl = P // k, J // k
-        fp = [fproj[..., r * Jl:(r + 1) * Jl].contiguous() for r in range(k)]
-
-        def split(lanes, hg, cg, res):
-            return ([lanes.clone() for _ in range(k)], [hg.clone() for _ in range(k)],
-                    [cg[..., r * Pl:(r + 1) * Pl].contiguous() for r in range(k)],
-                    [res.clone() for _ in range(k)])
-
-        row = {}
-        for steps in (1, K):
-            got = split(lanes0, hg0, cg0, res0)
-            want = split(lanes0, hg0, cg0, res0)
-            dc.decode_step_tp_cuda(fp, *got, dws, params, steps)
-            for _ in range(steps):
-                dc.decode_step_tp_reference(fp, *want, dws, params)
-            torch.cuda.synchronize()
-            eq = (all(torch.equal(got[0][r], want[0][r]) and torch.equal(got[3][r], want[3][r])
-                      for r in range(k))
-                  and all(torch.equal(t, got[i][0]) for i in (0, 1, 3) for t in got[i]))
-            dh = max(float((p.float() - q.float()).abs().max()) for p, q in zip(got[1], want[1]))
-            dcg = max(float((p - q).abs().max()) for p, q in zip(got[2], want[2]))
-            row[f"k{steps}"] = {"lanes_tokens_equal_and_ranks_equal": eq, "hg_max_abs_diff": dh,
-                                "cg_max_abs_diff": dcg}
-            if not (eq and dh <= tol_h and dcg <= tol_c):
-                raise AssertionError(f"kernel B rank mode {wdt}, {steps} iterations: {row}")
-        # time per iteration on lanes that cannot finish, beside the one-card kernel's
-        TL = 1024
-        fl = torch.from_numpy(rng.randn(TL, N, J).astype(np.float32)).to(dev)
-        fpl = [fl[..., r * Jl:(r + 1) * Jl].contiguous() for r in range(k)]
-        lanes_l = torch.from_numpy(_decode_lanes(rng, N, TL, V, R, long=True)).to(dev)
-        st = split(lanes_l, hg0, cg0, res0)
-        ms = cuda_ms(lambda: dc.decode_step_tp_cuda(fpl, *st, dws, params, 16), 8, 1) / 16
-        st = split(lanes_l, hg0, cg0, res0)
-        plain_ms = cuda_ms(lambda: dc.decode_step_tp_reference(fpl, *st, dws, params), 10, 1)
-        st1 = [lanes_l.clone(), hg0.clone(), cg0.clone(), res0.clone()]
-        one_ms = cuda_ms(lambda: dc.decode_step_cuda(fl, *st1, dw, params, 16), 8, 1) / 16
-        if bool(st[0][0][dc.FINISH].any()) or bool(st1[0][dc.FINISH].any()):
-            raise AssertionError("kernel B rank-mode timing: a lane finished")
-        es = wdt.itemsize
-        wbytes = sum(t.numel() * t.element_size() for t in (
-            dws[0].w_ih, dws[0].w_hh, dws[0].b, dws[0].w1p, dws[0].b1, dws[0].w2, dws[0].b2))
-        per_iter = (wbytes + N * 8 * 4 * 2 + N * Jl * 4 + N + L * N * P * es
-                    + L * N * Pl * 8 + k * (L * N * Pl + N * Jl) * es)
-        flops = 2 * N * (L * 2 * P * 4 * Pl + P * Jl + J * V)
-        bound_ms, bound_by = bound(per_iter, flops,
-                                   PEAK_BF16_FLOPS if wdt == torch.bfloat16 else PEAK_F32_FLOPS)
-        row.update(ms_per_iteration=ms, ms_per_segment_launch=ms / 4 / k, plain_ms=plain_ms,
-                   one_card_ms_per_iteration_k16=one_ms, bound_ms=bound_ms, bound_by=bound_by)
-        b_rows[str(wdt)] = row
-    e = b_rows["torch.bfloat16"]
-    entries["b"] = {
-        "name": "decode_rank_segment", "route": "cuda",
-        "source": "rnnt_inference_tpu_torch/csrc/decode_step.cu",
-        "replaces": "rnnt_inference_tpu/ops/decode_pallas.py:112",
-        "shape": f"rank mode, 1x2, N={N} P={params.pred_hidden_size} "
-                 f"J={params.joint_hidden_size} bf16: ms, plain_ms and bound_ms per iteration "
-                 "of one rank's share (4 segment launches per rank, the commit apart)",
-        "max_abs_err": max(max(v["hg_max_abs_diff"], v["cg_max_abs_diff"])
-                           for r in b_rows.values() for v in r.values() if isinstance(v, dict)),
-        "ms": e["ms_per_iteration"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
-        "bound_by": e["bound_by"], "library_ms": None,
-        "one_card_ms_per_iteration": e["one_card_ms_per_iteration_k16"],
-        "f32": b_rows["torch.float32"]}
-    out["rank_modes"] = {"a": dict(entries["a"]), "c": c_rows, "b": b_rows}
-
-    # (b), (c): greedy decode of 16 utterances of 1-4 s
-    store = SampleStore.synthetic(n=16, seed=seed + 13, min_seconds=1.0, max_seconds=4.0,
-                                  mean_seconds=2.5)
-    wav = np.zeros((len(store), max(len(s_) for s_ in store.samples)), np.float32)
-    for i, s_ in enumerate(store.samples):
-        wav[i, : len(s_)] = s_
-    feats, flens = log_mel_features(torch.from_numpy(wav).to(dev),
-                                    torch.from_numpy(store.lengths).to(dev))
-    Nu = feats.shape[1]
-    params = dataclasses.replace(params, max_res_len=8192)  # no utterance fills it
-    decodes = {}
-    for name, wd, meshes in (("int8", qweights, (("1x2", m12), ("2x2", m22))),
-                             ("bf16", wb, (("1x2", m12),))):
-        f1, _ = model.transcription(wd, feats, flens, model.init_encoder_state(
-            Nu, params, wd.pre_rnn[0].w_ih.dtype, dev), params)
-        one = lambda wd=wd: greedy_decode(wd, feats, flens, params)
-        one()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res1, lens1 = one()
-        torch.cuda.synchronize()
-        one_wall = time.perf_counter() - t0
-        if int(lens1.max()) >= params.max_res_len:
-            raise AssertionError(f"tensor_parallel {name}: an utterance filled its token buffer")
-        for mname, mesh in meshes:
-            wr = weight_shardings(mesh, wd, tensor_parallel=True)
-            # f: each data shard's ranks against the one-card f of its lanes
-            fd = 0.0
-            for s_, (lo, hi) in enumerate(lane_bounds(mesh, Nu)):
-                devs = mesh.model_devices(s_)
-                sts = tensor.init_tp_states(wr[s_], hi - lo, params, devs)
-                ft, _ = tensor.transcription_tp(wr[s_], [feats[:, lo:hi]] * k,
-                                                [flens[lo:hi]] * k, [st.enc for st in sts],
-                                                params)
-                fd = max(fd, *(float((t.float() - f1[:, lo:hi].float()).abs().max())
-                               for t in ft))
-                if not all(torch.equal(t, ft[0]) for t in ft):
-                    raise AssertionError(f"tensor_parallel {name} {mname}: the ranks' f differ")
-            # int8: bit-equal (exact int32 sums, the same epilogue); bf16: the
-            # projections' column slices may round apart by bf16 steps, while a
-            # wrong slice would move f by O(1)
-            f_tol = 0.0 if name == "int8" else 2 ** -4
-            if fd > f_tol:
-                raise AssertionError(f"tensor_parallel {name} {mname}: f max |d| {fd} > {f_tol}")
-            run = lambda mesh=mesh, wr=wr, st=None: tensor.greedy_decode_tp(
-                mesh, wr, feats, flens, params, rank_states=st)
-            run()
-            torch.cuda.synchronize()
-            for c_ in counters.values():
-                c_.launches = 0
-            states = []
-            t0 = time.perf_counter()
-            res, lens = run(st=states)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = {k_: c_.launches for k_, c_ in counters.items()}
-            if not (launches["decode_rank_segment"]
-                    and launches["quant_lstm_rank_step"] + launches["lstm_rank_step"]):
-                raise AssertionError(f"tensor_parallel {name} {mname}: launched {launches}")
-            pick = lambda x_, key: x_["lanes"] if key == "lanes" else getattr(x_["state"], key)
-            ranks_equal = all(torch.equal(pick(x_, key).cpu(), pick(sh[0], key).cpu())
-                              for sh in states for x_ in sh
-                              for key in ("lanes", "res", "res_idx", "hg"))
-            if not ranks_equal:
-                raise AssertionError(f"tensor_parallel {name} {mname}: the ranks' lane state, "
-                                     "tokens or hg differ")
-            held = _hold_sharded(f"tensor_parallel {name} {mname}", _res_tokens(res, lens),
-                                 _res_tokens(res1, lens1), run,
-                                 decode_divergence.compare_tp_run_launches)
-            ranks_total = mesh.shape["data"] * mesh.shape["model"]
-            per_rank = {k_: v / ranks_total for k_, v in launches.items()}
-            rounds = sum(per_rank.values())  # launch rounds: one exchange each
-            decodes[f"{name}_{mname}"] = dict(
-                held, res_and_res_idx_equal=torch.equal(res.cpu(), res1.cpu())
-                and torch.equal(lens.cpu(), lens1.cpu()),
-                wall_seconds=wall, one_card_wall_seconds=one_wall,
-                slowdown_vs_one_card=wall / one_wall, launches=launches,
-                launches_per_rank=per_rank, us_per_exchange_step=wall * 1e6 / rounds,
-                f_max_abs_diff_vs_one_card=fd, ranks_equal=ranks_equal)
-    out.update(decodes=decodes, seconds=time.time() - t_phase)
-    emit(out)
-    entries["a"]["launches"] = decodes["int8_1x2"]["launches"]["quant_lstm_rank_step"]
-    entries["c"]["launches"] = decodes["bf16_1x2"]["launches"]["lstm_rank_step"]
-    entries["b"]["launches"] = decodes["int8_1x2"]["launches"]["decode_rank_segment"]
-    entries["b"]["launches_by_path"] = {k_: v["launches"]["decode_rank_segment"]
-                                        for k_, v in decodes.items()}
-    entries["a"]["launches_by_path"] = {k_: v["launches"]["quant_lstm_rank_step"]
-                                        for k_, v in decodes.items()}
-    entries["c"]["launches_by_path"] = {k_: v["launches"]["lstm_rank_step"]
-                                        for k_, v in decodes.items()}
-    return entries
 
 
 def phase_transcribe(params, dev, card: str, seed: int) -> dict:
@@ -3704,7 +3369,6 @@ def main() -> int:
     paths["product_chain"] = phase_product_chain(params, dev, card, args.seed)
     paths.update(phase_multi_device(qweights, params, dev, card, args.seed))
     paths.update(phase_transcribe(params, dev, card, args.seed))
-    tp = phase_tensor_parallel(weights, qweights, params, dev, card, args.seed)
     benches = phase_bench(card)
     twins = phase_bench_twins(params, dev, card, benches, bench_store)
     phase_profile(qweights, params, dev, card, benches["blank_cap1"][0], bench_store)
@@ -3762,8 +3426,7 @@ def main() -> int:
                     (conf["B_wide"], "decode_step")):
         e["launches_by_path"] = {"conformer_packed": paths["conformer_packed"]["main"][name]}
     emit({"phase": "summary", "card": card, "seconds": time.time() - t_start})
-    emit({"kernels": [a, b, c, d, proj, tp["a"], tp["b"], tp["c"], conf["F"], conf["G"],
-                      conf["B_wide"]]})
+    emit({"kernels": [a, b, c, d, proj, conf["F"], conf["G"], conf["B_wide"]]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

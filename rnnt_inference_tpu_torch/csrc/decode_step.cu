@@ -96,30 +96,6 @@
 // A second kernel in this file, decode_loop_wide (its own section below),
 // runs a one-layer prediction net over any number of labels (the
 // Conformer-Transducer's 1,025) with W2's label columns split over the grid.
-//
-// Rank mode (tensor parallelism, parallel/tensor.py; the bucketed mode
-// only): model rank r of k holds prediction units [pb0 UP, pb0 UP + Pl)
-// and joint columns [jb0 UJ, jb0 UJ + Jl) (its weight slice; kernel_operands
-// of parallel/mesh.py rank_weights), and one launch runs one *segment* of
-// an iteration on max(Pl / UP, Jl / UJ) blocks: phase 1, 2, 3 or 4 of
-// iteration `it` (seg 1-4), or the commit (seg 5).  Local block b does
-// the prediction work of one-card block pb0 + b and the joint work of
-// one-card block jb0 + b with the same code, so every sum is the one-card
-// kernel's.  The segments end where the one-card grid barriers stand, and
-// the exchanges fall there: a phase-1 or phase-2 launch stores its slice
-// of h' into every rank's full-width hn, a phase-3 launch its slice of z
-// into every rank's z, and the commit its slice of the committed h into
-// every rank's hg (nr destinations, this rank's first; peer pointers
-// across cards).  Phase 4 runs the logits, the argmax and the lane algebra
-// for all lanes on every rank (each has its own lanes, res and upd, and
-// all compute the same), its lane tiles over the rank's own blocks.  What
-// a block keeps in shared memory over the iterations of a one-card launch
-// lives in device memory between segment launches: c and c' in `cstate`
-// (keep, spec, hn and hc already do).  A launch of iteration it > 0 whose
-// previous iteration left no lane unfinished returns at once (the one-card
-// kernel would have left its loop), and the commit takes the last
-// iteration that ran.  No launch waits for another: the host orders the
-// segments (ops/decode_cuda.py decode_step_tp_cuda).
 
 #include <cooperative_groups.h>
 
@@ -136,37 +112,31 @@ constexpr int PACK_BOUNDARY = -2;
 enum { PRE_G = 0, TIME, SYMADD, RES_IDX, FINISH, F_LENS, EOS, SYMBOL };
 
 struct Args {
-  const float* fproj;  // (T2, N, Jl)
+  const float* fproj;  // (T2, N, J)
   int* lanes;          // (8, N)
-  void* hg[MAXR];      // (2, N, P) WT: each rank's, [0] this rank's (the one read)
-  float* cg;           // (2, N, Pl)
+  void* hg;            // (2, N, P) WT
+  float* cg;           // (2, N, P)
   int8_t* res;         // (N, R)
-  const void* whh;     // per block < Pl / UP: (2, P, 4UP) W_hh columns per layer
-  const void* w1;      // per block < Pl / UP: (P, 8UP) y.[W_ih[1] | W_hh[0]] columns
+  const void* whh;     // per block < P / UP: (2, P, 4UP) W_hh columns per layer
+  const void* w1;      // per block < P / UP: (P, 8UP) y.[W_ih[1] | W_hh[0]] columns
   const void* w2;      // per block: (P, UJ + 4UP) y.[W1p | W_hh[1]] columns
-  const float* b;      // (2, 4Pl)
-  const float* b1;     // (Jl)
+  const float* b;      // (2, 4P)
+  const float* b1;     // (J)
   const void* wout;    // W2 (J, VP), kernel order
   const float* b2;     // (V)
-  const float* eproj;  // per block < Pl / UP: (V, UP, 4) embed.W_ih[0] + b[0], row V-1 = b[0]
+  const float* eproj;  // per block < P / UP: (V, UP, 4) embed.W_ih[0] + b[0], row V-1 = b[0]
   float* keep;         // per block: (2, N, UP, 4) h.W_hh of the committed h
   float* spec;         // per block: (2, N, UP, 4) h'.W_hh of an iteration's new h
-  void* hn[MAXR];      // (2, 2, N, P) WT: h' of an iteration; each rank's, as hg
+  void* hn;            // (2, 2, N, P) WT: h' of an iteration
   void* hc;            // (2, 2, N, P) WT: committed h at an iteration's start
-  void* z[MAXR];       // (N, J) WT; each rank's, as hg
+  void* z;             // (N, J) WT
   int* upd;            // (2, N) update_g of an iteration
-  int* alive;          // (2) nonzero while a lane is unfinished after an iteration;
-                       // rank mode: (3), [2] the last iteration that ran
+  int* alive;          // (2) nonzero while a lane is unfinished after an iteration
   const unsigned char* starts;  // packed mode: (T2, N) 1 at an utterance's first frame
   int* rb;                      // packed mode: (N) marker position of the current utterance
-  float* cstate;       // rank mode: per block < Pl / UP: (2, 2, N, UP) c and c'
   int steps, N, P, J, V, R, blank, sos, max_sym;
   int budget;  // packed mode: tokens per utterance, 0 = no gate
   int ring_cap;  // elements of the staging ring
-  // rank mode: ranks written, this rank's units and first prediction block,
-  // its joint columns and first joint block (one-card: 1, P, 0, J, 0)
-  int nr, Pl, pb0, Jl, jb0;
-  int seg, it;  // 0: the one-card loop; 1-4: phase seg of iteration it; 5: the commit
 };
 
 // What both instantiations (decode_loop, decode_loop_wide) share.
@@ -258,26 +228,15 @@ __global__ void __launch_bounds__(THREADS, 1) decode_loop(Args a) {
   constexpr int RPT = MT / 8;  // lane rows a thread finishes in a pass: m-tile rows g8 + 8 r
   const int N = a.N, P = a.P, J = a.J, V = a.V;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, b = blockIdx.x;
-  const int Pl = a.Pl, nbp = Pl / UP, nbj = a.Jl / UJ, seg = a.seg;
+  const int nbp = P / UP, nbj = J / UJ;
   const size_t LNP = (size_t)2 * N * P;
-  // this rank's buffers (the ones read); the writes go to all nr ranks'
-  const WT* hg = static_cast<const WT*>(a.hg[0]);
-  WT* hn = static_cast<WT*>(a.hn[0]);
+  const WT* hg = static_cast<const WT*>(a.hg);
+  WT* hn = static_cast<WT*>(a.hn);
   WT* hc = static_cast<WT*>(a.hc);
-  WT* z = static_cast<WT*>(a.z[0]);
+  WT* z = static_cast<WT*>(a.z);
   float* keep = a.keep + (size_t)b * 2 * N * UP * 4;
   float* spec = a.spec + (size_t)b * 2 * N * UP * 4;
-  // the column of unit u of the block's prediction units in a full-width
-  // h, and of the block's joint column jc in z
-  const int pcol0 = (a.pb0 + b) * UP, jcol0 = (a.jb0 + b) * UJ;
-  // what this launch runs (the one-card launch: all of it)
-  const bool ph1 = seg == 0 || seg == 1, ph2 = seg == 0 || seg == 2;
-  const bool ph3 = seg == 0 || seg == 3, ph4 = seg == 0 || seg == 4;
-  const bool start = seg == 0 || (seg == 1 && a.it == 0);
-  if (seg >= 1 && seg <= 4) {  // rank mode: the one-card loop would have left
-    if (seg == 1 && b == 0 && tid == 0) a.alive[a.it & 1] = 0;  // phase 4 counts into it
-    if (a.it > 0 && __ldcg(a.alive + ((a.it - 1) & 1)) == 0) return;  // the same for all
-  }
+  const int pcol0 = b * UP;  // the block's first prediction unit
 
   extern __shared__ __align__(16) unsigned char smem[];
   const size_t w1_bytes = (size_t)P * NC1 * sizeof(WT), w2_bytes = (size_t)P * NC2 * sizeof(WT);
@@ -290,43 +249,34 @@ __global__ void __launch_bounds__(THREADS, 1) decode_loop(Args a) {
   const void* wout = BF16 ? static_cast<const void*>(wo_s) : a.wout;
   float* lg = reinterpret_cast<float*>(smem + w1_bytes + w2_bytes + wo_bytes);  // (MT, VP)
   float* e_s = lg + MT * VP;                            // (V, UP, 4) layer 0's input gates
-  float* c_sm = e_s + V * UP * 4;                       // (2, 2, N, UP) c and c'
-  // c (2, N, UP) committed and c' (2, N, UP) candidate: in shared memory
-  // for a one-card launch, in device memory between rank-mode launches
-  float* c_s = seg == 0 ? c_sm : a.cstate + (size_t)b * 4 * N * UP;
-  float* cn_s = c_s + 2 * N * UP;
+  float* c_s = e_s + V * UP * 4;                        // (2, N, UP) committed
+  float* cn_s = c_s + 2 * N * UP;                       // (2, N, UP) candidate
   const int Np = (N + 3) & ~3;                          // 16-byte rows
-  int* pre_s = reinterpret_cast<int*>(c_sm + 4 * N * UP);  // (N) pre_g
+  int* pre_s = reinterpret_cast<int*>(cn_s + 2 * N * UP);  // (N) pre_g
   int* time_s = pre_s + Np;                             // (N) time_idx
   int* updp_s = time_s + Np;                            // (N) previous update_g
   WT* ring = reinterpret_cast<WT*>(updp_s + Np);        // a.ring_cap elements
 
-  // the block's weight slices and c, for the whole launch (a rank-mode
-  // launch: those its segment uses)
+  // the block's weight slices and c, for the whole launch
   if (b < nbp) {
-    if (ph2) {
-      const uint4* src =
-          reinterpret_cast<const uint4*>(static_cast<const char*>(a.w1) + b * w1_bytes);
-      for (int i = tid; i < (int)(w1_bytes / 16); i += THREADS)
-        reinterpret_cast<uint4*>(w1_s)[i] = src[i];
+    const uint4* src =
+        reinterpret_cast<const uint4*>(static_cast<const char*>(a.w1) + b * w1_bytes);
+    for (int i = tid; i < (int)(w1_bytes / 16); i += THREADS)
+      reinterpret_cast<uint4*>(w1_s)[i] = src[i];
+    for (int i = tid; i < 2 * N * UP; i += THREADS) {
+      const int u = i % UP, ln = i / UP;  // ln = l N + n
+      c_s[i] = a.cg[(size_t)ln * P + pcol0 + u];
     }
-    if (start)
-      for (int i = tid; i < 2 * N * UP; i += THREADS) {
-        const int u = i % UP, ln = i / UP;  // ln = l N + n
-        c_s[i] = a.cg[(size_t)ln * Pl + b * UP + u];
-      }
-    if (ph1)
-      for (int i = tid; i < V * UP * 4; i += THREADS) e_s[i] = a.eproj[(size_t)b * V * UP * 4 + i];
+    for (int i = tid; i < V * UP * 4; i += THREADS) e_s[i] = a.eproj[(size_t)b * V * UP * 4 + i];
   }
-  if (ph3) {
+  {
     const uint4* src =
         reinterpret_cast<const uint4*>(static_cast<const char*>(a.w2) + b * w2_bytes);
     for (int i = tid; i < (int)(w2_bytes / 16); i += THREADS)
       reinterpret_cast<uint4*>(w2_s)[i] = src[i];
-  }
-  if (ph4)
     for (int i = tid; i < (int)(wo_bytes / 16); i += THREADS)
       reinterpret_cast<uint4*>(wo_s)[i] = static_cast<const uint4*>(a.wout)[i];
+  }
 
   // a thread's share of a pass's epilogue: lane rows row(r) of its m-tile;
   // its units: bf16 4 i + q4 (n-tiles 2i, 2i + 1), f32 q4 SLOTS + i
@@ -334,7 +284,7 @@ __global__ void __launch_bounds__(THREADS, 1) decode_loop(Args a) {
   auto row = [&](int mt, int r) { return mt * MT + g8 + 8 * r; };
 
   // h.W_hh of the launch's starting state, once: the first iteration's keep
-  if (start && b < nbp) {
+  if (b < nbp) {
     for (int l = 0; l < 2; ++l)
       for (int p0 = 0; p0 < N; p0 += RMAX) {
         const int rows = min(RMAX, N - p0);
@@ -382,22 +332,20 @@ __global__ void __launch_bounds__(THREADS, 1) decode_loop(Args a) {
           make_float4(hh[0], hh[1], hh[2], hh[3]);
   };
   // the cell of (layer l, lane n, unit u): commits c' where the last
-  // iteration emitted (zero where it entered), writes h' (into every
-  // rank's hn) and the committed h it started from
+  // iteration emitted (zero where it entered), writes h' and the committed
+  // h it started from
   auto cell = [&](int l, int n, int u, int it, const float (&gate)[4], WT hold) {
     const size_t off = (size_t)(it & 1) * LNP + ((size_t)l * N + n) * P + pcol0 + u;
     hc[off] = hold;
     const int ci = (l * N + n) * UP + u;
     const float cprev = entered(n, it) ? 0.0f : it > 0 && updp_s[n] ? cn_s[ci] : c_s[ci];
     c_s[ci] = cprev;
-    const WT h = store_as<WT>(lstm_cell(gate, cprev, cn_s[ci]));
-    for (int r = 0; r < a.nr; ++r) static_cast<WT*>(a.hn[r])[off] = h;
+    hn[off] = store_as<WT>(lstm_cell(gate, cprev, cn_s[ci]));
   };
 
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
-  // the commit (seg 5) takes the last iteration that ran
-  int it = seg == 5 ? __ldcg(a.alive + 2) : seg == 0 ? 0 : a.it;
-  for (; seg != 5; ++it) {
+  int it = 0;
+  for (;; ++it) {
     const int p = it & 1;
     const WT* hn_prev = hn + (size_t)(p ^ 1) * LNP;
     const WT* hc_prev = hc + (size_t)(p ^ 1) * LNP;
@@ -410,7 +358,7 @@ __global__ void __launch_bounds__(THREADS, 1) decode_loop(Args a) {
              : updp_s[n]      ? hn_prev[off]
                               : hc_prev[off];
     };
-    if (seg == 0 && b == 0 && tid == 0) a.alive[p] = 0;  // last read two barriers ago
+    if (b == 0 && tid == 0) a.alive[p] = 0;  // last read two barriers ago
     for (int n = tid; n < N; n += THREADS) {
       pre_s[n] = __ldcg(a.lanes + PRE_G * N + n);
       time_s[n] = __ldcg(a.lanes + TIME * N + n);
@@ -421,7 +369,7 @@ __global__ void __launch_bounds__(THREADS, 1) decode_loop(Args a) {
     // phase 1: layer 0.  Its y is an embedding row, so y.W_ih[0] + b[0] is a
     // row of the table e_s, and h.W_hh[0] was computed when h was (keep /
     // spec): no product here.
-    if (ph1 && b < nbp) {
+    if (b < nbp) {
       for (int i = tid; i < N * UP; i += THREADS) {
         const int n = i / UP, u = i - n * UP;
         float hh[4];
@@ -435,12 +383,12 @@ __global__ void __launch_bounds__(THREADS, 1) decode_loop(Args a) {
         cell(0, n, u, it, gate, h_at(0, n, u));
       }
     }
-    if (seg == 0) grid.sync();
+    grid.sync();
 
     // phase 2: layer 1 on y = layer 0's h', and y.W_hh[0] for the next
     // iteration (spec of layer 0), in passes over [W_ih[1] | W_hh[0]]
-    if (ph2 && b < nbp) {
-      const float* bl = a.b + 4 * Pl;
+    if (b < nbp) {
+      const float* bl = a.b + 4 * P;
       for (int p0 = 0; p0 < N; p0 += RMAX) {
         const int rows = min(RMAX, N - p0);
         const int WM = pass_wm(rows, MT), mt = warp % WM, kg = warp / WM;
@@ -454,7 +402,7 @@ __global__ void __launch_bounds__(THREADS, 1) decode_loop(Args a) {
             const int v = unit1(i);
             if (v >= UP) continue;
 #pragma unroll
-            for (int g = 0; g < 4; ++g) bias[i][g] = __ldg(bl + g * Pl + b * UP + v);
+            for (int g = 0; g < 4; ++g) bias[i][g] = __ldg(bl + g * P + pcol0 + v);
 #pragma unroll
             for (int r = 0; r < RPT; ++r) {
               const int n = min(p0 + row(mt, r), N - 1);
@@ -496,11 +444,11 @@ __global__ void __launch_bounds__(THREADS, 1) decode_loop(Args a) {
         }
       }
     }
-    if (seg == 0) grid.sync();
+    grid.sync();
 
     // phase 3: the joint's hidden layer, UJ columns per block, and y.W_hh[1]
     // for the next iteration (spec of layer 1), y = layer 1's h'
-    if (ph3) {
+    {
       const WT* y = hn_cur + (size_t)N * P;
       const int jc0 = b * UJ;
       for (int p0 = 0; p0 < N; p0 += RMAX) {
@@ -513,7 +461,7 @@ __global__ void __launch_bounds__(THREADS, 1) decode_loop(Args a) {
             const int n = min(p0 + row(mt, r), N - 1);
 #pragma unroll
             for (int e = 0; e < 2; ++e)
-              fb[r][e] = __ldg(a.fproj + ((size_t)time_s[n] * N + n) * a.Jl + jc0 + 2 * q4 + e);
+              fb[r][e] = __ldg(a.fproj + ((size_t)time_s[n] * N + n) * J + jc0 + 2 * q4 + e);
           }
         }
         PassAcc<WT, NC2> acc;
@@ -532,9 +480,7 @@ __global__ void __launch_bounds__(THREADS, 1) decode_loop(Args a) {
               const float sum = BF16 ? flat[2 * r + e] : flat[r * NC2 / 4 + e];
               const int jc = jc0 + 2 * q4 + e;
               const float v = __fadd_rn(__fadd_rn(fb[r][e], sum), __ldg(a.b1 + jc));
-              const WT zv = store_as<WT>(fmaxf(v, 0.0f));
-              for (int q = 0; q < a.nr; ++q)
-                static_cast<WT*>(a.z[q])[(size_t)n * J + jcol0 + 2 * q4 + e] = zv;
+              z[(size_t)n * J + jc] = store_as<WT>(fmaxf(v, 0.0f));
             }
           }
           if (b < nbp) {
@@ -553,12 +499,12 @@ __global__ void __launch_bounds__(THREADS, 1) decode_loop(Args a) {
         }
       }
     }
-    if (seg == 0) grid.sync();
+    grid.sync();
 
     // phase 4: z.W2 + b2, first argmax and the lane algebra; lane tiles
     // of MT over the blocks, one pass each (all warps split K = J); then
     // warp w takes the tile's rows w, w + 8, ..., one label per lane
-    for (int n0 = b * MT; ph4 && n0 < N; n0 += gridDim.x * MT) {
+    for (int n0 = b * MT; n0 < N; n0 += gridDim.x * MT) {
       const int rows = min(MT, N - n0);
       int fin[RPT], sad[RPT], rix[RPT], fl[RPT], eo[RPT];
       if (lane == 0) {  // the rows' fields, ahead of the products
@@ -613,29 +559,24 @@ __global__ void __launch_bounds__(THREADS, 1) decode_loop(Args a) {
       const int count = __syncthreads_count(unfinished);  // lg is free again, too
       if (tid == 0 && count) atomicAdd(a.alive + p, count);
     }
-    if (seg != 0) {
-      if (seg == 4 && b == 0 && tid == 0) a.alive[2] = it;  // the commit's iteration
-      break;
-    }
     grid.sync();
     if (it + 1 >= a.steps || __ldcg(a.alive + p) == 0) break;  // the same for every block
   }
-  if (seg != 0 && seg != 5) return;
 
   // commit h/c of the block's units: h' and c' where the last iteration
   // emitted, zeros where it entered an utterance, else the state it
   // started from
   if (b < nbp) {
     const int p = it & 1;
+    WT* hgw = static_cast<WT*>(a.hg);
     for (int i = tid; i < 2 * N * UP; i += THREADS) {
       const int u = i % UP, ln = i / UP, n = ln % N;
-      const size_t off = (size_t)ln * P + pcol0 + u, coff = (size_t)ln * Pl + b * UP + u;
+      const size_t off = (size_t)ln * P + pcol0 + u;
       const int upd = __ldcg(a.upd + p * N + n);
       const bool zero = PACKED && upd == ENTERED;
       // the block's own writes
-      const WT h = zero ? store_as<WT>(0.0f) : ((upd ? hn : hc) + (size_t)p * LNP)[off];
-      for (int r = 0; r < a.nr; ++r) static_cast<WT*>(a.hg[r])[off] = h;
-      a.cg[coff] = zero ? 0.0f : upd ? cn_s[i] : c_s[i];
+      hgw[off] = zero ? store_as<WT>(0.0f) : ((upd ? hn : hc) + (size_t)p * LNP)[off];
+      a.cg[off] = zero ? 0.0f : upd ? cn_s[i] : c_s[i];
     }
   }
 }
@@ -659,7 +600,7 @@ cudaError_t launch(Args a, cudaStream_t stream) {
   auto kern = decode_loop<WT, UP, PACKED>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int nbp = a.Pl / UP, nbj = a.Jl / UJ;
+  const int nbp = a.P / UP, nbj = a.J / UJ;
   void* args[] = {&a};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kern),
                                     dim3(nbp > nbj ? nbp : nbj), dim3(THREADS), args, smem,
@@ -1019,7 +960,7 @@ int rnnt_decode_steps(int weight_bf16, int UP, int steps, const void* fproj, voi
   Args a{};
   a.fproj = static_cast<const float*>(fproj);
   a.lanes = static_cast<int*>(lanes);
-  a.hg[0] = hg, a.hn[0] = hn, a.z[0] = z, a.hc = hc;
+  a.hg = hg, a.hn = hn, a.z = z, a.hc = hc;
   a.cg = static_cast<float*>(cg);
   a.res = static_cast<int8_t*>(res);
   a.whh = whh, a.w1 = w1, a.w2 = w2, a.wout = wout;
@@ -1030,7 +971,6 @@ int rnnt_decode_steps(int weight_bf16, int UP, int steps, const void* fproj, voi
   a.starts = static_cast<const unsigned char*>(starts), a.rb = static_cast<int*>(rb);
   a.steps = steps, a.N = N, a.P = P, a.J = J, a.V = V, a.R = R;
   a.blank = blank, a.sos = sos, a.max_sym = max_sym, a.budget = budget;
-  a.nr = 1, a.Pl = P, a.pb0 = 0, a.Jl = J, a.jb0 = 0, a.seg = 0, a.it = 0;
   auto* s = static_cast<cudaStream_t>(stream);
   const bool packed = starts != nullptr;
   const cudaError_t err =
@@ -1038,51 +978,6 @@ int rnnt_decode_steps(int weight_bf16, int UP, int steps, const void* fproj, voi
                             : launch<__nv_bfloat16, 4, false>(a, s))
                   : (packed ? launch<float, 4, true>(a, s) : launch<float, 4, false>(a, s));
   return static_cast<int>(err);
-}
-
-// Rank mode (bucketed): one segment `seg` (1-4: phase seg of iteration
-// `it`; 5: the commit after the call's last iteration) of model rank
-// holding prediction units [pb0 UP, pb0 UP + Pl) and joint columns [jb0 UJ,
-// jb0 UJ + Jl), max(Pl / 4, Jl / 8) blocks.  fproj (T2, N, Jl), cg (L, N,
-// Pl), b (2, 4Pl), b1 (Jl) and the operands are the rank's; lanes, res,
-// upd and alive (three ints) its own copies; hg_d, hn_d and z_d the nr
-// ranks' full-width hg (2, N, P), hn (2, 2, N, P) and z (N, J), this
-// rank's first; cstate (Pl / 4, 2, 2, N, 4) f32 carries c and c' between
-// launches.  The host runs seg 1-4 for it = 0 .. K-1 on every rank, each
-// segment after every rank's previous one, then seg 5.  Returns 0, or the
-// CUDA error of a refused launch.
-int rnnt_decode_rank_segment(int weight_bf16, int UP, int seg, int it, const void* fproj,
-                             void* lanes, void* const* hg_d, void* cg, void* res,
-                             const void* whh, const void* w1, const void* w2, const void* b,
-                             const void* b1, const void* wout, const void* b2,
-                             const void* eproj, void* keep, void* spec, void* const* hn_d,
-                             void* hc, void* const* z_d, void* upd, void* alive, void* cstate,
-                             int nr, int N, int P, int Pl, int pb0, int J, int Jl, int jb0,
-                             int V, int R, int blank, int sos, int max_sym, void* stream) {
-  if (seg < 1 || seg > 5 || it < 0 || N <= 0 || P <= 0 || P % 64 != 0 || J <= 0 ||
-      J % 64 != 0 || V < 1 || V > VP || UP != 4 || nr < 1 || nr > MAXR || Pl <= 0 ||
-      Pl % UP != 0 || pb0 < 0 || (pb0 * UP + Pl) > P || Jl <= 0 || Jl % UJ != 0 || jb0 < 0 ||
-      (jb0 * UJ + Jl) > J)
-    return static_cast<int>(cudaErrorInvalidValue);
-  Args a{};
-  a.fproj = static_cast<const float*>(fproj);
-  a.lanes = static_cast<int*>(lanes);
-  for (int r = 0; r < nr; ++r) a.hg[r] = hg_d[r], a.hn[r] = hn_d[r], a.z[r] = z_d[r];
-  a.hc = hc;
-  a.cg = static_cast<float*>(cg);
-  a.res = static_cast<int8_t*>(res);
-  a.whh = whh, a.w1 = w1, a.w2 = w2, a.wout = wout;
-  a.b = static_cast<const float*>(b), a.b1 = static_cast<const float*>(b1);
-  a.b2 = static_cast<const float*>(b2), a.eproj = static_cast<const float*>(eproj);
-  a.keep = static_cast<float*>(keep), a.spec = static_cast<float*>(spec);
-  a.upd = static_cast<int*>(upd), a.alive = static_cast<int*>(alive);
-  a.cstate = static_cast<float*>(cstate);
-  a.steps = 1, a.N = N, a.P = P, a.J = J, a.V = V, a.R = R;
-  a.blank = blank, a.sos = sos, a.max_sym = max_sym, a.budget = 0;
-  a.nr = nr, a.Pl = Pl, a.pb0 = pb0, a.Jl = Jl, a.jb0 = jb0, a.seg = seg, a.it = it;
-  auto* s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(weight_bf16 ? launch<__nv_bfloat16, 4, false>(a, s)
-                                      : launch<float, 4, false>(a, s));
 }
 
 // The wide-vocabulary instantiation (decode_loop_wide): up to `steps`

@@ -31,9 +31,6 @@ namespace hopper {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-// the most model ranks a rank-mode launch of A, B or C stores into
-// (tensor parallelism; ops/cuda_build.py MAX_RANKS)
-constexpr int MAXR = 8;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -520,26 +517,3 @@ inline bool encode_rows(EncodeTiled fn, CUtensorMap* map, const void* ptr, int r
 }
 
 }  // namespace hopper
-
-// Peer access for the rank modes of A, B and C (tensor parallelism across
-// cards), which store into another card's buffers: 0 once kernels on card
-// `dev` may access card `peer`'s memory (enabled before, or now), else the
-// CUDA error; cudaErrorPeerAccessUnsupported where the two cards cannot
-// reach each other.  Every kernel library exports it (one translation unit
-// each).
-extern "C" int rnnt_enable_peer_access(int dev, int peer) {
-  int can = 0, prev = 0;
-  cudaError_t err = cudaDeviceCanAccessPeer(&can, dev, peer);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (!can) return static_cast<int>(cudaErrorPeerAccessUnsupported);
-  err = cudaGetDevice(&prev);
-  if (err == cudaSuccess) err = cudaSetDevice(dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceEnablePeerAccess(peer, 0);
-  if (err == cudaErrorPeerAccessAlreadyEnabled) {
-    cudaGetLastError();  // clear it: cudaGetLastError would report it later
-    err = cudaSuccess;
-  }
-  const cudaError_t back = cudaSetDevice(prev);
-  return static_cast<int>(err != cudaSuccess ? err : back);
-}

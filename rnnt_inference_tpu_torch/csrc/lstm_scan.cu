@@ -46,17 +46,6 @@
 // intrinsics and the file is built with --fmad=false, so it rounds as the
 // plain twin (ops/lstm.py lstm_recurrence) does; only the summation order
 // differs.
-//
-// Rank mode (tensor parallelism, parallel/tensor.py): model rank r of k
-// holds units [j_base, j_base + Hl), Hl = H / k (its W_hh slice, H x 4Hl,
-// and its columns of xw, (N, 4Hl)), and one launch runs one step of Hl / U
-// blocks, each doing exactly the work of one-card block (j_base / U + b)
-// with the same code and U (the one-card plan's, fixed at 8).  It reads
-// the full-width h_{t-1} (N, H) that every rank wrote, keeps c (N, Hl) in
-// device memory between launches, and stores its slice of h_t into each of
-// the nr ranks' full-width y_t (peer pointers across cards): the exchange,
-// done by the kernel.  The one-card launch is the same code with nr = 1,
-// Hl = H, j_base = 0.
 
 #include <cooperative_groups.h>
 
@@ -67,15 +56,14 @@ namespace {
 using namespace hopper;
 
 struct Args {
-  const void* xw;   // (T, N, 4 Hl) projection, bias included, WT
+  const void* xw;   // (T, N, 4 H) projection, bias included, WT
   const void* wop;  // per block: W_hh columns in kernel order
   const void* h0;   // (N, H) WT
-  const float* c0;  // (N, Hl)
-  void* y[MAXR];    // (T, N, H) WT, each rank's, [0] this rank's: read back after each barrier
-  void* hT;         // (N, H) WT, or null (rank mode)
-  float* cT;        // (N, Hl)
+  const float* c0;  // (N, H)
+  void* y;          // (T, N, H) WT: read back after each barrier
+  void* hT;         // (N, H) WT
+  float* cT;        // (N, H)
   int T, N, H, ring_cap;
-  int Hl, j_base, nr;  // units of this launch, the first one's index, ranks written
 };
 
 template <typename WT, int U>
@@ -83,16 +71,15 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_scan(const Args a) {
   constexpr int NC = 4 * U, MT = Rows<WT>::MT, RMAX = Rows<WT>::RMAX;
   const WT* xw = static_cast<const WT*>(a.xw);
   const WT* h0 = static_cast<const WT*>(a.h0);
-  const WT* y = static_cast<const WT*>(a.y[0]);
-  const int T = a.T, N = a.N, H = a.H, Hl = a.Hl, ring_cap = a.ring_cap;
+  WT* y = static_cast<WT*>(a.y);
+  const int T = a.T, N = a.N, H = a.H, ring_cap = a.ring_cap;
   constexpr bool BF16 = sizeof(WT) == 2;
   extern __shared__ __align__(16) unsigned char smem[];
   const size_t wbytes = (size_t)H * NC * sizeof(WT);
   float* c_s = reinterpret_cast<float*>(smem + wbytes);                // (N, U)
   WT* ring = reinterpret_cast<WT*>(c_s + ((N * U + 3) & ~3));          // ring_cap elements
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  // jl0: the block's first unit in this launch's slice; j0: in the layer
-  const int jl0 = blockIdx.x * U, j0 = a.j_base + jl0;
+  const int j0 = blockIdx.x * U;  // the block's first unit
   const size_t NH = (size_t)N * H;
 
   {  // the block's W_hh columns and c, for the whole call
@@ -100,7 +87,7 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_scan(const Args a) {
         reinterpret_cast<const uint4*>(static_cast<const char*>(a.wop) + blockIdx.x * wbytes);
     uint4* dst = reinterpret_cast<uint4*>(smem);
     for (int i = tid; i < (int)(wbytes / 16); i += THREADS) dst[i] = src[i];
-    for (int i = tid; i < N * U; i += THREADS) c_s[i] = a.c0[(size_t)(i / U) * Hl + jl0 + i % U];
+    for (int i = tid; i < N * U; i += THREADS) c_s[i] = a.c0[(size_t)(i / U) * H + j0 + i % U];
   }
   __syncthreads();
 
@@ -128,7 +115,7 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_scan(const Args a) {
 #pragma unroll
         for (int g = 0; g < 4; ++g)
           xv[k][g] = q < rows * U
-                         ? to_f(xw[((size_t)t * N + n) * 4 * Hl + (size_t)g * Hl + jl0 + u])
+                         ? to_f(xw[((size_t)t * N + n) * 4 * H + (size_t)g * H + j0 + u])
                          : 0.0f;
       }
       PassAcc<WT, NC> acc;
@@ -165,15 +152,15 @@ __global__ void __launch_bounds__(THREADS, 1) lstm_scan(const Args a) {
         *cp = cn;
         const WT h = store_as<WT>(__fmul_rn(og, tanhf(cn)));
         const size_t off = (size_t)n * H + j0 + u;
-        for (int r = 0; r < a.nr; ++r) static_cast<WT*>(a.y[r])[(size_t)t * NH + off] = h;
-        if (t == T - 1 && a.hT) static_cast<WT*>(a.hT)[off] = h;
+        y[(size_t)t * NH + off] = h;
+        if (t == T - 1) static_cast<WT*>(a.hT)[off] = h;
       }
       __syncthreads();  // the ring is staged over next
     }
     if (t + 1 < T) cooperative_groups::this_grid().sync();  // y_t complete across the grid
   }
   __syncthreads();
-  for (int i = tid; i < N * U; i += THREADS) a.cT[(size_t)(i / U) * Hl + jl0 + i % U] = c_s[i];
+  for (int i = tid; i < N * U; i += THREADS) a.cT[(size_t)(i / U) * H + j0 + i % U] = c_s[i];
 }
 
 template <typename WT, int U>
@@ -193,7 +180,7 @@ cudaError_t launch(Args a, cudaStream_t stream) {
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kern), dim3(a.Hl / U),
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kern), dim3(a.H / U),
                                     dim3(THREADS), args, smem, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
@@ -215,29 +202,8 @@ int rnnt_lstm_scan(int weight_bf16, int U, const void* xw, const void* w_op, con
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{};
   a.xw = xw, a.wop = w_op, a.h0 = h0, a.c0 = static_cast<const float*>(c0);
-  a.y[0] = y, a.hT = hT, a.cT = static_cast<float*>(cT);
-  a.T = T, a.N = N, a.H = H, a.Hl = H, a.j_base = 0, a.nr = 1;
-  auto* s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(weight_bf16 ? launch<__nv_bfloat16, 8>(a, s) : launch<float, 8>(a, s));
-}
-
-// Rank mode: one step (xw (N, 4Hl), the rank's columns; the full-width h
-// (N, H)) of the Hl units from j_base on, Hl / 8 blocks; w_op is
-// block_columns of the rank's W_hh slice (H x 4Hl); c (N, Hl) f32 is read
-// and written in place; y_dst[0..nr) (N, H) are the ranks' full-width
-// h_t, this rank's first, and the launch stores its slice into each.
-// Returns 0, or the CUDA error of a refused launch.
-int rnnt_lstm_scan_rank_step(int weight_bf16, int U, const void* xw, const void* w_op,
-                             const void* h, void* c, void* const* y_dst, int nr, int N, int H,
-                             int Hl, int j_base, void* stream) {
-  if (N <= 0 || H <= 0 || H % 128 != 0 || U != 8 || Hl <= 0 || Hl % U != 0 || j_base < 0 ||
-      j_base % U != 0 || j_base + Hl > H || nr < 1 || nr > MAXR)
-    return static_cast<int>(cudaErrorInvalidValue);
-  Args a{};
-  a.xw = xw, a.wop = w_op, a.h0 = h, a.c0 = static_cast<const float*>(c);
-  for (int r = 0; r < nr; ++r) a.y[r] = y_dst[r];
-  a.hT = nullptr, a.cT = static_cast<float*>(c);
-  a.T = 1, a.N = N, a.H = H, a.Hl = Hl, a.j_base = j_base, a.nr = nr;
+  a.y = y, a.hT = hT, a.cT = static_cast<float*>(cT);
+  a.T = T, a.N = N, a.H = H;
   auto* s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(weight_bf16 ? launch<__nv_bfloat16, 8>(a, s) : launch<float, 8>(a, s));
 }

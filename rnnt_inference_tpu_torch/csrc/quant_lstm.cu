@@ -68,17 +68,6 @@
 // intrinsics, and the file is built with --fmad=false, so it rounds as the
 // plain twin (ops/lstm_int8.py quant_lstm_layer) does: the two agree bit
 // for bit.
-//
-// Rank mode (tensor parallelism, parallel/tensor.py): model rank r of k
-// holds units [j_base, j_base + Hl), Hl = H / k, of the layer (its weight
-// slice, ops/lstm_cuda.py kernel_operands of parallel/mesh.py
-// rank_weights), and one launch runs one step of Hl / U blocks: blocks
-// that do exactly the work of one-card blocks j_base / U .. (j_base + Hl)
-// / U - 1 with the same code.  It reads the full-width h_{t-1} (N, H) that
-// every rank wrote, keeps c (N, Hl) in device memory between launches,
-// and stores its h_t and y_t slices into each of the nr ranks' full-width
-// buffers (peer pointers across cards): the exchange, done by the kernel.
-// The one-card launch is the same code with nr = 1, Hl = H, j_base = 0.
 
 #include "hopper.cuh"
 
@@ -100,18 +89,17 @@ static_assert(PART_BYTES <= ring_min<int8_t>(), "the warps' sums fit the ring");
 struct Args {
   const int8_t* x;     // (T, N, IC)
   const int4* xw;      // hoisted: x . W_ih, (T, H / U, N, U) int4 (gates 0-3), else null
-  const int8_t* wop;   // (Hl / U, (ICP + HP) NC): per block W_ih's, then W_hh's columns
-  const float* bias;   // (4 Hl)
+  const int8_t* wop;   // (H / U, (ICP + HP) NC): per block W_ih's, then W_hh's columns
+  const float* bias;   // (4 H)
   const int8_t* h0;    // (N, H)
-  const float* c0;     // (N, Hl)
-  void* y[MAXR];       // (T, N, H) int8, or f32: each rank's, [0] this rank's
-  int8_t* hT[MAXR];    // (N, H): each rank's, as y
-  float* cT;           // (N, Hl)
+  const float* c0;     // (N, H)
+  void* y;             // (T, N, H) int8, or f32
+  int8_t* hT;          // (N, H)
+  float* cT;           // (N, H)
   int8_t* hbuf;        // (2, N, H): h_t, read back by every block after the barrier
   unsigned* bar;       // the grid barrier (hopper.cuh grid_arrive)
   float rb, in_scale, out_scale;
   int T, N, IC, ICP, H, HP, ring_cap;
-  int Hl, j_base, nr;  // units of this launch, the first one's index, ranks written
 };
 
 __device__ __forceinline__ int8_t quantize(float v, float scale) {
@@ -135,8 +123,7 @@ __global__ void __launch_bounds__(THREADS, 1) quant_lstm(const Args a) {
   int8_t* ring = reinterpret_cast<int8_t*>(c_s + ((a.N * U + 3) & ~3));  // ring_cap bytes
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g8 = lane >> 2, q4 = lane & 3;
-  // jl0: the block's first unit in this launch's slice; j0: in the layer
-  const int N = a.N, H = a.H, Hl = a.Hl, jl0 = blockIdx.x * U, j0 = a.j_base + jl0;
+  const int N = a.N, H = a.H, j0 = blockIdx.x * U;  // the block's first unit
   const size_t NH = (size_t)N * H;
 
   {  // the block's weight columns and c, for the whole call
@@ -144,7 +131,7 @@ __global__ void __launch_bounds__(THREADS, 1) quant_lstm(const Args a) {
         a.wop + blockIdx.x * (size_t)(a.ICP + a.HP) * NC + (size_t)(a.ICP - ICS) * NC);
     uint4* dst = reinterpret_cast<uint4*>(smem);
     for (int i = tid; i < (int)(wbytes / 16); i += THREADS) dst[i] = src[i];
-    for (int i = tid; i < N * U; i += THREADS) c_s[i] = a.c0[(size_t)(i / U) * Hl + jl0 + i % U];
+    for (int i = tid; i < N * U; i += THREADS) c_s[i] = a.c0[(size_t)(i / U) * H + j0 + i % U];
   }
   __syncthreads();
 
@@ -166,7 +153,7 @@ __global__ void __launch_bounds__(THREADS, 1) quant_lstm(const Args a) {
   const int u = tid % U, c2 = 8 * (u / 4) + u % 4;
   float bias[4];
 #pragma unroll
-  for (int g = 0; g < 4; ++g) bias[g] = a.bias[g * Hl + jl0 + u];
+  for (int g = 0; g < 4; ++g) bias[g] = a.bias[g * H + j0 + u];
   // HOISTED: h rows stream through two slots of RMAX rows x KCH inputs,
   // KCH the widest multiple of 64 dividing HP whose slots leave room for
   // the warps' sums (part) after them
@@ -282,14 +269,11 @@ __global__ void __launch_bounds__(THREADS, 1) quant_lstm(const Args a) {
         const float h = __fmul_rn(og, tanhf(cn));
         const size_t off = (size_t)n * H + j0 + u;
         const int8_t hq = quantize(h, a.in_scale);
-        if (hdst) hdst[off] = hq;
-        for (int r = 0; r < a.nr; ++r) {
-          if (!hdst) a.hT[r][off] = hq;
-          if (EMIT_F32)
-            static_cast<float*>(a.y[r])[t * NH + off] = h;
-          else
-            static_cast<int8_t*>(a.y[r])[t * NH + off] = quantize(h, a.out_scale);
-        }
+        (hdst ? hdst : a.hT)[off] = hq;
+        if (EMIT_F32)
+          static_cast<float*>(a.y)[t * NH + off] = h;
+        else
+          static_cast<int8_t*>(a.y)[t * NH + off] = quantize(h, a.out_scale);
       }
       __syncthreads();  // the ring is staged over next
     }
@@ -303,7 +287,7 @@ __global__ void __launch_bounds__(THREADS, 1) quant_lstm(const Args a) {
     }
   }
   __syncthreads();
-  for (int i = tid; i < N * U; i += THREADS) a.cT[(size_t)(i / U) * Hl + jl0 + i % U] = c_s[i];
+  for (int i = tid; i < N * U; i += THREADS) a.cT[(size_t)(i / U) * H + j0 + i % U] = c_s[i];
 }
 
 template <bool EMIT_F32, bool HOISTED>
@@ -325,7 +309,7 @@ cudaError_t launch(Args a, cudaStream_t stream) {
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kern), dim3(a.Hl / U),
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kern), dim3(a.H / U),
                                     dim3(THREADS), args, smem, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
@@ -577,48 +561,15 @@ int rnnt_quant_lstm_layer(const void* x, const void* w_op, const void* bias, con
   a.bias = static_cast<const float*>(bias);
   a.h0 = static_cast<const int8_t*>(h0);
   a.c0 = static_cast<const float*>(c0);
-  a.y[0] = y;
-  a.hT[0] = static_cast<int8_t*>(hT);
+  a.y = y;
+  a.hT = static_cast<int8_t*>(hT);
   a.cT = static_cast<float*>(cT);
   a.hbuf = static_cast<int8_t*>(hbuf);
   a.bar = static_cast<unsigned*>(bar);
   a.rb = rb, a.in_scale = in_scale, a.out_scale = out_scale;
   a.T = T, a.N = N, a.IC = IC, a.ICP = (IC + 63) & ~63, a.H = H, a.HP = (H + 63) & ~63;
-  a.Hl = H, a.j_base = 0, a.nr = 1;
   auto* s = static_cast<cudaStream_t>(stream);
   if (xw) return static_cast<int>(emit_f32 ? launch<true, true>(a, s) : launch<false, true>(a, s));
-  return static_cast<int>(emit_f32 ? launch<true, false>(a, s) : launch<false, false>(a, s));
-}
-
-// Rank mode: one step (x (N, IC), the full-width h (N, H)) of the Hl units
-// from j_base on, Hl / 8 blocks; w_op and bias are the rank's slice
-// (kernel_operands of its weights); c (N, Hl) f32 is read and written in
-// place; h_dst[0..nr) (N, H) int8 and y_dst[0..nr) (N, H) int8 (or f32)
-// are the ranks' full-width buffers, this rank's first, and the launch
-// stores its slice of h_t and y_t into each.  Returns 0, or the CUDA error
-// of a refused launch.
-int rnnt_quant_lstm_rank_step(const void* x, const void* w_op, const void* bias,
-                              const void* h, void* c, void* const* h_dst, void* const* y_dst,
-                              int nr, int N, int IC, int H, int Hl, int j_base, float rb,
-                              float in_scale, float out_scale, int emit_f32, void* stream) {
-  if (N <= 0 || IC <= 0 || H <= 0 || IC % 16 != 0 || H % 16 != 0 || Hl <= 0 || Hl % U != 0 ||
-      j_base < 0 || j_base % U != 0 || j_base + Hl > H || nr < 1 || nr > MAXR)
-    return static_cast<int>(cudaErrorInvalidValue);
-  Args a{};
-  a.x = static_cast<const int8_t*>(x);
-  a.wop = static_cast<const int8_t*>(w_op);
-  a.bias = static_cast<const float*>(bias);
-  a.h0 = static_cast<const int8_t*>(h);
-  a.c0 = static_cast<const float*>(c);
-  a.cT = static_cast<float*>(c);
-  for (int r = 0; r < nr; ++r) {
-    a.hT[r] = static_cast<int8_t*>(h_dst[r]);
-    a.y[r] = y_dst[r];
-  }
-  a.rb = rb, a.in_scale = in_scale, a.out_scale = out_scale;
-  a.T = 1, a.N = N, a.IC = IC, a.ICP = (IC + 63) & ~63, a.H = H, a.HP = (H + 63) & ~63;
-  a.Hl = Hl, a.j_base = j_base, a.nr = nr;
-  auto* s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(emit_f32 ? launch<true, false>(a, s) : launch<false, false>(a, s));
 }
 

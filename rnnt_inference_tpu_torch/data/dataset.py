@@ -129,10 +129,10 @@ def speechlike_noise(
     over ~100 ms segments, so frames vary as speech frames do; RMS is
     normalized to ``rms``."""
     x = rng.randn(n_samples)
-    seg = max(int(segment_ms * sample_rate / 1000.0), 1)
-    n_seg = n_samples // seg + 2
+    span = max(int(segment_ms * sample_rate / 1000.0), 1)
+    n_seg = n_samples // span + 2
     knots = np.exp(rng.randn(n_seg))
-    env = np.interp(np.arange(n_samples) / seg, np.arange(n_seg), knots)
+    env = np.interp(np.arange(n_samples) / span, np.arange(n_seg), knots)
     x = x * env
     x *= rms / max(float(np.sqrt(np.mean(x**2))), 1e-12)
     return x.astype(np.float32)

@@ -282,18 +282,18 @@ def positions(t_max: int, params: ConformerParams, device, dtype) -> torch.Tenso
     return _positions(int(t_max), params.d_model, torch.device(device), dtype)
 
 
-def block(b: ConformerBlockWeights, x: torch.Tensor, pe: torch.Tensor, seg: Segments,
+def block(b: ConformerBlockWeights, x: torch.Tensor, pe: torch.Tensor, segs: Segments,
           gaps: torch.Tensor, params: ConformerParams, impl: Optional[str] = None):
     """One Conformer block over the varlen rows x (R, D) f32 (updated in
     place); returns the block's output.  pe is the positions table of
-    ``seg.t_max``, gaps (R,) the rows no utterance owns."""
+    ``segs.t_max``, gaps (R,) the rows no utterance owns."""
     D, dt, eps = params.d_model, b.w_qkv.dtype, params.ln_eps
     x.add_(_ff(x, b.ff1_ln, b.ff1_w1, b.ff1_b1, b.ff1_w2, b.ff1_b2, params, impl), alpha=0.5)
 
     qkv = project(_ln(x, b.att_ln, eps).to(dt), b.w_qkv, b.b_qkv, impl=impl)
     p = project(pe, b.w_pos, impl=impl).to(dt)
     ctx = rel_attention(qkv[:, :D], qkv[:, D : 2 * D], qkv[:, 2 * D :], b.pos_u, b.pos_v, p,
-                        seg, impl)
+                        segs, impl)
     del qkv
     x.add_(project(ctx, b.w_out, b.b_out, impl=impl))
     del ctx
@@ -327,9 +327,9 @@ def encode(w: ConformerWeights, feats: torch.Tensor, feat_lens, params: Conforme
     x = torch.zeros((R, params.d_model), dtype=torch.float32, device=dev)
     x[torch.as_tensor(np.concatenate([s + np.arange(n) for s, n in zip(starts, lens)]),
                       device=dev)] = rows_in
-    seg = Segments.of(starts, lens, dev)
+    segs = Segments.of(starts, lens, dev)
     gaps = gap_mask(starts, lens, R, dev)
-    pe = positions(seg.t_max, params, dev, w.dtype)
+    pe = positions(segs.t_max, params, dev, w.dtype)
     for b in w.blocks:
-        x = block(b, x, pe, seg, gaps, params, impl)
+        x = block(b, x, pe, segs, gaps, params, impl)
     return [x[s : s + n] for s, n in zip(starts, lens)]

@@ -67,18 +67,18 @@ class DecodeState:
     cg: torch.Tensor  # (PRED_L, N, P) f32
 
 
-def init_decode_state(
+def decode_state(
+    enc: Optional[model.EncoderState],
     batch: int,
     params: RNNTParams = RNNTParams(),
-    enc_dtype=torch.float32,
     pred_dtype=torch.float32,
     device="cuda",
 ) -> DecodeState:
+    """The state a decode of ``batch`` lanes starts from, carrying the
+    encoder state ``enc`` (None for an encoder that carries none; the
+    packed runner passes its phase's, runtime/encode_phase.py init_state)."""
     P = params.pred_hidden_size
     L = params.pred_num_layers
-    # the Conformer sees each utterance whole: no encoder state to carry
-    enc = (model.init_encoder_state(batch, params, enc_dtype, device)
-           if isinstance(params, RNNTParams) else None)
     return DecodeState(
         enc=enc,
         res=torch.full((batch, params.max_res_len), -1, dtype=dc.token_dtype(params.num_labels),
@@ -88,6 +88,21 @@ def init_decode_state(
         hg=torch.zeros((L, batch, P), dtype=pred_dtype, device=device),
         cg=torch.zeros((L, batch, P), dtype=torch.float32, device=device),
     )
+
+
+def init_decode_state(
+    batch: int,
+    params: RNNTParams = RNNTParams(),
+    enc_dtype=torch.float32,
+    pred_dtype=torch.float32,
+    device="cuda",
+) -> DecodeState:
+    """``decode_state`` with the LSTM encoder's zero state (models/rnnt.py)
+    where params have an LSTM encoder; params without one (the Conformer's,
+    which sees each utterance whole) carry none."""
+    enc = (model.init_encoder_state(batch, params, enc_dtype, device)
+           if hasattr(params, "trans_hidden_size") else None)
+    return decode_state(enc, batch, params, pred_dtype, device)
 
 
 def masked_reset_decode(
@@ -102,16 +117,12 @@ def masked_reset_decode(
     of consecutive utterances); keep_res=False clears them (Server slots)."""
     m1 = mask[None, :, None]
     z = lambda a: a.masked_fill(m1, 0)
-    enc = state.enc
     res, res_idx = state.res, state.res_idx
     if not keep_res:
         res = res.masked_fill(mask[:, None], -1)
         res_idx = res_idx.masked_fill(mask, -1)
-    if enc is not None:
-        enc = model.EncoderState(pre_h=z(enc.pre_h), pre_c=z(enc.pre_c), post_h=z(enc.post_h),
-                                 post_c=z(enc.post_c))
     return DecodeState(
-        enc=enc,
+        enc=None if state.enc is None else model.masked_reset(state.enc, mask),
         res=res,
         res_idx=res_idx,
         pre_g=state.pre_g.masked_fill(mask, params.SOS),

@@ -43,6 +43,15 @@ def init_encoder_state(
     )
 
 
+def masked_reset(state: EncoderState, mask: torch.Tensor) -> EncoderState:
+    """``state`` with every layer's h and c zeroed on the lanes where mask
+    (N,) is True: where an utterance starts on a lane."""
+    m = mask[None, :, None]
+    z = lambda a: a.masked_fill(m, 0)
+    return EncoderState(pre_h=z(state.pre_h), pre_c=z(state.pre_c), post_h=z(state.post_h),
+                        post_c=z(state.post_c))
+
+
 def transcription(
     weights,
     x: torch.Tensor,

@@ -95,14 +95,14 @@ def relative_positions(t_max: int, d_model: int, device=None) -> torch.Tensor:
 
 def rel_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             u: torch.Tensor, vb: torch.Tensor, pos: torch.Tensor,
-                            seg: Segments) -> torch.Tensor:
+                            segs: Segments) -> torch.Tensor:
     """Kernel F's plain twin, one utterance at a time (module docstring)."""
     H, d = u.shape
     R = q.shape[0]
     out = torch.zeros((R, H * d), dtype=q.dtype, device=q.device)
-    tm = seg.t_max
-    starts = seg.starts.cpu().numpy()
-    for s, T in zip(starts, seg.lens_host):
+    tm = segs.t_max
+    starts = segs.starts.cpu().numpy()
+    for s, T in zip(starts, segs.lens_host):
         s, T = int(s), int(T)
         if T == 0:
             continue
@@ -130,8 +130,8 @@ def _lib() -> ctypes.CDLL:
 
 
 def rel_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, u: torch.Tensor,
-                       vb: torch.Tensor, pos: torch.Tensor, seg: Segments) -> torch.Tensor:
-    """Kernel F on the card: one launch over every utterance of ``seg`` and
+                       vb: torch.Tensor, pos: torch.Tensor, segs: Segments) -> torch.Tensor:
+    """Kernel F on the card: one launch over every utterance of ``segs`` and
     every head.  A shape, type, layout or device it cannot take raises."""
     H, d = u.shape
     R = q.shape[0]
@@ -146,23 +146,23 @@ def rel_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, u: tor
                              f"(row stride {t.stride(0)})")
         if t.device != q.device:
             raise ValueError(f"kernel F: {name} on {t.device}, q on {q.device}")
-    if k.shape[0] != R or v.shape[0] != R or pos.shape[0] != 2 * seg.t_max - 1:
+    if k.shape[0] != R or v.shape[0] != R or pos.shape[0] != 2 * segs.t_max - 1:
         raise ValueError(f"kernel F: rows q {R}, k {k.shape[0]}, v {v.shape[0]}, pos "
-                         f"{pos.shape[0]} (want 2 t_max - 1 = {2 * seg.t_max - 1})")
+                         f"{pos.shape[0]} (want 2 t_max - 1 = {2 * segs.t_max - 1})")
     if d != 64:
         raise ValueError(f"kernel F takes heads of 64 (the Conformer's), got {d}")
     u32, vb32 = u.float().contiguous(), vb.float().contiguous()
     out = torch.zeros((R, H * d), dtype=torch.bfloat16, device=q.device)
-    B = len(seg.lens_host)
-    if B == 0 or seg.t_max == 0:
+    B = len(segs.lens_host)
+    if B == 0 or segs.t_max == 0:
         return out
     lib = _lib()
     with torch.cuda.device(q.device):  # the C side launches on the current device
         err = lib.rnnt_rel_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), u32.data_ptr(),
-            vb32.data_ptr(), out.data_ptr(), seg.starts.data_ptr(), seg.lens.data_ptr(),
+            vb32.data_ptr(), out.data_ptr(), segs.starts.data_ptr(), segs.lens.data_ptr(),
             q.stride(0), k.stride(0), v.stride(0), pos.stride(0), out.stride(0), B, H, d,
-            seg.t_max, torch.cuda.current_stream(q.device).cuda_stream)
+            segs.t_max, torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(lib, err, "kernel F (rel_attention)")
     rel_attention_cuda.launches += 1
     return out
@@ -172,12 +172,12 @@ rel_attention_cuda.launches = 0
 
 
 def rel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, u: torch.Tensor,
-                  vb: torch.Tensor, pos: torch.Tensor, seg: Segments,
+                  vb: torch.Tensor, pos: torch.Tensor, segs: Segments,
                   impl: Optional[str] = None) -> torch.Tensor:
     """Kernel F's wrapper: the kernel for CUDA tensors, the plain twin for
     CPU tensors or when impl="reference"."""
     if impl not in (None, "reference"):
         raise ValueError(f"unknown impl {impl!r}")
     if impl == "reference" or not q.is_cuda:
-        return rel_attention_reference(q, k, v, u, vb, pos, seg)
-    return rel_attention_cuda(q, k, v, u, vb, pos, seg)
+        return rel_attention_reference(q, k, v, u, vb, pos, segs)
+    return rel_attention_cuda(q, k, v, u, vb, pos, segs)

@@ -111,8 +111,6 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_lib_path(name)))
         lib.rnnt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.rnnt_cuda_error_string.restype = ctypes.c_char_p
-        lib.rnnt_enable_peer_access.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.rnnt_enable_peer_access.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
 
@@ -124,6 +122,18 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what} failed: CUDA error {err}: {msg}")
 
 
+def plain_impl(impl, t: torch.Tensor, what: str) -> None:
+    """Validate ``impl`` for ``what``, an op that has no kernel (the
+    tensor-parallel rank steps): None or "reference", and on CUDA tensors
+    "reference" only, so that the card runs a plain version only when it is
+    asked for."""
+    if impl not in (None, "reference"):
+        raise ValueError(f"unknown impl {impl!r}")
+    if impl is None and t.is_cuda:
+        raise ValueError(f"{what} has no CUDA kernel: impl='reference' runs its plain "
+                         f"version on the card")
+
+
 def require(t, name: str, dtype, shape) -> None:
     """Raise unless t is a contiguous CUDA tensor of this dtype and shape."""
     if not t.is_cuda:
@@ -133,63 +143,6 @@ def require(t, name: str, dtype, shape) -> None:
             f"{name}: want contiguous {dtype} {tuple(shape)}, "
             f"got {t.dtype} {tuple(t.shape)}"
         )
-
-
-def pointers(tensors: Sequence[torch.Tensor]) -> ctypes.Array:
-    """The tensors' data pointers as a C array (void* const*)."""
-    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
-
-
-# Tensor parallelism: the most model ranks a rank-mode launch writes to
-# (MAXR in csrc/hopper.cuh)
-MAX_RANKS = 8
-
-
-def _card(d) -> torch.device:
-    d = torch.device(d)
-    return torch.device("cuda", torch.cuda.current_device() if d.index is None else d.index)
-
-
-def rank_barrier(devices: Sequence) -> None:
-    """Order what the model ranks on ``devices`` launch next after what
-    they launched so far: with ranks on two or more cards, every card's
-    current stream waits on an event recorded on each other card's.  Ranks
-    on one card share its stream, whose order is enough (nothing to do);
-    CPU devices need nothing either."""
-    cards = list(dict.fromkeys(_card(d) for d in devices if torch.device(d).type == "cuda"))
-    if len(cards) < 2:
-        return
-    events = {}
-    for d in cards:
-        events[d] = torch.cuda.Event()
-        events[d].record(torch.cuda.current_stream(d))
-    for d in cards:
-        stream = torch.cuda.current_stream(d)
-        for e, ev in events.items():
-            if e != d:
-                stream.wait_event(ev)
-
-
-_PEERS: set = set()
-
-
-def enable_peer_access(devices: Sequence, lib: ctypes.CDLL) -> None:
-    """Let kernels on each card of ``devices`` store into every other's
-    memory (the rank modes' exchange across cards), through ``lib``'s
-    rnnt_enable_peer_access; raises where a pair of cards cannot reach each
-    other (cudaDeviceCanAccessPeer 0).  Once per pair and process."""
-    cards = sorted({_card(d).index for d in devices if torch.device(d).type == "cuda"})
-    for a in cards:
-        for b in cards:
-            if a != b and (a, b) not in _PEERS:
-                check(lib, lib.rnnt_enable_peer_access(a, b), f"peer access cuda:{a} -> cuda:{b}")
-                _PEERS.add((a, b))
-
-
-def rank_order(items: Sequence, r: int) -> list:
-    """``items`` (one per model rank) with rank r's first: the order of a
-    rank-mode launch's destinations, whose first is the one it reads."""
-    return [items[r]] + [x for q, x in enumerate(items) if q != r]
 
 
 # (name, id(owner)) ->(weakref to the owner, stamp of its tensors, operands)

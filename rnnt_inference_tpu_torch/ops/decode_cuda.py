@@ -45,11 +45,11 @@ units', and its own copies of lanes and res, which every rank updates
 alike.  An iteration exchanges layer 0's h', layer 1's h' and the joint's
 z: each rank computes its slice and every rank gets all of it; then every
 rank runs the logits (z.W2 in full, W2 replicated), the argmax and the
-lane algebra for all lanes.  On the card each iteration is four segment
-launches of kernel B's rank mode per rank (``decode_rank_segment_cuda``,
-counted in its own ``launches``), ordered by ``cuda_build.rank_barrier``,
-then one commit launch; the plain version, ``decode_step_tp_reference``,
-computes the same with the exchanges as torch.cat of the slices.
+lane algebra for all lanes.  It runs the plain rank step,
+``decode_step_tp_reference``, with the exchanges as torch.cat of the
+slices.  The kernel serves one card's whole grid and has no rank mode, so
+on CUDA tensors ``decode_step_tp`` runs only when impl="reference" asks
+for the plain steps (it raises otherwise).
 """
 
 from __future__ import annotations
@@ -214,8 +214,8 @@ def _apply_iteration(lanes, hg, cg, res, logits, h_new, c_new, params: RNNTParam
 
 
 def decode_step_tp_reference(fproj, lanes, hg, cg, res, dw, params: RNNTParams) -> None:
-    """One iteration of kernel B's rank mode on the k model ranks of a data
-    shard, in plain PyTorch, in place (lists per rank, as
+    """One decode iteration on the k model ranks of a data shard, in
+    plain PyTorch, in place (lists per rank, as
     ``decode_step_tp``): each rank computes layer 0's, layer 1's and the
     joint's slices on its weights, every rank getting all of each by a
     torch.cat of the slices; then each applies the logits of the full z to
@@ -258,24 +258,18 @@ UP = 4  # prediction units per block the kernel is built for
 
 
 @functools.lru_cache(maxsize=64)
-def plan(P: int, J: int, V: int, N: int, L: int, dtype: torch.dtype, sms: int, Pl: int = 0,
-         Jl: int = 0):
+def plan(P: int, J: int, V: int, N: int, L: int, dtype: torch.dtype, sms: int):
     """(UP, least shared bytes per block) for kernel B on a card with ``sms``
     SMs: P / UP prediction blocks and J / UJ joint blocks, one to an SM (the
-    staging ring then takes the rest of shared memory); a model rank
-    holding Pl units and Jl joint columns (rank mode): Pl / UP and Jl / UJ.
-    Raises ValueError for a shape the kernel cannot take."""
-    Pl, Jl = Pl or P, Jl or J
+    staging ring then takes the rest of shared memory).  Raises ValueError
+    for a shape the kernel cannot take."""
     if L != 2:
         raise ValueError(f"kernel B runs two prediction layers, got {L}")
     if P <= 0 or J <= 0 or P % 64 or J % 64:
         raise ValueError(f"kernel B needs P and J multiples of 64, got P={P} J={J}")
     if not 1 <= V <= VP:
         raise ValueError(f"kernel B takes 1..{VP} labels, got V={V}")
-    if Pl <= 0 or Pl % UP or Jl <= 0 or Jl % UJ:
-        raise ValueError(f"kernel B: a rank's {Pl} units and {Jl} joint columns are not whole "
-                         f"blocks of {UP} and {UJ}")
-    for what, blocks in (("P", Pl // UP), ("J", Jl // UJ)):
+    for what, blocks in (("P", P // UP), ("J", J // UJ)):
         if blocks > sms:
             raise ValueError(f"kernel B: {what} needs {blocks} blocks, the card has {sms} SMs")
     mt = cuda_build.rows(dtype)[0]
@@ -311,9 +305,7 @@ def _joint_columns(UP: int, dtype: torch.dtype) -> torch.Tensor:
 
 def kernel_operands(dw: DecodeWeights, UP: int):
     """(whh, w1, w2, wout, eproj), the weights in kernel B's per-block order
-    (two prediction layers); for a model rank's slice (4P and J below its
-    4Pl gate columns and Jl joint columns, P the input width) the blocks
-    are those of its units and columns:
+    (two prediction layers):
       whh {P/UP, 2, P, 4UP}: block b's W_hh columns (gate g of unit b UP +
           u) per layer, in cuda_build.gate_columns order (the launch's first
           h.W_hh);
@@ -384,8 +376,6 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.rnnt_decode_steps.argtypes = [i, i, i] + [p] * 22 + [i] * 9 + [p]
         lib.rnnt_decode_steps.restype = ctypes.c_int
-        lib.rnnt_decode_rank_segment.argtypes = [i] * 4 + [p] * 21 + [i] * 13 + [p]
-        lib.rnnt_decode_rank_segment.restype = ctypes.c_int
         lib.rnnt_decode_steps_wide.argtypes = [i, i] + [p] * 22 + [i] * 9 + [p]
         lib.rnnt_decode_steps_wide.restype = ctypes.c_int
     return lib
@@ -408,21 +398,19 @@ def _scratch(dev: torch.device, stream: int, N: int, P: int, J: int, L: int,
     return tensors, [keep[0].data_ptr(), keep[1].data_ptr()] + [t.data_ptr() for t in tensors[1:]]
 
 
-def _operands(dw: DecodeWeights, P: int, J: int, V: int, L: int, Pl: int = 0, Jl: int = 0):
+def _operands(dw: DecodeWeights, P: int, J: int, V: int, L: int):
     """``kernel_operands`` of ``dw``, made once per weight set (and again if
-    one of its tensors changes), after checking that dw fits the state (a
-    model rank's slice: Pl units, Jl joint columns)."""
-    Pl, Jl = Pl or P, Jl or J
+    one of its tensors changes), after checking that dw fits the state."""
 
     def build():
         wdt = dw.embed.dtype
         for name, t, dt, shape in [
             ("embed", dw.embed, wdt, (V - 1, P)),
-            ("w_ih", dw.w_ih, wdt, (L, P, 4 * Pl)),
-            ("w_hh", dw.w_hh, wdt, (L, P, 4 * Pl)),
-            ("b", dw.b, torch.float32, (L, 4 * Pl)),
-            ("w1p", dw.w1p, wdt, (P, Jl)),
-            ("b1", dw.b1, torch.float32, (Jl,)),
+            ("w_ih", dw.w_ih, wdt, (L, P, 4 * P)),
+            ("w_hh", dw.w_hh, wdt, (L, P, 4 * P)),
+            ("b", dw.b, torch.float32, (L, 4 * P)),
+            ("w1p", dw.w1p, wdt, (P, J)),
+            ("b1", dw.b1, torch.float32, (J,)),
             ("w2", dw.w2, wdt, (J, V)),
             ("b2", dw.b2, torch.float32, (V,)),
         ]:
@@ -430,7 +418,7 @@ def _operands(dw: DecodeWeights, P: int, J: int, V: int, L: int, Pl: int = 0, Jl
         return kernel_operands(dw, UP)
 
     tensors = (dw.embed, dw.w_ih, dw.w_hh, dw.b, dw.w1p, dw.b1, dw.w2, dw.b2)
-    return cuda_build.cached_operands(dw, f"{NAME}/P{P}J{J}V{V}L{L}/{Pl},{Jl}", tensors, build)
+    return cuda_build.cached_operands(dw, f"{NAME}/P{P}J{J}V{V}L{L}", tensors, build)
 
 
 UP_WIDE = 8  # prediction units per block of the wide instantiation
@@ -652,117 +640,12 @@ def decode_step(
     decode_step_cuda(fproj, lanes, hg, cg, res, dw, params, steps, **packed)
 
 
-@functools.lru_cache(maxsize=32)
-def _tp_scratch(dev: torch.device, rank: int, k: int, N: int, P: int, Pl: int, J: int, L: int,
-                wdt: torch.dtype) -> dict:
-    """Kernel B's rank-mode scratch of model rank ``rank`` of k on ``dev``,
-    made once and reused by every call (shards whose rank r shares a card
-    run one after the other on its stream): keep and spec {2, Pl/UP, L, N,
-    UP, 4}, the full-width hn and hc {2, L, N, P} and z {N, J} (the
-    exchange's destinations), upd {2, N}, alive {3} (two counts and the
-    last iteration that ran) and cstate {Pl/UP, 2, L, N, UP} (c and c'
-    between segment launches)."""
-    f32 = dict(dtype=torch.float32, device=dev)
-    return dict(
-        keep=torch.empty((2, Pl // UP, L, N, UP, 4), **f32),
-        hn=torch.empty((2, L, N, P), dtype=wdt, device=dev),
-        hc=torch.empty((2, L, N, P), dtype=wdt, device=dev),
-        z=torch.empty((N, J), dtype=wdt, device=dev),
-        upd=torch.empty((2, N), dtype=torch.int32, device=dev),
-        alive=torch.zeros((3,), dtype=torch.int32, device=dev),
-        cstate=torch.empty((Pl // UP, 2, L, N, UP), **f32),
-    )
-
-
-def decode_step_tp_cuda(fproj, lanes, hg, cg, res, dw, params: RNNTParams, steps: int = 1) -> None:
-    """``steps`` iterations of kernel B's rank mode on the k model ranks of
-    a data shard, in place (lists per rank, as ``decode_step_tp``): for
-    each iteration the four segments, each launched on every rank and
-    followed by ``cuda_build.rank_barrier``, then the commit.  Iterations
-    after the one that left no lane unfinished return at once on the card.
-    A shape the kernel cannot take, a slice that is not a whole number of
-    blocks, missing peer access or a refused launch raises.  Every launch
-    is counted in ``decode_step_tp_cuda.launches``."""
-    k = len(lanes)
-    if not 1 <= k <= cuda_build.MAX_RANKS:
-        raise ValueError(f"kernel B rank mode: {k} ranks, want 1 to {cuda_build.MAX_RANKS}")
-    wdt = dw[0].embed.dtype
-    if wdt not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"kernel B takes bf16 or f32 weights, got {wdt}")
-    L, N, P = hg[0].shape
-    T2, _, Jl = fproj[0].shape
-    J, V = dw[0].w2.shape
-    Pl, R = P // k, res[0].shape[1]
-    if Pl * k != P or Jl * k != J:
-        raise ValueError(f"kernel B rank mode: P={P} and J={J} do not split over {k} ranks "
-                         f"as the slices (J/k={Jl}) say")
-    devs = [t.device for t in lanes]
-    ranks = []
-    for r in range(k):
-        for name, t, dt, shape in [
-            ("fproj", fproj[r], torch.float32, (T2, N, Jl)),
-            ("lanes", lanes[r], torch.int32, (N_LANE_ROWS, N)),
-            ("hg", hg[r], wdt, (L, N, P)),
-            ("cg", cg[r], torch.float32, (L, N, Pl)),
-            ("res", res[r], torch.int8, (N, R)),
-        ]:
-            cuda_build.require(t, f"decode_step_tp_cuda {name}[{r}]", dt, shape)
-        if hg[r].data_ptr() % 16:
-            raise ValueError("kernel B copies hg rows in 16-byte pieces: align it")
-        plan(P, J, V, N, L, wdt, cuda_build.sm_count(devs[r]), Pl, Jl)
-        ops = _operands(dw[r], P, J, V, L, Pl, Jl)
-        if any(t.device != devs[r] for t in (ops[0], fproj[r], hg[r], cg[r], res[r])):
-            raise ValueError(f"kernel B rank mode: rank {r}'s weights and state are not all "
-                             f"on {devs[r]}")
-        ranks.append((ops, _tp_scratch(devs[r], r, k, N, P, Pl, J, L, wdt)))
-    if steps <= 0:
-        return
-    lib = _lib()
-    cuda_build.enable_peer_access(devs, lib)
-    hn_all = [sc["hn"] for _, sc in ranks]
-    z_all = [sc["z"] for _, sc in ranks]
-    args = []
-    for r, ((whh, w1, w2, wout, eproj), sc) in enumerate(ranks):
-        dests = [cuda_build.pointers(cuda_build.rank_order(t, r)) for t in (hg, hn_all, z_all)]
-        args.append((
-            fproj[r].data_ptr(), lanes[r].data_ptr(), dests[0], cg[r].data_ptr(),
-            res[r].data_ptr(), whh.data_ptr(), w1.data_ptr(), w2.data_ptr(), dw[r].b.data_ptr(),
-            dw[r].b1.data_ptr(), wout.data_ptr(), dw[r].b2.data_ptr(), eproj.data_ptr(),
-            sc["keep"][0].data_ptr(), sc["keep"][1].data_ptr(), dests[1], sc["hc"].data_ptr(),
-            dests[2], sc["upd"].data_ptr(), sc["alive"].data_ptr(), sc["cstate"].data_ptr(),
-            k, N, P, Pl, r * Pl // UP, J, Jl, r * Jl // UJ, V, R, params.BLANK, params.SOS,
-            params.max_symbols_per_step,
-        ))
-    bf16 = int(wdt == torch.bfloat16)
-
-    def segment(seg: int, it: int) -> None:
-        for r in range(k):
-            with torch.cuda.device(devs[r]):  # the C side launches on the current device
-                err = lib.rnnt_decode_rank_segment(
-                    bf16, UP, seg, it, *args[r], torch.cuda.current_stream(devs[r]).cuda_stream)
-            cuda_build.check(lib, err, f"decode_step rank segment {seg}")
-            decode_step_tp_cuda.launches += 1
-        cuda_build.rank_barrier(devs)
-
-    for it in range(steps):
-        for seg in (1, 2, 3, 4):
-            segment(seg, it)
-    segment(5, steps - 1)
-
-
-decode_step_tp_cuda.launches = 0
-
-
 def decode_step_tp(fproj, lanes, hg, cg, res, dw, params: RNNTParams, steps: int = 1,
                    impl: Optional[str] = None) -> None:
-    """Kernel B's tensor-parallel wrapper (module docstring): ``steps``
-    iterations on the k model ranks of a data shard, one list entry per
-    rank; the rank-mode kernel for CUDA tensors, the plain version for CPU
-    tensors or when impl="reference"."""
-    if impl not in (None, "reference"):
-        raise ValueError(f"unknown impl {impl!r}")
-    if impl == "reference" or not lanes[0].is_cuda:
-        for _ in range(steps):
-            decode_step_tp_reference(fproj, lanes, hg, cg, res, dw, params)
-        return
-    decode_step_tp_cuda(fproj, lanes, hg, cg, res, dw, params, steps)
+    """Kernel B's tensor-parallel counterpart (module docstring): ``steps``
+    iterations of the plain rank step on the k model ranks of a data
+    shard, one list entry per rank.  CUDA tensors need impl="reference"
+    (ops/cuda_build.py plain_impl)."""
+    cuda_build.plain_impl(impl, lanes[0], "decode_step_tp")
+    for _ in range(steps):
+        decode_step_tp_reference(fproj, lanes, hg, cg, res, dw, params)

@@ -22,13 +22,14 @@ layer on the k model ranks of a data shard, each holding the weight slice
 of H/k units (parallel/mesh.py rank_weights): each rank's projection xw
 on its own columns (kernel E or its twin), then one step at a time
 every rank computes its units' h_t and stores it into every rank's
-full-width y_t, which is the next step's h (``cuda_build.rank_barrier``
-across cards); c never leaves its rank.  A step is kernel C's rank mode
-(lstm_scan_cuda.lstm_rank_step_cuda) or its plain twin ``lstm_rank_step``
-(exchange: a copy of the slice into each rank's y, a torch.cat of the
-slices).  The products of a column slice may sum in another order than
-the full product's, so the float layer agrees with the one-device layer
-to f32 rounding.
+full-width y_t, which is the next step's h; c never leaves its rank.  A
+step is the plain ``lstm_rank_step``, whose exchange is a copy of the
+slice into each rank's y, ordered across cards by PyTorch's copies
+between devices.  Kernel C serves one card's whole grid and has no rank
+mode, so on CUDA tensors the layer runs only when impl="reference" asks
+for the plain steps (it raises otherwise).  The products of a column slice may sum in
+another order than the full product's, so the float layer agrees with
+the one-device layer to f32 rounding.
 """
 
 from __future__ import annotations
@@ -129,28 +130,17 @@ def lstm_stack(
 
 def lstm_rank_step(layer: LSTMLayerWeights, xw_t: torch.Tensor, h: torch.Tensor,
                    c: torch.Tensor, y_dests, unit0: int) -> None:
-    """Kernel C's rank mode in plain PyTorch: one step of the model rank
-    whose weight slice ``layer`` (W_hh {H, 4Hl}) holds units [unit0,
-    unit0 + Hl): the cell on xw_t {N, 4Hl} and the full-width h {N, H};
-    h_t's slice (in the compute dtype) copied into each of ``y_dests``'
-    columns, c {N, Hl} f32 updated in place (``lstm_rank_step_cuda``'s
-    contract)."""
+    """One step of the model rank whose weight slice ``layer`` (W_hh
+    {H, 4Hl}) holds units [unit0, unit0 + Hl), in plain PyTorch: the cell
+    on xw_t {N, 4Hl} and the full-width h {N, H}; h_t's slice (in the
+    compute dtype) copied into each of ``y_dests``' columns ({N, H}, one
+    per rank, on any device), c {N, Hl} f32 updated in place."""
     h_new, c_new = lstm_cell(xw_t, h, c, layer.w_hh)
     h_new = h_new.to(layer.w_hh.dtype)
     cols = slice(unit0, unit0 + c.shape[1])
     for d in y_dests:
         d[:, cols] = h_new.to(d.device)
     c.copy_(c_new)
-
-
-def lstm_rank_step_op(layer, xw_t, h, c, y_dests, unit0: int, impl: Optional[str] = None) -> None:
-    """Kernel C's rank-mode wrapper: the kernel for CUDA tensors, the plain
-    twin for CPU tensors or when impl="reference"."""
-    if impl not in (None, "reference"):
-        raise ValueError(f"unknown impl {impl!r}")
-    if impl == "reference" or not xw_t.is_cuda:
-        return lstm_rank_step(layer, xw_t, h, c, y_dests, unit0)
-    return lstm_scan_cuda.lstm_rank_step_cuda(layer, xw_t, h, c, y_dests, unit0)
 
 
 def lstm_layer_tp(
@@ -164,9 +154,9 @@ def lstm_layer_tp(
     entry per rank, each on its device: layers[r] rank r's slice, x[r]
     {T, N, IC} and h0[r] {N, H} full width (equal on every rank), c0[r]
     {N, H/k} f32.  Returns (y {T, N, H}, hT {N, H}, cT {N, H/k}) per
-    rank."""
-    if impl not in (None, "reference"):
-        raise ValueError(f"unknown impl {impl!r}")
+    rank.  CUDA tensors need impl="reference" (ops/cuda_build.py
+    plain_impl)."""
+    cuda_build.plain_impl(impl, x[0], "lstm_layer_tp")
     k = len(layers)
     dt = layers[0].w_ih.dtype
     xw = [projection_cuda.project(xr.to(dt), l.w_ih, l.b, impl) for xr, l in zip(x, layers)]
@@ -177,9 +167,8 @@ def lstm_layer_tp(
     y = [hr.new_empty((T, N, H)) for hr in h]
     for t in range(T):
         for r in range(k):
-            lstm_rank_step_op(layers[r], xw[r][t], h[r] if t == 0 else y[r][t - 1], cs[r],
-                              cuda_build.rank_order([yr[t] for yr in y], r), r * (H // k), impl)
-        cuda_build.rank_barrier([yr.device for yr in y])
+            lstm_rank_step(layers[r], xw[r][t], h[r] if t == 0 else y[r][t - 1], cs[r],
+                           [yr[t] for yr in y], r * (H // k))
     return y, [yr[T - 1] if T else hr for yr, hr in zip(y, h)], cs
 
 

@@ -16,13 +16,10 @@ is ``input_products``; its operand ``xw_operand``), then the time loop on
 h . W_hh alone, which adds the precomputed sums.  Such calls are counted
 also in ``quant_lstm_layer_cuda.hoisted``.
 
-Rank mode (tensor parallelism): ``quant_lstm_rank_step_cuda`` launches
-one step of one model rank's units (its weight slice, parallel/mesh.py
-rank_weights), which stores its slice of h_t and y_t into every rank's
-full-width buffers; counted apart, in
-``quant_lstm_rank_step_cuda.launches``.  Its plain twin is ops/lstm_int8.py
-quant_lstm_rank_step; ops/lstm_int8.py quant_lstm_layer_tp runs a layer
-of them on every rank.
+The kernel serves one card's whole grid.  Tensor parallelism (a mesh's
+"model" axis, parallel/tensor.py) has no kernel: it runs the plain rank
+steps of ops/lstm_int8.py (``quant_lstm_layer_tp``), on the card only
+with impl="reference".
 """
 
 from __future__ import annotations
@@ -78,23 +75,18 @@ def hoists(T: int, N: int, IC: int) -> bool:
 
 
 @functools.lru_cache(maxsize=64)
-def plan(H: int, IC: int, N: int, sms: int, Hl: int = 0, hoisted: bool = False) -> int:
+def plan(H: int, IC: int, N: int, sms: int, hoisted: bool = False) -> int:
     """The least shared bytes per block for H hidden units, IC inputs and N
     lanes on a card with ``sms`` SMs: H / U blocks, one to an SM (the
-    kernel's staging ring then takes the rest of shared memory); a rank
-    computing Hl of the H units (rank mode): Hl / U blocks; the hoisted
-    path stages no W_ih.  Raises ValueError for a shape the kernel cannot
-    take."""
-    Hl = Hl or H
+    kernel's staging ring then takes the rest of shared memory); the
+    hoisted path stages no W_ih.  Raises ValueError for a shape the kernel
+    cannot take."""
     if H <= 0 or IC <= 0 or H % 16 or IC % 16:
         raise ValueError(
             f"kernel A copies rows in 16-byte pieces: H and IC must be multiples of 16, "
             f"got H={H} IC={IC}")
-    if Hl <= 0 or Hl % U:
-        raise ValueError(f"kernel A: a rank's {Hl} units are not a whole number of "
-                         f"{U}-unit blocks")
-    if Hl // U > sms:
-        raise ValueError(f"kernel A: H={Hl} needs {Hl // U} blocks, the card has {sms} SMs")
+    if H // U > sms:
+        raise ValueError(f"kernel A: H={H} needs {H // U} blocks, the card has {sms} SMs")
     smem = (((0 if hoisted else _pad64(IC)) + _pad64(H)) * 4 * U + -(-N * U // 4) * 16
             + cuda_build.ring_min_bytes(torch.int8) + (_PART_BYTES if hoisted else 0))
     if smem > cuda_build.SMEM_PER_BLOCK:
@@ -189,8 +181,6 @@ def _lib() -> ctypes.CDLL:
         lib.rnnt_quant_lstm_layer.restype = ctypes.c_int
         lib.rnnt_quant_lstm_xw.argtypes = [p] * 3 + [i] * 5 + [p]
         lib.rnnt_quant_lstm_xw.restype = ctypes.c_int
-        lib.rnnt_quant_lstm_rank_step.argtypes = [p] * 7 + [i] * 6 + [f] * 3 + [i, p]
-        lib.rnnt_quant_lstm_rank_step.restype = ctypes.c_int
     return lib
 
 
@@ -311,56 +301,3 @@ def layer_on_path(layer, x_i8: torch.Tensor, h_i8: torch.Tensor, c: torch.Tensor
     cuda_build.check(lib, err, "quant_lstm kernel")
     return (y, hT, cT), True
 
-
-def quant_lstm_rank_step_cuda(layer, x_t: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
-                              h_dests, y_dests, unit0: int, emit_f32: bool) -> None:
-    """Kernel A's rank mode: one step of the model rank whose weight slice
-    ``layer`` holds units [unit0, unit0 + Hl), in one launch.  x_t {N, IC}
-    int8, h {N, H} int8 the full-width h_{t-1}, c {N, Hl} f32 (updated in
-    place); the launch stores its slice of h_t (int8) into each of
-    ``h_dests`` and of y_t (int8, or f32 with emit_f32) into each of
-    ``y_dests``, {N, H} each, one per rank, this rank's first (on other
-    cards: peer pointers, ops/cuda_build.py enable_peer_access).  A shape
-    the kernel cannot take, a slice that is not a whole number of blocks
-    or a refused launch raises."""
-    N, IC = x_t.shape
-    H, G = layer.w_hh.shape
-    Hl = G // 4
-    cuda_build.require(x_t, "x_t", torch.int8, (N, IC))
-    cuda_build.require(h, "h", torch.int8, (N, H))
-    cuda_build.require(c, "c", torch.float32, (N, Hl))
-    if not 1 <= len(h_dests) == len(y_dests) <= cuda_build.MAX_RANKS:
-        raise ValueError(f"kernel A rank mode: {len(h_dests)} h and {len(y_dests)} y "
-                         f"destinations, want 1 to {cuda_build.MAX_RANKS} of each")
-    for d in h_dests:
-        cuda_build.require(d, "h destination", torch.int8, (N, H))
-    for d in y_dests:
-        cuda_build.require(d, "y destination", torch.float32 if emit_f32 else torch.int8, (N, H))
-    if unit0 < 0 or unit0 % U or unit0 + Hl > H:
-        raise ValueError(f"kernel A rank mode: units {unit0}..{unit0 + Hl} of {H} are not "
-                         f"whole {U}-unit blocks of the layer")
-    if x_t.data_ptr() % 16 or h.data_ptr() % 16:
-        raise ValueError("kernel A copies x and h rows in 16-byte pieces: align them")
-    dev = x_t.device
-    plan(H, IC, N, cuda_build.sm_count(dev), Hl)
-    w_op, bias, rb, in_scale, out_scale = kernel_operands(layer)
-    cuda_build.require(w_op, "w_op", torch.int8, (Hl // U, (_pad64(IC) + _pad64(H)) * 4 * U))
-    if w_op.device != dev or h_dests[0].device != dev:
-        raise ValueError(f"kernel A rank mode: weights on {w_op.device}, own h on "
-                         f"{h_dests[0].device}, x on {dev}")
-    lib = _lib()
-    if N == 0:
-        return
-    with torch.cuda.device(dev):  # the C side launches on the current device
-        cuda_build.enable_peer_access([d.device for d in (*h_dests, *y_dests)], lib)
-        err = lib.rnnt_quant_lstm_rank_step(
-            x_t.data_ptr(), w_op.data_ptr(), bias.data_ptr(), h.data_ptr(), c.data_ptr(),
-            cuda_build.pointers(h_dests), cuda_build.pointers(y_dests), len(h_dests),
-            N, IC, H, Hl, unit0, rb, in_scale, out_scale, int(emit_f32),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    cuda_build.check(lib, err, "quant_lstm rank step")
-    quant_lstm_rank_step_cuda.launches += 1
-
-
-quant_lstm_rank_step_cuda.launches = 0

@@ -17,13 +17,16 @@ layer on the k model ranks of a data shard, each holding the weight slice
 of H/k units (parallel/mesh.py rank_weights), one step at a time: every
 rank computes its units' h_t and stores it into every rank's full-width
 ping-pong h buffer (2, N, H), and its y_t into every rank's full-width y,
-then the next step begins (``cuda_build.rank_barrier`` across cards).  The
-recurrence exchanges int8 h (``in_scale``), y keeps its own type, and c
-never leaves its rank.  A step is kernel A's rank mode
-(lstm_cuda.quant_lstm_rank_step_cuda) or its plain twin
-``quant_lstm_rank_step``, whose exchange is a copy of the slice into each
-buffer (a torch.cat of the ranks' slices); int8 sums are exact, so the
-layer's output equals the one-device layer's bit for bit.
+then the next step begins.  The recurrence exchanges int8 h
+(``in_scale``), y keeps its own type, and c never leaves its rank.  A
+step is the plain ``quant_lstm_rank_step``: the twin on the rank's
+slice, whose exchange is a copy of the slice into each buffer, ordered
+across cards by PyTorch's copies between devices.  Kernel A serves one
+card's whole grid and has no rank mode, so on CUDA tensors the layer runs
+only when impl="reference" asks for the plain steps (it raises
+otherwise); the CPU tests hold it against JAX's tensor parallelism.
+int8 sums are exact, so the layer's output equals the one-device layer's
+bit for bit.
 """
 
 from __future__ import annotations
@@ -123,11 +126,10 @@ def quant_lstm_stack(
 
 def quant_lstm_rank_step(layer: QuantLSTMLayerWeights, x_t: torch.Tensor, h: torch.Tensor,
                          c: torch.Tensor, h_dests, y_dests, unit0: int, emit_f32: bool) -> None:
-    """Kernel A's rank mode in plain PyTorch: one step of the model rank
-    whose weight slice ``layer`` holds units [unit0, unit0 + Hl), the twin
-    on the slice; its h_t and y_t slices copied into each destination's
-    columns, c {N, Hl} updated in place (``quant_lstm_rank_step_cuda``'s
-    contract)."""
+    """One step of the model rank whose weight slice ``layer`` holds units
+    [unit0, unit0 + Hl), in plain PyTorch: the twin on the slice; its h_t
+    and y_t slices copied into each destination's columns ({N, H}, one per
+    rank, on any device), c {N, Hl} updated in place."""
     y, h_q, c_new = quant_lstm_layer(layer, x_t[None], h, c, emit_f32)
     cols = slice(unit0, unit0 + c.shape[1])
     for d in h_dests:
@@ -135,18 +137,6 @@ def quant_lstm_rank_step(layer: QuantLSTMLayerWeights, x_t: torch.Tensor, h: tor
     for d in y_dests:
         d[:, cols] = y[0].to(d.device)
     c.copy_(c_new)
-
-
-def quant_lstm_rank_step_op(layer, x_t, h, c, h_dests, y_dests, unit0: int, emit_f32: bool,
-                            impl: Optional[str] = None) -> None:
-    """Kernel A's rank-mode wrapper: the kernel for CUDA tensors, the plain
-    twin for CPU tensors or when impl="reference"."""
-    if impl not in (None, "reference"):
-        raise ValueError(f"unknown impl {impl!r}")
-    if impl == "reference" or not x_t.is_cuda:
-        return quant_lstm_rank_step(layer, x_t, h, c, h_dests, y_dests, unit0, emit_f32)
-    return lstm_cuda.quant_lstm_rank_step_cuda(layer, x_t, h, c, h_dests, y_dests, unit0,
-                                               emit_f32)
 
 
 def quant_lstm_layer_tp(
@@ -161,12 +151,13 @@ def quant_lstm_layer_tp(
     entry per rank, each on its device: layers[r] rank r's slice, x[r]
     {T, N, IC} int8 and h[r] {N, H} int8 full width (equal on every rank),
     c[r] {N, H/k} f32 its units' cell.  Returns (y, hT, cT) per rank: y
-    {T, N, H} and hT full width, cT {N, H/k}."""
+    {T, N, H} and hT full width, cT {N, H/k}.  CUDA tensors need
+    impl="reference" (ops/cuda_build.py plain_impl)."""
+    cuda_build.plain_impl(impl, x[0], "quant_lstm_layer_tp")
     k = len(layers)
     T, N, _ = x[0].shape
     H = h[0].shape[1]
     Hl = H // k
-    devices = [t.device for t in x]
     hbuf = [hr.new_empty((2, N, H)) for hr in h]
     for r in range(k):
         hbuf[r][1].copy_(h[r])  # step 0 reads slot (0 - 1) & 1
@@ -174,11 +165,9 @@ def quant_lstm_layer_tp(
     y = [xr.new_empty((T, N, H), dtype=torch.float32 if emit_f32 else torch.int8) for xr in x]
     for t in range(T):
         for r in range(k):
-            quant_lstm_rank_step_op(
-                layers[r], x[r][t], hbuf[r][(t - 1) & 1], cs[r],
-                cuda_build.rank_order([b[t & 1] for b in hbuf], r),
-                cuda_build.rank_order([yr[t] for yr in y], r), r * Hl, emit_f32, impl)
-        cuda_build.rank_barrier(devices)
+            quant_lstm_rank_step(layers[r], x[r][t], hbuf[r][(t - 1) & 1], cs[r],
+                                 [b[t & 1] for b in hbuf], [yr[t] for yr in y], r * Hl,
+                                 emit_f32)
     return y, [b[(T - 1) & 1] if T else hr for b, hr in zip(hbuf, h)], cs
 
 

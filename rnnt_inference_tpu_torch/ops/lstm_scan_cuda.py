@@ -9,13 +9,10 @@ keep U hidden units' W_hh columns in shared memory (``plan``,
 ``lstm_recurrence_cuda.launches``.  Its plain twin is ops/lstm.py
 lstm_recurrence; ops/lstm.py lstm_layer chooses between them by device.
 
-Rank mode (tensor parallelism): ``lstm_rank_step_cuda`` launches one step
-of one model rank's units (its W_hh slice, parallel/mesh.py
-rank_weights) with the one-card plan's U, storing its slice of h_t into
-every rank's full-width y_t; counted apart, in
-``lstm_rank_step_cuda.launches``.  Its plain twin is ops/lstm.py
-lstm_rank_step; ops/lstm.py lstm_layer_tp runs a layer of them on every
-rank.
+The kernel serves one card's whole grid.  Tensor parallelism (a mesh's
+"model" axis, parallel/tensor.py) has no kernel: it runs the plain rank
+steps of ops/lstm.py (``lstm_layer_tp``), on the card only with
+impl="reference".
 """
 
 from __future__ import annotations
@@ -65,8 +62,6 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.rnnt_lstm_scan.argtypes = [i, i] + [p] * 7 + [i] * 3 + [p]
         lib.rnnt_lstm_scan.restype = ctypes.c_int
-        lib.rnnt_lstm_scan_rank_step.argtypes = [i, i] + [p] * 5 + [i] * 5 + [p]
-        lib.rnnt_lstm_scan_rank_step.restype = ctypes.c_int
     return lib
 
 
@@ -115,58 +110,3 @@ def lstm_recurrence_cuda(
 
 lstm_recurrence_cuda.launches = 0
 
-
-def lstm_rank_step_cuda(layer, xw_t: torch.Tensor, h: torch.Tensor, c: torch.Tensor, y_dests,
-                        unit0: int) -> None:
-    """Kernel C's rank mode: one step of the model rank whose weight slice
-    ``layer`` (W_hh {H, 4Hl}) holds units [unit0, unit0 + Hl), in one
-    launch of Hl / U blocks (U of the one-card plan).  xw_t {N, 4Hl} the
-    rank's columns of x.W_ih + b, h {N, H} the full-width h_{t-1}, both in
-    the compute dtype; c {N, Hl} f32 (updated in place); the launch stores
-    its slice of h_t into each of ``y_dests`` ({N, H}, one per rank, this
-    rank's first; peer pointers across cards).  A shape the kernel cannot
-    take, a slice that is not a whole number of blocks or a refused launch
-    raises."""
-    dt = layer.w_hh.dtype
-    if dt not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"kernel C takes bf16 or f32 weights, got {dt}")
-    N = xw_t.shape[0]
-    H, G = layer.w_hh.shape
-    Hl = G // 4
-    cuda_build.require(xw_t, "xw_t", dt, (N, 4 * Hl))
-    cuda_build.require(h, "h", dt, (N, H))
-    cuda_build.require(c, "c", torch.float32, (N, Hl))
-    if not 1 <= len(y_dests) <= cuda_build.MAX_RANKS:
-        raise ValueError(f"kernel C rank mode: {len(y_dests)} destinations, want 1 to "
-                         f"{cuda_build.MAX_RANKS}")
-    for d in y_dests:
-        cuda_build.require(d, "y destination", dt, (N, H))
-    if Hl <= 0 or Hl % U or unit0 < 0 or unit0 % U or unit0 + Hl > H:
-        raise ValueError(f"kernel C rank mode: units {unit0}..{unit0 + Hl} of {H} are not "
-                         f"whole {U}-unit blocks of the layer")
-    if h.data_ptr() % 16:
-        raise ValueError("kernel C copies h rows in 16-byte pieces: align it")
-    dev = xw_t.device
-    plan(H, N, dt, cuda_build.sm_count(dev))
-    if Hl // U > cuda_build.sm_count(dev):
-        raise ValueError(f"kernel C: {Hl} units need {Hl // U} blocks, more than the SMs")
-    w_op = recurrent_weight(layer, U)
-    cuda_build.require(w_op, "w_hh operand", dt, w_op.shape)
-    if w_op.device != dev or y_dests[0].device != dev:
-        raise ValueError(f"kernel C rank mode: W_hh on {w_op.device}, own y on "
-                         f"{y_dests[0].device}, xw on {dev}")
-    if N == 0:
-        return
-    lib = _lib()
-    with torch.cuda.device(dev):  # the C side launches on the current device
-        cuda_build.enable_peer_access([d.device for d in y_dests], lib)
-        err = lib.rnnt_lstm_scan_rank_step(
-            int(dt == torch.bfloat16), U, xw_t.data_ptr(), w_op.data_ptr(), h.data_ptr(),
-            c.data_ptr(), cuda_build.pointers(y_dests), len(y_dests), N, H, Hl, unit0,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    cuda_build.check(lib, err, "lstm_scan rank step")
-    lstm_rank_step_cuda.launches += 1
-
-
-lstm_rank_step_cuda.launches = 0

@@ -21,13 +21,11 @@ Tensor parallelism (``weight_shardings(..., tensor_parallel=True)``, run by
 parallel/tensor.py): the weights of every (data, model) rank.  The port
 splits the LSTMs **by hidden unit**, not by contiguous gate columns: rank r
 of k takes units [r H/k, (r+1) H/k) with all four gates i, f, g, o of each
-(``split_units``), and the matching slice of the folded bias.  Kernels A,
-B and C give each block whole units (A: 8 units x 4 gates; C: U units; B:
-UP units of each prediction layer and 8 columns of W1p), so with this
-split a rank's blocks are a contiguous range of the one-card grid's
-blocks and every cell update stays inside its rank.  GSPMD's split of the
-gate-major columns (``P(None, "model")`` on (in, 4H)) would put the i and
-f gates of a unit on one card and its g and o gates on another.  The two
+(``split_units``), and the matching slice of the folded bias, so every
+cell update stays inside its rank (the plain rank steps of
+parallel/tensor.py compute whole units).  GSPMD's split of the gate-major
+columns (``P(None, "model")`` on (in, 4H)) would put the i and f gates of
+a unit on one card and its g and o gates on another.  The two
 packages' results are compared, never their shards.  Which leaf goes
 where: the five encoder layers (float or int8) and the two prediction
 layers by unit; the joint's w1_trans, w1_pred and b1 by joint-hidden

@@ -1,7 +1,7 @@
 """Tensor parallelism: greedy decode with the LSTMs and the joint split over
 the "model" axis of a ("data", "model") mesh.  It has no JAX namesake: in
 the JAX package GSPMD partitions greedy_decode from the shardings of
-parallel/mesh.py weight_shardings; here the kernels do the work.
+parallel/mesh.py weight_shardings; here plain rank steps do the work.
 
 Each data shard (a contiguous slice of the lanes, parallel/mesh.py) runs
 on its k model ranks, each holding the weight slice of parallel/mesh.py
@@ -15,7 +15,7 @@ rank), and its own copy of the lane state, tokens and res_idx.
     full-width h (ops/lstm_int8.py quant_lstm_layer_tp: the int8
     recurrence exchanges in_scale-quantized int8 h through a ping-pong
     (2, N, H) buffer, and y_t, of its own scale, goes to every rank's
-    full-width y in the same launch; ops/lstm.py lstm_layer_tp: the float
+    full-width y in the same step; ops/lstm.py lstm_layer_tp: the float
     h is y).  The float path's projection x.W_ih is each rank's product on
     its columns.  stack_time runs on every rank's full y.
   - Decoder (models/decoder.py _symbol_loop): fproj and eproj are each
@@ -26,14 +26,17 @@ rank), and its own copy of the lane state, tokens and res_idx.
     read from model rank 0, once per ``steps_per_check`` iterations;
     results are read from model rank 0.
 
-On the card the exchanges are done by kernels A, B and C in rank mode: a
-launch runs one rank's blocks for one step (A, C) or one segment of an
-iteration (B) and stores its slice into every rank's buffer (peer pointers
-across cards).  No launch waits inside itself for another: the host orders
-the steps, each after every rank's previous one (ops/cuda_build.py
-rank_barrier: CUDA events across cards; ranks on one card share its
-stream, in rank order).  On CPU tensors, or with impl="reference", the
-plain versions run the same steps with torch.cat as the exchange.
+Every step is a plain rank step (ops/lstm_int8.py quant_lstm_rank_step,
+ops/lstm.py lstm_rank_step, ops/decode_cuda.py decode_step_tp_reference),
+with torch.cat of the slices as the exchange.  The host issues the steps
+in order, and PyTorch's copies between devices order each exchange across
+cards.  Kernels A, B and C serve one card's whole grid and have no rank
+mode (a rank's share of their grid ran 6-12x slower per step than the one
+card's whole step), so on the card the "model" axis runs only with
+impl="reference", which asks for the plain steps there (and for kernel
+E's twin in the ranks' projections); impl=None raises on CUDA tensors.
+On the CPU it is the parity path that the tests hold against the JAX
+package's tensor parallelism.
 
 Fake-quant weights are replicated whole (as in JAX): every rank would
 compute the same, so each data shard runs the one-device decode on its

@@ -6,6 +6,9 @@ The runner calls every one the same way:
                    multiple of it
   kernels          the kernels it launches beyond the runner's own
                    (runtime/offline.py build_kernels builds them in set-up)
+  init_state       the encoder state a decode carries between chunks, or
+                   None (the packed runner's models/decoder.py
+                   decode_state)
   dtype            the encoder's weight type (the decode state's init)
   encoded_len      each utterance's encoder frames, from its feature frames
   layout           (untimed) where each utterance's encoder frames will lie
@@ -58,6 +61,10 @@ class LSTMPhase:
 
     kernels = ()
 
+    @staticmethod
+    def init_state(batch: int, params: RNNTParams, dtype, device) -> model.EncoderState:
+        return model.init_encoder_state(batch, params, dtype, device)
+
     def __init__(self, params: RNNTParams, weights, chunk_frames: int, impl, f_dtype, mesh=None):
         self.params, self.chunk_frames = params, chunk_frames
         self.impl, self.f_dtype = impl, f_dtype
@@ -88,14 +95,11 @@ class LSTMPhase:
         P = self.chunk_frames
         C, N = packed.shape[0] // P, packed.shape[1]
         xc = packed.reshape(C, P, N, packed.shape[-1])
-        est = model.init_encoder_state(N, self.params, self.dtype, sh["device"])
+        est = self.init_state(N, self.params, self.dtype, sh["device"])
         outs = []
         for c in range(C):
             with span("rnnt.offline.encode_chunk"):
-                m = sh["resets"][c][None, :, None]
-                z = lambda a: a.masked_fill(m, 0)
-                est = model.EncoderState(pre_h=z(est.pre_h), pre_c=z(est.pre_c),
-                                         post_h=z(est.post_h), post_c=z(est.post_c))
+                est = model.masked_reset(est, sh["resets"][c])
                 f_c, est = model.transcription(weights, xc[c], sh["chunk_lens"][c], est,
                                                self.params, self.impl)
                 outs.append(f_c.to(self.f_dtype))
@@ -111,6 +115,10 @@ class ConformerPhase:
     docstring)."""
 
     kernels = (attention_cuda.NAME, depthwise_cuda.NAME)
+
+    @staticmethod
+    def init_state(batch: int, params: ConformerParams, dtype, device) -> None:
+        return None  # each utterance is encoded whole: nothing carries over
 
     def __init__(self, params: ConformerParams, weights, chunk_frames: int, impl, f_dtype,
                  mesh=None):

@@ -64,8 +64,8 @@ from rnnt_inference_tpu_torch.config import FeaturizerConfig, RNNTParams
 from rnnt_inference_tpu_torch.models.decoder import (
     PACK_BOUNDARY,
     drain,
+    decode_state,
     greedy_decode_chunk_packed_steps,
-    init_decode_state,
     masked_reset_decode,
 )
 from rnnt_inference_tpu_torch.ops import decode_cuda
@@ -331,7 +331,8 @@ class PackedOfflineRunner:
         T2c = f_packed.shape[0]
         DC = min(self.decode_chunk, T2c)
         n_dc = -(-T2c // DC)
-        st = init_decode_state(N, pp, self._encoder.dtype, self._pred_dtype, dev)
+        st = decode_state(self._encoder.init_state(N, pp, self._encoder.dtype, dev), N, pp,
+                          self._pred_dtype, dev)
         rb = torch.full((N,), -1, dtype=torch.int32, device=dev)
         lanes = torch.arange(N, device=dev)
         dw = decode_cuda.decode_weights(weights)
@@ -435,6 +436,6 @@ class PackedOfflineRunner:
             segs = [segs[0]] + [s[1:] for s in segs[1:]]  # drop the markers
             if len(segs) != max(len(order), 1):
                 raise RuntimeError(f"lane {lane}: {len(segs)} segments for {len(order)} samples")
-            for pos, seg in zip(order, segs):
-                out[pos] = seg[: self.params.max_res_len]  # the standalone decode's cap
+            for pos, piece in zip(order, segs):
+                out[pos] = piece[: self.params.max_res_len]  # the standalone decode's cap
         return [out[i] for i in sorted(out)]

@@ -37,8 +37,8 @@ compare_run_launches does the same for every launch of a whole run (a
 runner's run_device), and counts a second kind of tie: a parting from
 the same state whose twin gap is within the product tie tolerance.
 compare_tp_run_launches does it for every call of a tensor-parallel run
-(parallel/tensor.py): each call's k ranks (kernel B's rank mode, or the
-plain one) against the one-device twin on the joined state.
+(parallel/tensor.py): each call's k ranks (the plain rank steps) against
+the one-device twin on the joined state.
 summed_in_halves gives a second plain version of the twin, summing in
 another order, to measure how far two plain versions part on a model.
 compare_fproj_lanes finds where two decodes of one utterance part when

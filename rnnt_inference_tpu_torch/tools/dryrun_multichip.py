@@ -13,7 +13,9 @@ mesh; quant-tp, the int8 small model on dp = n / 2 x tp = 2 (n even).
 Each is held to the single-device run: tokens and ``res_idx`` equal; the
 float tensor-parallel decode may part from it only at near-ties (its
 column-slice products may round apart:
-tools/decode_divergence.compare_tp_run_launches).  With fewer cards than
+tools/decode_divergence.compare_tp_run_launches).  Tensor parallelism has
+no kernel, so on the card the tensor-parallel phases run its plain rank
+steps (impl="reference").  With fewer cards than
 n, the mesh lists the cards round-robin (two shards, or two model ranks,
 may share one card).  The small model is 128 wide in the encoder and 64
 in the prediction net and the joint, the least widths kernels C and B
@@ -109,6 +111,7 @@ def dryrun_multichip(n_devices: int, devices=None, impl=None, log=print) -> dict
     tp_mesh = make_mesh(n_devices, model_parallel=tp, devices=devices)
     dev = mesh.data_devices[0]
     dp = mesh.shape["data"]
+    tp_impl = "reference" if dev.type == "cuda" else impl  # no rank kernels
     cfg = FeaturizerConfig()
     out = {"mesh": repr(mesh), "tp_mesh": repr(tp_mesh)}
     with torch.inference_mode():
@@ -122,7 +125,7 @@ def dryrun_multichip(n_devices: int, devices=None, impl=None, log=print) -> dict
         want = drain(greedy_decode_steps(w, x, x_lens, params, impl=impl))
         if tp > 1:
             w_tp = weight_shardings(tp_mesh, w, tensor_parallel=True)
-            run = lambda: greedy_decode_tp(tp_mesh, w_tp, x, x_lens, params, impl=impl)
+            run = lambda: greedy_decode_tp(tp_mesh, w_tp, x, x_lens, params, impl=tp_impl)
             res, lens = run()
             verdict = _near_ties("tp decode", (res, lens), want, run)
         else:
@@ -163,7 +166,7 @@ def dryrun_multichip(n_devices: int, devices=None, impl=None, log=print) -> dict
         # int8 under tensor parallelism: dp = n / 2 x tp = 2
         if tp > 1:
             wq_tp = weight_shardings(tp_mesh, wq, tensor_parallel=True)
-            resqt = greedy_decode_tp(tp_mesh, wq_tp, xq, lq, SMALL, impl=impl)
+            resqt = greedy_decode_tp(tp_mesh, wq_tp, xq, lq, SMALL, impl=tp_impl)
             _equal("quant-tp", resqt, resq)
             out["quant_tp"] = dict(dp=n_devices // 2, tp=2, res=list(resqt[0].shape))
             log(f"dryrun_multichip quant-tp OK: dp={n_devices // 2} tp=2 "

@@ -96,29 +96,31 @@ HEADER = [
      "    if (c == 0) STAMP(g_base);"),
 ]
 DECODE = [
-    ("  for (; seg != 5; ++it) {\n    const int p = it & 1;",
-     "  for (; seg != 5; ++it) {\n    if (b == 0 && tid == 0) g_it = it;\n    STAMP(0);\n"
+    ("  };\n\n  cooperative_groups::grid_group grid = cooperative_groups::this_grid();\n"
+     "  int it = 0;\n  for (;; ++it) {\n    const int p = it & 1;",
+     "  };\n\n  cooperative_groups::grid_group grid = cooperative_groups::this_grid();\n"
+     "  int it = 0;\n  for (;; ++it) {\n    if (b == 0 && tid == 0) g_it = it;\n    STAMP(0);\n"
      "    const int p = it & 1;"),
     ("    __syncthreads();\n\n    // phase 1: layer 0.",
      "    __syncthreads();\n    STAMP(1);\n\n    // phase 1: layer 0."),
-    ("    if (seg == 0) grid.sync();\n\n    // phase 2: layer 1",
-     "    STAMP(2);\n    if (seg == 0) grid.sync();\n    STAMP(3);\n\n    // phase 2: layer 1"),
+    ("    grid.sync();\n\n    // phase 2: layer 1",
+     "    STAMP(2);\n    grid.sync();\n    STAMP(3);\n\n    // phase 2: layer 1"),
     ("        PassAcc<WT, NC1> acc;\n        pass_products<WT, NC1>(",
      "        PassAcc<WT, NC1> acc;\n        if (b == 0 && tid == 0) g_base = 4;\n"
      "        pass_products<WT, NC1>("),
     ("[&](int r) { return hn_cur + ((size_t)p0 + r) * P; }, acc);\n        if (kg != 0)",
      "[&](int r) { return hn_cur + ((size_t)p0 + r) * P; }, acc);\n        STAMP(5);\n"
      "        if (kg != 0)"),
-    ("    if (seg == 0) grid.sync();\n\n    // phase 3: the joint",
-     "    STAMP(6);\n    if (seg == 0) grid.sync();\n    STAMP(7);\n\n    // phase 3: the joint"),
+    ("    grid.sync();\n\n    // phase 3: the joint",
+     "    STAMP(6);\n    grid.sync();\n    STAMP(7);\n\n    // phase 3: the joint"),
     ("        PassAcc<WT, NC2> acc;\n        pass_products<WT, NC2>(",
      "        PassAcc<WT, NC2> acc;\n        if (b == 0 && tid == 0) g_base = 8;\n"
      "        pass_products<WT, NC2>("),
     ("[&](int r) { return y + ((size_t)p0 + r) * P; }, acc);\n        if (kg != 0)",
      "[&](int r) { return y + ((size_t)p0 + r) * P; }, acc);\n        STAMP(9);\n"
      "        if (kg != 0)"),
-    ("    if (seg == 0) grid.sync();\n\n    // phase 4:",
-     "    STAMP(10);\n    if (seg == 0) grid.sync();\n    STAMP(11);\n\n    // phase 4:"),
+    ("    grid.sync();\n\n    // phase 4: z.W2",
+     "    STAMP(10);\n    grid.sync();\n    STAMP(11);\n\n    // phase 4: z.W2"),
     ("      PassAcc<WT, VP> acc;\n      pass_products<WT, VP>(",
      "      PassAcc<WT, VP> acc;\n      if (b == 0 && tid == 0) g_base = 12;\n"
      "      pass_products<WT, VP>("),
@@ -257,9 +259,9 @@ def _segments(lib, steps: int, stamps: int, first: int, last: int):
     if lib.rnnt_prof_read(buf.ctypes.data) != 0:
         raise SystemExit("kernel_phases: could not read the stamps")
     a = buf.reshape(256, 32)[:steps, :stamps].astype(np.int64)
-    seg = np.diff(a[first:last], axis=1).mean(axis=0) / 1e3
+    segs = np.diff(a[first:last], axis=1).mean(axis=0) / 1e3
     per = (a[first + 1:last, 0] - a[first:last - 1, 0]).mean() / 1e3
-    return float(per), [float(x) for x in seg]
+    return float(per), [float(x) for x in segs]
 
 
 def _mel_phases(lib, dev) -> None:
@@ -286,13 +288,13 @@ def _mel_phases(lib, dev) -> None:
     r = buf.reshape(65536, 16)[:blocks].astype(np.int64)
     span_ns = r[:, 1] - r[:, 0]
     ns_per_cycle = span_ns.sum() / r[:, 11].sum()
-    seg = np.stack([r[:, 3], r[:, 5], r[:, 6], r[:, 8] - r[:, 7], r[:, 9], r[:, 10]],
-                   axis=1).mean(axis=0) * ns_per_cycle / 1e3
+    segs = np.stack([r[:, 3], r[:, 5], r[:, 6], r[:, 8] - r[:, 7], r[:, 9], r[:, 10]],
+                    axis=1).mean(axis=0) * ns_per_cycle / 1e3
     per_sm = np.bincount(r[:, 2]).max()
     print(f"D N={x.shape[0]} T={T}: kernel {(r[:, 1].max() - r[:, 0].min()) / 1e3:.2f} us, "
           f"{blocks} blocks, at most {per_sm} on one SM, block mean {span_ns.mean() / 1e3:.2f} us "
           f"({1 / ns_per_cycle:.3f} cycles/ns); warp 0: "
-          + ", ".join(f"{k} {v:.2f}" for k, v in zip(D_SEGMENTS, seg))
+          + ", ".join(f"{k} {v:.2f}" for k, v in zip(D_SEGMENTS, segs))
           + f", mel phase {(r[:, 11] - r[:, 8]).mean() * ns_per_cycle / 1e3:.2f} us", flush=True)
 
 
@@ -336,9 +338,9 @@ def main() -> int:
             for _ in range(2):
                 dc.decode_step_cuda(fproj, *st, dw, params, 16)
                 torch.cuda.synchronize()
-            per, seg = _segments(libs["decode_step"], 16, len(B_SEGMENTS) + 1, 2, 15)
+            per, segs = _segments(libs["decode_step"], 16, len(B_SEGMENTS) + 1, 2, 15)
             print(f"B {str(dt)[6:]} N={N}: {per:.2f} us per iteration; "
-                  + ", ".join(f"{k} {v:.2f}" for k, v in zip(B_SEGMENTS, seg)), flush=True)
+                  + ", ".join(f"{k} {v:.2f}" for k, v in zip(B_SEGMENTS, segs)), flush=True)
     H, T = 1024, 48
     g = torch.Generator().manual_seed(0)
     for dt in (torch.bfloat16, torch.float32):
@@ -350,9 +352,9 @@ def main() -> int:
             for _ in range(2):
                 ls.lstm_recurrence_cuda(layer, xw, h0, c0)
                 torch.cuda.synchronize()
-            per, seg = _segments(libs["lstm_scan"], T, len(C_SEGMENTS) + 1, 2, T - 1)
+            per, segs = _segments(libs["lstm_scan"], T, len(C_SEGMENTS) + 1, 2, T - 1)
             print(f"C {str(dt)[6:]} N={N}: {per:.2f} us per step; "
-                  + ", ".join(f"{k} {v:.2f}" for k, v in zip(C_SEGMENTS, seg)), flush=True)
+                  + ", ".join(f"{k} {v:.2f}" for k, v in zip(C_SEGMENTS, segs)), flush=True)
     IC = 2048  # the first post layer, the widest
     i8 = lambda *s: torch.randint(-128, 128, s, generator=g, dtype=torch.int8).to(dev)
     scale = lambda v: torch.tensor(v, device=dev)
@@ -364,13 +366,13 @@ def main() -> int:
         for _ in range(2):
             la.layer_on_path(layer, x, h0, c0, False, hoist)
             torch.cuda.synchronize()
-        per, seg = _segments(libs["quant_lstm"], T, len(A_SEGMENTS) + 1, 2, T - 1)
+        per, segs = _segments(libs["quant_lstm"], T, len(A_SEGMENTS) + 1, 2, T - 1)
         names = A_SEGMENTS
         if hoist:  # no pass engine: stamps 1, 2 and 5 are not written
             names = ("passes", "arrive", "prefetch", "wait")
-            seg = [sum(seg[:3]), seg[3], seg[4] + seg[5], seg[6]]
+            segs = [sum(segs[:3]), segs[3], segs[4] + segs[5], segs[6]]
         print(f"A int8 IC={IC} N={N} T={T}{' hoisted' if hoist else ''}: {per:.2f} us per "
-              "step; " + ", ".join(f"{k} {v:.2f}" for k, v in zip(names, seg)), flush=True)
+              "step; " + ", ".join(f"{k} {v:.2f}" for k, v in zip(names, segs)), flush=True)
     return 0
 
 

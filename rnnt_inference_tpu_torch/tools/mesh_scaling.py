@@ -24,13 +24,13 @@ tests.
 batch (``TP_CELL``: 16 utterances of 1-4 s, log-mel on the first card) on
 one card (models/decoder.py greedy_decode: kernels A and B) and on each
 mesh of D data shards x K model ranks over the first D K cards
-(parallel/tensor.py greedy_decode_tp: kernels A and B in rank mode, each
-rank storing into the other cards' buffers through peer access), the
-meshes timed in turns as above (host clock around the decode, ended by a
-synchronize).  Prints one JSON object: per mesh the median wall, the
-slow-down against the one card, every rep's wall, the rank-mode launches
-per rank, microseconds per exchange round (wall over launches per rank)
-and whether res and res_idx equal the one card's (exit code 1 if not).
+(parallel/tensor.py greedy_decode_tp with impl="reference": the plain
+rank steps, exchanging through PyTorch's copies between devices; tensor
+parallelism has no kernel), the meshes timed in
+turns as above (host clock around the decode, ended by a synchronize).
+Prints one JSON object: per mesh the median wall, the slow-down against
+the one card, every rep's wall and whether res and res_idx equal the one
+card's (exit code 1 if not).
 """
 
 from __future__ import annotations
@@ -132,7 +132,6 @@ def measure_tp(meshes=("1x2", "1x4", "2x2"), device: str = "cuda", hidden: int =
     "DxK"; ``cell`` overrides ``TP_CELL``; on the CPU each mesh lists the
     CPU D K times."""
     from rnnt_inference_tpu_torch.models.decoder import greedy_decode
-    from rnnt_inference_tpu_torch.ops import decode_cuda, lstm_cuda
     from rnnt_inference_tpu_torch.ops.features import log_mel_features
     from rnnt_inference_tpu_torch.parallel.mesh import weight_shardings
     from rnnt_inference_tpu_torch.parallel.tensor import greedy_decode_tp
@@ -159,22 +158,17 @@ def measure_tp(meshes=("1x2", "1x4", "2x2"), device: str = "cuda", hidden: int =
         wav[i, : len(smp)] = smp
     feats, flens = log_mel_features(torch.from_numpy(wav).to(card(0)),
                                     torch.from_numpy(store.lengths).to(card(0)))
-    counters = {"quant_lstm_rank_step": lstm_cuda.quant_lstm_rank_step_cuda,
-                "decode_rank_segment": decode_cuda.decode_step_tp_cuda}
-    runs = {"1x1": {"fn": lambda: greedy_decode(weights, feats, flens, params), "ranks": 1}}
+    runs = {"1x1": {"fn": lambda: greedy_decode(weights, feats, flens, params)}}
     for name in meshes:
         d, k = _mesh_shape(name)
         mesh = make_mesh(devices=[card(i) for i in range(d * k)], model_parallel=k)
         wr = weight_shardings(mesh, weights, tensor_parallel=True)
         runs[name] = {"fn": lambda mesh=mesh, wr=wr: greedy_decode_tp(mesh, wr, feats, flens,
-                                                                      params),
-                      "ranks": d * k}
+                                                                      params,
+                                                                      impl="reference")}
     for run in runs.values():
-        for c in counters.values():
-            c.launches = 0
         run["out"] = [t.cpu() for t in run["fn"]()]  # one-off costs, untimed
         sync()
-        run["launches"] = {n: c.launches for n, c in counters.items()}
         run["walls"] = []
     order = list(runs)
     for i in range(cell["reps"]):
@@ -193,12 +187,9 @@ def measure_tp(meshes=("1x2", "1x4", "2x2"), device: str = "cuda", hidden: int =
            "max_res_len": params.max_res_len, "meshes": {}}
     for name, run in runs.items():
         med = float(np.median(run["walls"]))
-        per_rank = {n: v / run["ranks"] for n, v in run["launches"].items()}
         out["meshes"][name] = {
             "median_wall_seconds": med, "slowdown_vs_one_card": med / one,
-            "rep_walls": run["walls"], "rank_mode_launches_per_rank": per_rank,
-            "us_per_exchange_round": med * 1e6 / sum(per_rank.values())
-            if sum(per_rank.values()) else None,
+            "rep_walls": run["walls"],
             "tokens_equal_one_card": all(torch.equal(a, b) for a, b in zip(run["out"],
                                                                            base["out"]))}
     return out

@@ -778,7 +778,8 @@ def test_dryrun_multichip_on_card(dev):
     """tools/dryrun_multichip.py on two shards (and two model ranks) of the
     card: every phase equal to its single-device run on the kernels, the
     MLPerf-width decode on 1 x 2 parting at most at near-ties, and quant-tp
-    (int8, 1 x 2) run with tokens and res_idx equal."""
+    (int8, 1 x 2) run with tokens and res_idx equal; the tensor-parallel
+    phases on the plain rank steps."""
     from rnnt_inference_tpu_torch.tools.dryrun_multichip import dryrun_multichip
 
     out = dryrun_multichip(2, devices=[torch.device("cuda", 0)] * 2, log=lambda _: None)
@@ -786,131 +787,14 @@ def test_dryrun_multichip_on_card(dev):
     assert out["dp_decode"]["tokens"] in ("equal", "near-ties")
 
 
-def _rank_lists(k, *tensors):
-    """Each tensor cut into k column slices along its last axis."""
-    return [[t.contiguous() for t in x.chunk(k, dim=-1)] for x in tensors]
-
-
-@pytest.mark.parametrize("k", [2, 4])
-@pytest.mark.parametrize("emit_f32", [False, True])
-def test_rank_mode_a_matches_plain_and_one_card(dev, qweights, k, emit_f32):
-    """Kernel A's rank mode, one step of k ranks on the card (the layer IC
-    = 1024 -> H = 256, 20 lanes): every rank's h and y destinations and c
-    bit-equal to the plain rank mode's and to the one-card kernel's step;
-    one counted launch per rank; a slice off the blocks raises."""
-    from rnnt_inference_tpu_torch.ops.cuda_build import rank_order
-    from rnnt_inference_tpu_torch.ops.lstm_int8 import quant_lstm_rank_step
-    from rnnt_inference_tpu_torch.parallel.mesh import rank_weights
-
-    layer = qweights.post_rnn[0]
-    layers = [rank_weights(qweights, r, k).post_rnn[0] for r in range(k)]
-    IC, H = layer.w_ih.shape[0], layer.w_hh.shape[0]
-    g = torch.Generator().manual_seed(31)
-    x = torch.randint(-128, 128, (20, IC), generator=g, dtype=torch.int8).to(dev)
-    h = torch.randint(-128, 128, (20, H), generator=g, dtype=torch.int8).to(dev)
-    c = torch.randn((20, H), generator=g).to(dev)
-    ydt = torch.float32 if emit_f32 else torch.int8
-
-    def run(step):
-        cs = _rank_lists(k, c)[0]
-        hd = [torch.zeros((20, H), dtype=torch.int8, device=dev) for _ in range(k)]
-        yd = [torch.zeros((20, H), dtype=ydt, device=dev) for _ in range(k)]
-        for r in range(k):
-            step(layers[r], x, h, cs[r], rank_order(hd, r), rank_order(yd, r), r * H // k,
-                 emit_f32)
-        return cs, hd, yd
-
-    before = lstm_cuda.quant_lstm_rank_step_cuda.launches
-    got = run(lstm_cuda.quant_lstm_rank_step_cuda)
-    assert lstm_cuda.quant_lstm_rank_step_cuda.launches == before + k
-    want = run(quant_lstm_rank_step)
-    one = lstm_cuda.quant_lstm_layer_cuda(layer, x[None], h, c, emit_f32)
-    torch.cuda.synchronize()
-    for a, b in zip(got, want):
-        assert all(torch.equal(p, q) for p, q in zip(a, b))
-    assert all(torch.equal(t, one[1]) for t in got[1])
-    assert all(torch.equal(t, one[0][0]) for t in got[2])
-    assert torch.equal(torch.cat(got[0], dim=1), one[2])
-    with pytest.raises(ValueError, match="whole"):
-        lstm_cuda.quant_lstm_rank_step_cuda(layers[0], x, h, got[0][0], got[1], got[2], 4,
-                                            emit_f32)
-
-
-@pytest.mark.parametrize("k", [2, 4])
-@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
-def test_rank_mode_c_matches_plain(dev, wdtype, k):
-    """Kernel C's rank mode, 6 steps of k ranks (H = 256, 40 lanes) through
-    lstm_layer_tp against the plain rank mode: y and h within 2**-8 (bf16)
-    or 1e-5 (f32) and c within 1e-3 or 1e-5, as the one-card kernel against
-    its twin; the ranks' y equal; 6 k counted launches."""
-    from rnnt_inference_tpu_torch.models.weights import map_tensors
-    from rnnt_inference_tpu_torch.ops import lstm as tl
-    from rnnt_inference_tpu_torch.ops import lstm_scan_cuda
-    from rnnt_inference_tpu_torch.parallel.mesh import rank_weights
-
-    w = init_weights(P, torch.Generator().manual_seed(33), device=dev)
-    w = map_tensors(w, lambda t: t.to(wdtype))
-    layers = [rank_weights(w, r, k).post_rnn[1] for r in range(k)]
-    H = w.post_rnn[1].w_hh.shape[0]
-    g = torch.Generator().manual_seed(34)
-    x = torch.randn((6, 40, H), generator=g).to(dev)
-    h = (torch.randn((40, H), generator=g) * 0.5).to(dev)
-    c = (torch.randn((40, H), generator=g) * 0.5).to(dev)
-    tol_h, tol_c = (2 ** -8, 1e-3) if wdtype == torch.bfloat16 else (1e-5, 1e-5)
-    before = lstm_scan_cuda.lstm_rank_step_cuda.launches
-    got = tl.lstm_layer_tp(layers, [x] * k, [h] * k, _rank_lists(k, c)[0])
-    assert lstm_scan_cuda.lstm_rank_step_cuda.launches == before + 6 * k
-    want = tl.lstm_layer_tp(layers, [x] * k, [h] * k, _rank_lists(k, c)[0], impl="reference")
-    torch.cuda.synchronize()
-    for r in range(k):
-        assert torch.equal(got[0][r], got[0][0])
-        assert float((got[0][r].float() - want[0][r].float()).abs().max()) <= tol_h
-        assert float((got[2][r] - want[2][r]).abs().max()) <= tol_c
-
-
-@pytest.mark.parametrize("k", [2, 4])
-@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
-def test_rank_mode_b_matches_plain(dev, wdtype, k):
-    """Kernel B's rank mode on k ranks at P = 320, J = 512, 40 lanes in
-    random states: one iteration and one call of 64 against the plain rank
-    mode from the same state: every rank's lanes, symbols and tokens equal
-    and equal across ranks, hg and cg within kernel B's tolerances; 4 + 1
-    and 4 x 64 + 1 counted launches per rank."""
-    from rnnt_inference_tpu_torch.parallel.mesh import rank_weights
-    from rnnt_inference_tpu_torch.tools.decode_divergence import tolerances
-
-    params, dw, fproj, state = _decode_case(dev, wdtype, 40)
-    w = init_weights(params, torch.Generator().manual_seed(12), dtype=wdtype, device=dev)
-    dws = [dc.decode_weights(rank_weights(w, r, k)) for r in range(k)]
-    tol_h, tol_c = tolerances(wdtype)
-    fp = _rank_lists(k, fproj)[0]
-
-    def split():
-        lanes, hg, cg, res = state
-        return ([lanes.clone() for _ in range(k)], [hg.clone() for _ in range(k)],
-                _rank_lists(k, cg)[0], [res.clone() for _ in range(k)])
-
-    for steps in (1, 64):
-        got, want = split(), split()
-        before = dc.decode_step_tp_cuda.launches
-        dc.decode_step_tp(fp, *got, dws, params, steps)
-        assert dc.decode_step_tp_cuda.launches == before + k * (4 * steps + 1)
-        dc.decode_step_tp(fp, *want, dws, params, steps, impl="reference")
-        torch.cuda.synchronize()
-        for r in range(k):
-            for i in (0, 3):
-                assert torch.equal(got[i][r], want[i][r]) and torch.equal(got[i][r], got[i][0])
-            assert torch.equal(got[1][r], got[1][0])
-            assert float((got[1][r].float() - want[1][r].float()).abs().max()) <= tol_h
-            assert float((got[2][r] - want[2][r]).abs().max()) <= tol_c
-
-
 def _tp_decode_against_one_card(dev, w, devices, k):
     """greedy_decode_tp on a 1 x k mesh over ``devices`` against the
     one-card kernels' greedy_decode of the same 8 utterances: the int8
     encoder's f bit-equal (float: within 2**-4), tokens equal or parting
-    only at near-ties, the ranks' lane state equal, every rank mode of the
-    path launched."""
+    only at near-ties, the ranks' lane state equal.  Tensor parallelism has
+    no kernel: with impl=None it refuses the card, and with
+    impl="reference" the ranks run the plain rank steps, launching none of
+    kernels A, B and C."""
     from rnnt_inference_tpu_torch.models import rnnt as tmodel
     from rnnt_inference_tpu_torch.models.quant import QuantRNNTWeights
     from rnnt_inference_tpu_torch.ops import lstm_scan_cuda
@@ -924,19 +808,23 @@ def _tp_decode_against_one_card(dev, w, devices, k):
     mesh = make_mesh(devices=devices, model_parallel=k)
     wr = weight_shardings(mesh, w, tensor_parallel=True)
     quant = isinstance(w, QuantRNNTWeights)
-    step = lstm_cuda.quant_lstm_rank_step_cuda if quant else lstm_scan_cuda.lstm_rank_step_cuda
-    before = (step.launches, dc.decode_step_tp_cuda.launches)
+    kernels = (lstm_cuda.quant_lstm_layer_cuda, lstm_scan_cuda.lstm_recurrence_cuda,
+               dc.decode_step_cuda)
+    before = [kern.launches for kern in kernels]
+    with pytest.raises(ValueError, match="no CUDA kernel"):
+        tensor.greedy_decode_tp(mesh, wr, x, lens, P)
     states = []
-    run = lambda st=None: tensor.greedy_decode_tp(mesh, wr, x, lens, P, rank_states=st)
+    run = lambda st=None: tensor.greedy_decode_tp(mesh, wr, x, lens, P, impl="reference",
+                                                  rank_states=st)
     res, rlens = run(states)
-    assert step.launches > before[0] and dc.decode_step_tp_cuda.launches > before[1]
+    assert [kern.launches for kern in kernels] == before
     want = greedy_decode(w, x, lens, P)
     enc = tmodel.init_encoder_state(8, P, w.pre_rnn[0].w_ih.dtype, dev)
     f1, _ = tmodel.transcription(w, x, lens, enc, P)
     sts = tensor.init_tp_states(wr[0], 8, P, mesh.model_devices(0))
     f, _ = tensor.transcription_tp(wr[0], [x.to(d) for d in mesh.model_devices(0)],
                                    [lens.to(d) for d in mesh.model_devices(0)],
-                                   [s.enc for s in sts], P)
+                                   [s.enc for s in sts], P, "reference")
     torch.cuda.synchronize()
     for fr in f:
         d = float((fr.to(dev).float() - f1.float()).abs().max())
@@ -959,8 +847,9 @@ def _tp_decode_against_one_card(dev, w, devices, k):
 @pytest.mark.parametrize("kind", ["int8", "bf16"])
 def test_tp_decode_on_one_card(dev, qweights, kind):
     """The 1 x 2 decode with both model ranks on cuda:0 against the
-    one-card kernels (_tp_decode_against_one_card): int8 (kernels A and B
-    in rank mode) and bf16 (C and B)."""
+    one-card kernels (_tp_decode_against_one_card): refused with impl=None,
+    the plain rank steps with impl="reference"; int8 (against kernels A
+    and B) and bf16 (C and B)."""
     w = qweights if kind == "int8" else init_weights(
         P, torch.Generator().manual_seed(0), dtype=torch.bfloat16, device=dev)
     _tp_decode_against_one_card(dev, w, [torch.device("cuda", 0)] * 2, 2)
@@ -968,9 +857,10 @@ def test_tp_decode_on_one_card(dev, qweights, kind):
 
 @pytest.mark.parametrize("kind", ["int8", "bf16"])
 def test_tensor_parallel_across_cards(dev, qweights, kind):
-    """With two or more cards: the 1 x 2 decode over cuda:0 and cuda:1 (the
-    rank modes store into the other card's buffers through peer access),
-    int8 (A, B) and bf16 (C, B), against the one-card kernels
+    """With two or more cards: the 1 x 2 decode over cuda:0 and cuda:1
+    (refused with impl=None; with impl="reference" the plain rank steps,
+    exchanging through copies between the cards), int8
+    (against A, B) and bf16 (C, B), against the one-card kernels
     (_tp_decode_against_one_card)."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA devices")

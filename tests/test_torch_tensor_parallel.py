@@ -1,6 +1,6 @@
 """The port's tensor parallelism (parallel/mesh.py make_mesh(model_parallel=k),
 split_units, weight_shardings(..., tensor_parallel=True); parallel/tensor.py
-greedy_decode_tp; the plain rank modes of kernels A, B and C) on the CPU
+greedy_decode_tp; the plain rank steps of kernels A, B and C) on the CPU
 at the golden bundle's widths (H = 64, P = 32, J = 32), against the port's
 one-device decode and against the JAX package's greedy_decode on a dp x
 tp = 2 mesh of tests/conftest.py's virtual CPU devices, built as
@@ -9,7 +9,7 @@ times (["cpu"] * 2 is 1 x 2, ["cpu"] * 4 is 2 x 2).
 
 Tolerances:
   - split_units / join_units: exact round trip.
-  - Plain rank modes against the full layer: int8 (kernel A's twin on a
+  - Plain rank steps against the full layer: int8 (kernel A's twin on a
     unit slice) bit-equal at k = 2: its sums are exact integers (at k = 4,
     c and f32 y within 1e-7: torch's vectorized sigmoid and tanh on the
     CPU round some elements of a narrower slice one ulp apart); float
@@ -170,7 +170,7 @@ def test_weight_shardings_tensor_parallel_layout(kind):
 
 @pytest.mark.parametrize("k", [2, 4])
 def test_plain_rank_mode_a_equals_the_layer(k):
-    """Kernel A's plain rank mode over k ranks (quant_lstm_layer_tp)
+    """Kernel A's plain rank steps over k ranks (quant_lstm_layer_tp)
     against the one-device layer, int8 and f32 y.  k = 2: y, h and c
     bit-equal.  k = 4: h and int8 y equal, c and f32 y within 1e-7: on the
     CPU, torch's vectorized sigmoid and tanh round some elements of a
@@ -200,7 +200,7 @@ def test_plain_rank_mode_a_equals_the_layer(k):
 
 @pytest.mark.parametrize("k", [2, 4])
 def test_plain_rank_mode_c_equals_the_layer(k):
-    """Kernel C's plain rank mode over k ranks (lstm_layer_tp), f32: y, h
+    """Kernel C's plain rank steps over k ranks (lstm_layer_tp), f32: y, h
     and c within 1e-6 of the one-device layer."""
     _, tw = _models(7, quant=False)
     ranks = [tmesh.rank_weights(tw, r, k) for r in range(k)]
@@ -221,10 +221,10 @@ def test_plain_rank_mode_c_equals_the_layer(k):
 
 @pytest.mark.parametrize("k", [2, 4])
 def test_plain_rank_mode_b_equals_the_step(k):
-    """Kernel B's plain rank mode over k ranks (decode_step_tp_reference),
+    """Kernel B's plain rank steps over k ranks (decode_step_tp_reference),
     8 iterations from random lane states: every rank's lanes, symbols and
     tokens equal the one-device twin's, hg (full width on every rank) and
-    cg (joined) within 1e-6; the CPU path launches nothing."""
+    cg (joined) within 1e-6."""
     _, tw = _models(9, quant=False)
     dw = dc.decode_weights(tw)
     dws = [dc.decode_weights(tmesh.rank_weights(tw, r, k)) for r in range(k)]
@@ -242,17 +242,37 @@ def test_plain_rank_mode_b_equals_the_step(k):
     ranks = ([lanes.clone() for _ in range(k)], [hg.clone() for _ in range(k)],
              [t.contiguous() for t in cg.chunk(k, dim=2)], [res.clone() for _ in range(k)])
     fp = [t.contiguous() for t in fproj.chunk(k, dim=2)]
-    before = dc.decode_step_tp_cuda.launches
     for _ in range(8):
         dc.decode_step_reference(fproj, *one, dw, TP)
     dc.decode_step_tp(fp, *ranks, dws, TP, steps=8)
-    assert dc.decode_step_tp_cuda.launches == before
     for r in range(k):
         assert torch.equal(ranks[0][r], one[0]) and torch.equal(ranks[3][r], one[3])
         torch.testing.assert_close(ranks[1][r], one[1], rtol=0, atol=1e-6)
     torch.testing.assert_close(torch.cat(ranks[2], dim=2), one[2], rtol=0, atol=1e-6)
     with pytest.raises(ValueError, match="unknown impl"):
         dc.decode_step_tp(fp, *ranks, dws, TP, impl="triton")
+
+
+@pytest.mark.parametrize("op", ["quant_lstm_layer_tp", "lstm_layer_tp", "decode_step_tp"])
+def test_tp_steps_refuse_the_card_unless_asked(op):
+    """The rank steps have no kernel: on CUDA tensors (a stand-in that says
+    it is one) impl=None raises before any work, so the card never runs the
+    plain version unasked; an unknown impl raises as on the CPU."""
+    from types import SimpleNamespace
+
+    from rnnt_inference_tpu_torch.ops import lstm as tlstm
+    from rnnt_inference_tpu_torch.ops import lstm_int8
+
+    card = [SimpleNamespace(is_cuda=True)] * 2
+    call = {"quant_lstm_layer_tp": lambda impl: lstm_int8.quant_lstm_layer_tp(
+                [None] * 2, card, card, card, False, impl),
+            "lstm_layer_tp": lambda impl: tlstm.lstm_layer_tp([None] * 2, card, card, card, impl),
+            "decode_step_tp": lambda impl: dc.decode_step_tp(card, card, card, card, card,
+                                                             [None] * 2, TP, 1, impl)}[op]
+    with pytest.raises(ValueError, match=f"{op} has no CUDA kernel"):
+        call(None)
+    with pytest.raises(ValueError, match="unknown impl"):
+        call("triton")
 
 
 @pytest.mark.parametrize("mesh_name", ["1x2", "2x2"])
