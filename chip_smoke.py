@@ -656,15 +656,17 @@ def phase_kernel_b_packed(weights, params, dev) -> dict:
 
 def phase_kernel_c(weights, dev) -> dict:
     """Kernel C against its twin at H=1024 (the middle encoder layer's
-    shape, IC=1024), T=48, N in {16, 128}, bf16 and f32 weights, both on
-    one xw: the layer's own projection (kernel E in bf16, which phase
-    projection holds to its twin); cuDNN's LSTM layer of the same shape
-    and type as the yardstick."""
+    shape, IC=1024), N in {16, 128} at T=48 and the packed runner's
+    N=1,024 at T=16, bf16 and f32 weights, both on one xw: the layer's own
+    projection (kernel E in bf16, which phase projection holds to its
+    twin); the cluster size plan chose and the timed calls' launches by
+    cluster size; cuDNN's LSTM layer of the same shape and type as the
+    yardstick."""
     from rnnt_inference_tpu_torch.models.weights import map_tensors
+    from rnnt_inference_tpu_torch.ops import cuda_build
     from rnnt_inference_tpu_torch.ops import lstm as tl
     from rnnt_inference_tpu_torch.ops import lstm_scan_cuda, projection_cuda
 
-    T = 48
     g = torch.Generator().manual_seed(321)
     rows, entries = [], {}
     for dt in (torch.bfloat16, torch.float32):
@@ -673,7 +675,7 @@ def phase_kernel_c(weights, dev) -> dict:
         # y/h: one bf16 step below 1 (an h that rounds to the other bf16
         # neighbour), c: 1e-3; f32: summation order only, 1e-5
         tol_h, tol_c = (2 ** -8, 1e-3) if dt == torch.bfloat16 else (1e-5, 1e-5)
-        for N in (16, 128):
+        for N, T in ((16, 48), (128, 48), (1024, 16)):
             x = torch.randn((T, N, IC), generator=g).to(dev)
             h0 = (torch.randn((N, H), generator=g) * 0.5).to(dev)
             c0 = (torch.randn((N, H), generator=g) * 0.5).to(dev)
@@ -695,7 +697,14 @@ def phase_kernel_c(weights, dev) -> dict:
             before = lstm_scan_cuda.lstm_recurrence_cuda.launches
             lstm_scan_cuda.lstm_recurrence_cuda(layer, xw, hc, cc)
             launches_per_call = lstm_scan_cuda.lstm_recurrence_cuda.launches - before
+            cluster_size = lstm_scan_cuda.plan(
+                H, N, dt, cuda_build.sm_count(dev),
+                lambda c: lstm_scan_cuda.max_clusters(dev, c, N, H))[2]
+            by_size = dict(lstm_scan_cuda.CLUSTER_LAUNCHES)
             ms = cuda_ms(lambda: lstm_scan_cuda.lstm_recurrence_cuda(layer, xw, hc, cc), 10)
+            cluster_launches = {k: v - by_size.get(k, 0)
+                                for k, v in lstm_scan_cuda.CLUSTER_LAUNCHES.items()
+                                if v != by_size.get(k, 0)}
             plain_ms = cuda_ms(lambda: tl.lstm_recurrence(xw, layer.w_hh, hc, cc), 3, 1)
             layer_ms = cuda_ms(lambda: tl.lstm_layer(layer, x, h0, c0), 10)
             cudnn = torch.nn.LSTM(IC, H).to(dev, dt)
@@ -710,6 +719,7 @@ def phase_kernel_c(weights, dev) -> dict:
             bound_ms, bound_by = bound(
                 bytes_moved, ops, PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_F32_FLOPS)
             row.update(ms=ms, ms_per_step=ms / T, launches_per_call=launches_per_call,
+                       cluster_size=cluster_size, cluster_launches=cluster_launches,
                        plain_ms=plain_ms, layer_ms=layer_ms, projection_ms=layer_ms - ms,
                        library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
             rows.append(row)
@@ -723,7 +733,7 @@ def phase_kernel_c(weights, dev) -> dict:
         "name": "lstm_recurrence", "route": "cuda",
         "source": "rnnt_inference_tpu_torch/csrc/lstm_scan.cu",
         "replaces": "rnnt_inference_tpu/ops/lstm_pallas.py:41",
-        "shape": f"IC={e['IC']} H={e['H']} N=128 T={T} bf16, one call = "
+        "shape": f"IC={e['IC']} H={e['H']} N=128 T={e['T']} bf16, one call = "
                  f"{e['launches_per_call']} launch; library_ms is cuDNN's whole layer "
                  "(compare layer_ms)",
         "max_abs_err": max(max(r["y_max_abs_diff"], r["h_max_abs_diff"], r["c_max_abs_diff"])
@@ -736,6 +746,10 @@ def phase_kernel_c(weights, dev) -> dict:
                           "bound_ms", "bound_by")},
         "n16": {str(d): {k: entries[(d, 16)][k] for k in ("ms", "layer_ms", "library_ms")}
                 for d in (torch.bfloat16, torch.float32)},
+        "n1024_t16": {str(d): {k: entries[(d, 1024)][k]
+                               for k in ("ms", "ms_per_step", "bound_ms", "cluster_size",
+                                         "cluster_launches", "layer_ms", "library_ms")}
+                      for d in (torch.bfloat16, torch.float32)},
     }
 
 

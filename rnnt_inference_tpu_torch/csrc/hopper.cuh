@@ -5,8 +5,10 @@
 // s32 sums) and m16n8k8 (tf32, f32 sums), the f32 FMA product on the CUDA
 // cores, the rounding helpers, and a grid barrier split into arrive and
 // wait; and, for the wgmma GEMMs (kernel E, projection.cu, and kernel A's
-// input product), TMA tile loads tracked by mbarriers, the shared-memory
-// descriptor of a swizzled tile, and the tensor maps' encoder.
+// input product) and kernel C's bf16 loop, TMA tile loads tracked by
+// mbarriers, the shared-memory descriptor of a swizzled tile, the tensor
+// maps' encoder, and the thread-block cluster's helpers (a load multicast
+// to the cluster's blocks, arrivals on a peer block's mbarrier).
 //
 // pass_products (below) runs one product for up to 128 lane rows with
 // every warp busy; the two product routines under it compute a warp's
@@ -467,6 +469,87 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       : "memory");
 }
 
+// ---------------------------------------------------------------------------
+// Thread-block clusters.  The blocks of a cluster run at once on SMs of one
+// GPC and may address each other's shared memory: a TMA load can land in
+// several of them at the same offset (multicast), each block's bytes
+// counted on its own mbarrier at the same offset, and a block can arrive on
+// a peer's mbarrier.
+
+// the block's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// a barrier of every thread of every block of the cluster (a release and an
+// acquire at cluster scope); it also orders the block's own threads
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// one arrival on the mbarrier at `bar`'s offset in the shared memory of the
+// cluster's block `rank` (this block included).  Its release is at the
+// block's scope, as CUTLASS's cluster pipelines release a slot: what it
+// orders are the thread's reads of its own block's slot, done by then;
+// .release.cluster made each arrival cost about as much as the products
+// of a chunk (kernel C's loop at N = 1,024 on an H100: 110 against 55 us a
+// step)
+__device__ __forceinline__ void mbar_arrive_peer(uint64_t* bar, uint32_t rank) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(smem_u32(bar)), "r"(rank)
+      : "memory");
+}
+
+// mbar_wait as an acquire at cluster scope: what the arrivals of peer
+// blocks released (their reads of a slot done) is ordered before what
+// follows
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// a box of a 3-D tensor map at (inner coordinate c0, row c1, plane c2) into
+// the shared memory at `dst`'s offset of every block of the cluster in
+// `mask` (bit r: rank r), each block's bytes counted on its mbarrier at
+// `bar`'s offset
+__device__ __forceinline__ void tma_load_multicast(void* dst, const CUtensorMap* map,
+                                                   uint64_t* bar, int c0, int c1, int c2,
+                                                   uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%4, %5, %6}], [%2], %3;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "h"(mask), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// orders the thread's ordinary (generic proxy) accesses of global memory
+// before it with TMA's (async proxy) accesses after it, on either side of a
+// barrier: a block's stores before a grid barrier, another block's TMA
+// loads of them after it
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
 // wgmma shared-memory descriptor of a K-major tile in the 128-byte swizzle
 // (as TMA stores it): start address / 16, leading offset 16 bytes (unused
 // by this layout), 1,024 bytes between groups of 8 rows, layout SWIZZLE_128B;
@@ -512,6 +595,22 @@ inline bool encode_rows(EncodeTiled fn, CUtensorMap* map, const void* ptr, int r
                              static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
   return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// planes x rows x cols elements of `type`, row-major, read in boxes of one
+// plane x box_rows x 128 bytes, 128-byte swizzle, zeros outside
+inline bool encode_planes(EncodeTiled fn, CUtensorMap* map, const void* ptr, int planes, int rows,
+                          int cols, int box_rows, CUtensorMapDataType type, int elem_bytes) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(planes)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * elem_bytes,
+                                 static_cast<cuuint64_t>(rows) * cols * elem_bytes};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(128 / elem_bytes),
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, type, 3, const_cast<void*>(ptr), dims, strides, box, elem,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -245,20 +245,27 @@ def b_fragments_inverse(f: torch.Tensor) -> torch.Tensor:
     return w.reshape(*lead, KS * 4 * E, NT * 8).contiguous()
 
 
-def block_columns(w: torch.Tensor, U: int) -> torch.Tensor:
+def block_columns(w: torch.Tensor, U: int, kmajor: bool = False) -> torch.Tensor:
     """Gate columns {K, 4H} (gate g of unit j at column g H + j) in the
     per-block order of the persistent LSTM kernels: block b's columns, gate
     g of unit b U + u, in ``gate_columns`` order, {H / U, K, 4U}; for bf16
-    and int8 then in mma fragment order (``b_fragments``)."""
+    and int8 then in mma fragment order (``b_fragments``), or with
+    ``kmajor`` each column a row of K inputs, {H / U, 4U, K} (the rows TMA
+    and wgmma read)."""
     K, G = w.shape
     w = w.reshape(K, 4, G // 4 // U, U).permute(2, 0, 3, 1).reshape(G // 4 // U, K, 4 * U)
     w = w[..., gate_columns(U, w.dtype).to(w.device)]
+    if kmajor:
+        return w.transpose(1, 2).contiguous()
     return w.contiguous() if w.dtype == torch.float32 else b_fragments(w)
 
 
-def block_columns_inverse(op: torch.Tensor, H: int, U: int) -> torch.Tensor:
+def block_columns_inverse(op: torch.Tensor, H: int, U: int, kmajor: bool = False) -> torch.Tensor:
     """The {K, 4H} gate columns back from ``block_columns``."""
-    w = op if op.dtype == torch.float32 else b_fragments_inverse(op)
+    if kmajor:
+        w = op.transpose(1, 2)
+    else:
+        w = op if op.dtype == torch.float32 else b_fragments_inverse(op)
     w = w[..., torch.argsort(gate_columns(U, op.dtype)).to(w.device)]
     K = w.shape[1]
     return w.reshape(H // U, K, U, 4).permute(1, 3, 0, 2).reshape(K, 4 * H)

@@ -43,9 +43,19 @@ Kernel B segments, one iteration:
   o_mma     logits (products, sums, shared memory)
   o_argmax  argmax and the lane algebra
   sync4
-Kernel C segments, one step: in (the first chunk of h), mma (the rest of
-the pass), epi (cell updates), sync; a step of several passes (f32 at
-N = 128) counts the earlier passes in `in`.
+Kernel C at N = 16 and 128 (T = 48) and at the packed runner's N =
+1,024 (T = 16), f32 and bf16.  The pass engine (f32; bf16 of one pass),
+segments of one step: in (the first chunk of h), mma (the rest of the
+pass), epi (cell updates), sync; a step of several passes (f32 at N =
+128) counts the earlier passes in `in`.  The cluster loop (bf16 at
+N = 1,024), with the cluster size plan chose and the launches by size:
+per pass of consumer warpgroup 0 (which takes every
+other pass; the step's time to the end of its passes split by the SM
+cycles its thread 0 in block 0 spent in each segment) turn (waiting for
+the other warpgroup to have seen the chunks of the pass before), wait
+(for a chunk's full barrier), mma (issuing a chunk's products and waiting
+for the previous chunk's), epi (the last products, cell updates, h_t
+out); and per step, sync (the grid barrier).
 Kernel A segments, one step (N <= 128: one pass each for h and x):
   h_in      after the barrier, until the first chunk of h_{t-1} has arrived
   h_mma     the rest of the h . W_hh pass
@@ -82,6 +92,15 @@ __device__ __forceinline__ unsigned long long gtime() {
 }
 #define STAMP(i) do { if (blockIdx.x == 0 && threadIdx.x == 0 && g_it < 256) \\
   g_prof[g_it * 32 + (i)] = gtime(); } while (0)
+// kernel C's cluster loop: SM cycles by segment, summed over a step
+#define STAMP_CLOCKS unsigned long long kp_w = 0, kp_t = 0, kp_m = 0, kp_e = 0, kp_n = 0, \\
+  kp_0 = clock64(), kp_a = 0
+#define STAMP_TICK kp_a = clock64()
+#define STAMP_ADD(x) do { const unsigned long long u_ = clock64(); x += u_ - kp_a; kp_a = u_; } \\
+  while (0)
+#define STAMP_CLOCKS_OUT do { if (blockIdx.x == 0 && threadIdx.x == 0 && g_it < 256) { \\
+  unsigned long long* o_ = g_prof + g_it * 32; o_[8] = kp_w; o_[9] = kp_m; o_[10] = kp_e; \\
+  o_[11] = clock64() - kp_0; o_[12] = kp_t; o_[13] = kp_n; } } while (0)
 """
 READ = """int rnnt_prof_read(void* host) {
   return (int)cudaMemcpyFromSymbol(host, g_prof, sizeof(g_prof));
@@ -137,8 +156,33 @@ SCAN = [
     ("[&](int r) { return hsrc + (size_t)(p0 + r) * H; }, acc);\n      if (kg == 0) {",
      "[&](int r) { return hsrc + (size_t)(p0 + r) * H; }, acc);\n      STAMP(2);\n"
      "      if (kg == 0) {"),
-    ("    if (t + 1 < T) cooperative_groups::this_grid().sync();",
-     "    STAMP(3);\n    if (t + 1 < T) cooperative_groups::this_grid().sync();\n    STAMP(4);"),
+    ("    if (t + 1 < T) cooperative_groups::this_grid().sync();  // y_t complete across the grid",
+     "    STAMP(3);\n"
+     "    if (t + 1 < T) cooperative_groups::this_grid().sync();  // y_t complete across the grid\n"
+     "    STAMP(4);"),
+    # the bf16 cluster loop: consumer thread 0 of block 0 (warpgroup 0, every
+    # other pass) sums SM cycles by segment over its passes of a step into
+    # slots 8-12, counts them in 13, and stamps the step's start (0), the end
+    # of its passes (1) and the end of its barrier (2)
+    ("    mbar_wait(wbar, 0);\n    for (int t = 0; t < T; ++t) {\n",
+     "    mbar_wait(wbar, 0);\n    for (int t = 0; t < T; ++t) {\n"
+     "      if (blockIdx.x == 0 && tid == 0) g_it = t;\n      STAMP(0);\n      STAMP_CLOCKS;\n"),
+    ("        if (P > 0) mbar_wait(&turn[wg], ((P + wg) / CW + 1) & 1);\n",
+     "        STAMP_TICK;\n        if (P > 0) mbar_wait(&turn[wg], ((P + wg) / CW + 1) & 1);\n"
+     "        STAMP_ADD(kp_t); ++kp_n;\n"),
+    ("              mbar_wait(&full[s], (g / S) & 1);\n",
+     "              STAMP_TICK;\n              mbar_wait(&full[s], (g / S) & 1);\n"
+     "              STAMP_ADD(kp_w);\n"),
+    ("              held = s;\n            }\n",
+     "              held = s;\n              STAMP_ADD(kp_m);\n            }\n"),
+    ("        if (t128 == 0) mbar_arrive(&turn[1 - wg]);\n",
+     "        if (t128 == 0) mbar_arrive(&turn[1 - wg]);\n        STAMP_TICK;\n"),
+    ("              if (t == T - 1) a.hT[off] = hv;\n            }\n          }\n      }\n",
+     "              if (t == T - 1) a.hT[off] = hv;\n            }\n          }\n"
+     "        STAMP_ADD(kp_e);\n      }\n      STAMP(1);\n      STAMP_CLOCKS_OUT;\n"),
+    ("        cooperative_groups::this_grid().sync();\n      }\n    }\n  }\n  cluster_sync();",
+     "        cooperative_groups::this_grid().sync();\n      }\n      STAMP(2);\n    }\n  }\n"
+     "  cluster_sync();"),
     ("const char* rnnt_cuda_error_string(int err) {", READ),
 ]
 QUANT = [
@@ -264,6 +308,24 @@ def _segments(lib, steps: int, stamps: int, first: int, last: int):
     return float(per), [float(x) for x in segs]
 
 
+def _cluster_segments(lib, steps: int):
+    """Kernel C's bf16 loop over steps 2 .. steps - 2 of the last launch:
+    mean microseconds per step and its sync, and per pass of warpgroup 0
+    the split of its SM cycles into turn (waiting for the other warpgroup
+    to have seen its pass's chunks), wait (for a chunk), mma and epi."""
+    import numpy as np
+
+    buf = np.zeros(256 * 32, np.uint64)
+    if lib.rnnt_prof_read(buf.ctypes.data) != 0:
+        raise SystemExit("kernel_phases: could not read the stamps")
+    a = buf.reshape(256, 32)[:steps].astype(np.int64)[2:steps - 1]
+    per = float(np.diff(a[:, 0]).mean() / 1e3)
+    ns_per_cycle = (a[:, 1] - a[:, 0]) / a[:, 11]
+    passes = a[:, 13].sum()
+    split = [float((a[:, k] * ns_per_cycle).sum() / 1e3 / passes) for k in (12, 8, 9, 10)]
+    return per, (*split, float((a[:, 2] - a[:, 1]).mean() / 1e3))
+
+
 def _mel_phases(lib, dev) -> None:
     """Kernel D at chip_smoke.py kernel_d's shape: the segments of warp 0
     in every block (see the module's docstring)."""
@@ -308,6 +370,7 @@ def main() -> int:
     from rnnt_inference_tpu_torch.config import RNNTParams
     from rnnt_inference_tpu_torch.models.quant import QuantLSTMLayerWeights
     from rnnt_inference_tpu_torch.models.weights import LSTMLayerWeights, init_weights
+    from rnnt_inference_tpu_torch.ops import cuda_build
     from rnnt_inference_tpu_torch.ops import decode_cuda as dc
     from rnnt_inference_tpu_torch.ops import lstm_cuda as la
     from rnnt_inference_tpu_torch.ops import lstm_scan_cuda as ls
@@ -320,6 +383,7 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(smi, flush=True)
     dev = torch.device("cuda")
+    sms = cuda_build.sm_count(dev)
     params = RNNTParams()
     rng = np.random.RandomState(0)
     _mel_phases(libs["mel"], dev)
@@ -341,20 +405,31 @@ def main() -> int:
             per, segs = _segments(libs["decode_step"], 16, len(B_SEGMENTS) + 1, 2, 15)
             print(f"B {str(dt)[6:]} N={N}: {per:.2f} us per iteration; "
                   + ", ".join(f"{k} {v:.2f}" for k, v in zip(B_SEGMENTS, segs)), flush=True)
-    H, T = 1024, 48
+    H = 1024
     g = torch.Generator().manual_seed(0)
     for dt in (torch.bfloat16, torch.float32):
         layer = LSTMLayerWeights(*(((torch.rand(s, generator=g) * 2 - 1) / 32).to(dev, dt)
                                    for s in ((H, 4 * H), (H, 4 * H), (4 * H,))))
-        for N in (16, 128):
+        for N, T in ((16, 48), (128, 48), (1024, 16)):
             xw = (torch.randn(T, N, 4 * H, generator=g) * 0.5).to(dev, dt)
             h0, c0 = torch.zeros(N, H, dtype=dt, device=dev), torch.zeros(N, H, device=dev)
+            by_size = dict(ls.CLUSTER_LAUNCHES)
             for _ in range(2):
                 ls.lstm_recurrence_cuda(layer, xw, h0, c0)
                 torch.cuda.synchronize()
-            per, segs = _segments(libs["lstm_scan"], T, len(C_SEGMENTS) + 1, 2, T - 1)
-            print(f"C {str(dt)[6:]} N={N}: {per:.2f} us per step; "
-                  + ", ".join(f"{k} {v:.2f}" for k, v in zip(C_SEGMENTS, segs)), flush=True)
+            cs = ls.plan(H, N, dt, sms, lambda c: ls.max_clusters(dev, c, N, H))[2]
+            if not cs:  # the pass engine
+                per, segs = _segments(libs["lstm_scan"], T, len(C_SEGMENTS) + 1, 2, T - 1)
+                print(f"C {str(dt)[6:]} N={N} T={T} (pass engine): {per:.2f} us per step; "
+                      + ", ".join(f"{k} {v:.2f}" for k, v in zip(C_SEGMENTS, segs)), flush=True)
+                continue
+            launched = {k: v - by_size.get(k, 0) for k, v in ls.CLUSTER_LAUNCHES.items()
+                        if v != by_size.get(k, 0)}
+            per, (turn, wait, mma, epi, sync) = _cluster_segments(libs["lstm_scan"], T)
+            print(f"C bf16 N={N} T={T}: {per:.2f} us per step, cluster size {cs} (launches by "
+                  f"size {launched}), {-(-N // 128)} passes; a pass of warpgroup 0: turn "
+                  f"{turn:.2f}, wait {wait:.2f}, mma {mma:.2f}, epi {epi:.2f}; sync {sync:.2f}",
+                  flush=True)
     IC = 2048  # the first post layer, the widest
     i8 = lambda *s: torch.randint(-128, 128, s, generator=g, dtype=torch.int8).to(dev)
     scale = lambda v: torch.tensor(v, device=dev)

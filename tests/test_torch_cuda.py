@@ -360,14 +360,17 @@ def _scan_layer(dev, dtype, H, IC=64, seed=13):
         for s in ((IC, 4 * H), (H, 4 * H), (4 * H,))))
 
 
-@pytest.mark.parametrize("T", [1, 48])
-@pytest.mark.parametrize("N", [1, 16, 128, 200, 1024])
+@pytest.mark.parametrize("T", [1, 48, 16])
+@pytest.mark.parametrize("N", [1, 16, 128, 200, 1000, 1024])
 @pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
 def test_lstm_scan_kernel_mlperf_width(dev, wdtype, N, T):
-    """Kernel C at H=1024 (MLPerf's width), 1 to 1,024 lanes, against its
-    twin on the same xw:
+    """Kernel C at H=1024 (MLPerf's width), 1 to 1,024 lanes (N = 1,000: a
+    ragged last pass of 104 lanes), against its twin on the same xw:
     f32 within 1e-5; bf16 y/h within 2**-8 and c within 1e-3.  One launch
-    per call."""
+    per call; bf16 calls of more than 128 lanes run the cluster loop and
+    count in cluster_launches under the size plan chose, the others run the
+    pass engine and count there not at all."""
+    from rnnt_inference_tpu_torch.ops import cuda_build
     from rnnt_inference_tpu_torch.ops import lstm as tl
     from rnnt_inference_tpu_torch.ops import lstm_scan_cuda
 
@@ -376,9 +379,16 @@ def test_lstm_scan_kernel_mlperf_width(dev, wdtype, N, T):
     xw = (torch.randn((T, N, 4096), generator=g) * 0.5).to(dev, wdtype)
     h0 = (torch.randn((N, 1024), generator=g) * 0.5).to(dev, wdtype)
     c0 = (torch.randn((N, 1024), generator=g) * 0.5).to(dev)
+    cs = lstm_scan_cuda.plan(1024, N, wdtype, cuda_build.sm_count(dev),
+                             lambda c: lstm_scan_cuda.max_clusters(dev, c, N, 1024))[2]
+    assert (cs > 0) == (wdtype == torch.bfloat16 and N > 128)
     before = lstm_scan_cuda.lstm_recurrence_cuda.launches
+    by_size = dict(lstm_scan_cuda.lstm_recurrence_cuda.cluster_launches)
     got = lstm_scan_cuda.lstm_recurrence_cuda(layer, xw, h0, c0)
     assert lstm_scan_cuda.lstm_recurrence_cuda.launches == before + 1
+    if cs:
+        by_size[cs] = by_size.get(cs, 0) + 1
+    assert lstm_scan_cuda.lstm_recurrence_cuda.cluster_launches == by_size
     want = tl.lstm_recurrence(xw, layer.w_hh, h0, c0)
     torch.cuda.synchronize()
     bf16 = wdtype == torch.bfloat16

@@ -150,7 +150,8 @@ def test_plan_units_and_refusals(mode):
     """plan takes U=8 units per block, one block to an SM (H=1024 on 132
     SMs: 128 blocks; H=256: 32) and refuses, with ValueError, H not a
     multiple of 128, a grid larger than the card (H=2048 needs 256
-    blocks), and more lanes than shared memory holds; N=1024 fits."""
+    blocks), and more lanes than shared memory holds (N=8192; the bf16
+    cluster loop holds up to ~4,100 at H=1024); N=1024 fits."""
     tdt = DTYPES[mode][0]
     assert lstm_scan_cuda.plan(1024, 1024, tdt, 132)[0] == 8
     assert lstm_scan_cuda.plan(256, 1, tdt, 132)[0] == 8
@@ -161,7 +162,86 @@ def test_plan_units_and_refusals(mode):
     with pytest.raises(ValueError, match="blocks"):
         lstm_scan_cuda.plan(4096, 8, tdt, 132)
     with pytest.raises(ValueError, match="shared memory"):
-        lstm_scan_cuda.plan(1024, 4096, tdt, 132)
+        lstm_scan_cuda.plan(1024, 8192, tdt, 132)
+
+
+# clusters of 4 and of 2 the card reports holding at once, and the size plan
+# takes: enough for 4, for 2 only, for neither (H=1024: 128 blocks, 32
+# clusters of 4 or 64 of 2; H=256: 32 blocks, 8 or 16)
+CARDS = {1024: [({4: 32, 2: 66}, 4), ({4: 31, 2: 64}, 2), ({4: 30, 2: 63}, 1)],
+         256: [({4: 8, 2: 16}, 4), ({4: 7, 2: 16}, 2), ({4: 7, 2: 15}, 1)]}
+
+
+@pytest.mark.parametrize("card", [0, 1, 2], ids=["four", "two_only", "neither"])
+@pytest.mark.parametrize("H", [1024, 256])
+def test_plan_cluster_size_from_the_card(H, card):
+    """bf16 calls of more than 128 lanes run the cluster loop: plan takes
+    the largest cluster size in {4, 2} of which the card holds all H / 8 /
+    size clusters at once (what cudaOccupancyMaxActiveClusters reports),
+    else 1; it asks for 4 first and for 2 only when 4 does not fit, and a
+    plan given no report takes 1.  bf16 calls of one pass (N <= 128) and
+    f32 run the pass engine, cluster size 0, and ask nothing."""
+    reported, want = CARDS[H][card]
+    asked = []
+
+    def clusters(cs):
+        asked.append(cs)
+        return reported[cs]
+
+    U, smem, cs = lstm_scan_cuda.plan(H, 1024, torch.bfloat16, 132, clusters)
+    assert (U, cs) == (8, want)
+    assert smem == lstm_scan_cuda.cluster_smem(H, 1024, 2) <= cuda_build.SMEM_PER_BLOCK
+    assert asked == ([4] if want == 4 else [4, 2])
+    assert lstm_scan_cuda.plan(H, 129, torch.bfloat16, 132, clusters)[2] == want
+    assert lstm_scan_cuda.plan(H, 1024, torch.bfloat16, 132)[2] == 1
+    asked.clear()
+    for N, dt in ((128, torch.bfloat16), (16, torch.bfloat16), (1024, torch.float32)):
+        assert lstm_scan_cuda.plan(H, N, dt, 132, clusters)[2] == 0
+    assert asked == []
+
+
+def test_cluster_launches_count_as_launches(monkeypatch):
+    """Every launch adds one to lstm_recurrence_cuda.launches, and each
+    launch of the cluster loop one to cluster_launches under its cluster
+    size (the pass engine's, size 0, none), also while a recorder stands in
+    for the function's name (as the benchmark's does)."""
+    rec = lstm_scan_cuda.lstm_recurrence_cuda
+    n, by = rec.launches, dict(rec.cluster_launches)
+    for cs in (4, 4, 2, 1, 0):
+        lstm_scan_cuda._count_launch(cs)
+    assert rec.launches == n + 5
+    assert rec.cluster_launches == {**by, 4: by.get(4, 0) + 2, 2: by.get(2, 0) + 1,
+                                    1: by.get(1, 0) + 1}
+    assert sum(rec.cluster_launches.values()) - sum(by.values()) == rec.launches - n - 1
+
+    def stand_in(*args):
+        return rec(*args)
+
+    stand_in.launches = rec.launches
+    monkeypatch.setattr(lstm_scan_cuda, "lstm_recurrence_cuda", stand_in)
+    lstm_scan_cuda._count_launch(4)
+    assert stand_in.launches == rec.launches + 1
+    assert rec.cluster_launches[4] == by.get(4, 0) + 3
+
+
+@pytest.mark.parametrize("H", [128, 1024])
+def test_bf16_recurrent_weight_is_kmajor(H):
+    """The cluster loop's operand is each block's 32 gate columns as rows of
+    H inputs ({H / 8, 32, H}, the rows TMA brings to wgmma), in
+    gate_columns order, kept beside the pass engine's fragment-order one;
+    block_columns_inverse gives W_hh back bit for bit."""
+    rng = np.random.RandomState(H)
+    lay = LSTMLayerWeights(*(torch.from_numpy(w).to(torch.bfloat16) for w in _layer(rng, 8, H)))
+    op = lstm_scan_cuda.recurrent_weight(lay, 8, kmajor=True)
+    frag = lstm_scan_cuda.recurrent_weight(lay, 8)
+    assert frag.shape == (H // 8, H // 16, 4, 32, 4)
+    assert lstm_scan_cuda.recurrent_weight(lay, 8, kmajor=True) is op
+    assert op.shape == (H // 8, 32, H) and op.is_contiguous()
+    assert torch.equal(cuda_build.block_columns_inverse(op, H, 8, kmajor=True), lay.w_hh)
+    perm = cuda_build.gate_columns(8, torch.bfloat16)
+    b, r = H // 8 - 1, 13
+    unit, gate = divmod(int(perm[r]), 4)
+    assert torch.equal(op[b, r], lay.w_hh[:, gate * H + b * 8 + unit])
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
