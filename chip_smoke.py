@@ -207,6 +207,27 @@ def phase_device() -> dict:
     return dev
 
 
+def kernel_ms(fn, name: str, reps: int) -> float:
+    """Mean device milliseconds of the kernels whose name holds ``name`` over
+    ``reps`` calls of fn, from torch.profiler's kernel records: for a kernel
+    shorter than its host launch path, which back-to-back CUDA events would
+    time instead."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if name in e.name
+              and str(getattr(e, "device_type", "")).endswith("CUDA")]
+    if len(events) != reps:
+        raise RuntimeError(f"{len(events)} {name} kernels recorded for {reps} calls")
+    us = sum(getattr(e, "device_time", None) or e.cuda_time for e in events)
+    return us / 1e3 / reps
+
+
 def bound(bytes_moved: float, ops: float, peak_ops: float):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
     operations over the peak rate of their type."""
@@ -3325,6 +3346,98 @@ def phase_bare_machine(card: str, seed: int) -> dict:
     return {"main": launches, "timed_pass": {k: sum(p[k] for p in perf) for k in launches}}
 
 
+def phase_fastconformer_kernels(dev, seed: int) -> dict:
+    """The streaming FastConformer's kernels (tests/test_torch_fastconformer_cuda.py
+    holds them to their twins too), each against its plain twin and timed
+    beside its bound at the Server cell's shape (fastconformer.server.poisson:
+    128 slots, chunks of 14 encoder frames, a ring of 6 chunks, 8 heads of
+    64; 9 taps over 512 channels), every slot busy at chunk 5 or later (its
+    keys the ring's 84 rows):
+    Times ("ms") are the kernels' device time from torch.profiler; beside
+    them "ms_launch_loop", back-to-back calls timed by CUDA events, which the
+    host's launch path bounds at these sizes.
+      F_stream  relative-position attention under the chunked-limited mask
+                (csrc/rel_attention.cu rel_attention_stream): one bf16 ulp
+                of the twin's output (2^-7 |out|) plus the rounding of the
+                probabilities to bf16 (2^-8 of the twin run on |v|) plus
+                1e-6; bound: q, the seen K and V rows, the output and the
+                band once, against 6 C keys d operations a head and slot;
+      G_causal  causal depthwise convolution + bias + LayerNorm + Swish, the
+                cache rewritten in the same launch (csrc/depthwise.cu
+                depthwise_causal): one bf16 ulp of the twin plus 1e-3 (the
+                LayerNorm's statistics summed in another order), the cache
+                equal to the chunk's last 8 rows; bound: rows in, cache rows
+                in and out, rows out and the taps, once."""
+    from rnnt_inference_tpu_torch.ops import attention_cuda as ac
+    from rnnt_inference_tpu_torch.ops import depthwise_cuda as dg
+
+    N, H, d, C, R = 128, 8, 64, 14, 6
+    D = H * d
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn((N * C, 3 * D), generator=g, device=dev).to(torch.bfloat16)
+    kv = torch.randn((N, R, C, 2 * D), generator=g, device=dev).to(torch.bfloat16)
+    band = torch.randn(((R + 1) * C - 1, D), generator=g, device=dev).to(torch.bfloat16)
+    u, vb = (0.1 * torch.randn((2, H, d), generator=g, device=dev)).unbind(0)
+    chunk = torch.randint(5, 14, (N,), generator=g, device=dev, dtype=torch.int32)
+    enc = (chunk * C + C).int()
+    args = (qkv[:, :D], kv, band, u, vb, chunk, enc, 2)
+    got = ac.rel_attention_stream(*args)
+    want = ac.rel_attention_stream(*args, impl="reference")
+    absv = ac.rel_attention_stream(qkv[:, :D], torch.cat([kv[..., :D], kv[..., D:].abs()], -1),
+                                   *args[2:], impl="reference")
+    diff = (got.float() - want.float()).abs()
+    over = diff - (2 ** -7 * want.float().abs() + 2 ** -8 * absv.float() + 1e-6)
+    if not float(over.max()) <= 0:
+        raise AssertionError(f"kernel F (streaming) off: max |d| {float(diff.max())}, over its "
+                             f"bound by {float(over.max())}")
+    f_ms = kernel_ms(lambda: ac.rel_attention_stream_cuda(*args), "rel_attention_stream", 20)
+    f_loop_ms = cuda_ms(lambda: ac.rel_attention_stream_cuda(*args), 20)
+    plain_ms = cuda_ms(lambda: ac.rel_attention_stream_reference(*args), 3, 1)
+    keys = R * C
+    ops = 6.0 * N * H * C * keys * d
+    nbytes = 2.0 * N * H * d * (2 * C + 2 * keys) + 2.0 * band.numel()
+    bound_ms, bound_by = bound(nbytes, ops, PEAK_BF16_FLOPS)
+    rows = {"F_stream": {
+        "name": "rel_attention_stream", "route": "cuda", "source": "rnnt_inference_tpu_torch/"
+        "csrc/rel_attention.cu", "replaces": "none: the JAX package has no attention",
+        "shape": f"{N} slots x {C} query rows against {keys} keys (a ring of {R} chunks), {H} "
+                 f"heads of {d}, band {band.shape[0]} rows; one call = 1 launch",
+        "ms": f_ms, "ms_launch_loop": f_loop_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "share_of_bound": bound_ms / f_ms, "plain_ms": plain_ms, "max_abs_err": float(diff.max()),
+        "max_abs_out": float(want.float().abs().max()),
+        "library_ms": "none: no single PyTorch call attends a ring of chunks in place"}}
+
+    K = 9
+    x = torch.randn((N * C, D), generator=g, device=dev).to(torch.bfloat16)
+    cache = torch.randn((N, K - 1, D), generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn((K, D), generator=g, device=dev) / 3).to(torch.bfloat16)
+    b, lg, lb = torch.randn((3, D), generator=g, device=dev).unbind(0)
+    c1, c2 = cache.clone(), cache.clone()
+    got = dg.depthwise_causal(x, c1, w, b, lg, lb, 1e-5)
+    want = dg.depthwise_causal(x, c2, w, b, lg, lb, 1e-5, impl="reference")
+    diff = (got.float() - want.float()).abs()
+    if float((diff - 2 ** -7 * want.float().abs()).max()) > 1e-3 or not torch.equal(c1, c2):
+        raise AssertionError(f"kernel G (causal) off: max |d| {float(diff.max())}, cache equal "
+                             f"{torch.equal(c1, c2)}")
+    g_ms = kernel_ms(lambda: dg.depthwise_causal_cuda(x, c1, w, b, lg, lb, 1e-5),
+                     "depthwise_causal", 20)
+    g_loop_ms = cuda_ms(lambda: dg.depthwise_causal_cuda(x, c1, w, b, lg, lb, 1e-5), 20)
+    plain_ms = cuda_ms(lambda: dg.depthwise_causal_reference(x, c2, w, b, lg, lb, 1e-5), 3, 1)
+    nbytes = 2.0 * D * (2 * N * C + 2 * N * (K - 1) + K) + 4.0 * 3 * D
+    bound_ms, bound_by = bound(nbytes, 2.0 * K * N * C * D, PEAK_F32_FLOPS)
+    rows["G_causal"] = {
+        "name": "depthwise_causal", "route": "cuda", "source": "rnnt_inference_tpu_torch/csrc/"
+        "depthwise.cu", "replaces": "none: the JAX package has no convolution module",
+        "shape": f"{N} slots x {C} rows x {D} channels, {K} causal taps, {K - 1} cache rows, "
+                 f"LayerNorm and Swish; one call = 1 launch",
+        "ms": g_ms, "ms_launch_loop": g_loop_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "share_of_bound": bound_ms / g_ms, "plain_ms": plain_ms, "max_abs_err": float(diff.max()),
+        "library_ms": "none: no single PyTorch call runs a causal depthwise convolution from a "
+                      "cache"}
+    emit({"phase": "fastconformer_kernels", "rows": rows})
+    return rows
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3439,8 +3552,10 @@ def main() -> int:
     for e, name in ((conf["F"], "attention"), (conf["G"], "depthwise"),
                     (conf["B_wide"], "decode_step")):
         e["launches_by_path"] = {"conformer_packed": paths["conformer_packed"]["main"][name]}
+    fc = phase_fastconformer_kernels(dev, args.seed)
     emit({"phase": "summary", "card": card, "seconds": time.time() - t_start})
-    emit({"kernels": [a, b, c, d, proj, conf["F"], conf["G"], conf["B_wide"]]})
+    emit({"kernels": [a, b, c, d, proj, conf["F"], conf["G"], conf["B_wide"], fc["F_stream"],
+                      fc["G_causal"]]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -10,7 +10,7 @@ configs/rnnt.toml [input_eval].
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,7 +51,16 @@ class ConformerParams:
     module, half FF, LayerNorm).  The prediction net is an embedding and
     ``pred_num_layers`` LSTM layers; the joint is relu(f W1t + g W1p + b1)
     W2 + b2.  The decoder and runners read the fields they share with
-    RNNTParams under the same names."""
+    RNNTParams under the same names.
+
+    The defaults are the full-context Large model.  NeMo's cache-aware
+    streaming FastConformer (models/fastconformer.py) sets
+    ``subsampling="dw_striding"`` with ``causal_downsampling`` (three
+    causal 3x3 stride-2 stages, factor 8), ``att_context_size`` (left,
+    right) encoder frames of the chunked-limited attention mask (a chunk of
+    right + 1 frames sees its own and left / (right + 1) earlier chunks),
+    ``conv_causal`` (the depthwise convolution reads kernel - 1 frames
+    back and none ahead) and ``conv_norm="layer_norm"`` after it."""
 
     n_mels: int = 80
     d_model: int = 512
@@ -74,6 +83,27 @@ class ConformerParams:
     max_symbols_per_step: int = 10
     sample_rate: int = 16000
     max_res_len: int = 1024
+    subsampling: str = "striding"  # or "dw_striding"
+    causal_downsampling: bool = False
+    att_context_size: Tuple[int, int] = (-1, -1)  # (-1, -1): full context
+    conv_causal: bool = False
+    conv_norm: str = "batch_norm"  # or "layer_norm"
+
+    @property
+    def streaming(self) -> bool:
+        """Whether the attention is chunked-limited (a cache-aware streaming
+        model)."""
+        return self.att_context_size[0] >= 0
+
+    @property
+    def chunk_frames(self) -> int:
+        """Encoder frames of a chunk of the chunked-limited mask."""
+        return self.att_context_size[1] + 1
+
+    @property
+    def left_chunks(self) -> int:
+        """Earlier chunks a chunk attends to."""
+        return self.att_context_size[0] // self.chunk_frames
 
     @property
     def d_head(self) -> int:
@@ -84,21 +114,43 @@ class ConformerParams:
         return self.d_model * self.ff_expansion
 
     @property
+    def sub_stages(self) -> int:
+        """Stride-2 convolutions of the subsampling."""
+        return {2: 1, 4: 2, 8: 3}[self.subsampling_factor]
+
+    def subsampled_len(self, n):
+        """n frames through the stride-2 convolutions (ints, numpy arrays
+        and tensors alike; 0 frames give 1 here, so ``encoded_len`` tests
+        for them)."""
+        f = causal_conv_out_len if self.causal_downsampling else conv_out_len
+        for _ in range(self.sub_stages):
+            n = f(n)
+        return n
+
+    @property
     def sub_freq(self) -> int:
-        """Frequency bins after the two stride-2 convolutions."""
-        return conv_out_len(conv_out_len(self.n_mels))
+        """Frequency bins after the stride-2 convolutions."""
+        return self.subsampled_len(self.n_mels)
 
     def encoded_len(self, frames: int) -> int:
         """Encoder frames of an utterance of ``frames`` feature frames: each
-        stride-2 convolution (kernel 3, padding 1) takes L to
-        floor((L - 1) / 2) + 1."""
-        return conv_out_len(conv_out_len(frames)) if frames > 0 else 0
+        stride-2 convolution (kernel 3) takes L to floor((L - 1) / 2) + 1
+        with padding 1 on both sides, to floor(L / 2) + 1 with the causal
+        padding (2 before, 1 after)."""
+        return self.subsampled_len(frames) if frames > 0 else 0
 
 
 def conv_out_len(n):
     """A 3-wide, stride-2, padding-1 convolution's output length: (n - 1) //
     2 + 1 (for numpy arrays and tensors too)."""
     return (n - 1) // 2 + 1
+
+
+def causal_conv_out_len(n):
+    """A 3-wide, stride-2 convolution's output length with NeMo's causal
+    padding (kernel - 1 = 2 before, stride - 1 = 1 after): n // 2 + 1 (for
+    numpy arrays and tensors too)."""
+    return n // 2 + 1
 
 
 @dataclasses.dataclass(frozen=True)

@@ -35,6 +35,24 @@
 // keys past L, the online softmax on the fragments (quad shuffles), the
 // probabilities as A fragments of the product with V (ldmatrix .trans).
 // 86 KB of shared memory a block: two blocks an SM.
+//
+// The streaming form (rel_attention_stream) serves the cache-aware
+// FastConformer's chunked-limited attention (ops/attention_cuda.py states
+// the layout): each of N slots brings C <= 16 query rows, one chunk, and
+// attends to the keys of its last R <= 6 chunks, read in place from the
+// slot's ring of K and V rows (a chunk a place), the position band of (R +
+// 1) C - 1 rows shared by every slot.  A 64-row query tile would leave 78%
+// of the tile empty at C = 14, so one warp owns one (slot, head): its C
+// rows are one m16 tile of q + u and q + vb; it stages the R chunks' K and V
+// (16 rows a chunk, rows it may not see zero-filled by cp.async: before the
+// utterance, past its length, past C) and the band (112 rows) once, forms
+// the band product (q + vb) . p over all 112 rows into shared memory, and
+// reads each pair's term at band row C - 1 - i + m C + r, as the full form
+// reads its skewed band.  All of a row's scores (16 R at most) stay in
+// registers, so the softmax (f32, exp2 scale) is taken whole: max, exp2,
+// sum, then the probabilities (bf16) . v.  A row that may see no key (a slot
+// with no frames in this chunk) writes zeros.  55 KB of shared memory a
+// warp: four warps an SM, every slot's heads in about two waves at N = 128.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -301,9 +319,249 @@ cudaError_t launch(const Args& a, int B, int H, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---- the streaming form ----------------------------------------------------
+
+constexpr int ST = 16;          // rows of a chunk's tile: queries, keys, values
+constexpr int SRING = 6;        // chunks the ring may hold
+constexpr int SBAND = 112;      // band rows staged, >= (R + 1) C - 1
+constexpr int SBS = SBAND + 4;  // row stride (floats) of the band product's scratch
+
+struct StreamArgs {
+  const __nv_bfloat16 *q, *kv, *band;
+  const float *u, *vb;
+  const int *chunk, *enc_len;
+  __nv_bfloat16* out;
+  long long sq, sband, so;  // row strides, in elements
+  int H, C, R, pos;
+  float scale_log2;  // log2(e) / sqrt(D)
+};
+
+// shared memory, in bf16 elements: K and V (SRING tiles of ST rows each), q +
+// u and q + vb, the band; then the f32 scratch of the band product
+template <int D>
+struct StreamSmem {
+  static constexpr int LD = D + 8;
+  static constexpr int K0 = 0, V0 = SRING * ST * LD, Q0 = 2 * SRING * ST * LD;
+  static constexpr int P0 = Q0 + 2 * ST * LD, END = P0 + SBAND * LD;
+  static constexpr size_t BYTES = sizeof(__nv_bfloat16) * END + sizeof(float) * ST * SBS;
+};
+
+template <int D>
+__global__ void __launch_bounds__(32) rel_attention_stream(const StreamArgs a) {
+  using S = StreamSmem<D>;
+  constexpr int LD = S::LD, KD = D / 16, CH = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sm = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  float* scr = reinterpret_cast<float*>(sm + S::END);
+
+  const int b = blockIdx.x, h = blockIdx.y, lane = threadIdx.x;
+  const int g = lane >> 2, t = lane & 3, mi = lane >> 3, r8 = lane & 7;
+  const int C = a.C, R = a.R, c = a.chunk[b], L = a.enc_len[b];
+  const long long row0 = (long long)b * C;  // the slot's first query row
+  if (L <= c * C) {  // no frame of the utterance in this chunk: zeros
+    for (int i = lane; i < C * CH; i += 32)
+      *reinterpret_cast<uint4*>(a.out + (row0 + i / CH) * a.so + h * D + (i % CH) * 8) =
+          make_uint4(0u, 0u, 0u, 0u);
+    return;
+  }
+  const int cc0 = c - (R - 1);  // the chunk index of ring chunk m = 0
+  const long long kvrow = 2LL * a.H * D;
+
+  for (int i = lane; i < R * ST * CH; i += 32) {
+    const int m = i / (ST * CH), r = (i / CH) % ST, e = (i % CH) * 8;
+    const int cc = cc0 + m;
+    const bool ok = r < C && cc >= 0 && cc * C + r < L;
+    const int place = (a.pos - (R - 1) + m + R) % R;
+    const __nv_bfloat16* src = a.kv + (((long long)b * R + place) * C + (ok ? r : 0)) * kvrow +
+                               h * D + e;
+    cp_async16(sm + S::K0 + (m * ST + r) * LD + e, src, ok);
+    cp_async16(sm + S::V0 + (m * ST + r) * LD + e, src + (long long)a.H * D, ok);
+  }
+  const int nband = (R + 1) * C - 1;
+  for (int i = lane; i < SBAND * CH; i += 32) {
+    const int r = i / CH, e = (i % CH) * 8;
+    const bool ok = r < nband;
+    cp_async16(sm + S::P0 + r * LD + e, a.band + (long long)(ok ? r : 0) * a.sband + h * D + e,
+               ok);
+  }
+  cp_async_commit();
+
+  // q + u and q + vb, rounded to bf16 (rows past C from q = 0)
+  for (int i = lane; i < ST * (D / 2); i += 32) {
+    const int r = i / (D / 2), e = (i % (D / 2)) * 2;
+    float2 qf = make_float2(0.0f, 0.0f);
+    if (r < C)
+      qf = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(a.q + (row0 + r) * a.sq + h * D + e));
+    const float* u = a.u + h * D + e;
+    const float* vb = a.vb + h * D + e;
+    *reinterpret_cast<__nv_bfloat162*>(sm + S::Q0 + r * LD + e) =
+        __floats2bfloat162_rn(__fadd_rn(qf.x, u[0]), __fadd_rn(qf.y, u[1]));
+    *reinterpret_cast<__nv_bfloat162*>(sm + S::Q0 + (ST + r) * LD + e) =
+        __floats2bfloat162_rn(__fadd_rn(qf.x, vb[0]), __fadd_rn(qf.y, vb[1]));
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  unsigned aqu[KD][4], aqv[KD][4];
+  {
+    const int off = (r8 + 8 * (mi & 1)) * LD + 8 * (mi >> 1);
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      ldmatrix_x4(aqu[kk], sm + S::Q0 + off + 16 * kk);
+      ldmatrix_x4(aqv[kk], sm + S::Q0 + ST * LD + off + 16 * kk);
+    }
+  }
+
+  // (q + vb) . p over the band's rows, into the scratch
+#pragma unroll
+  for (int np = 0; np < SBAND / 16; ++np) {
+    const __nv_bfloat16* sp = sm + S::P0 + 16 * np * LD;
+    float bd[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      unsigned bb[4];
+      ldmatrix_x4(bb, sp + (r8 + 8 * (mi >> 1)) * LD + 16 * kk + 8 * (mi & 1));
+      mma_k32bytes(bd[0], aqv[kk], make_uint2(bb[0], bb[1]));
+      mma_k32bytes(bd[1], aqv[kk], make_uint2(bb[2], bb[3]));
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = 16 * np + 8 * e + 2 * t;
+      scr[g * SBS + col] = bd[e][0];
+      scr[g * SBS + col + 1] = bd[e][1];
+      scr[(g + 8) * SBS + col] = bd[e][2];
+      scr[(g + 8) * SBS + col + 1] = bd[e][3];
+    }
+  }
+
+  // (q + u) . k for every chunk of the ring
+  float sc[2 * SRING][4];
+#pragma unroll
+  for (int n = 0; n < 2 * SRING; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.0f;
+#pragma unroll
+  for (int m = 0; m < SRING; ++m) {
+    if (m >= R) break;
+    const __nv_bfloat16* sk = sm + S::K0 + m * ST * LD;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      unsigned bb[4];
+      ldmatrix_x4(bb, sk + (r8 + 8 * (mi >> 1)) * LD + 16 * kk + 8 * (mi & 1));
+      mma_k32bytes(sc[2 * m], aqu[kk], make_uint2(bb[0], bb[1]));
+      mma_k32bytes(sc[2 * m + 1], aqu[kk], make_uint2(bb[2], bb[3]));
+    }
+  }
+  __syncwarp();
+
+  // scores (exp2 scale), pairs the mask hides at -inf; the rows' maxima
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int n = 0; n < 2 * SRING; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int qi = g + 8 * (e >> 1), m = n >> 1, r = 8 * (n & 1) + 2 * t + (e & 1);
+      const int cc = cc0 + m;
+      float x = -INFINITY;
+      if (m < R && r < C && cc >= 0 && cc * C + r < L) {
+        const int prow = min(max(C - 1 - qi + m * C + r, 0), SBAND - 1);
+        x = __fmul_rn(__fadd_rn(sc[n][e], scr[qi * SBS + prow]), a.scale_log2);
+      }
+      sc[n][e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  float l_r[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+    mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+    if (mx[rr] == -INFINITY) mx[rr] = 0.0f;  // no key: every probability 0
+  }
+#pragma unroll
+  for (int n = 0; n < 2 * SRING; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sc[n][e] = exp2f(sc[n][e] - mx[e >> 1]);
+      l_r[e >> 1] = __fadd_rn(l_r[e >> 1], sc[n][e]);
+    }
+
+  // probabilities (bf16) . v, a k-step a chunk
+  float o[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+#pragma unroll
+  for (int m = 0; m < SRING; ++m) {
+    if (m >= R) break;
+    const unsigned pa[4] = {pack_bf16(sc[2 * m][0], sc[2 * m][1]),
+                            pack_bf16(sc[2 * m][2], sc[2 * m][3]),
+                            pack_bf16(sc[2 * m + 1][0], sc[2 * m + 1][1]),
+                            pack_bf16(sc[2 * m + 1][2], sc[2 * m + 1][3])};
+    const __nv_bfloat16* sv = sm + S::V0 + m * ST * LD;
+#pragma unroll
+    for (int np = 0; np < D / 16; ++np) {
+      unsigned bb[4];
+      ldmatrix_x4_trans(bb, sv + (r8 + 8 * (mi & 1)) * LD + 16 * np + 8 * (mi >> 1));
+      mma_k32bytes(o[2 * np], pa, make_uint2(bb[0], bb[1]));
+      mma_k32bytes(o[2 * np + 1], pa, make_uint2(bb[2], bb[3]));
+    }
+  }
+
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    l_r[rr] = __fadd_rn(l_r[rr], __shfl_xor_sync(0xffffffffu, l_r[rr], 1));
+    l_r[rr] = __fadd_rn(l_r[rr], __shfl_xor_sync(0xffffffffu, l_r[rr], 2));
+  }
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int qi = g + 8 * rr;
+    if (qi >= C) continue;
+    __nv_bfloat16* orow = a.out + (row0 + qi) * a.so + h * D + 2 * t;
+    const float inv = l_r[rr] > 0.0f ? l_r[rr] : 1.0f;  // no key: o is 0
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) = __floats2bfloat162_rn(
+          __fdiv_rn(o[n][2 * rr], inv), __fdiv_rn(o[n][2 * rr + 1], inv));
+  }
+}
+
+template <int D>
+cudaError_t launch_stream(const StreamArgs& a, int N, cudaStream_t stream) {
+  const cudaError_t err =
+      cudaFuncSetAttribute(rel_attention_stream<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)StreamSmem<D>::BYTES);
+  if (err != cudaSuccess) return err;
+  rel_attention_stream<D><<<dim3(N, a.H), 32, StreamSmem<D>::BYTES, stream>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
+
+// The streaming form, one launch on `stream` over N slots and H heads of D =
+// 64: q (N C rows, stride sq) bf16; kv (N, R, C, 2 H D) bf16, K then V of
+// every head in a row, the ring (chunk m - (R - 1) back at place (pos - (R -
+// 1) + m) mod R); band ((R + 1) C - 1 rows, stride sband) bf16; u, vb (H, D)
+// f32; chunk, enc_len (N) int32; out (N C rows, stride so) bf16, every row
+// written.  C <= 16, R <= 6.  Returns 0, or the CUDA error
+// (cudaErrorInvalidValue for arguments it cannot take).
+int rnnt_rel_attention_stream(const void* q, const void* kv, const void* band, const void* u,
+                              const void* vb, const void* chunk, const void* enc_len, void* out,
+                              long long sq, long long sband, long long so, int N, int H, int D,
+                              int C, int R, int pos, void* stream) {
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(kv) |
+                         reinterpret_cast<uintptr_t>(band) | reinterpret_cast<uintptr_t>(out);
+  if (D != 64 || N <= 0 || H <= 0 || H > 65535 || C < 1 || C > ST || R < 1 || R > SRING ||
+      (R + 1) * C - 1 > SBAND || pos < 0 || pos >= R || addr % 16 != 0 ||
+      (sq | sband | so) % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const StreamArgs a{static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kv),
+                     static_cast<const __nv_bfloat16*>(band), static_cast<const float*>(u),
+                     static_cast<const float*>(vb), static_cast<const int*>(chunk),
+                     static_cast<const int*>(enc_len), static_cast<__nv_bfloat16*>(out),
+                     sq, sband, so, H, C, R, pos,
+                     static_cast<float>(1.4426950408889634 / sqrt((double)D))};
+  return static_cast<int>(launch_stream<64>(a, N, static_cast<cudaStream_t>(stream)));
+}
 
 // One launch on `stream` over B utterances and H heads of D = 64 (the
 // Conformer's): q, k, v (rows `starts[b]` .. + `lens[b]`, row strides sq,

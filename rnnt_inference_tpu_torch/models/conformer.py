@@ -141,6 +141,30 @@ class ConformerWeights:
         return self.sub_out_w.dtype
 
 
+def block_weights(b: dict, params: ConformerParams, dtype: torch.dtype, dw_w: torch.Tensor,
+                  dw_b: torch.Tensor) -> ConformerBlockWeights:
+    """One block's weights from the plain dict's, with the depthwise
+    convolution's (kernel, D) taps and bias as given (matrices in
+    ``dtype``, the rest in f32)."""
+    mat = lambda t: t.to(dtype).contiguous()
+    f32 = lambda t: t.float().contiguous()
+    ln = lambda p: LayerNorm(f32(p["g"]), f32(p["b"]))
+    H, dh = params.n_heads, params.d_head
+    ff = lambda f, k: dict(**{f"{k}_ln": ln(f["ln"]), f"{k}_w1": mat(f["w1"]),
+                              f"{k}_b1": f32(f["b1"]), f"{k}_w2": mat(f["w2"]),
+                              f"{k}_b2": f32(f["b2"])})
+    a, c = b["att"], b["conv"]
+    return ConformerBlockWeights(
+        **ff(b["ff1"], "ff1"), att_ln=ln(a["ln"]),
+        w_qkv=mat(torch.cat([a["wq"], a["wk"], a["wv"]], 1)),
+        b_qkv=f32(torch.cat([a["bq"], a["bk"], a["bv"]])), w_pos=mat(a["w_pos"]),
+        pos_u=f32(a["u"].reshape(H, dh)), pos_v=f32(a["v"].reshape(H, dh)),
+        w_out=mat(a["w_out"]), b_out=f32(a["b_out"]), conv_ln=ln(c["ln"]),
+        pw1_w=mat(c["pw1_w"]), pw1_b=f32(c["pw1_b"]), dw_w=mat(dw_w), dw_b=f32(dw_b),
+        pw2_w=mat(c["pw2_w"]), pw2_b=f32(c["pw2_b"]), **ff(b["ff2"], "ff2"),
+        out_ln=ln(b["out_ln"]))
+
+
 def weights_from_dict(w: dict, params: ConformerParams,
                       dtype: torch.dtype = torch.bfloat16) -> ConformerWeights:
     """ConformerWeights from float weights in the plain dict the benchmark's
@@ -149,26 +173,13 @@ def weights_from_dict(w: dict, params: ConformerParams,
     rest in f32; BatchNorm folded into its eval affine."""
     mat = lambda t: t.to(dtype).contiguous()
     f32 = lambda t: t.float().contiguous()
-    ln = lambda p: LayerNorm(f32(p["g"]), f32(p["b"]))
-    H, dh = params.n_heads, params.d_head
 
     def block(b: dict) -> ConformerBlockWeights:
-        ff = lambda f, k: dict(**{f"{k}_ln": ln(f["ln"]), f"{k}_w1": mat(f["w1"]),
-                                  f"{k}_b1": f32(f["b1"]), f"{k}_w2": mat(f["w2"]),
-                                  f"{k}_b2": f32(f["b2"])})
-        a, c = b["att"], b["conv"]
+        c = b["conv"]
         scale = c["bn_g"].float() / torch.sqrt(c["bn_var"].float() + params.bn_eps)
-        return ConformerBlockWeights(
-            **ff(b["ff1"], "ff1"), att_ln=ln(a["ln"]),
-            w_qkv=mat(torch.cat([a["wq"], a["wk"], a["wv"]], 1)),
-            b_qkv=f32(torch.cat([a["bq"], a["bk"], a["bv"]])), w_pos=mat(a["w_pos"]),
-            pos_u=f32(a["u"].reshape(H, dh)), pos_v=f32(a["v"].reshape(H, dh)),
-            w_out=mat(a["w_out"]), b_out=f32(a["b_out"]), conv_ln=ln(c["ln"]),
-            pw1_w=mat(c["pw1_w"]), pw1_b=f32(c["pw1_b"]),
-            dw_w=mat((c["dw_w"].float() * scale[:, None]).t()),
-            dw_b=f32(c["dw_b"].float() * scale + c["bn_b"].float() - c["bn_mean"].float() * scale),
-            pw2_w=mat(c["pw2_w"]), pw2_b=f32(c["pw2_b"]), **ff(b["ff2"], "ff2"),
-            out_ln=ln(b["out_ln"]))
+        return block_weights(
+            b, params, dtype, (c["dw_w"].float() * scale[:, None]).t(),
+            c["dw_b"].float() * scale + c["bn_b"].float() - c["bn_mean"].float() * scale)
 
     s = w["subsampling"]
     cl = lambda t: t.to(dtype).contiguous(memory_format=torch.channels_last)

@@ -124,6 +124,9 @@ class ConformerPhase:
                  mesh=None):
         if mesh is not None:
             raise ValueError("the Conformer runs on one device: no mesh")
+        if params.streaming:
+            raise ValueError("the streaming FastConformer runs on the Server's slots "
+                             "(runtime/server.py ServerRunner), chunk by chunk with its caches")
         self.params, self.impl, self.f_dtype = params, impl, f_dtype
         self.grain = params.subsampling_factor
         self.dtype = weights.dtype

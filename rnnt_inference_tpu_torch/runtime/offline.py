@@ -55,6 +55,8 @@ _KERNELS = {
     "projection": projection_cuda.project_cuda,
     "attention": attention_cuda.rel_attention_cuda,
     "depthwise": depthwise_cuda.depthwise_silu_cuda,
+    "attention_stream": attention_cuda.rel_attention_stream_cuda,
+    "depthwise_causal": depthwise_cuda.depthwise_causal_cuda,
 }
 
 

@@ -23,6 +23,17 @@ scheduler (runtime/scheduler.py) reads the masks back later.
 axis cut over a mesh's data devices (parallel/mesh.py
 ``server_state_sharding``), the shards in lockstep, each with its own
 masked resets, offsets and ``res_idx``.
+
+The streaming encoder is the architecture's.  The RNN-T's LSTM carries its
+state in the decode state's ``enc``; NeMo's cache-aware streaming
+FastConformer (models/fastconformer.py) serves from a ``StreamServerState``,
+whose slots carry per-layer caches besides (the K/V ring of the attention's
+last chunks and the causal depthwise convolution's last rows).  Its step
+encodes one chunk of C encoder frames a slot (split_len = 8 C feature
+frames, one chunk a step: kernels E, F's streaming form and G's causal form)
+and decodes it on kernel B; an insert zeroes the inserted slots'
+convolution caches on the device (the ring is masked by the slot's chunk
+index, which the insert's offset reset starts again at 0).
 """
 
 from __future__ import annotations
@@ -35,6 +46,7 @@ import numpy as np
 import torch
 
 from rnnt_inference_tpu_torch.config import ConformerParams, FeaturizerConfig, RNNTParams
+from rnnt_inference_tpu_torch.models import fastconformer
 from rnnt_inference_tpu_torch.models import rnnt as model
 from rnnt_inference_tpu_torch.models.decoder import (
     DecodeState,
@@ -43,7 +55,7 @@ from rnnt_inference_tpu_torch.models.decoder import (
     init_decode_state,
     masked_reset_decode,
 )
-from rnnt_inference_tpu_torch.ops import decode_cuda
+from rnnt_inference_tpu_torch.ops import attention_cuda, decode_cuda, depthwise_cuda
 from rnnt_inference_tpu_torch.ops.features import log_mel_features
 from rnnt_inference_tpu_torch.parallel.mesh import (
     join,
@@ -64,6 +76,15 @@ class ServerState:
     offsets: torch.Tensor  # {N} int32 frames already consumed
     active: torch.Tensor  # {N} bool slot occupied and unfinished
     decode: DecodeState  # carried encoder + decoder state per slot
+
+
+@dataclasses.dataclass
+class StreamServerState(ServerState):
+    """The slot batch of the streaming FastConformer: F holds mel frames, a
+    slot's offset is its chunk index times split_len, and ``stream`` its
+    per-layer caches (models/fastconformer.py StreamState)."""
+
+    stream: fastconformer.StreamState = None
 
 
 def init_server_state(
@@ -126,6 +147,9 @@ def server_insert(
     state.offsets.index_copy_(0, sel, state.offsets.index_select(0, sel).masked_fill(valid, 0))
     state.active.index_copy_(0, sel, state.active.index_select(0, sel) | valid)
     reset = torch.zeros_like(state.active).index_copy_(0, sel, valid)
+    if isinstance(state, StreamServerState):
+        with span("rnnt.server.cache_reset"):
+            fastconformer.reset_slots(state.stream, sel, valid)
     return dataclasses.replace(
         state, decode=masked_reset_decode(state.decode, reset, params, keep_res=False))
 
@@ -144,6 +168,8 @@ def server_step_steps(
     enqueue of the two halves is timed by the spans rnnt.server.encode (the
     window and the encoder) and rnnt.server.decode (the symbol loop and the
     finish mask)."""
+    if isinstance(state, StreamServerState):
+        return (yield from _stream_step_steps(weights, state, split_len, params, impl, dw))
     Tmax, N, C = state.F.shape
     dev = state.F.device
     with span("rnnt.server.encode"):
@@ -163,6 +189,33 @@ def server_step_steps(
         finished = state.active & (offsets >= state.F_lens)
     return ServerState(F=state.F, F_lens=state.F_lens, offsets=offsets,
                        active=state.active & ~finished, decode=decode), finished
+
+
+def _stream_step_steps(weights, state: StreamServerState, split_len: int, params, impl, dw):
+    """``server_step_steps`` of the streaming FastConformer: each active
+    slot's next chunk (its window of mel frames gathered at its offset) through
+    the encoder against its caches (span rnnt.server.stream_encode; each
+    block rnnt.server.stream_layer), then decoded; a slot finishes with the
+    chunk that holds its last encoder frame."""
+    C = params.chunk_frames
+    with span("rnnt.server.encode"), span("rnnt.server.stream_encode"):
+        frames = state.F_lens * state.active.int()  # an idle slot reads no frames
+        chunk = torch.div(state.offsets, split_len, rounding_mode="floor")
+        enc_len = fastconformer.encoded_len(frames, params)
+        win = fastconformer.gather_window(state.F, state.offsets - fastconformer.LEAD, frames,
+                                          params)
+        x, stream = fastconformer.encode_chunk(weights, state.stream, win, chunk, frames,
+                                               enc_len, params, impl,
+                                               layer_span="rnnt.server.stream_layer")
+    with span("rnnt.server.decode"):
+        f_lens = torch.clamp(enc_len - chunk * C, min=0, max=C)
+        decode = yield from greedy_decode_chunk_steps(
+            weights, state.decode, x.transpose(0, 1).contiguous(), f_lens, params, impl,
+            steps_per_check=None, dw=dw)
+        offsets = state.offsets + split_len * state.active.int()
+        finished = state.active & ((chunk + 1) * C >= enc_len)
+    return dataclasses.replace(state, offsets=offsets, active=state.active & ~finished,
+                               decode=decode, stream=stream), finished
 
 
 def server_multi_step_steps(
@@ -261,11 +314,22 @@ class ServerRunner:
     ):
         """impl=None runs the CUDA kernels on the card (the plain twins on
         the CPU); impl="reference" runs the plain twins on the card too.
-        Serves the RNN-T: a Conformer's params are refused."""
-        if isinstance(params, ConformerParams):
-            raise ValueError("ServerRunner streams each utterance through the LSTM encoder's "
-                             "state in split_len pieces; the Conformer attends over whole "
-                             "utterances: serve it with runtime/packing.py PackedOfflineRunner")
+        Serves the RNN-T and the cache-aware streaming FastConformer (whose
+        split_len is one chunk's feature frames); a full-context
+        Conformer's params are refused."""
+        conformer = isinstance(params, ConformerParams)
+        if conformer and not params.streaming:
+            raise ValueError("ServerRunner streams each utterance in split_len pieces through "
+                             "state its encoder carries; the full-context Conformer attends "
+                             "over whole utterances: serve it with runtime/packing.py "
+                             "PackedOfflineRunner")
+        if conformer:
+            fastconformer.check_params(params)
+            if split_len != params.subsampling_factor * params.chunk_frames:
+                raise ValueError(f"the streaming FastConformer steps one chunk of "
+                                 f"{params.chunk_frames} encoder frames a slot: split_len must "
+                                 f"be {params.subsampling_factor * params.chunk_frames}, got "
+                                 f"{split_len}")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ServerRunner(device='cuda') but CUDA is not available")
@@ -281,9 +345,19 @@ class ServerRunner:
         self.steps_per_dispatch = steps_per_dispatch
         self.impl = impl
         self.wav_buckets = tuple(int(s * cfg.sample_rate) for s in sorted(DEFAULT_WAV_BUCKETS_S))
-        self.state = init_server_state(
-            slots, self.max_frames, params, cfg, weights.pre_rnn[0].w_ih.dtype,
-            weights.pred_rnn[0].w_ih.dtype, self.device)
+        if conformer:
+            state = init_server_state(slots, self.max_frames, params, cfg, weights.dtype,
+                                      weights.dtype, self.device)
+            self.state = StreamServerState(
+                **{f.name: getattr(state, f.name) for f in dataclasses.fields(state)},
+                stream=fastconformer.init_stream_state(slots, params, weights.dtype,
+                                                       self.device))
+            self._kernels = (attention_cuda.NAME, depthwise_cuda.NAME)
+        else:
+            self.state = init_server_state(
+                slots, self.max_frames, params, cfg, weights.pre_rnn[0].w_ih.dtype,
+                weights.pred_rnn[0].w_ih.dtype, self.device)
+            self._kernels = ()
         self.free_slots = list(range(slots))
         self.slot_sample: dict = {}  # slot -> sample id
         self._dw = decode_cuda.decode_weights(self.weights)
@@ -299,7 +373,7 @@ class ServerRunner:
         wav bucket through a slot (untimed; eager PyTorch compiles nothing
         per shape, so one bucket is enough).  Returns its seconds."""
         t0 = time.time()
-        build_kernels(self.device, self.impl)
+        build_kernels(self.device, self.impl, self._kernels)
         self.insert_samples([np.zeros(self.wav_buckets[0], np.float32)], [-1])
         while self.n_active:
             finished = self.step()

@@ -16,6 +16,14 @@ the per-query stamps of the last ``run_server_native`` call
 (``QueryRecord``).  The registry is not locked: spans run on the serving
 thread.
 
+``record_call(kernel, launch, **shape)`` keeps a kernel call's shapes in
+``REGISTRY.calls[kernel]`` (a ring of ``RING``), only while a torch profiler
+runs: the record a roofline of the traced calls reads, kept by the wrapper
+that launched the kernel, with the launch's number on its counter (so a
+reader can tell that the calls of one profile were all recorded).  The
+streaming FastConformer's kernels record themselves so
+(ops/attention_cuda.py, ops/depthwise_cuda.py).
+
 Unlike the JAX package's trace, which turns into a no-op when the backend
 cannot profile, ``device_trace`` raises: a CUDA run whose trace holds no
 device activity is an error, not an empty file.
@@ -170,12 +178,14 @@ class QueryRecord:
 
 
 class SpanRegistry:
-    """Every span name's ``SpanStats`` and the last Server call's
-    ``QueryRecord`` (None before the first)."""
+    """Every span name's ``SpanStats``, the last Server call's
+    ``QueryRecord`` (None before the first) and the kernel calls recorded
+    while a profiler ran (``record_call``)."""
 
     def __init__(self):
         self.spans: Dict[str, SpanStats] = {}
         self.server: Optional[QueryRecord] = None
+        self.calls: Dict[str, deque] = {}
 
     def stats(self, name: str) -> SpanStats:
         st = self.spans.get(name)
@@ -189,6 +199,17 @@ class SpanRegistry:
 
 
 REGISTRY = SpanRegistry()
+
+
+def record_call(kernel: str, launch: int, **shape) -> None:
+    """Keep one call of ``kernel`` (its ``launch`` number on the wrapper's
+    counter and its shapes, tensors kept as they are) while a torch profiler
+    runs; nothing otherwise."""
+    if _profiler_enabled():
+        ring = REGISTRY.calls.get(kernel)
+        if ring is None:
+            ring = REGISTRY.calls[kernel] = deque(maxlen=RING)
+        ring.append(dict(shape, launch=launch))
 
 
 class span:

@@ -142,7 +142,7 @@ def test_runner_counts_launches_of_its_timed_pass(models, monkeypatch):
     dqsl = QuerySampleLibrary(ts).load_to_device(4, device="cpu")
     assert runner.run_device(dqsl).launches == {
         "quant_lstm_layer": 0, "lstm_recurrence": 0, "decode_step": 0, "projection": 0,
-        "attention": 0, "depthwise": 0}
+        "attention": 0, "depthwise": 0, "attention_stream": 0, "depthwise_causal": 0}
     counter = decode_cuda.decode_step_cuda
     monkeypatch.setattr(counter, "launches", 0)
     real = decoder.dc.decode_step
